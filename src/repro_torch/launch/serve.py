@@ -1,0 +1,68 @@
+"""Batched serving on the card (port of the fixed-batch path of
+``repro/launch/serve.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --batch 8 --prompt-len 512 --new-tokens 64
+
+Runs on ``cuda`` unless ``--device cpu`` is given; ``--smoke`` takes the
+smoke-size config.  Weights and prompts are random, made from ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke, with_overrides
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.serve import ServeEngine
+
+
+def main() -> None:
+    """Parse arguments, build the model and print the generated tokens."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--linear-impl", default=None)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cache-dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    args = ap.parse_args()
+
+    device = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.linear_impl:
+        cfg = with_overrides(cfg, linear_impl=args.linear_impl)
+    params = T.init_model(cfg, seed=args.seed, device=device)
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (args.batch, args.prompt_len), generator=gen)
+    engine = ServeEngine(cfg=cfg, params=params,
+                         max_len=args.prompt_len + args.new_tokens,
+                         cache_dtype=getattr(torch, args.cache_dtype),
+                         device=device)
+    sample_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=args.new_tokens,
+                          temperature=args.temperature, generator=sample_gen)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    toks = args.batch * args.new_tokens
+    print(f"generated {tuple(out.shape)} on {device} in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s batch-aggregate)")
+    print(out.cpu())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,48 @@
+"""Token embedding and output head (port of ``repro/layers/embedding.py``).
+
+Both stay dense whatever ``linear_impl`` says.  ``unembed`` is one plain
+matrix product, which the reference leaves to XLA; logits are f32 when h is
+f32, and the entry points keep TF32 off so an f32 product stays f32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = ["EmbeddingConfig", "init_embedding", "embed", "unembed"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingConfig:
+    """Vocabulary table geometry."""
+
+    vocab_size: int
+    d_model: int
+    tie_output: bool = True
+    param_dtype: torch.dtype = torch.float32
+
+
+def init_embedding(cfg: EmbeddingConfig, generator: torch.Generator,
+                   device: torch.device) -> dict:
+    """``table`` (vocab, d) ~ 0.02 N(0, 1), plus ``out`` (d, vocab) when
+    untied."""
+    kw = dict(generator=generator, device=device, dtype=cfg.param_dtype)
+    p = {"table": 0.02 * torch.randn(cfg.vocab_size, cfg.d_model, **kw)}
+    if not cfg.tie_output:
+        p["out"] = 0.02 * torch.randn(cfg.d_model, cfg.vocab_size, **kw)
+    return p
+
+
+def embed(params, tokens: torch.Tensor, cfg: EmbeddingConfig,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Token lookup, cast to ``dtype``."""
+    return params["table"][tokens].to(dtype)
+
+
+def unembed(params, h: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:
+    """Logits ``h @ table.T`` (tied) or ``h @ out``, in h's dtype."""
+    if cfg.tie_output:
+        return h @ params["table"].to(h.dtype).T
+    return h @ params["out"].to(h.dtype)

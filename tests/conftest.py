@@ -100,3 +100,9 @@ except ImportError:
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with compute capability >= 9.0 "
+        "(the PyTorch port's CUDA kernels); skips elsewhere")

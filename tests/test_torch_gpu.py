@@ -1,0 +1,134 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on the
+card.  A CUDA kernel has no CPU mode, so these tests skip (with the reason)
+where no Hopper GPU is present; run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances are derived as in ``tests/test_torch_spm.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import spm_stack as K  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+QKV = tuple(1 << i for i in range(11))
+FFN = QKV + (3072,)
+
+
+@pytest.fixture
+def cuda():
+    """The card, with the kernels built; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    if torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs compute capability >= 9.0 (kernels built for "
+                    "sm_90a)")
+    from repro_torch.kernels import build
+    build.load_all()
+    return torch.device("cuda")
+
+
+def _tol(dtype, depth, ref):
+    eps32 = float(torch.finfo(torch.float32).eps)
+    return 8 * (depth * eps32 + float(torch.finfo(dtype).eps)) * (
+        ref.float().abs().max().item() + 1)
+
+
+def _rnd(gen, *shape, scale=1.0):
+    return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, strides, rows, in_w, out_w", [
+    (2048, QKV, 8, 2048, 2048), (2048, QKV, 300, 2048, 2048),
+    (6144, FFN, 40, 2048, 6144), (6144, FFN, 40, 6144, 2048),
+    (6144, FFN, 5, 2048, 6144), (6144, FFN, 7, 6144, 2048)])
+def test_k1_matches_plain(cuda, dtype, n, strides, rows, in_w, out_w):
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    cf = _rnd(gen, len(strides), n // 2, 4, scale=0.5)
+    vec = [1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n),
+           0.1 * _rnd(gen, n)]
+    x = _rnd(gen, rows, in_w).to(dtype)
+    before = K.spm_stack_kernel_call.launches
+    got = ops.spm_stack_fused(x, cf, strides, d_in=vec[0], d_out=vec[1],
+                              bias=vec[2], in_width=in_w, out_width=out_w)
+    n_runs = len(ops.plan_runs_for_rows(n, strides, rows))
+    assert K.spm_stack_kernel_call.launches - before == n_runs
+    ref = ops.spm_stack_fused(x.cpu(), cf.cpu(), strides, d_in=vec[0].cpu(),
+                              d_out=vec[1].cpu(), bias=vec[2].cpu(),
+                              in_width=in_w, out_width=out_w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (rows, out_w)
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), ref.float().numpy(), rtol=0,
+        atol=_tol(dtype, 3 * len(strides) + 3, ref) * n_runs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, out_w, act, two", [
+    (8, 2048, None, False), (333, 1024, None, False),
+    (64, 2048, "relu", True), (64, 2048, "silu", True),
+    (64, 2048, "gelu", True)])
+def test_k3_matches_plain(cuda, dtype, rows, out_w, act, two):
+    n = 2048
+    gen = torch.Generator(device="cuda").manual_seed(rows + out_w)
+    kw = dict(coeffs1=_rnd(gen, 11, n // 2, 4, scale=0.5),
+              d_in1=1 + 0.1 * _rnd(gen, n), d_out1=1 + 0.1 * _rnd(gen, n),
+              bias1=0.1 * _rnd(gen, n), gamma=1 + 0.1 * _rnd(gen, n),
+              strides1=QKV, in_width=n, out_width=out_w, mid_width=out_w)
+    if two:
+        kw.update(coeffs2=_rnd(gen, 11, n // 2, 4, scale=0.5),
+                  d_in2=1 + 0.1 * _rnd(gen, n), d_out2=1 + 0.1 * _rnd(gen, n),
+                  bias2=0.1 * _rnd(gen, n), strides2=QKV, activation=act,
+                  residual=True, mid_width=1536)
+    x = _rnd(gen, rows, n).to(dtype)
+    before = K.spm_block_kernel_call.launches
+    y, rstd = K.spm_block_kernel_call(x, **kw)
+    assert K.spm_block_kernel_call.launches - before == 1
+    yp, rstd_p = K.spm_block_plain(x, **kw)
+    torch.cuda.synchronize()
+    depth = n + 3 * 11 * (2 if two else 1) + 12
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yp.float().cpu().numpy(), rtol=0,
+                               atol=_tol(dtype, depth, yp))
+    np.testing.assert_allclose(rstd.cpu().numpy(), rstd_p.cpu().numpy(),
+                               rtol=8 * n * 2.0 ** -23)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((4, 16), dtype=torch.float16, device="cuda")
+    cf = torch.zeros((2, 8, 4), device="cuda")
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        K.spm_stack_kernel_call(x, cf, strides=(1, 2), n_tile=16)
+    with pytest.raises(ValueError, match="coeffs"):
+        K.spm_stack_kernel_call(x.float(), cf.double(), strides=(1, 2),
+                                n_tile=16)
+
+
+def test_smoke_model_on_card_matches_cpu(cuda):
+    """The f32 smoke model: the kernels on the card give the plain
+    versions' greedy tokens on the CPU."""
+    cfg = get_smoke("qwen3-1.7b")
+    params = T.init_model(cfg, seed=0, device="cpu")
+    cpu_tokens = ServeEngine(cfg=cfg, params=params, max_len=16,
+                             cache_dtype=torch.float32, device="cpu"
+                             ).generate(torch.arange(16).reshape(2, 8) % 7,
+                                        max_new_tokens=6)
+    params.to("cuda")
+    K.reset_launch_counts()
+    gpu_tokens = ServeEngine(cfg=cfg, params=params, max_len=16,
+                             cache_dtype=torch.float32).generate(
+        torch.arange(16).reshape(2, 8) % 7, max_new_tokens=6)
+    assert K.spm_stack_kernel_call.launches > 0
+    assert K.spm_block_kernel_call.launches == 3 * cfg.n_layers * 6
+    np.testing.assert_array_equal(gpu_tokens.cpu().numpy(),
+                                  cpu_tokens.numpy())
