@@ -40,7 +40,6 @@ class LinearConfig:
     schedule: str = "butterfly"
     backward: str = "autodiff"
     init_scale: float = 0.05
-    n_shards: int = 1
     param_dtype: torch.dtype = torch.float32
     use_kernel: Optional[bool] = None    # None/True: kernel path; False: off
 
@@ -79,7 +78,7 @@ def _spm_config(cfg: LinearConfig) -> SPMConfig:
         n=cfg.n, n_stages=n_stages, variant=variant,
         schedule=cfg.schedule, use_diag=True, use_bias=cfg.use_bias,
         backward=backward, init_scale=cfg.init_scale,
-        n_shards=cfg.n_shards, param_dtype=cfg.param_dtype,
+        param_dtype=cfg.param_dtype,
         use_kernel=cfg.use_kernel)
 
 
@@ -114,9 +113,9 @@ def linear_apply(params, x: torch.Tensor, cfg: LinearConfig) -> torch.Tensor:
 def spm_block_operands(params, cfg: LinearConfig) -> Optional[dict]:
     """One stack's operands for the block kernel (``coeffs``, ``d_in``,
     ``d_out``, ``bias`` or None, ``strides``, ``n``), or None when this
-    linear cannot be a stack of a fused block: dense, sharded,
+    linear cannot be a stack of a fused block: dense,
     kernel-ineligible, or not a single full-width run."""
-    if not cfg.is_spm or cfg.n_shards > 1:
+    if not cfg.is_spm:
         return None
     scfg = cfg.spm_config()
     sched = scfg.pairing

@@ -49,7 +49,6 @@ class SPMConfig:
     backward: str = "autodiff"        # "autodiff" | "custom" | "custom_inverse"
     init_mode: str = "orthogonal"     # "orthogonal" | "identity"
     init_scale: float = 0.05
-    n_shards: int = 1                 # for schedule="two_level"
     seed: int = 0
     param_dtype: torch.dtype = torch.float32
     # Fused kernel path, tri-state: None (auto) and True take the kernel
@@ -67,7 +66,7 @@ class SPMConfig:
     def pairing(self) -> Schedule:
         """The operator's pairing schedule (built once)."""
         return pairings.make_schedule(self.schedule, self.n, self.n_stages,
-                                      n_shards=self.n_shards, seed=self.seed)
+                                      seed=self.seed)
 
     @property
     def n_pairs(self) -> int:

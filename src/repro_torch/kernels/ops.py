@@ -84,7 +84,7 @@ def plan_runs(n: int, strides: Tuple[int, ...], max_tile: int = MAX_TILE
     return tuple(runs)
 
 
-def tile_cap_for_rows(n: int, strides: Tuple[int, ...], n_rows: int) -> int:
+def tile_cap_for_rows(n_rows: int) -> int:
     """Feature-tile cap for a call with ``n_rows`` flattened rows:
     ``MAX_TILE``, widened to ``TINY_ROW_MAX_TILE`` for tiny-row calls."""
     if tiny_row_call(n_rows):
@@ -98,7 +98,7 @@ def plan_runs_for_rows(n: int, strides: Sequence[int], n_rows: int
     under ``tile_cap_for_rows``.  The executor and the launch-count check
     of ``chip_smoke.py`` both call it."""
     strides = tuple(int(s) for s in strides)
-    return plan_runs(n, strides, tile_cap_for_rows(n, strides, n_rows))
+    return plan_runs(n, strides, tile_cap_for_rows(n_rows))
 
 
 def _widths(n: int, in_width, out_width):

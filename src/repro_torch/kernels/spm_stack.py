@@ -143,8 +143,7 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
                           bias: Optional[torch.Tensor] = None, *,
                           strides: Tuple[int, ...], n_tile: int,
                           in_width: Optional[int] = None,
-                          out_width: Optional[int] = None,
-                          block_rows: Optional[int] = None) -> torch.Tensor:
+                          out_width: Optional[int] = None) -> torch.Tensor:
     """K1: x (B, in_width or n) -> y (B, out_width or n) in x's dtype, for
     coeffs (L, n//2, 4) f32 whose strides all keep pairs inside an
     ``n_tile``-wide tile; d_in/d_out/bias (n,) f32 are folded in."""
@@ -174,8 +173,7 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     y = torch.empty((B, out_w), dtype=x.dtype, device=x.device)
     if B == 0:
         return y
-    if block_rows is None:
-        block_rows = pick_block_rows(B, n_tile, -(-out_w // n_tile))
+    block_rows = pick_block_rows(B, n_tile, -(-out_w // n_tile))
     if block_rows * n_tile * 4 > SMEM_BYTES:
         raise ValueError(f"{block_rows} rows x {n_tile} f32 exceed "
                          f"{SMEM_BYTES} B of shared memory")
@@ -265,8 +263,7 @@ def spm_block_kernel_call(x: torch.Tensor, coeffs1: torch.Tensor,
                           strides2: Optional[Tuple[int, ...]] = None,
                           activation: Optional[str] = None,
                           residual: bool = False, in_width: int,
-                          mid_width: int, out_width: int, eps: float = 1e-6,
-                          block_rows: Optional[int] = None
+                          mid_width: int, out_width: int, eps: float = 1e-6
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K3: x (B, in_width) -> ``(y (B, out_width), rstd (B, 1) f32 or
     None)``.  gamma is (n,) f32, zero past ``in_width``; ``strides2=None``
@@ -311,8 +308,7 @@ def spm_block_kernel_call(x: torch.Tensor, coeffs1: torch.Tensor,
             if gamma is not None else None)
     if B == 0:
         return y, rstd
-    if block_rows is None:
-        block_rows = pick_block_rows(B, n)
+    block_rows = pick_block_rows(B, n)
     if (-(-block_rows // 4) * 4 + block_rows * n) * 4 > SMEM_BYTES:
         raise ValueError(f"{block_rows} rows x {n} f32 exceed "
                          f"{SMEM_BYTES} B of shared memory")

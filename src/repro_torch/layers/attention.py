@@ -49,7 +49,6 @@ class AttentionConfig:
     spm_backward: str = "autodiff"
     spm_use_kernel: Optional[bool] = None
     spm_schedule: str = "butterfly"
-    spm_n_shards: int = 1
     spm_block_fuse: Optional[bool] = None
     q_chunk: int = 1024
     k_chunk: int = 1024
@@ -60,7 +59,7 @@ class AttentionConfig:
             d_in=d_in, d_out=d_out, impl=self.linear_impl, use_bias=False,
             n_stages=self.spm_stages, backward=self.spm_backward,
             use_kernel=self.spm_use_kernel, schedule=self.spm_schedule,
-            n_shards=self.spm_n_shards, param_dtype=self.param_dtype)
+            param_dtype=self.param_dtype)
 
     @property
     def q_proj(self) -> LinearConfig:

@@ -41,7 +41,6 @@ class FFNConfig:
     spm_backward: str = "autodiff"
     spm_use_kernel: Optional[bool] = None
     spm_schedule: str = "butterfly"
-    spm_n_shards: int = 1
     spm_block_fuse: Optional[bool] = None
     param_dtype: torch.dtype = torch.float32
 
@@ -54,7 +53,7 @@ class FFNConfig:
             d_in=d_in, d_out=d_out, impl=self.linear_impl, use_bias=False,
             n_stages=self.spm_stages, backward=self.spm_backward,
             use_kernel=self.spm_use_kernel, schedule=self.spm_schedule,
-            n_shards=self.spm_n_shards, param_dtype=self.param_dtype)
+            param_dtype=self.param_dtype)
 
     @property
     def up(self) -> LinearConfig:

@@ -73,7 +73,6 @@ class ModelConfig:
     spm_backward: str = "custom"
     spm_use_kernel: Optional[bool] = None  # None/True: kernels; False: off
     spm_schedule: str = "butterfly"
-    spm_n_shards: int = 1
     ffn_activation: str = "swiglu"
     spm_block_fuse: Optional[bool] = None  # None/True: block kernel; False
     tie_embeddings: bool = True
@@ -90,7 +89,7 @@ class ModelConfig:
             linear_impl=self.linear_impl, spm_stages=self.spm_stages,
             spm_backward=self.spm_backward,
             spm_use_kernel=self.spm_use_kernel,
-            spm_schedule=self.spm_schedule, spm_n_shards=self.spm_n_shards,
+            spm_schedule=self.spm_schedule,
             spm_block_fuse=self.spm_block_fuse, q_chunk=self.q_chunk,
             k_chunk=self.k_chunk, param_dtype=dtype_of(self.param_dtype))
 
@@ -101,7 +100,7 @@ class ModelConfig:
             linear_impl=self.linear_impl, activation=self.ffn_activation,
             spm_stages=self.spm_stages, spm_backward=self.spm_backward,
             spm_use_kernel=self.spm_use_kernel,
-            spm_schedule=self.spm_schedule, spm_n_shards=self.spm_n_shards,
+            spm_schedule=self.spm_schedule,
             spm_block_fuse=self.spm_block_fuse,
             param_dtype=dtype_of(self.param_dtype))
 

@@ -99,7 +99,7 @@ def test_plans_equal_reference(n, strides):
         assert T_ops.plan_runs(n, strides, cap) == J_ops.plan_runs(
             n, strides, cap)
     for rows in (1, 4, 8, 9, 16, 4096):
-        cap = T_ops.tile_cap_for_rows(n, strides, rows)
+        cap = T_ops.tile_cap_for_rows(rows)
         assert T_ops.plan_runs_for_rows(n, strides, rows) == \
             J_ops.plan_runs(n, strides, cap)
         assert T_el.tiny_row_call(rows) == J_el.tiny_row_call(rows)
