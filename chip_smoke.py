@@ -6,8 +6,10 @@ versions.
 
 Phases, each of which fails the run when it fails:
 
-1. **Build** K1 (``csrc/spm_stack.cu``) and K3 (``csrc/spm_block.cu``) from
-   the checkout with ``nvcc`` for ``sm_90a``, all sources at once.
+1. **Build** K1 (``csrc/spm_stack.cu``), K2 (``csrc/spm_stack_bwd.cu``), K3
+   (``csrc/spm_block.cu``) and K4 (``csrc/spm_block_bwd.cu``) from the
+   checkout with ``nvcc`` for ``sm_90a``, one process per source, all at
+   once.
 2. **Kernels**: each kernel against its plain version on the card, on the
    same inputs, at the serving path's shapes, in bf16 and f32, with random
    near-orthogonal stages (each keeps its input's norm, so all stages carry
@@ -29,6 +31,25 @@ Phases, each of which fails the run when it fails:
    every served token whose CPU top-2 gap exceeds the tolerance must be
    the CPU's argmax.
 
+5. **Backward kernels**: K2 and K4 against their plain versions on the
+   card, in bf16 and f32: K2 over the run chains of the o, gate/up and down
+   projections at 4096 rows, the tiny-row 6144-wide run and a rectangular
+   run whose dead-tile skip fires; K4 in the q and k/v norm-prologue forms
+   at 4096 rows and the two-stack forms at 256 rows.  K2's g_x bit for bit,
+   K4's within 2 I/O ulps plus K3's f32 term; every parameter grad within
+   gamma_k times the sum of its terms' magnitudes (k rows); a second launch
+   bitwise equal to the first.  Times as in phase 2; K2's yardstick is the
+   two ``torch.matmul`` of a dense linear's backward.
+6. **Train**: full-width ``qwen3-1.7b`` from a seed through
+   ``launch.train.train``: batch 8, seq 512, 6 steps, the third poisoned.
+   Every loss finite, only the poisoned step skipped and the state bitwise
+   unchanged by it, each kernel's launches equal to the plan (remat runs
+   each forward twice).  Step ms (median of steps 2-6), tokens/s, peak
+   memory.
+7. **Train parity**: the same full-width weights with f32 activations, one
+   step on the card and on the CPU: the loss, every parameter's grad (as a
+   relative norm) and the updated params within a derived f32 bound.
+
 The line before the last lists the kernels as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or run away from
 the repository, the script exits non-zero and prints no result.  The full
@@ -38,6 +59,8 @@ per-shape table goes to ``out/chip_smoke.json``.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import functools
 import json
 import math
 import os
@@ -478,6 +501,376 @@ def run_parity_phase(torch, LM, cfg, params, served_prompts, served_tokens):
     return res, ok
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the backward kernels K2 and K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+U32 = 2.0 ** -24                # f32 unit roundoff
+
+
+def gamma_k(k: int) -> float:
+    """Higham's gamma_k = k u / (1 - k u): the bound on the relative error
+    of a sum of k terms in any order, against the sum of the terms'
+    magnitudes."""
+    return k * U32 / (1 - k * U32)
+
+
+def k2_cases():
+    """(label, n, strides, rows, in_w, out_w): the backward of the o
+    projection and of gate/up and down at 4096 rows (two runs for the
+    n=6144 linears), the tiny-row 8-row 6144-wide run (its remat tiles do
+    not fit shared memory), and a rectangular two-tile run whose dead-tile
+    skip fires (n=4096, out_width 1024 at tile 2048)."""
+    qkv = tuple(1 << i for i in range(11))
+    ffn = qkv + (3072,)
+    return [("o", 2048, qkv, 4096, 2048, 2048),
+            ("gate/up", 6144, ffn, 4096, 2048, 6144),
+            ("down", 6144, ffn, 4096, 6144, 2048),
+            ("up-tiny", 6144, ffn, 8, 2048, 6144),
+            ("rect-dead", 4096, qkv, 1024, 4096, 1024)]
+
+
+def k4_cases():
+    """(label, rows, out_w, activation, two_stacks, residual): the q and
+    k/v norm-prologue forms at 4096 rows, the two-stack forms at 256 rows
+    with each activation, with and without the residual."""
+    out = [("q", 4096, 2048, None, False, False),
+           ("kv", 4096, 1024, None, False, False)]
+    for act in ("relu", "silu", "gelu"):
+        for res in (True, False):
+            out.append((f"ffn-{act}{'-res' if res else ''}", 256,
+                        2048 if res else 1536, act, True, res))
+    return out
+
+
+def grads_within(got, want, mags, k, rel=0.0):
+    """Largest ratio of |got - want| to (gamma_k + rel) * mags over the
+    elements of each pair (0/0 counts 0: both exactly zero)."""
+    torch = sys.modules["torch"]
+    worst = 0.0
+    for g, w, m in zip(got, want, mags):
+        lim = (gamma_k(k) + rel) * m.float()
+        d = (g.float() - w.float()).abs()
+        over = torch.where(lim > 0, d / torch.where(lim > 0, lim, 1.0),
+                           torch.where(d > 0, float("inf"), 0.0))
+        worst = max(worst, over.max().item())
+    return worst
+
+
+def run_bwd_kernel_phase(torch, K, ops, timer):
+    """K2's g_x is held bit for bit (every per-row value rounds as the
+    plain version rounds); each parameter grad within gamma_k times the sum
+    of its terms' magnitudes (k the row count: the two sum the same terms
+    in other orders), which also demands exact zeros wherever every term
+    is zero (padded lanes, skipped tiles).  K4's g_x within 2 I/O ulps plus
+    the f32 term of K3 (the norm's row mean is summed in another order,
+    the activation's exp/tanh may differ by a few ulps); its parameter
+    grads as K2's, plus, where an activation sits between the stacks, the
+    same f32 term relative to the sum of magnitudes.  A second launch must
+    give bitwise equal outputs."""
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(4321)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    def mix(L, n):
+        th = (torch.rand(L, n // 2, generator=g, device=DEVICE) * 2 - 1) \
+            * math.pi
+        c, s = torch.cos(th), torch.sin(th)
+        return torch.stack([c, -s, s, c], dim=-1) + rnd(L, n // 2, 4,
+                                                        scale=0.05)
+
+    def vec(n):
+        return 1 + 0.1 * rnd(n)
+
+    abs_sum = (lambda t: t.abs().sum(0))
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        esz = torch.tensor([], dtype=dt).element_size()
+        for label, n, strides, rows, in_w, out_w in k2_cases():
+            L = len(strides)
+            cf = mix(L, n)
+            d_in, d_out, b = vec(n), vec(n), 0.1 * rnd(n)
+            x = rnd(rows, in_w).to(dt)
+            gy = rnd(rows, out_w).to(dt)
+            runs = ops.plan_runs_for_rows(n, strides, rows)
+            widths = (None if in_w == n else in_w,
+                      None if out_w == n else out_w)
+            _, saved = ops.forward_runs(x, cf, runs, d_in, d_out, b,
+                                        *widths)
+            args = (saved, cf, gy, runs, d_in, d_out, True, *widths)
+            kern = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args)
+            again = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args)
+            plain = ops.backward_runs(K.spm_stack_bwd_plain, *args)
+            mags = ops.backward_runs(functools.partial(
+                K.spm_stack_bwd_plain, col_sum=abs_sum), *args)
+            torch.cuda.synchronize()
+            gx_err = max((a[0].float() - p[0].float()).abs().max().item()
+                         for a, p in zip(kern, plain))
+            worst = max(grads_within(a[1:], p[1:], m[1:], rows)
+                        for a, p, m in zip(kern, plain, mags))
+            det = all(torch.equal(u, v) for a, c in zip(kern, again)
+                      for u, v in zip(a, c))
+            err = max(gx_err, max((u - v).abs().max().item()
+                                  for a, p in zip(kern, plain)
+                                  for u, v in zip(a[1:], p[1:])))
+            ms = timer(lambda: ops.backward_runs(
+                K.spm_stack_bwd_kernel_call, *args))
+            plain_ms = timer(lambda: ops.backward_runs(
+                K.spm_stack_bwd_plain, *args))
+            # the function reads x and gy and writes g_x once, reads the
+            # coefficient slabs and vectors and writes their grads; it
+            # remats 3 flops per element and stage, walks back 7 (eq. 14's
+            # four products and sums, B^T delta's six ops per pair)
+            nbytes = rows * (2 * in_w + out_w) * esz
+            flops = 0.0
+            for rs, nt in runs:
+                nbytes += 2 * len(rs) * n // 2 * 16
+                flops += rows * n * (10 * len(rs) + 6)
+            nbytes += 2 * 3 * 4 * n
+            bms, bby = bound(nbytes, flops)
+            # yardstick: a dense linear's backward, g_x = gy W^T and
+            # g_W = x^T gy, which the port never calls
+            w = rnd(in_w, out_w).to(dt)
+            lib_ms = timer(lambda: (torch.matmul(gy, w.T),
+                                    torch.matmul(x.T, gy)))
+            ok = gx_err == 0 and worst <= 1 and det and all(
+                bool(torch.isfinite(t.float()).all()) for a in kern
+                for t in a)
+            rows_out.append(dict(
+                kernel="K2", case=label, dtype=dname, rows=rows, n=n,
+                in_width=in_w, out_width=out_w,
+                runs=[[list(rs), nt] for rs, nt in runs],
+                launches_per_call=len(runs), gx_max_abs_err=gx_err,
+                max_abs_err=err, grad_err_over_limit=worst,
+                deterministic=det, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=lib_ms, ok=ok))
+            log(f"K2 {label:9s} {dname:8s} rows={rows:5d} runs={len(runs)} "
+                f"gx_err={gx_err:.3e} (tol 0) grad err/limit={worst:.3f} "
+                f"det={det} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bms:.4f} ({bby}) library_ms={lib_ms:.4f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"K2 {label} {dname} rows={rows}")
+
+        n = 2048
+        strides = tuple(1 << i for i in range(11))
+        for label, rows, out_w, act, two, res in k4_cases():
+            kw = dict(coeffs1=mix(11, n), d_in1=vec(n), d_out1=vec(n),
+                      bias1=0.1 * rnd(n), gamma=vec(n), strides1=strides,
+                      in_width=n, out_width=out_w, mid_width=out_w)
+            if two:
+                kw.update(coeffs2=mix(11, n), d_in2=vec(n), d_out2=vec(n),
+                          bias2=0.1 * rnd(n), strides2=strides,
+                          activation=act, residual=res, mid_width=1536)
+            x = rnd(rows, n).to(dt)
+            gy = rnd(rows, out_w).to(dt)
+            _, rstd = K.spm_block_kernel_call(x, **kw)
+            kern = K.spm_block_bwd_kernel_call(x, gy, rstd=rstd, **kw)
+            again = K.spm_block_bwd_kernel_call(x, gy, rstd=rstd, **kw)
+            plain = K.spm_block_bwd_plain(x, gy, rstd=rstd, **kw)
+            mags = K.spm_block_bwd_plain(x, gy, rstd=rstd, col_sum=abs_sum,
+                                         **kw)
+            torch.cuda.synchronize()
+            L_tot = 11 * (2 if two else 1)
+            diff = (kern[0].float() - plain[0].float()).abs()
+            t32 = k3_f32_term(n, L_tot, plain[0].float().abs().max().item())
+            gx_worst = (diff / (2 * ulp(plain[0], dname) + t32)).max().item()
+            rel = (8 * (4 + 3 * L_tot + 12) * EPS["float32"]
+                   if act is not None else 0.0)
+            worst = grads_within(kern[1:], plain[1:], mags[1:], rows, rel)
+            det = all(torch.equal(u, v) for u, v in zip(kern, again))
+            err = max((u.float() - v.float()).abs().max().item()
+                      for u, v in zip(kern, plain))
+            ms = timer(lambda: K.spm_block_bwd_kernel_call(x, gy, rstd=rstd,
+                                                           **kw))
+            plain_ms = timer(lambda: K.spm_block_bwd_plain(x, gy, rstd=rstd,
+                                                           **kw))
+            n_vec = 4 + (4 if two else 0)
+            nbytes = (rows * (2 * n + out_w) * x.element_size() + rows * 4
+                      + 2 * L_tot * n // 2 * 16 + 2 * 4 * n * n_vec)
+            flops = rows * n * (10 * L_tot + (30 if two else 12))
+            bms, bby = bound(nbytes, flops)
+            ok = (gx_worst <= 1 and worst <= 1 and det
+                  and all(bool(torch.isfinite(t.float()).all())
+                          for t in kern))
+            rows_out.append(dict(
+                kernel="K4", case=label, dtype=dname, rows=rows, n=n,
+                out_width=out_w, activation=act, two_stacks=two,
+                residual=res, launches_per_call=1, max_abs_err=err,
+                gx_err_over_limit=gx_worst, tol_f32_term=t32, tol_ulps=2,
+                grad_err_over_limit=worst, grad_rel_term=rel,
+                deterministic=det, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=None, ok=ok))
+            log(f"K4 {label:13s} {dname:8s} rows={rows:5d} err={err:.3e} "
+                f"gx err/limit={gx_worst:.3f} grad err/limit={worst:.3f} "
+                f"det={det} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bms:.4f} ({bby}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"K4 {label} {dname} rows={rows}")
+    return rows_out, failures
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training full-width qwen3-1.7b through the kernels
+# ---------------------------------------------------------------------------
+
+def planned_train_launches(cfg, ops, rows: int) -> dict:
+    """Launches of one training step over ``rows`` rows.  With remat
+    every layer's forward runs twice (under the checkpoint and again in
+    the backward's recompute; the non-reentrant recompute stops early only
+    after the last op that saves tensors, the FFN's residual add, which
+    launches nothing); the backward launches K2 once per forward K1 run
+    and K4 once per K3 launch."""
+    k1, k3 = planned_launches(cfg, ops, rows)
+    f = 2 if cfg.remat else 1
+    return {"K1": f * k1, "K3": f * k3, "K2": k1, "K4": k3}
+
+
+def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
+                    steps=6, poisoned=2):
+    args = launch_train.build_parser().parse_args(
+        ["--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
+         "--seq", str(seq), "--log-every", "1"])
+    losses, skipped, secs = [], [], []
+    snap, unchanged = {}, None
+
+    def on_step(s, state, metrics, dt):
+        nonlocal unchanged
+        losses.append(metrics["loss"])
+        skipped.append(metrics["skipped"])
+        secs.append(dt)
+        opt = state["opt"]
+        if s == poisoned - 1:
+            snap.update({("p", k): v.detach().clone() for k, v in
+                         state["params"].named_parameters()})
+            snap.update({(m, k): v.clone() for m in ("mu", "nu")
+                         for k, v in opt[m].items()})
+            snap["count"] = opt["count"].clone()
+        if s == poisoned:
+            now = dict(state["params"].named_parameters())
+            same = torch.equal(opt["count"], snap.pop("count"))
+            for (where, k), v in snap.items():
+                cur = now[k] if where == "p" else opt[where][k]
+                same = same and torch.equal(cur, v)
+            unchanged = same
+            snap.clear()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    launch_train.train(args, poison=lambda s: float(s == poisoned),
+                       on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"K1": K.spm_stack_kernel_call.launches,
+           "K2": K.spm_stack_bwd_kernel_call.launches,
+           "K3": K.spm_block_kernel_call.launches,
+           "K4": K.spm_block_bwd_kernel_call.launches}
+    per_step = planned_train_launches(cfg, ops, batch * seq)
+    want = {k: steps * v for k, v in per_step.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(secs[1:])
+    med = steady[len(steady) // 2] if len(steady) % 2 else \
+        0.5 * (steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+    res = dict(batch=batch, seq=seq, steps=steps, poisoned_step=poisoned,
+               losses=losses, skipped=skipped, step_s=secs,
+               step_ms_median=med * 1e3, tokens_per_s=batch * seq / med,
+               wall_s=wall, peak_mem_bytes=peak, launches=got,
+               planned=want, planned_per_step=per_step,
+               poisoned_state_unchanged=unchanged)
+    finite = all(math.isfinite(v) for v in losses)
+    only = skipped == [float(s == poisoned) for s in range(steps)]
+    ok = finite and only and bool(unchanged) and got == want
+    log(f"train: {steps} steps of batch {batch} x seq {seq}, losses "
+        f"{[round(v, 4) for v in losses]}, skipped {skipped}, poisoned "
+        f"step unchanged={unchanged}, step {med * 1e3:.1f} ms (median of "
+        f"steps 2-{steps}), {batch * seq / med:.0f} tokens/s, peak "
+        f"{peak / 2**30:.2f} GiB, launches {got} (planned {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one training step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
+                           seq=16):
+    """The same full-width weights, f32 activations, one step on the card
+    (kernels) and on the CPU (plain versions): the loss, each parameter's
+    grad as a relative norm, and the updated params.
+
+    Tolerance: both sides compute the same f32 function with the same
+    ops, rounding in other orders (the kernels' row sums, cuBLAS against
+    the CPU's matrix products, the attention and softmax sums).  ``depth``
+    counts the dependent roundings as the CPU tests do (per layer the
+    norm's d_model, 3 per stage of each stack, the head's scores over
+    head_dim and keys, the FFN's three stacks and the residual path),
+    forward and backward; each result is held to Higham and Mary's
+    probabilistic bound lambda sqrt(depth) eps relative (lambda = 8), as
+    K3's row sum is.  AdamW's update is invariant to the grads' scale, so
+    the params move by the grads' relative error times the update."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = T.init_model(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(params).to(DEVICE)
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    L_attn, L_ffn = 11, 12
+    per_layer = (cfg.d_model + 3 * L_attn + 8 + cfg.head_dim + seq
+                 + 3 * L_attn + 3 * (3 * L_ffn + 4) + cfg.d_model)
+    depth = 2 * (cfg.n_layers * per_layer + 2 * cfg.d_model)
+    rel = 8 * math.sqrt(depth) * EPS["float32"]
+    t0 = time.perf_counter()
+    out = {}
+    for side, p in (("cpu", params), ("card", card)):
+        dev = "cpu" if side == "cpu" else DEVICE
+        state = train_mod.make_train_state(p)
+        bd = {k: v.to(dev) for k, v in b.items()}
+        loss, _ = LM.lm_loss(p, bd, cfg)
+        loss.backward()
+        grads = {k: q.grad.detach().float().cpu() for k, q in
+                 p.named_parameters()}
+        p0 = {k: q.detach().cpu().clone() for k, q in p.named_parameters()}
+        step = train_mod.make_train_step(lambda pp, bb: LM.lm_loss(pp, bb,
+                                                                  cfg),
+                                         adamw.OptimizerConfig())
+        state, m = step(state, bd)
+        out[side] = dict(loss=loss.item(), grads=grads, p0=p0,
+                         p1={k: q.detach().cpu() for k, q in
+                             p.named_parameters()},
+                         skipped=float(m["skipped"]))
+    secs = time.perf_counter() - t0
+    a, c = out["card"], out["cpu"]
+    loss_err = abs(a["loss"] - c["loss"])
+    loss_ok = loss_err <= rel * abs(c["loss"])
+    worst_name, worst = None, 0.0
+    for k, gc in c["grads"].items():
+        num = (a["grads"][k] - gc).norm().item()
+        den = gc.norm().item()
+        r = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+        if r >= worst:
+            worst_name, worst = k, r
+    diff = math.sqrt(sum(float(((a["p1"][k] - c["p1"][k]) ** 2).sum())
+                         for k in c["p1"]))
+    moved = math.sqrt(sum(float(((c["p1"][k] - c["p0"][k]) ** 2).sum())
+                          for k in c["p1"]))
+    ok = (loss_ok and worst <= rel and diff <= rel * moved
+          and a["skipped"] == 0.0 == c["skipped"])
+    res = dict(batch=batch, seq=seq, loss_card=a["loss"], loss_cpu=c["loss"],
+               loss_abs_err=loss_err, worst_grad_rel_err=worst,
+               worst_grad=worst_name, params_diff_norm=diff,
+               update_norm=moved, rel_tol=rel, seconds=secs)
+    log(f"train parity: loss card {a['loss']:.6f} cpu {c['loss']:.6f} "
+        f"(err {loss_err:.2e}), worst grad rel err {worst:.2e} "
+        f"({worst_name}), params diff {diff:.3e} vs update {moved:.3e}; "
+        f"tol {rel:.2e} relative ({secs:.1f} s) {'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -490,9 +883,12 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
+    from repro_torch import train as train_mod
     from repro_torch.kernels import spm_stack as K
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import causal_lm as LM
     from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
     from repro_torch.serve import ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -517,6 +913,13 @@ def main() -> int:
     params, serve, serve_ok, served = run_serve_phase(
         torch, K, ops, T, ServeEngine, cfg)
     parity, parity_ok = run_parity_phase(torch, LM, cfg, params, *served)
+    del params, served
+    bwd_rows, bwd_failures = run_bwd_kernel_phase(torch, K, ops, timer)
+    kernel_rows += bwd_rows
+    failures += bwd_failures
+    train, train_ok = run_train_phase(torch, K, ops, launch_train, cfg)
+    tparity, tparity_ok = run_train_parity_phase(torch, T, LM, train_mod,
+                                                 adamw, cfg)
 
     def head(kernel, case, dtype, rows):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -525,32 +928,48 @@ def main() -> int:
 
     k1 = head("K1", "o", "bfloat16", 4096)
     k3 = head("K3", "q", "bfloat16", 4096)
+    k2 = head("K2", "o", "bfloat16", 4096)
+    k4 = head("K4", "q", "bfloat16", 4096)
     entries = []
-    for name, r, src, rep in (
+    # launches: K1 and K3 from the serve phase (their main path), K2 and
+    # K4 from the train phase (theirs); train_launches has all four
+    for name, r, src, rep, launches in (
             ("K1 spm_stack_fwd", k1,
              "src/repro_torch/kernels/csrc/spm_stack.cu",
-             "src/repro/kernels/spm_stack.py:157"),
+             "src/repro/kernels/spm_stack.py:157", serve["launches"]),
+            ("K2 spm_stack_bwd", k2,
+             "src/repro_torch/kernels/csrc/spm_stack_bwd.cu",
+             "src/repro/kernels/spm_stack.py:523", train["launches"]),
             ("K3 spm_block_fwd", k3,
              "src/repro_torch/kernels/csrc/spm_block.cu",
-             "src/repro/kernels/spm_stack.py:873")):
+             "src/repro/kernels/spm_stack.py:873", serve["launches"]),
+            ("K4 spm_block_bwd", k4,
+             "src/repro_torch/kernels/csrc/spm_block_bwd.cu",
+             "src/repro/kernels/spm_stack.py:925", train["launches"])):
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=serve["launches"][name[:2]],
+            launches=launches[name[:2]],
+            train_launches=train["launches"][name[:2]],
             max_abs_err=max(x["max_abs_err"] for x in kernel_rows
                             if x["kernel"] == name[:2]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     report = dict(gpu=smi, kernels=kernel_rows, serve=serve, parity=parity,
+                  train=train, train_parity=tparity,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",
-                                   "K3": "q projection, bf16, 4096 rows"})
+                                   "K2": "o projection, bf16, 4096 rows",
+                                   "K3": "q projection, bf16, 4096 rows",
+                                   "K4": "q projection, bf16, 4096 rows"})
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    ok = not failures and serve_ok and parity_ok
+    ok = (not failures and serve_ok and parity_ok and train_ok
+          and tparity_ok)
     if not ok:
         print(f"chip_smoke: FAILED kernels={failures} serve={serve_ok} "
-              f"parity={parity_ok}", file=sys.stderr)
+              f"parity={parity_ok} train={train_ok} "
+              f"train_parity={tparity_ok}", file=sys.stderr)
         return 1
     log(f"kernels: {[e['name'] for e in entries]}")
     print(smi)

@@ -1,5 +1,5 @@
-"""Stagewise Pairwise Mixers (SPM) — the paper's core operator, forward only
-(port of ``repro/core/spm.py``).
+"""Stagewise Pairwise Mixers (SPM) — the paper's core operator (port of
+``repro/core/spm.py``).
 
     SPM(x) = D_out * (B_L ... B_1) * D_in * x + b
 
@@ -11,8 +11,12 @@ Both parameterizations normalize to per-stage coefficients ``(L, n//2, 4)``
 (``kernels/ops.spm_stack_fused``: K1 on the card, its plain f32 version on
 CPU tensors) and everything else through the composition below, which
 computes in ``x.dtype`` as the reference's XLA composition does.  The
-closed-form backward modes of the reference wait for the training slice;
-``backward`` is kept on the config because eligibility reads it.
+composition's backward follows ``SPMConfig.backward`` as the reference's
+``_make_core`` does: ``autodiff`` (torch autograd through the stages),
+``custom`` (the closed-form eqs. 12-14 from the saved stage inputs) or
+``custom_inverse`` (rotation only: each stage input rebuilt from its output
+by ``apply_stage_inverse``, so only the output is saved).  The kernel path
+has its own closed-form backward (K2, ``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -29,10 +33,12 @@ import torch.nn.functional as F
 from repro_torch.core import pairings
 from repro_torch.core.eligibility import use_fused_kernel
 from repro_torch.core.pairings import Schedule, Stage
+from repro_torch.kernels.ref import stage_vjp
 from repro_torch.params import Params
 
 __all__ = ["SPMConfig", "init_spm", "stage_coeffs", "apply_stage",
-           "forward_stages", "spm_apply"]
+           "apply_stage_inverse", "forward_stages", "spm_apply",
+           "spm_matrix"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,14 +163,143 @@ def apply_stage(x: torch.Tensor, coeffs: torch.Tensor, stage: Stage,
     return yp[..., inv]
 
 
+def apply_stage_inverse(y: torch.Tensor, coeffs: torch.Tensor,
+                        stage: Stage,
+                        res_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Invert one stage through each block's 2x2 inverse (for rotation
+    blocks, the transpose)."""
+    a, b, c, d = coeffs.unbind(-1)
+    det = a * d - b * c
+    inv = torch.stack([d / det, -b / det, -c / det, a / det], dim=-1)
+    inv_rs = None if res_scale is None else 1.0 / res_scale
+    return apply_stage(y, inv, stage, res_scale=inv_rs)
+
+
 def forward_stages(coeffs: torch.Tensor, res_scales: Optional[torch.Tensor],
-                   x: torch.Tensor, sched: Schedule) -> torch.Tensor:
-    """Run every stage of ``sched`` in order."""
+                   x: torch.Tensor, sched: Schedule,
+                   collect: bool = False):
+    """Run every stage of ``sched`` in order; with ``collect`` also return
+    the list of stage inputs."""
+    zs = []
     z = x
     for ell, stage in enumerate(sched.stages):
+        if collect:
+            zs.append(z)
         rs = None if res_scales is None else res_scales[ell]
         z = apply_stage(z, coeffs[ell], stage, res_scale=rs)
-    return z
+    return (z, zs) if collect else z
+
+
+def _stage_grads(z_in: torch.Tensor, delta: torch.Tensor,
+                 coeffs: torch.Tensor, stage: Stage,
+                 res_scale: Optional[torch.Tensor]):
+    """Closed-form grads of one stage (paper eqs. 12-14, pairwise):
+    ``(g_input, g_coeffs (n_pairs, 4), g_res_scale or None)``, the
+    parameter grads summed over every leading (batch) axis."""
+    n = z_in.shape[-1]
+    lead = z_in.shape[:-1]
+    bdims = tuple(range(len(lead)))
+
+    def bsum(t):
+        return t.sum(dim=bdims) if bdims else t
+
+    if stage.structured:
+        return (*stage_vjp(z_in, delta, coeffs, stage.stride), None)
+    perm = torch.as_tensor(stage.perm, device=z_in.device)
+    inv = torch.as_tensor(np.argsort(stage.perm), device=z_in.device)
+    n_pairs = n // 2
+    zg = z_in[..., perm]
+    dg = delta[..., perm]
+    zp = zg[..., : 2 * n_pairs].reshape(*lead, n_pairs, 2)
+    dp = dg[..., : 2 * n_pairs].reshape(*lead, n_pairs, 2)
+    x0, x1 = zp[..., 0], zp[..., 1]
+    d0, d1 = dp[..., 0], dp[..., 1]
+    a, b, c, d = coeffs.unbind(-1)
+    gp = torch.stack([a * d0 + c * d1, b * d0 + d * d1],
+                     dim=-1).reshape(*lead, 2 * n_pairs)
+    g_rs = None
+    if n % 2:
+        rs = (res_scale if res_scale is not None
+              else torch.ones((), dtype=z_in.dtype, device=z_in.device))
+        g_rs = (dg[..., -1] * zg[..., -1]).sum()
+        gp = torch.cat([gp, (dg[..., -1] * rs)[..., None]], dim=-1)
+    g_cf = torch.stack([bsum(d0 * x0), bsum(d0 * x1), bsum(d1 * x0),
+                        bsum(d1 * x1)], dim=-1)
+    return gp[..., inv], g_cf, g_rs
+
+
+def _walk_back(sched: Schedule, coeffs, res_scales, delta, stage_input):
+    """The closed-form reverse walk shared by both custom modes;
+    ``stage_input(ell, z_out)`` gives stage ell's input."""
+    g_cf, g_rs = [], []
+    z = None
+    for ell in range(len(sched.stages) - 1, -1, -1):
+        stage = sched.stages[ell]
+        rs = res_scales[ell]
+        z = stage_input(ell, z)
+        delta, gc, grs = _stage_grads(z, delta, coeffs[ell], stage, rs)
+        g_cf.append(gc)
+        g_rs.append(grs if grs is not None
+                    else torch.zeros((), dtype=delta.dtype,
+                                     device=delta.device))
+    return (torch.stack(g_cf[::-1], dim=0), torch.stack(g_rs[::-1]),
+            delta)
+
+
+class _CustomCore(torch.autograd.Function):
+    """``custom``: saves every stage input, eqs. 12-14 backward."""
+
+    @staticmethod
+    def forward(ctx, coeffs, res_scales, x, sched):
+        y, zs = forward_stages(coeffs, res_scales, x, sched, collect=True)
+        ctx.sched = sched
+        ctx.save_for_backward(coeffs, res_scales, *zs)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        coeffs, res_scales, *zs = ctx.saved_tensors
+        g_cf, g_rs, g_x = _walk_back(ctx.sched, coeffs, res_scales, gy,
+                                     lambda ell, _: zs[ell])
+        return g_cf, g_rs, g_x, None
+
+
+class _InverseCore(torch.autograd.Function):
+    """``custom_inverse``: saves only the output and rebuilds each stage
+    input from the one after it (orthogonal blocks)."""
+
+    @staticmethod
+    def forward(ctx, coeffs, res_scales, x, sched):
+        y = forward_stages(coeffs, res_scales, x, sched)
+        ctx.sched = sched
+        ctx.save_for_backward(coeffs, res_scales, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        coeffs, res_scales, y = ctx.saved_tensors
+        sched = ctx.sched
+
+        def stage_input(ell, z_out):
+            z_out = y if z_out is None else z_out
+            return apply_stage_inverse(z_out, coeffs[ell], sched.stages[ell],
+                                       res_scale=res_scales[ell])
+
+        g_cf, g_rs, g_x = _walk_back(sched, coeffs, res_scales, gy,
+                                     stage_input)
+        return g_cf, g_rs, g_x, None
+
+
+def _core(coeffs, res_scales, x, sched: Schedule, mode: str):
+    """The L-stage composition with the backward of ``mode``."""
+    if mode == "autodiff":
+        return forward_stages(coeffs, res_scales, x, sched)
+    if mode == "custom":
+        return _CustomCore.apply(coeffs, res_scales, x, sched)
+    if mode == "custom_inverse":
+        return _InverseCore.apply(coeffs, res_scales, x, sched)
+    raise ValueError(f"unknown backward mode {mode!r}")
 
 
 def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
@@ -199,7 +334,7 @@ def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
     z = x
     if cfg.use_diag:
         z = z * params["d_in"].to(x.dtype)
-    z = forward_stages(coeffs, res_scales, z, sched)
+    z = _core(coeffs, res_scales, z, sched, cfg.backward)
     if cfg.use_diag:
         z = z * params["d_out"].to(x.dtype)
     if cfg.use_bias:
@@ -207,3 +342,14 @@ def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
     if out_width is not None:
         z = z[..., :out_width]
     return z
+
+
+def spm_matrix(params, cfg: SPMConfig) -> torch.Tensor:
+    """The full n x n operator W with ``spm_apply(params, x) == W @ x +
+    bias`` (tests and analysis only, O(n^2 L))."""
+    p = {k: params[k] for k in params.keys()}
+    if cfg.use_bias:
+        p["bias"] = torch.zeros_like(p["bias"])
+    leaf = next(iter(p.values()))
+    eye = torch.eye(cfg.n, dtype=torch.float32, device=leaf.device)
+    return spm_apply(p, eye, cfg).T

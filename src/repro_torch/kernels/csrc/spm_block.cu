@@ -23,19 +23,6 @@
 
 #include "spm_common.cuh"
 
-enum SpmAct { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
-
-__device__ __forceinline__ float spm_act(float u, int act) {
-  if (act == ACT_RELU) return fmaxf(u, 0.f);
-  if (act == ACT_SILU) return __fmul_rn(u, 1.f / (1.f + expf(-u)));
-  if (act == ACT_GELU) {  // tanh approximation, as jax.nn.gelu's default
-    const float k = 0.7978845608028654f;
-    const float inner = k * (u + 0.044715f * u * u * u);
-    return 0.5f * u * (1.f + tanhf(inner));
-  }
-  return u;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(512) spm_block_fwd_kernel(
     const T* __restrict__ x, T* __restrict__ y, float* __restrict__ rstd_out,

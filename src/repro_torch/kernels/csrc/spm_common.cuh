@@ -1,5 +1,7 @@
-// Shared device code of the hand-written SPM kernels (K1 spm_stack.cu, K3
-// spm_block.cu): I/O conversions and the in-shared-memory stage walk.
+// Shared device code of the hand-written SPM kernels (K1 spm_stack.cu, K2
+// spm_stack_bwd.cu, K3 spm_block.cu, K4 spm_block_bwd.cu): I/O conversions,
+// the in-place stage walk of the forwards, the out-of-place remat and the
+// reverse walk of the backwards, and the ordered sum of per-block partials.
 //
 // Numerics: every product and sum of the stage walk and of the diagonal /
 // bias epilogues is rounded on its own (__fmul_rn / __fadd_rn), so nvcc
@@ -59,6 +61,166 @@ __device__ __forceinline__ void spm_apply_stages(
     }
     __syncthreads();
   }
+}
+
+enum SpmAct { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
+
+// The block kernels' activation (K3's epilogue, K4's remat), with 0 -> 0,
+// which the dead-lane masking relies on; gelu is the tanh approximation,
+// as jax.nn.gelu's default.
+__device__ __forceinline__ float spm_act(float u, int act) {
+  if (act == ACT_RELU) return fmaxf(u, 0.f);
+  if (act == ACT_SILU) return __fmul_rn(u, 1.f / (1.f + expf(-u)));
+  if (act == ACT_GELU) {
+    const float k = 0.7978845608028654f;
+    const float inner = k * (u + 0.044715f * u * u * u);
+    return 0.5f * u * (1.f + tanhf(inner));
+  }
+  return u;
+}
+
+// Its derivative (K4), as the reference's `_act_grad` writes it.
+__device__ __forceinline__ float spm_act_grad(float u, int act) {
+  if (act == ACT_RELU) return u > 0.f ? 1.f : 0.f;
+  if (act == ACT_SILU) {
+    const float sg = 1.f / (1.f + expf(-u));
+    return sg * (1.f + u * (1.f - sg));
+  }
+  if (act == ACT_GELU) {
+    const float k = 0.7978845608028654f;
+    const float t = tanhf(k * (u + 0.044715f * u * u * u));
+    return 0.5f * (1.f + t) +
+           0.5f * u * (1.f - t * t) * k * (1.f + 3.f * 0.044715f * u * u);
+  }
+  return 1.f;
+}
+
+// Backward remat: apply stage l of `st` from tile l to tile l+1 of `buf`
+// (tiles `tile` floats apart, rows x nt each), for l = 0 .. L-1, so tile l
+// ends up holding stage l's input and tile L the stack's output.  Rounds
+// exactly as spm_apply_stages does, so the rematted tiles are bitwise the
+// forward's.  `buf` is a generic pointer: shared memory when the tiles fit
+// there, a global scratch slab otherwise.
+__device__ __forceinline__ void spm_remat_stages(
+    float* buf, long tile, int rows, int nt, const float4* __restrict__ cf,
+    long pair_stride, const SpmStrides& st) {
+  const int half = nt >> 1;
+  for (int l = 0; l < st.n; ++l) {
+    const int s = st.s[l];
+    const float4* cfl = cf + (long)l * pair_stride;
+    const float* in = buf + (long)l * tile;
+    float* out = buf + (long)(l + 1) * tile;
+    for (int p = threadIdx.x; p < half; p += blockDim.x) {
+      const float4 c = __ldg(cfl + p);
+      const int g = p / s;
+      const int i0 = g * 2 * s + (p - g * s);
+      const int i1 = i0 + s;
+      for (int r = 0; r < rows; ++r) {
+        const float x0 = in[(long)r * nt + i0];
+        const float x1 = in[(long)r * nt + i1];
+        out[(long)r * nt + i0] =
+            __fadd_rn(__fmul_rn(c.x, x0), __fmul_rn(c.y, x1));
+        out[(long)r * nt + i1] =
+            __fadd_rn(__fmul_rn(c.z, x0), __fmul_rn(c.w, x1));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Backward reverse walk (paper eqs. 12-14) over the stages of `st`, from
+// the rematted stage inputs in tiles 0 .. L-1 of `buf`, with the cotangent
+// `delta` (rows x nt) updated in place: delta <- B_l^T delta.  The pair
+// grads of this block's rows, summed over its rows in row order, go to
+// `part` (stage l's slab `pair_stride` float4s further): written on the
+// block's first row chunk, added after.  One thread owns a pair, so every
+// partial has one writer and the sums are deterministic.
+__device__ __forceinline__ void spm_walk_stages_bwd(
+    const float* buf, long tile, float* delta, int rows, int nt,
+    const float4* __restrict__ cf, long pair_stride, const SpmStrides& st,
+    float4* part, bool first) {
+  const int half = nt >> 1;
+  for (int l = st.n - 1; l >= 0; --l) {
+    const int s = st.s[l];
+    const float4* cfl = cf + (long)l * pair_stride;
+    const float* in = buf + (long)l * tile;
+    float4* pl = part + (long)l * pair_stride;
+    for (int p = threadIdx.x; p < half; p += blockDim.x) {
+      const float4 c = __ldg(cfl + p);
+      const int g = p / s;
+      const int i0 = g * 2 * s + (p - g * s);
+      const int i1 = i0 + s;
+      float ga = 0.f, gb = 0.f, gc = 0.f, gd = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float x0 = in[(long)r * nt + i0];
+        const float x1 = in[(long)r * nt + i1];
+        float* dr = delta + (long)r * nt;
+        const float d0 = dr[i0];
+        const float d1 = dr[i1];
+        ga = __fadd_rn(ga, __fmul_rn(d0, x0));
+        gb = __fadd_rn(gb, __fmul_rn(d0, x1));
+        gc = __fadd_rn(gc, __fmul_rn(d1, x0));
+        gd = __fadd_rn(gd, __fmul_rn(d1, x1));
+        dr[i0] = __fadd_rn(__fmul_rn(c.x, d0), __fmul_rn(c.z, d1));
+        dr[i1] = __fadd_rn(__fmul_rn(c.y, d0), __fmul_rn(c.w, d1));
+      }
+      if (first) {
+        pl[p] = make_float4(ga, gb, gc, gd);
+      } else {
+        const float4 o = pl[p];
+        pl[p] = make_float4(__fadd_rn(o.x, ga), __fadd_rn(o.y, gb),
+                            __fadd_rn(o.z, gc), __fadd_rn(o.w, gd));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One column partial: written on the block's first row chunk, added after.
+__device__ __forceinline__ void spm_part_acc(float* p, float v, bool first) {
+  *p = first ? v : __fadd_rn(*p, v);
+}
+
+// The deterministic finish of a cross-block sum: out[o][e] = sum over
+// g = 0 .. G-1, in that order, of part[g][o][e] for e < live, and exactly
+// 0 for e >= live (feature tiles no block visited).  part is (G, outer,
+// inner) f32, out (outer, inner).  No atomics: two launches on the same
+// partials give bitwise equal sums.
+static __global__ void spm_sum_partials(const float* __restrict__ part,
+                                        float* __restrict__ out, int G,
+                                        int outer, long inner, long live) {
+  const long total = (long)outer * inner;
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    const long e = i % inner;
+    float acc = 0.f;
+    if (e < live)
+      for (int g = 0; g < G; ++g) acc = __fadd_rn(acc, part[g * total + i]);
+    out[i] = acc;
+  }
+}
+
+static inline cudaError_t spm_launch_sum(const float* part, float* out,
+                                         int G, int outer, long inner,
+                                         long live, cudaStream_t stream) {
+  const long total = (long)outer * inner;
+  long blocks = (total + 255) / 256;
+  if (blocks > 4 * 132) blocks = 4 * 132;
+  if (blocks < 1) blocks = 1;
+  spm_sum_partials<<<(int)blocks, 256, 0, stream>>>(part, out, G, outer,
+                                                    inner, live);
+  return cudaGetLastError();
+}
+
+// Opt a kernel into `smem` bytes of dynamic shared memory (once per size).
+template <typename K>
+static inline cudaError_t spm_allow_smem(K kernel, size_t smem,
+                                         size_t* smem_set) {
+  if (smem <= *smem_set) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) *smem_set = smem;
+  return e;
 }
 
 // Threads per block: one per pair up to 512, a whole number of warps.

@@ -1,13 +1,22 @@
-"""Public entries of the fused SPM operator (port of ``repro/kernels/ops.py``,
-forward only).
+"""Public entries of the fused SPM operator (port of ``repro/kernels/ops.py``).
 
 ``spm_stack_fused`` plans the stride schedule into maximal tile-local runs
 (``plan_runs``, copied from the reference as pure arithmetic) and launches
 K1 once per run, with ``d_in`` folded into the first run and
 ``d_out``/``bias`` into the last.  Between two runs the activation is
-stored in x's dtype, as the reference's run chain stores it.
+stored in x's dtype, as the reference's run chain stores it.  It is a
+``torch.autograd.Function``: the forward saves each run's input, and the
+backward launches K2 once per run, in reverse, carrying the dead-tile chain
+(``_fused_bwd`` of the reference).
+
 ``spm_block_fused`` launches K3 once for a whole norm -> SPM [-> act -> SPM
--> residual] block.
+-> residual] block; its backward is one K4 launch from x and the row
+statistics alone.
+
+On CUDA tensors both backwards launch their kernels or raise; on CPU
+tensors the wrappers run their plain versions, so the port's CPU path is
+the reference's forced-kernel path.  Grads come back in each input's
+dtype: g_x in x's, the rest f32 (as the parameters).
 
 Tile caps come from Hopper's shared memory, not the TPU's VMEM: the default
 cap ``MAX_TILE`` is the reference's 2048 (a 16-row f32 block of it is
@@ -30,7 +39,8 @@ from repro_torch.core.eligibility import (TINY_ROW_THRESHOLD,
 from repro_torch.kernels import spm_stack as K
 
 __all__ = ["MAX_TILE", "TINY_ROW_MAX_TILE", "plan_runs", "tile_cap_for_rows",
-           "plan_runs_for_rows", "spm_stack_fused", "spm_block_fused"]
+           "plan_runs_for_rows", "spm_stack_fused", "forward_runs",
+           "backward_runs", "spm_block_fused"]
 
 MAX_TILE = 2048
 # 232,448 B / (8 rows x 4 B) = 7264 lanes: a decode block of all its rows
@@ -110,6 +120,97 @@ def _widths(n: int, in_width, out_width):
     return in_width, out_width
 
 
+class _StackFn(torch.autograd.Function):
+    """The full operator over planned runs: K1 forward, K2 backward."""
+
+    @staticmethod
+    def forward(ctx, z, coeffs, d_in, d_out, bias, runs, in_width,
+                out_width):
+        z, saved = forward_runs(z, coeffs, runs, d_in, d_out, bias,
+                                in_width, out_width)
+        ctx.runs, ctx.in_width, ctx.out_width = runs, in_width, out_width
+        ctx.has = (d_in is not None, d_out is not None, bias is not None)
+        ctx.save_for_backward(coeffs, d_in, d_out, *saved)
+        return z
+
+    @staticmethod
+    def backward(ctx, gy):
+        coeffs, d_in, d_out, *saved = ctx.saved_tensors
+        has_din, has_dout, has_bias = ctx.has
+        outs = backward_runs(K.spm_stack_bwd_kernel_call, saved, coeffs,
+                             gy.to(saved[0].dtype).contiguous(), ctx.runs,
+                             d_in, d_out, has_bias, ctx.in_width,
+                             ctx.out_width)
+        first, last = list(outs[0][2:]), list(outs[-1][2:])
+        g_din = first.pop(0) if has_din else None
+        if len(outs) == 1:
+            last = first
+        g_dout = last.pop(0) if has_dout else None
+        g_bias = last.pop(0) if has_bias else None
+        delta = outs[0][0]
+        if ctx.in_width is not None and delta.shape[-1] != ctx.in_width:
+            delta = delta[:, :ctx.in_width]   # g_x came back widened
+        return (delta, torch.cat([o[1] for o in outs], dim=0), g_din,
+                g_dout, g_bias, None, None, None)
+
+
+def forward_runs(z, coeffs, runs, d_in, d_out, bias,
+                 in_width: Optional[int], out_width: Optional[int]
+                 ) -> Tuple[torch.Tensor, list]:
+    """A planned run chain: K1 once per run, ``d_in`` folded into the
+    first and ``d_out``/``bias`` into the last; returns the output and each
+    run's input, which ``backward_runs`` takes back."""
+    saved, off = [], 0
+    for r, (run_strides, n_tile) in enumerate(runs):
+        last = r == len(runs) - 1
+        saved.append(z)
+        z = K.spm_stack_kernel_call(
+            z, coeffs[off: off + len(run_strides)],
+            d_in if r == 0 else None, d_out if last else None,
+            bias if last else None, strides=run_strides, n_tile=n_tile,
+            in_width=in_width if r == 0 else None,
+            out_width=out_width if last else None)
+        off += len(run_strides)
+    return z, saved
+
+
+def backward_runs(bwd, saved, coeffs, gy, runs, d_in, d_out,
+                  has_bias: bool, in_width: Optional[int],
+                  out_width: Optional[int]) -> list:
+    """The backward of a planned run chain: ``bwd`` (K2's wrapper or its
+    plain version) once per run, in reverse, each run's g_x the cotangent
+    of the run before; returns each run's outputs in plan order.
+
+    The dead-tile chain (the reference's ``_fused_bwd``): a run's backward
+    visits only the tiles holding live cotangent and returns a g_x that is
+    exactly zero from its first skipped column, so the run upstream prunes
+    the same columns (``dead_from``), re-derived at its own tile width."""
+    n = 2 * coeffs.shape[1]
+    offs, off = [], 0
+    for run_strides, _ in runs:
+        offs.append(off)
+        off += len(run_strides)
+    outs = [None] * len(runs)
+    delta, dead = gy, None
+    for r in range(len(runs) - 1, -1, -1):
+        run_strides, n_tile = runs[r]
+        last = r == len(runs) - 1
+        outs[r] = bwd(saved[r], coeffs[offs[r]: offs[r] + len(run_strides)],
+                      delta, d_in if r == 0 else None,
+                      d_out if last else None, strides=run_strides,
+                      n_tile=n_tile, has_bias=last and has_bias,
+                      in_width=in_width if r == 0 else None,
+                      out_width=out_width if last else None,
+                      dead_from=None if last else dead)
+        live = out_width if last else dead
+        if live is not None and -(-live // n_tile) * n_tile < n:
+            dead = -(-live // n_tile) * n_tile
+        else:
+            dead = None
+        delta = outs[r][0]
+    return outs
+
+
 def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
                     strides: Sequence[int], *,
                     d_in: Optional[torch.Tensor] = None,
@@ -118,7 +219,9 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
                     in_width: Optional[int] = None,
                     out_width: Optional[int] = None) -> torch.Tensor:
     """The fused SPM operator over the last axis of ``x`` (..., in_width or
-    n) -> (..., out_width or n), one K1 launch per planned run."""
+    n) -> (..., out_width or n), one K1 launch per planned run;
+    differentiable in x, coeffs and the diagonals and bias (one K2 launch
+    per run)."""
     strides = tuple(int(s) for s in strides)
     n = 2 * coeffs.shape[1]
     in_width, out_width = _widths(n, in_width, out_width)
@@ -128,19 +231,9 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
     lead = x.shape[:-1]
     z = x.reshape(-1, expect).contiguous()
     runs = plan_runs_for_rows(n, strides, z.shape[0])
-    coeffs = coeffs.float().contiguous()
-    off = 0
-    for r, (run_strides, n_tile) in enumerate(runs):
-        last = r == len(runs) - 1
-        z = K.spm_stack_kernel_call(
-            z, coeffs[off: off + len(run_strides)],
-            d_in if r == 0 else None,
-            d_out if last else None,
-            bias if last else None,
-            strides=run_strides, n_tile=n_tile,
-            in_width=in_width if r == 0 else None,
-            out_width=out_width if last else None)
-        off += len(run_strides)
+    f32 = (lambda t: None if t is None else t.float().contiguous())
+    z = _StackFn.apply(z, f32(coeffs), f32(d_in), f32(d_out), f32(bias),
+                       runs, in_width, out_width)
     return z.reshape(*lead, z.shape[-1])
 
 
@@ -161,7 +254,8 @@ def spm_block_fused(x: torch.Tensor, *, coeffs1: torch.Tensor,
                     out_width: Optional[int] = None,
                     eps: float = 1e-6) -> torch.Tensor:
     """``y = [x +] stack2(act(stack1(rms_norm(x))))`` over the last axis in
-    one K3 launch; every piece optional as in the reference (``gamma=None``
+    one K3 launch (backward: one K4 launch); every piece optional as in the
+    reference (``gamma=None``
     skips the norm, ``strides2=None`` ends after stack 1).  Widths default
     as in the reference: ``in_width = x.shape[-1]``, ``out_width = n``,
     ``mid_width`` n with a second stack and ``out_width`` without.  Raises
@@ -185,10 +279,46 @@ def spm_block_fused(x: torch.Tensor, *, coeffs1: torch.Tensor,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, in_width).contiguous()
     f32 = (lambda t: None if t is None else t.float().contiguous())
-    y, _ = K.spm_block_kernel_call(
-        x2, f32(coeffs1), f32(d_in1), f32(d_out1), f32(bias1), f32(gamma),
-        f32(coeffs2), f32(d_in2), f32(d_out2), f32(bias2),
-        strides1=strides1, strides2=strides2, activation=activation,
-        residual=residual, in_width=in_width, mid_width=mid_width,
-        out_width=out_width, eps=eps)
+    statics = dict(strides1=strides1, strides2=strides2,
+                   activation=activation, residual=residual,
+                   in_width=in_width, mid_width=mid_width,
+                   out_width=out_width)
+    y = _BlockFn.apply(x2, f32(gamma), f32(coeffs1), f32(d_in1),
+                       f32(d_out1), f32(bias1), f32(coeffs2), f32(d_in2),
+                       f32(d_out2), f32(bias2), statics, eps)
     return y.reshape(*lead, out_width)
+
+
+class _BlockFn(torch.autograd.Function):
+    """The residual block: K3 forward, K4 backward.  Saves only x and the
+    (rows, 1) row statistics beside the operands."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, cf1, din1, dout1, bias1, cf2, din2, dout2,
+                bias2, statics, eps):
+        y, rstd = K.spm_block_kernel_call(
+            x2, cf1, din1, dout1, bias1, gamma, cf2, din2, dout2, bias2,
+            eps=eps, **statics)
+        ctx.statics = statics
+        ctx.save_for_backward(x2, rstd, gamma, cf1, din1, dout1, bias1, cf2,
+                              din2, dout2, bias2)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        (x2, rstd, gamma, cf1, din1, dout1, bias1, cf2, din2, dout2,
+         bias2) = ctx.saved_tensors
+        out = list(K.spm_block_bwd_kernel_call(
+            x2, gy.to(x2.dtype).contiguous(), cf1, din1, dout1, bias1,
+            gamma, rstd, cf2, din2, dout2, bias2, **ctx.statics))
+        gx = out.pop(0)
+        g_gamma = out.pop(0) if gamma is not None else None
+        g_cf1, g_din1, g_dout1 = out.pop(0), out.pop(0), out.pop(0)
+        g_bias1 = out.pop(0) if bias1 is not None else None
+        g_cf2 = g_din2 = g_dout2 = g_bias2 = None
+        if cf2 is not None:
+            g_cf2, g_din2, g_dout2 = out.pop(0), out.pop(0), out.pop(0)
+            if bias2 is not None:
+                g_bias2 = out.pop(0)
+        return (gx, g_gamma, g_cf1, g_din1, g_dout1, g_bias1, g_cf2, g_din2,
+                g_dout2, g_bias2, None, None)

@@ -1,14 +1,47 @@
-"""Causal-LM serving heads over the transformer (port of
-``repro/models/causal_lm.py``: ``prefill`` for attention-only stacks and
-``decode_step``; the loss waits for the training slice)."""
+"""Causal-LM heads over the transformer (port of
+``repro/models/causal_lm.py``): the training loss, ``prefill`` for
+attention-only stacks and ``decode_step``."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.models import transformer as T
 
-__all__ = ["prefill", "decode_step"]
+__all__ = ["lm_loss", "train_metrics", "prefill", "decode_step"]
+
+MOE_AUX_COEF = 0.01
+
+
+def lm_loss(params, batch: dict, cfg: T.ModelConfig
+            ) -> Tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy.  batch: ``tokens``, ``labels`` (already
+    shifted), optional ``mask`` and ``positions``.  The loss is the masked
+    mean ce plus ``MOE_AUX_COEF`` times the MoE aux term, which is 0 for the
+    dense stacks the port runs.  Returns ``(loss, metrics)`` with
+    ``ce_weight``, the mask sum that gradient accumulation weights ce by."""
+    logits, _ = T.forward(params, cfg, tokens=batch["tokens"],
+                          positions=batch.get("positions"))
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    mask = batch.get("mask")
+    mask = (torch.ones_like(nll) if mask is None else mask.float())
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = torch.sum(nll * mask) / denom
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + MOE_AUX_COEF * aux
+    metrics = {"loss": loss, "ce": ce, "aux": aux,
+               "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0)),
+               "ce_weight": denom}
+    return loss, metrics
+
+
+def train_metrics(metrics: dict) -> dict:
+    """Metrics as Python floats (one device sync)."""
+    return {k: float(v) for k, v in metrics.items()}
 
 
 def prefill(params, cfg: T.ModelConfig, *, max_len: int,

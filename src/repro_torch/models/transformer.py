@@ -6,7 +6,10 @@ carries over; this slice runs the layers it needs (attention mixer, dense
 FFN, default RoPE) and raises ``NotImplementedError`` for MoE, Mamba, the
 shared block and M-RoPE, naming the roadmap item.  Layers run in a Python
 loop over an ``nn.ModuleList`` (the reference's ``scan`` over stacked
-params; ``convert.params_from_jax`` unstacks those).
+params; ``convert.params_from_jax`` unstacks those).  With ``remat`` (the
+default, as in the reference) and no cache, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint`` wraps it
+there: the backward recomputes the layer's forward, kernels included.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.layers.attention import (AttentionConfig, attention_apply,
@@ -79,6 +83,7 @@ class ModelConfig:
     logits_dtype: Any = "float32"
     dtype: Any = "bfloat16"
     param_dtype: Any = "float32"
+    remat: bool = True               # checkpoint each layer when training
 
     def attn_cfg(self, spec: LayerSpec) -> AttentionConfig:
         """The attention config of one layer."""
@@ -161,6 +166,17 @@ def init_cache(batch: int, max_len: int, cfg: ModelConfig, *,
             for spec in cfg.layers]
 
 
+def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, h: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor, cache,
+                 cache_index) -> torch.Tensor:
+    """One layer: ``h + attn(norm1(h))``, then the FFN residual block."""
+    y, _ = attention_apply(lp["mixer"], h, cfg.attn_cfg(spec), cos=cos,
+                           sin=sin, cache=cache, cache_index=cache_index,
+                           norm_params=lp["norm1"])
+    h = h + y
+    return ffn_block_apply(lp["mlp"], lp["norm2"], h, cfg.ffn_cfg())
+
+
 def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, cache=None,
             cache_index: Optional[int] = None, last_only: bool = False):
@@ -179,12 +195,13 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     for i, spec in enumerate(cfg.layers):
         lp = params["layers"][i]
-        lc = None if cache is None else cache[i]["mixer"]
-        y, _ = attention_apply(lp["mixer"], h, cfg.attn_cfg(spec), cos=cos,
-                               sin=sin, cache=lc, cache_index=cache_index,
-                               norm_params=lp["norm1"])
-        h = h + y
-        h = ffn_block_apply(lp["mlp"], lp["norm2"], h, cfg.ffn_cfg())
+        if cache is None and cfg.remat:
+            h = torch.utils.checkpoint.checkpoint(
+                _apply_layer, lp, spec, cfg, h, cos, sin, None, None,
+                use_reentrant=False)
+        else:
+            lc = None if cache is None else cache[i]["mixer"]
+            h = _apply_layer(lp, spec, cfg, h, cos, sin, lc, cache_index)
     if last_only:
         h = h[:, -1:]
     h = rms_norm(params["final_norm"], h)

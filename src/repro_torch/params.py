@@ -4,7 +4,9 @@
 so ``state_dict`` keys follow the JAX pytree keys (``layers.0.mixer.q.mix``,
 ``layers.0.norm1.scale``, ``embed.table``) and the port's functional layers
 read ``params["mix"]`` exactly as ``repro``'s do.  Parameters are created
-with ``requires_grad=False``: this slice serves, it does not train.
+with ``requires_grad=False``, so serving builds no autograd graph;
+``trainable()`` (called by ``train.state.make_train_state``) turns on
+``requires_grad`` for every parameter of the tree.
 """
 
 from __future__ import annotations
@@ -52,6 +54,13 @@ class Params(nn.Module):
     def get(self, key: str, default: Any = None) -> Any:
         """``self[key]`` when present, else ``default`` (dict idiom)."""
         return self[key] if key in self else default
+
+    def trainable(self) -> "Params":
+        """Turn on ``requires_grad`` for every parameter of the tree;
+        returns self."""
+        for p in self.parameters():
+            p.requires_grad_(True)
+        return self
 
     def keys(self) -> Iterator[str]:
         """Top-level keys: parameters first, then sub-trees."""

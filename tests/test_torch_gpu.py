@@ -132,3 +132,133 @@ def test_smoke_model_on_card_matches_cpu(cuda):
     assert K.spm_block_kernel_call.launches == 3 * cfg.n_layers * 6
     np.testing.assert_array_equal(gpu_tokens.cpu().numpy(),
                                   cpu_tokens.numpy())
+
+
+def _gamma(k):
+    u = 2.0 ** -24
+    return k * u / (1 - k * u)
+
+
+def _grads_within(got, want, mags, k, rel=0.0):
+    for g, w, m in zip(got, want, mags):
+        lim = (_gamma(k) + rel) * m.float()
+        d = (g.float() - w.float()).abs()
+        assert bool((d <= lim).all()), (d - lim).max().item()
+
+
+def _abs_sum(t):
+    return t.abs().sum(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, strides, n_tile, rows, in_w, out_w, dead", [
+    (2048, QKV, 2048, 300, 2048, 2048, None),
+    (6144, FFN[:11], 2048, 64, 2048, 6144, None),
+    (6144, FFN, 6144, 8, 2048, 6144, None),          # remat in global scratch
+    (4096, QKV, 2048, 33, 4096, 1024, None),         # dead-tile skip
+    (6144, FFN[:11], 2048, 40, 6144, 6144, 2048)])   # dead_from
+def test_k2_matches_plain(cuda, dtype, n, strides, n_tile, rows, in_w,
+                          out_w, dead):
+    """g_x bit for bit; parameter grads within gamma_rows times the sum of
+    their terms' magnitudes (the same terms summed in another order); a
+    second launch bitwise equal."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + n)
+    cf = _rnd(gen, len(strides), n // 2, 4, scale=0.5)
+    d_in, d_out = 1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n)
+    x = _rnd(gen, rows, in_w).to(dtype)
+    gy = _rnd(gen, rows, out_w).to(dtype)
+    if dead is not None:
+        gy[:, dead:] = 0
+    kw = dict(strides=strides, n_tile=n_tile, has_bias=True,
+              in_width=None if in_w == n else in_w,
+              out_width=None if out_w == n else out_w, dead_from=dead)
+    before = K.spm_stack_bwd_kernel_call.launches
+    got = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out, **kw)
+    again = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out, **kw)
+    assert K.spm_stack_bwd_kernel_call.launches - before == 2
+    want = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, **kw)
+    mags = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, col_sum=_abs_sum,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    _grads_within(got[1:], want[1:], mags[1:], rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, out_w, act, two, res", [
+    (8, 2048, None, False, False), (333, 1024, None, False, False),
+    (64, 2048, "relu", True, True), (64, 1536, "silu", True, False),
+    (64, 2048, "gelu", True, True)])
+def test_k4_matches_plain(cuda, dtype, rows, out_w, act, two, res):
+    """g_x within the K3 test's bound; parameter grads within gamma_rows
+    times the sum of magnitudes, plus, past an activation, the f32 term of
+    its exp/tanh; a second launch bitwise equal."""
+    n = 2048
+    gen = torch.Generator(device="cuda").manual_seed(rows + out_w)
+    kw = dict(coeffs1=_rnd(gen, 11, n // 2, 4, scale=0.5),
+              d_in1=1 + 0.1 * _rnd(gen, n), d_out1=1 + 0.1 * _rnd(gen, n),
+              bias1=0.1 * _rnd(gen, n), gamma=1 + 0.1 * _rnd(gen, n),
+              strides1=QKV, in_width=n, out_width=out_w, mid_width=out_w)
+    if two:
+        kw.update(coeffs2=_rnd(gen, 11, n // 2, 4, scale=0.5),
+                  d_in2=1 + 0.1 * _rnd(gen, n), d_out2=1 + 0.1 * _rnd(gen, n),
+                  bias2=0.1 * _rnd(gen, n), strides2=QKV, activation=act,
+                  residual=res, mid_width=1536)
+    x = _rnd(gen, rows, n).to(dtype)
+    gy = _rnd(gen, rows, out_w).to(dtype)
+    _, rstd = K.spm_block_kernel_call(x, **kw)
+    before = K.spm_block_bwd_kernel_call.launches
+    got = K.spm_block_bwd_kernel_call(x, gy, rstd=rstd, **kw)
+    again = K.spm_block_bwd_kernel_call(x, gy, rstd=rstd, **kw)
+    assert K.spm_block_bwd_kernel_call.launches - before == 2
+    want = K.spm_block_bwd_plain(x, gy, rstd=rstd, **kw)
+    mags = K.spm_block_bwd_plain(x, gy, rstd=rstd, col_sum=_abs_sum, **kw)
+    torch.cuda.synchronize()
+    depth = n + 3 * 11 * (2 if two else 1) + 12
+    np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                               want[0].float().cpu().numpy(), rtol=0,
+                               atol=_tol(dtype, depth, want[0]))
+    rel = 8 * (4 + 3 * 22 + 12) * 2.0 ** -23 if act else 0.0
+    _grads_within(got[1:], want[1:], mags[1:], rows, rel)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_smoke_train_steps_on_card_match_cpu(cuda):
+    """Two steps of the f32 smoke model: the losses and the params after
+    each step on the card within the CPU tests' depth bound of the CPU's;
+    the backward kernels ran."""
+    from repro_torch.models import causal_lm as LM
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train import make_train_state, make_train_step
+    cfg = get_smoke("qwen3-1.7b")
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (4, 13), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = T.init_model(cfg, seed=0, device="cpu").to(dev)
+        state = make_train_state(params)
+        step = make_train_step(lambda p, b: LM.lm_loss(p, b, cfg),
+                               OptimizerConfig(lr=1e-2, warmup_steps=1,
+                                               total_steps=2))
+        K.reset_launch_counts()
+        losses = []
+        for _ in range(2):
+            state, m = step(state, {k: v.to(dev) for k, v in
+                                    batch.items()})
+            losses.append(float(m["loss"]))
+        out[dev] = (losses, {k: v.detach().cpu() for k, v in
+                             params.state_dict().items()})
+        if dev == "cuda":
+            assert K.spm_stack_bwd_kernel_call.launches > 0
+            assert K.spm_block_bwd_kernel_call.launches == \
+                2 * 3 * cfg.n_layers
+    depth = 2 * (cfg.n_layers * (2 * cfg.d_model + 200) + 2 * cfg.d_model)
+    rel = 8 * depth * 2.0 ** -23
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=rel)
+    p_cpu, p_gpu = out["cpu"][1], out["cuda"][1]
+    p0 = T.init_model(cfg, seed=0, device="cpu").state_dict()
+    diff = sum(float(((p_gpu[k] - p_cpu[k]) ** 2).sum()) for k in p_cpu)
+    moved = sum(float(((p_cpu[k] - p0[k]) ** 2).sum()) for k in p_cpu)
+    assert diff ** 0.5 <= rel * moved ** 0.5
