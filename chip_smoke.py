@@ -6,10 +6,10 @@ versions.
 
 Phases, each of which fails the run when it fails:
 
-1. **Build** K1 (``csrc/spm_stack.cu``), K2 (``csrc/spm_stack_bwd.cu``), K3
-   (``csrc/spm_block.cu``) and K4 (``csrc/spm_block_bwd.cu``) from the
-   checkout with ``nvcc`` for ``sm_90a``, one process per source, all at
-   once.
+1. **Build** K1 (``csrc/spm_stack.cu``) and K2 (``csrc/spm_stack_bwd.cu``)
+   with their int8 modes, K3 (``csrc/spm_block.cu``) and K4
+   (``csrc/spm_block_bwd.cu``) from the checkout with ``nvcc`` for
+   ``sm_90a``, one process per source, all at once.
 2. **Kernels**: each kernel against its plain version on the card, on the
    same inputs, at the serving path's shapes, in bf16 and f32, with random
    near-orthogonal stages (each keeps its input's norm, so all stages carry
@@ -49,6 +49,31 @@ Phases, each of which fails the run when it fails:
 7. **Train parity**: the same full-width weights with f32 activations, one
    step on the card and on the CPU: the loss, every parameter's grad (as a
    relative norm) and the updated params within a derived f32 bound.
+8. **int8 kernels**: the int8 modes of K1 and K2 against their plain
+   versions on the card (``q8_cases``): the o projection at 4096 rows in
+   each mode, k/v with out_width 1024 inside the scale tile, an 8-row
+   n=6144 decode run (a cluster of 8 blocks), 4072 rows with a bias (a
+   padded scale block), and int8 coefficients alone on the two-run
+   gate/up chain.  K1's codes and scales bit for bit, K2's g_x bit for bit
+   and its grads as phase 5's, second launches bitwise; times, bounds and
+   the dense yardsticks as phases 2 and 5.  Then scale blocks holding a
+   NaN and an Inf, and an Inf alone: NaN and Inf scales, codes 0, exactly
+   the plain version's.
+9. **int8 train**: phase 6 with ``--quantize``: int8 activations on q, k,
+   v, o (one-run plans), int8 tables everywhere; launches equal to the
+   plan with the int8 modes counted apart, no K3/K4.
+10. **int8 train parity**: phase 7 on the quantized model, the CPU
+   replaying the card's int8 codes chain by chain
+   (``kernels.codes.CodeTape``), so that one flipped code does not carry
+   quantization noise through the later layers: within phase 7's f32
+   bound; each chain's CPU output from the card's entry bit for bit the
+   card's; the CPU's own entry codes within one of the card's and flipped
+   no more often than ``flip_budget``.
+11. **int8 serve**: ``ServeEngine.generate`` of the quantized model (batch
+   8, prompt 512, 64 tokens): launches equal to the plan, prefill ms and
+   decode tokens/s; then teacher-forced logits against the CPU at batch 4,
+   prompt 16, 32 steps, the codes replayed as in phase 10, within phase
+   4's bf16 bound, with at least ``MIN_DECIDED`` tokens decided.
 
 The line before the last lists the kernels as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or run away from
@@ -729,10 +754,15 @@ def planned_train_launches(cfg, ops, rows: int) -> dict:
 
 
 def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
-                    steps=6, poisoned=2):
+                    steps=6, poisoned=2, quantize=False):
+    """``launch.train.train`` for ``steps`` steps, the ``poisoned``-th
+    poisoned; with ``quantize`` its ``--quantize`` flag, whose launches are
+    held to ``planned_q8_train_launches`` (int8 modes counted apart, no
+    K3/K4)."""
     args = launch_train.build_parser().parse_args(
         ["--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
-         "--seq", str(seq), "--log-every", "1"])
+         "--seq", str(seq), "--log-every", "1"]
+        + (["--quantize"] if quantize else []))
     losses, skipped, secs = [], [], []
     snap, unchanged = {}, None
 
@@ -765,11 +795,12 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
                        on_step=on_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = {"K1": K.spm_stack_kernel_call.launches,
-           "K2": K.spm_stack_bwd_kernel_call.launches,
-           "K3": K.spm_block_kernel_call.launches,
-           "K4": K.spm_block_bwd_kernel_call.launches}
-    per_step = planned_train_launches(cfg, ops, batch * seq)
+    if quantize:
+        got = q8_counts(K)
+        per_step = planned_q8_train_launches(cfg, ops, batch * seq)
+    else:
+        got = {k: v for k, v in q8_counts(K).items() if " " not in k}
+        per_step = planned_train_launches(cfg, ops, batch * seq)
     want = {k: steps * v for k, v in per_step.items()}
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(secs[1:])
@@ -784,7 +815,8 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
     finite = all(math.isfinite(v) for v in losses)
     only = skipped == [float(s == poisoned) for s in range(steps)]
     ok = finite and only and bool(unchanged) and got == want
-    log(f"train: {steps} steps of batch {batch} x seq {seq}, losses "
+    log(f"{'int8 ' if quantize else ''}train: {steps} steps of batch "
+        f"{batch} x seq {seq}, losses "
         f"{[round(v, 4) for v in losses]}, skipped {skipped}, poisoned "
         f"step unchanged={unchanged}, step {med * 1e3:.1f} ms (median of "
         f"steps 2-{steps}), {batch * seq / med:.0f} tokens/s, peak "
@@ -871,7 +903,489 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
     return res, ok
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the int8 modes of K1 and K2 against their plain versions
+# ---------------------------------------------------------------------------
+
+def q8_cases():
+    """(label, n, strides, rows, in_w, out_w, modes): the o projection at
+    4096 rows in every int8 mode; k/v at 4096 rows, where out_width 1024
+    drops half of the scale tile; a decode run of 8 rows at n=6144 (one
+    row a block, a cluster of 8); 4072 rows with a bias, which leaves a
+    partially padded scale block; and int8 coefficients alone on the
+    two-run gate/up chain at 4096 rows (its tiles differ, so its
+    activations stay bf16).  "acts" is int8 activation I/O, "coeffs" an
+    int8 table, "both" the two together."""
+    qkv = tuple(1 << i for i in range(11))
+    ffn = qkv + (3072,)
+    return [("o", 2048, qkv, 4096, 2048, 2048, ("acts", "coeffs", "both")),
+            ("kv", 2048, qkv, 4096, 2048, 1024, ("both",)),
+            ("up-decode", 6144, ffn, 8, 2048, 6144, ("both",)),
+            ("o-4072", 2048, qkv, 4072, 2048, 2048, ("both",)),
+            ("gate/up", 6144, ffn, 4096, 2048, 6144, ("coeffs",))]
+
+
+def run_q8_kernel_phase(torch, K, ops, Q, timer):
+    """K1's codes and scales (int8 activations) or its output (int8 table
+    alone) bit for bit against the plain version: both round the same ops
+    alike, dequantize with one multiply, take an order-free max and divide
+    by IEEE division.  K2's g_x bit for bit and its parameter grads within
+    gamma_k times the sum of their terms' magnitudes, as phase 5.  Second
+    launches bitwise equal to the first.  Activations are bf16 where they
+    are not int8; rows are padded to the scale block, as the fused entry
+    pads them."""
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(8642)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    def mix(L, n):
+        th = (torch.rand(L, n // 2, generator=g, device=DEVICE) * 2 - 1) \
+            * math.pi
+        c, s = torch.cos(th), torch.sin(th)
+        return torch.stack([c, -s, s, c], dim=-1) + rnd(L, n // 2, 4,
+                                                        scale=0.05)
+
+    abs_sum = (lambda t: t.abs().sum(0))
+    dt = torch.bfloat16
+    for label, n, strides, rows, in_w, out_w, modes in q8_cases():
+        runs = ops.plan_runs_for_rows(n, strides, rows)
+        L = len(strides)
+        cf = mix(L, n)
+        d_in, d_out, b = 1 + 0.1 * rnd(n), 1 + 0.1 * rnd(n), 0.1 * rnd(n)
+        widths = (None if in_w == n else in_w, None if out_w == n else out_w)
+        for mode in modes:
+            q_acts = mode in ("acts", "both")
+            q_cf = mode in ("coeffs", "both")
+            sr = Q.scale_block_rows(runs, rows, 2) if q_acts else None
+            x = rnd(rows, in_w)
+            if q_acts:
+                x = Q.quantize_blocks(ops._pad_rows(x, sr), sr, runs[0][1])
+            else:
+                x = x.to(dt)
+            kcf, scf = Q.quantize_coeffs(cf) if q_cf else (cf, None)
+            B = (x[0] if q_acts else x).shape[0]
+
+            def chain(fn, z=x):
+                off = 0
+                for r, (rs, nt) in enumerate(runs):
+                    last = r == len(runs) - 1
+                    zq, zs = z if q_acts else (z, None)
+                    z = fn(zq, kcf[off: off + len(rs)],
+                           d_in if r == 0 else None,
+                           d_out if last else None, b if last else None, zs,
+                           None if scf is None else scf[off: off + len(rs)],
+                           strides=rs, n_tile=nt,
+                           in_width=widths[0] if r == 0 else None,
+                           out_width=widths[1] if last else None,
+                           quant_out=q_acts, scale_rows=sr)
+                    off += len(rs)
+                return z
+
+            kern, again, plain = (chain(K.spm_stack_kernel_call),
+                                  chain(K.spm_stack_kernel_call),
+                                  chain(K.spm_stack_plain))
+            _, saved = ops.forward_runs(x, kcf, runs, d_in, d_out, b,
+                                        *widths, coeff_scale=scf,
+                                        scale_rows=sr)
+            gy = rnd(B, out_w).to(dt)
+            args = (saved, kcf, gy, runs, d_in, d_out, True, *widths)
+            bkw = dict(coeff_scale=scf, scale_rows=sr)
+            gk = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args, **bkw)
+            g2 = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args, **bkw)
+            gp = ops.backward_runs(K.spm_stack_bwd_plain, *args, **bkw)
+            mags = ops.backward_runs(functools.partial(
+                K.spm_stack_bwd_plain, col_sum=abs_sum), *args, **bkw)
+            torch.cuda.synchronize()
+            outs = (kern, again, plain) if q_acts else \
+                ((kern,), (again,), (plain,))
+            fwd_ok = all(torch.equal(u, v) for u, v in zip(outs[0], outs[2]))
+            fwd_det = all(torch.equal(u, v) for u, v in zip(outs[0], outs[1]))
+            n_codes = outs[0][0].numel()
+            code_diff = int((outs[0][0] != outs[2][0]).sum())
+            gx_err = max((a[0].float() - p[0].float()).abs().max().item()
+                         for a, p in zip(gk, gp))
+            worst = max(grads_within(a[1:], p[1:], m[1:], B)
+                        for a, p, m in zip(gk, gp, mags))
+            bwd_det = all(torch.equal(u, v) for a, c in zip(gk, g2)
+                          for u, v in zip(a, c))
+            ms = timer(lambda: chain(K.spm_stack_kernel_call))
+            plain_ms = timer(lambda: chain(K.spm_stack_plain))
+            bms_ = timer(lambda: ops.backward_runs(
+                K.spm_stack_bwd_kernel_call, *args, **bkw))
+            bplain_ms = timer(lambda: ops.backward_runs(
+                K.spm_stack_bwd_plain, *args, **bkw))
+            # bytes each function must move: activations at 1 byte (int8)
+            # or 2 (bf16), the block scales, the table at 1 byte a
+            # coefficient plus its stage scales (or 4 bytes f32), the
+            # vectors; K2 also reads gy and writes g_x (bf16) and the f32
+            # grads.  Operations: 3 a stage and element, 2 for the
+            # diagonals and bias, 3 to quantize (abs-max, divide, round),
+            # 1 to dequantize; K2 as phase 5.
+            asz = 1 if q_acts else 2
+            csz = 1 if q_cf else 4
+            blocks = 2 * (B // sr) * -(-n // runs[0][1]) * 4 if q_acts else 0
+            table = sum(len(rs) * n // 2 * 4 * csz for rs, _ in runs)
+            vecs = 3 * 4 * n
+            f_bytes = B * (in_w + out_w) * asz + blocks + table + vecs
+            f_flops = B * n * (3 * L + 2 + (4 if q_acts else 0))
+            fbound, fby = bound(f_bytes, f_flops)
+            b_bytes = (B * in_w * asz + blocks // 2 + B * (out_w + in_w) * 2
+                       + table + sum(len(rs) * n // 2 * 16 for rs, _ in runs)
+                       + 2 * vecs)
+            b_flops = B * n * (10 * L + 6 * len(runs) + (1 if q_acts else 0))
+            bbound, bby = bound(b_bytes, b_flops)
+            eye = torch.eye(in_w, device=DEVICE)
+            dense = K.spm_stack_plain(
+                eye, cf, d_in, d_out, strides=strides,
+                out_width=widths[1]).to(dt)
+            xb = rnd(B, in_w).to(dt)
+            f_lib = timer(lambda: torch.matmul(xb, dense))
+            w = dense.T.contiguous()
+            b_lib = timer(lambda: (torch.matmul(gy, w), torch.matmul(xb.T,
+                                                                     gy)))
+            ok = (fwd_ok and fwd_det and gx_err == 0 and worst <= 1
+                  and bwd_det and all(bool(torch.isfinite(t.float()).all())
+                                      for a in gk for t in a))
+            cta = (K.int8_cta_rows(B, runs[0][1],
+                                   -(-out_w // runs[0][1]), sr)
+                   if q_acts else None)
+            base = dict(case=label, mode=mode, dtype="int8" if q_acts
+                        else "bfloat16", rows=rows, padded_rows=B, n=n,
+                        in_width=in_w, out_width=out_w,
+                        runs=[[list(rs), nt] for rs, nt in runs],
+                        launches_per_call=len(runs), scale_rows=sr,
+                        block_rows=cta,
+                        cluster=(sr // cta) if q_acts else None)
+            rows_out.append(dict(
+                base, kernel="K1 int8", codes=n_codes, codes_differing=code_diff,
+                bitwise=fwd_ok, deterministic=fwd_det, max_abs_err=float(
+                    max((u.float() - v.float()).abs().max().item()
+                        for u, v in zip(outs[0], outs[2]))),
+                ms=ms, plain_ms=plain_ms, bound_ms=fbound, bound_by=fby,
+                library_ms=f_lib, ok=fwd_ok and fwd_det))
+            rows_out.append(dict(
+                base, kernel="K2 int8", gx_max_abs_err=gx_err,
+                max_abs_err=gx_err, grad_err_over_limit=worst,
+                deterministic=bwd_det, ms=bms_, plain_ms=bplain_ms,
+                bound_ms=bbound, bound_by=bby, library_ms=b_lib,
+                ok=gx_err == 0 and worst <= 1 and bwd_det))
+            log(f"int8 {label:9s} {mode:6s} rows={rows:5d} runs={len(runs)} "
+                f"scale_rows={sr} cluster={base['cluster']} | K1 bitwise="
+                f"{fwd_ok} det={fwd_det} ms={ms:.4f} plain_ms="
+                f"{plain_ms:.4f} bound_ms={fbound:.4f} ({fby}) library_ms="
+                f"{f_lib:.4f} | K2 gx_err={gx_err:.3e} grad err/limit="
+                f"{worst:.3f} det={bwd_det} ms={bms_:.4f} plain_ms="
+                f"{bplain_ms:.4f} bound_ms={bbound:.4f} ({bby}) library_ms="
+                f"{b_lib:.4f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"int8 {label} {mode}")
+    return rows_out, failures
+
+
+def run_q8_nonfinite_case(torch, K, ops, Q):
+    """K1's requantizing store on scale blocks that hold non-finite values,
+    against the plain version: n = 6144 in one run of three 2048-wide
+    tiles at 64 rows (clusters of 8 blocks); d_out carries a NaN and an
+    Inf in tile 0 and an Inf in tile 1.  The absmax keeps them, as
+    torch.amax does, so every scale of tile 0 is NaN, of tile 1 Inf, and
+    every code in both 0 (the blocks dequantize to NaN); tile 2 stays
+    finite.  Codes and scales exactly the plain version's, NaN equal to
+    NaN."""
+    g = torch.Generator(device=DEVICE).manual_seed(99)
+    n, rows = 6144, 64
+    ((rs, nt),) = ops.plan_runs_for_rows(n, tuple(1 << i for i in range(11)),
+                                         rows)
+    sr = Q.scale_block_rows([(rs, nt)], rows, 2)
+    qx, xs = Q.quantize_blocks(
+        torch.randn(rows, n, generator=g, device=DEVICE), sr, nt)
+    qc, sc = Q.quantize_coeffs(0.5 * torch.randn(
+        len(rs), n // 2, 4, generator=g, device=DEVICE))
+    d_out = torch.ones(n, device=DEVICE)
+    d_out[5], d_out[9], d_out[nt + 3] = math.nan, math.inf, math.inf
+    kw = dict(strides=rs, n_tile=nt, quant_out=True, scale_rows=sr)
+    kq, ks = K.spm_stack_kernel_call(qx, qc, None, d_out, None, xs, sc, **kw)
+    pq, ps = K.spm_stack_plain(qx, qc, None, d_out, None, xs, sc, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(kq, pq) and torch.allclose(ks, ps, rtol=0, atol=0,
+                                                  equal_nan=True)
+    blocks = (bool(ks[:, 0].isnan().all()) and bool(ks[:, 1].isinf().all())
+              and bool(torch.isfinite(ks[:, 2]).all())
+              and not bool(kq[:, :2 * nt].any()) and bool(kq[:, 2 * nt:].any()))
+    ok = same and blocks
+    log(f"int8 nonfinite rows={rows} n={n} tiles={n // nt} scale_rows={sr}: "
+        f"codes and scales as the plain version={same}, NaN/Inf/finite "
+        f"tiles as expected={blocks} {'ok' if ok else 'FAIL'}")
+    return dict(rows=rows, n=n, n_tile=nt, scale_rows=sr, bitwise=same,
+                blocks_as_expected=blocks, ok=ok)
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: int8 training, its parity with the CPU, int8 serving
+# ---------------------------------------------------------------------------
+
+def linear_runs(cfg, ops, rows: int):
+    """(runs, int8-activation eligible) of each of a layer's seven SPM
+    linears at ``rows`` rows, from the port's own plan."""
+    from repro_torch.core.eligibility import quant_acts_eligible
+    spec = cfg.layers[0]
+    acfg, fcfg = cfg.attn_cfg(spec), cfg.ffn_cfg()
+    out = []
+    for lin in (acfg.q_proj, acfg.kv_proj, acfg.kv_proj, acfg.o_proj,
+                fcfg.gate, fcfg.up, fcfg.down):
+        scfg = lin.spm_config()
+        runs = ops.plan_runs_for_rows(scfg.n, scfg.pairing.strides(), rows)
+        out.append((len(runs), quant_acts_eligible(runs)))
+    return out
+
+
+def planned_q8_launches(cfg, ops, rows: int) -> dict:
+    """K1 launches of one quantized forward: every linear on K1 (none
+    block-fuses), each in an int8 mode (its table), those of the linears
+    whose runs share a tile with int8 activations; K3 none."""
+    lin = linear_runs(cfg, ops, rows)
+    k1 = cfg.n_layers * sum(r for r, _ in lin)
+    io = cfg.n_layers * sum(r for r, e in lin if e)
+    return {"K1": k1, "K1 int8": k1, "K1 int8 io": io, "K3": 0}
+
+
+def planned_q8_train_launches(cfg, ops, rows: int) -> dict:
+    """One quantized training step: the forward's launches twice (remat),
+    K2 once per forward K1 run with the same int8 modes, no K3/K4."""
+    f = planned_q8_launches(cfg, ops, rows)
+    m = 2 if cfg.remat else 1
+    return {"K1": m * f["K1"], "K1 int8": m * f["K1 int8"],
+            "K1 int8 io": m * f["K1 int8 io"], "K2": f["K1"],
+            "K2 int8": f["K1 int8"], "K2 int8 io": f["K1 int8 io"],
+            "K3": 0, "K4": 0}
+
+
+def q8_counts(K) -> dict:
+    return {"K1": K.spm_stack_kernel_call.launches,
+            "K1 int8": K.spm_stack_kernel_call.int8_launches,
+            "K1 int8 io": K.spm_stack_kernel_call.int8_io_launches,
+            "K2": K.spm_stack_bwd_kernel_call.launches,
+            "K2 int8": K.spm_stack_bwd_kernel_call.int8_launches,
+            "K2 int8 io": K.spm_stack_bwd_kernel_call.int8_io_launches,
+            "K3": K.spm_block_kernel_call.launches,
+            "K4": K.spm_block_bwd_kernel_call.launches}
+
+
+def flip_budget(rel: float, codes: int) -> float:
+    """How many of ``codes`` entry codes the two sides may make otherwise
+    when their inputs agree within ``rel`` of the block's absmax: a code
+    flips only where the quotients v / s of the two sides straddle a
+    half-integer; v moves the quotient by at most 127 rel and s by as much
+    again (|v / s| <= 127), and with the fractional parts spread evenly at
+    most a 254 rel share of the codes straddle one."""
+    return 254 * rel * codes
+
+
+def run_q8_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
+                              seq=16):
+    """The quantized full-width model with f32 activations, one step on the
+    card and on the CPU, the CPU replaying the card's int8 codes
+    (``kernels.codes.CodeTape``): each int8 chain on the CPU starts from
+    the card's entry codes and hands the card's output codes on, so the two
+    sides differ by f32 roundings alone and are held to phase 7's f32
+    bound: the loss, each parameter's grad (relative norm) and the update.
+    Left to itself, one code that an f32 difference flips moves every later
+    value by a step, and over 28 layers the two sides part at quantization
+    noise.  Per chain, the CPU's output from the card's entry must be the
+    card's bit for bit (the kernels against the plain versions inside the
+    model), and the entry codes the CPU would have made itself must lie
+    within one of the card's, at most ``flip_budget`` of them."""
+    from repro_torch.kernels.codes import CodeTape
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = T.init_model(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(params).to(DEVICE)
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    L_attn, L_ffn = 11, 12
+    per_layer = (cfg.d_model + 3 * L_attn + 8 + cfg.head_dim + seq
+                 + 3 * L_attn + 3 * (3 * L_ffn + 4) + cfg.d_model)
+    depth = 2 * (cfg.n_layers * per_layer + 2 * cfg.d_model)
+    rel = 8 * math.sqrt(depth) * EPS["float32"]
+    t0 = time.perf_counter()
+    out, tapes = {}, {}
+    for side, p in (("card", card), ("cpu", params)):
+        dev = "cpu" if side == "cpu" else DEVICE
+        state = train_mod.make_train_state(p)
+        bd = {k: v.to(dev) for k, v in b.items()}
+        with CodeTape(replay=tapes.get("card")) as tape:
+            loss, _ = LM.lm_loss(p, bd, cfg)
+            loss.backward()
+        tapes[side] = tape
+        grads = {k: q.grad.detach().float().cpu() for k, q in
+                 p.named_parameters()}
+        p0 = {k: q.detach().cpu().clone() for k, q in p.named_parameters()}
+        step = train_mod.make_train_step(
+            lambda pp, bb: LM.lm_loss(pp, bb, cfg), adamw.OptimizerConfig())
+        with CodeTape(replay=tapes.get("card_step")) as tape:
+            state, m = step(state, bd)
+        tapes[f"{side}_step"] = tape
+        out[side] = dict(loss=loss.item(), grads=grads, p0=p0,
+                         p1={k: q.detach().cpu() for k, q in
+                             p.named_parameters()},
+                         skipped=float(m["skipped"]))
+    secs = time.perf_counter() - t0
+    codes = {k: tapes[k].summary() for k in ("cpu", "cpu_step")}
+    a, c = out["card"], out["cpu"]
+    loss_err = abs(a["loss"] - c["loss"])
+    worst_name, worst = None, 0.0
+    for k, gc in c["grads"].items():
+        num = (a["grads"][k] - gc).norm().item()
+        den = gc.norm().item()
+        r = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+        if r >= worst:
+            worst_name, worst = k, r
+    diff = math.sqrt(sum(float(((a["p1"][k] - c["p1"][k]) ** 2).sum())
+                         for k in c["p1"]))
+    moved = math.sqrt(sum(float(((c["p1"][k] - c["p0"][k]) ** 2).sum())
+                          for k in c["p1"]))
+    codes_ok = all(
+        v["chains"] == v["recorded"] > 0 and v["out_differ"] == 0
+        and v["entry_max_diff"] <= 1
+        and v["entry_flips"] <= flip_budget(rel, v["codes"])
+        for v in codes.values())
+    ok = (codes_ok and loss_err <= rel * abs(c["loss"]) and worst <= rel
+          and diff <= rel * moved and a["skipped"] == 0.0 == c["skipped"])
+    res = dict(batch=batch, seq=seq, loss_card=a["loss"], loss_cpu=c["loss"],
+               loss_abs_err=loss_err, loss_rel_err=loss_err / abs(c["loss"]),
+               worst_grad_rel_err=worst, worst_grad=worst_name,
+               params_diff_norm=diff, update_norm=moved,
+               params_diff_over_update=diff / moved, codes=codes,
+               flip_budget_share=254 * rel, rel_tol=rel, seconds=secs)
+    cs = codes["cpu"]
+    log(f"int8 train parity (CPU replays the card's codes): loss card "
+        f"{a['loss']:.6f} cpu {c['loss']:.6f} (err {loss_err:.2e}), worst "
+        f"grad rel err {worst:.2e} ({worst_name}), params diff {diff:.3e} "
+        f"vs update {moved:.3e}; tol {rel:.2e} relative; {cs['chains']} "
+        f"chains, outputs differing {cs['out_differ']}, entry codes flipped "
+        f"{cs['entry_flips']} of {cs['codes']} (budget "
+        f"{flip_budget(rel, cs['codes']):.0f}, max diff "
+        f"{cs['entry_max_diff']}); step: {codes['cpu_step']} ({secs:.1f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
+def run_q8_serve_phase(torch, K, ops, T, LM, ServeEngine, cfg, batch=8,
+                       prompt_len=512, new=64, tf_batch=4, tf_prompt=16,
+                       tf_steps=32):
+    """Greedy serving of the quantized model (bf16 KV cache): launches
+    equal to the plan, prefill ms and decode tokens/s; then the same
+    weights teacher-forced on the card and on the CPU (batch 4, prompt 16,
+    32 steps), the CPU replaying the card's int8 codes as in phase 10, so
+    the logits are held to phase 4's bf16 bound alone: within it, tokens
+    equal wherever the top-2 gap exceeds it, at least ``MIN_DECIDED``
+    tokens decided.  Per chain the CPU's output from the card's entry must
+    be the card's bit for bit, its own entry codes within one of the
+    card's (bf16 rounding between the chains flips many; they are
+    counted)."""
+    from repro_torch.kernels.codes import CodeTape
+    params = T.init_model(cfg, seed=0, device=DEVICE)
+    eng = ServeEngine(cfg=cfg, params=params, max_len=prompt_len + new,
+                      cache_dtype=torch.bfloat16, device=DEVICE)
+    gen = torch.Generator().manual_seed(17)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen)
+    eng.generate(prompts[:, :16], max_new_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    tokens, flags = eng.generate(prompts, max_new_tokens=new,
+                                 return_flags=True)
+    torch.cuda.synchronize()
+    got = q8_counts(K)
+    pre = planned_q8_launches(cfg, ops, batch * prompt_len)
+    dec = planned_q8_launches(cfg, ops, batch)
+    want = {k: pre[k] + (new - 1) * dec[k] for k in pre}
+    got_fwd = {k: got[k] for k in want}
+    peak = torch.cuda.max_memory_allocated()
+
+    def wall(n_tokens):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=n_tokens)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    t1 = min(wall(1) for _ in range(2))
+    tn = min(wall(new) for _ in range(2))
+    launch_ok = got_fwd == want and got["K2"] == 0 and got["K4"] == 0
+    ok_tokens = (tuple(tokens.shape) == (batch, new) and not bool(flags.any())
+                 and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()))
+
+    cpu_params = copy.deepcopy(params).to("cpu")
+    tp = torch.randint(0, cfg.vocab_size, (tf_batch, tf_prompt),
+                       generator=gen)
+    emb = cpu_params["embed"]
+    w = emb["table"] if cfg.tie_embeddings else emb["out"].T
+    hw = (cfg.d_model ** 0.5
+          * cpu_params["final_norm"]["scale"].abs().max().item()
+          * w.float().norm(dim=-1).max().item())
+    t_bf16 = 2 * 2.0 ** -8 * hw
+    t0 = time.perf_counter()
+    logits = {}
+    recs = {}
+    with torch.inference_mode():
+        for side, p in (("card", params), ("cpu", cpu_params)):
+            dev = DEVICE if side == "card" else "cpu"
+            with CodeTape(replay=recs.get("card")) as rec:
+                lg, cache = LM.prefill(p, cfg, max_len=tf_prompt + tf_steps,
+                                       tokens=tp.to(dev))
+                seq = [lg.float().cpu()]
+                for step in range(tf_steps - 1):
+                    tok = logits["card"][step].argmax(-1) if side == "cpu" \
+                        else seq[-1].argmax(-1)
+                    lg, cache = LM.decode_step(p, cfg, tok.to(dev), cache,
+                                               tf_prompt + step)
+                    seq.append(lg.float().cpu())
+            logits[side], recs[side] = seq, rec
+    tf_s = time.perf_counter() - t0
+    codes = recs["cpu"].summary()
+    tol = t_bf16
+    worst, decided, mism = 0.0, 0, 0
+    for a, c in zip(logits["card"], logits["cpu"]):
+        worst = max(worst, (a - c).abs().max().item())
+        top2 = a.topk(2, dim=-1).values
+        dec_rows = (top2[:, 0] - top2[:, 1]) > tol
+        decided += int(dec_rows.sum())
+        mism += int((a.argmax(-1) != c.argmax(-1))[dec_rows].sum())
+    finite = all(bool(torch.isfinite(a).all()) for a in logits["card"])
+    codes_ok = (codes["chains"] == codes["recorded"] > 0
+                and codes["out_differ"] == 0 and codes["entry_max_diff"] <= 1)
+    parity_ok = (codes_ok and finite and worst <= tol and mism == 0
+                 and decided >= MIN_DECIDED)
+    res = dict(batch=batch, prompt_len=prompt_len, new_tokens=new,
+               prefill_ms=t1 * 1e3,
+               decode_tok_per_s=batch * (new - 1) / (tn - t1),
+               generate_s=tn, peak_mem_bytes=peak, launches=got,
+               planned=want, planned_per_forward={"prefill": pre,
+                                                  "decode": dec},
+               parity=dict(batch=tf_batch, prompt_len=tf_prompt,
+                           steps=tf_steps, max_abs_err=worst, tol=tol,
+                           codes=codes, decided_tokens=decided,
+                           min_decided=MIN_DECIDED, token_mismatches=mism,
+                           seconds=tf_s))
+    ok = launch_ok and ok_tokens and parity_ok
+    log(f"int8 serve: prefill {t1 * 1e3:.1f} ms, decode "
+        f"{res['decode_tok_per_s']:.1f} tok/s, generate {tn:.2f} s, peak "
+        f"{peak / 2**30:.2f} GiB, launches {got_fwd} (planned {want}); "
+        f"parity (CPU replays the card's codes): logits max err "
+        f"{worst:.3e} (tol {tol:.3e}), {codes['chains']} chains, outputs "
+        f"differing {codes['out_differ']}, entry codes flipped "
+        f"{codes['entry_flips']} of {codes['codes']} (max diff "
+        f"{codes['entry_max_diff']}), {decided} tokens decided (at least "
+        f"{MIN_DECIDED}), {mism} differ ({tf_s:.1f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -882,7 +1396,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
+    from repro_torch.configs import with_quantized_io
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import quant as Q
     from repro_torch import train as train_mod
     from repro_torch.kernels import spm_stack as K
     from repro_torch.launch import train as launch_train
@@ -920,16 +1436,32 @@ def main() -> int:
     train, train_ok = run_train_phase(torch, K, ops, launch_train, cfg)
     tparity, tparity_ok = run_train_parity_phase(torch, T, LM, train_mod,
                                                  adamw, cfg)
+    q8_rows, q8_failures = run_q8_kernel_phase(torch, K, ops, Q, timer)
+    kernel_rows += q8_rows
+    failures += q8_failures
+    nonfinite = run_q8_nonfinite_case(torch, K, ops, Q)
+    if not nonfinite["ok"]:
+        failures.append("int8 nonfinite")
+    qcfg = with_quantized_io(cfg)
+    q8_train, q8_train_ok = run_train_phase(torch, K, ops, launch_train, cfg,
+                                            quantize=True)
+    q8_tparity, q8_tparity_ok = run_q8_train_parity_phase(
+        torch, T, LM, train_mod, adamw, qcfg)
+    q8_serve, q8_serve_ok = run_q8_serve_phase(torch, K, ops, T, LM,
+                                               ServeEngine, qcfg)
 
-    def head(kernel, case, dtype, rows):
+    def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
-                                               r["dtype"], r["rows"])
-                    == (kernel, case, dtype, rows))
+                                               r["dtype"], r["rows"],
+                                               r.get("mode"))
+                    == (kernel, case, dtype, rows, mode))
 
     k1 = head("K1", "o", "bfloat16", 4096)
     k3 = head("K3", "q", "bfloat16", 4096)
     k2 = head("K2", "o", "bfloat16", 4096)
     k4 = head("K4", "q", "bfloat16", 4096)
+    k1q = head("K1 int8", "o", "int8", 4096, "both")
+    k2q = head("K2 int8", "o", "int8", 4096, "both")
     entries = []
     # launches: K1 and K3 from the serve phase (their main path), K2 and
     # K4 from the train phase (theirs); train_launches has all four
@@ -945,31 +1477,50 @@ def main() -> int:
              "src/repro/kernels/spm_stack.py:873", serve["launches"]),
             ("K4 spm_block_bwd", k4,
              "src/repro_torch/kernels/csrc/spm_block_bwd.cu",
-             "src/repro/kernels/spm_stack.py:925", train["launches"])):
+             "src/repro/kernels/spm_stack.py:925", train["launches"]),
+            # int8 modes: launches from the --quantize train phase
+            ("K1 int8 spm_stack_fwd", k1q,
+             "src/repro_torch/kernels/csrc/spm_stack.cu",
+             "src/repro/kernels/spm_stack.py:157", q8_train["launches"]),
+            ("K2 int8 spm_stack_bwd", k2q,
+             "src/repro_torch/kernels/csrc/spm_stack_bwd.cu",
+             "src/repro/kernels/spm_stack.py:523", q8_train["launches"])):
+        key = name.rsplit(" ", 1)[0]
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=launches[name[:2]],
-            train_launches=train["launches"][name[:2]],
+            launches=launches[key],
+            train_launches=(q8_train if "int8" in key else train)[
+                "launches"][key],
             max_abs_err=max(x["max_abs_err"] for x in kernel_rows
-                            if x["kernel"] == name[:2]),
+                            if x["kernel"] == key),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     report = dict(gpu=smi, kernels=kernel_rows, serve=serve, parity=parity,
-                  train=train, train_parity=tparity,
+                  train=train, train_parity=tparity, int8_nonfinite=nonfinite,
+                  int8_train=q8_train,
+                  int8_train_parity=q8_tparity, int8_serve=q8_serve,
+                  seconds=time.perf_counter() - t_start,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",
                                    "K2": "o projection, bf16, 4096 rows",
                                    "K3": "q projection, bf16, 4096 rows",
-                                   "K4": "q projection, bf16, 4096 rows"})
+                                   "K4": "q projection, bf16, 4096 rows",
+                                   "K1 int8": "o projection, int8 "
+                                              "activations and table, 4096 "
+                                              "rows",
+                                   "K2 int8": "the same"})
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     ok = (not failures and serve_ok and parity_ok and train_ok
-          and tparity_ok)
+          and tparity_ok and q8_train_ok and q8_tparity_ok and q8_serve_ok)
+    log(f"total {report['seconds']:.1f} s")
     if not ok:
         print(f"chip_smoke: FAILED kernels={failures} serve={serve_ok} "
               f"parity={parity_ok} train={train_ok} "
-              f"train_parity={tparity_ok}", file=sys.stderr)
+              f"train_parity={tparity_ok} int8_train={q8_train_ok} "
+              f"int8_train_parity={q8_tparity_ok} "
+              f"int8_serve={q8_serve_ok}", file=sys.stderr)
         return 1
     log(f"kernels: {[e['name'] for e in entries]}")
     print(smi)

@@ -8,7 +8,8 @@ from typing import Optional, Tuple
 
 from repro_torch.models.transformer import LayerSpec, ModelConfig
 
-__all__ = ["dense_layers", "with_overrides", "with_fused_linears"]
+__all__ = ["dense_layers", "with_overrides", "with_fused_linears",
+           "with_quantized_io"]
 
 
 def dense_layers(n: int) -> Tuple[LayerSpec, ...]:
@@ -27,3 +28,13 @@ def with_fused_linears(cfg: ModelConfig,
     (None = auto, the kernel path; True = the same, forced; False = the
     composition)."""
     return dataclasses.replace(cfg, spm_use_kernel=on)
+
+
+def with_quantized_io(cfg: ModelConfig) -> ModelConfig:
+    """Set the int8 knobs on every SPM linear: ``spm_quant_acts`` (int8
+    activation I/O between the kernel runs, for plans whose runs share one
+    tile; the others keep f32/bf16 I/O) and ``spm_quant_coeffs`` (int8
+    coefficient tables with one scale a stage).  Quantized linears are
+    never block-fused."""
+    return dataclasses.replace(cfg, spm_quant_acts=True,
+                               spm_quant_coeffs=True)

@@ -18,7 +18,8 @@ from repro_torch.core.pairings import Schedule
 
 __all__ = ["kernel_eligible", "use_fused_kernel", "TINY_ROW_THRESHOLD",
            "tiny_row_call", "BLOCK_MAX_TILE", "BLOCK_ACTIVATIONS",
-           "block_fusion_eligible", "resolve_block_fuse"]
+           "block_fusion_eligible", "resolve_block_fuse",
+           "quant_acts_eligible"]
 
 # Decode calls reach the kernels with rows = batch slots (1-8).  At or
 # under this row count the planner widens feature tiles
@@ -30,6 +31,15 @@ def tiny_row_call(n_rows: int) -> bool:
     """Whether a call with ``n_rows`` flattened rows takes the tiny-row
     (decode) plan with wider feature tiles."""
     return 0 < n_rows <= TINY_ROW_THRESHOLD
+
+
+def quant_acts_eligible(runs) -> bool:
+    """Whether a run plan (``((strides, n_tile), ...)``) can move int8
+    activations: one feature tile across every run, because run r's
+    per-(row block, tile) scales are run r+1's input scales.  Other plans
+    keep f32/bf16 activation I/O, the reference's own fallback; int8
+    coefficients have no such condition."""
+    return len({n_tile for _, n_tile in runs}) == 1
 
 
 def kernel_eligible(cfg, sched: Optional[Schedule] = None) -> bool:

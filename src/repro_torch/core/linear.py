@@ -42,6 +42,9 @@ class LinearConfig:
     init_scale: float = 0.05
     param_dtype: torch.dtype = torch.float32
     use_kernel: Optional[bool] = None    # None/True: kernel path; False: off
+    quant_acts: bool = False             # int8 activation I/O (kernel path;
+                                         # see SPMConfig.quant_acts)
+    quant_coeffs: bool = False           # int8 per-stage coefficient tables
 
     def __post_init__(self):
         if self.impl not in LINEAR_IMPLS:
@@ -79,7 +82,8 @@ def _spm_config(cfg: LinearConfig) -> SPMConfig:
         schedule=cfg.schedule, use_diag=True, use_bias=cfg.use_bias,
         backward=backward, init_scale=cfg.init_scale,
         param_dtype=cfg.param_dtype,
-        use_kernel=cfg.use_kernel)
+        use_kernel=cfg.use_kernel, quant_acts=cfg.quant_acts,
+        quant_coeffs=cfg.quant_coeffs)
 
 
 def init_linear(cfg: LinearConfig, generator: torch.Generator,
@@ -113,9 +117,10 @@ def linear_apply(params, x: torch.Tensor, cfg: LinearConfig) -> torch.Tensor:
 def spm_block_operands(params, cfg: LinearConfig) -> Optional[dict]:
     """One stack's operands for the block kernel (``coeffs``, ``d_in``,
     ``d_out``, ``bias`` or None, ``strides``, ``n``), or None when this
-    linear cannot be a stack of a fused block: dense,
-    kernel-ineligible, or not a single full-width run."""
-    if not cfg.is_spm:
+    linear cannot be a stack of a fused block: dense, quantized (the block
+    kernel moves f32 tiles), kernel-ineligible, or not a single full-width
+    run."""
+    if not cfg.is_spm or cfg.quant_acts or cfg.quant_coeffs:
         return None
     scfg = cfg.spm_config()
     sched = scfg.pairing

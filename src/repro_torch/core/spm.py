@@ -60,6 +60,14 @@ class SPMConfig:
     # Fused kernel path, tri-state: None (auto) and True take the kernel
     # path when eligible; False keeps the composition.
     use_kernel: Optional[bool] = None
+    # Int8 modes of the kernel path (kernels/quant.py conventions), inert
+    # on the composition; compute stays f32.  quant_acts: int8 activation
+    # I/O between the runs, for plans whose runs share one tile
+    # (eligibility.quant_acts_eligible; others keep f32/bf16 I/O).
+    # quant_coeffs: int8 coefficient tables with one scale a stage; the
+    # coefficient grads are those of the dequantized table.
+    quant_acts: bool = False
+    quant_coeffs: bool = False
 
     def __post_init__(self):
         if self.variant not in ("general", "rotation"):
@@ -324,7 +332,8 @@ def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
             d_in=params["d_in"] if cfg.use_diag else None,
             d_out=params["d_out"] if cfg.use_diag else None,
             bias=params["bias"] if cfg.use_bias else None,
-            in_width=in_width, out_width=out_width)
+            in_width=in_width, out_width=out_width,
+            quant_acts=cfg.quant_acts, quant_coeffs=cfg.quant_coeffs)
     if in_width is not None:
         x = F.pad(x, (0, n - in_width))
     coeffs = stage_coeffs(params, cfg).to(x.dtype)

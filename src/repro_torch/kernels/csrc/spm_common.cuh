@@ -1,6 +1,7 @@
 // Shared device code of the hand-written SPM kernels (K1 spm_stack.cu, K2
 // spm_stack_bwd.cu, K3 spm_block.cu, K4 spm_block_bwd.cu): I/O conversions,
-// the in-place stage walk of the forwards, the out-of-place remat and the
+// the coefficient tables (f32, or int8 with per-stage scales), the
+// in-place stage walk of the forwards, the out-of-place remat and the
 // reverse walk of the backwards, and the ordered sum of per-block partials.
 //
 // Numerics: every product and sum of the stage walk and of the diagonal /
@@ -12,6 +13,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define SPM_MAX_STAGES 32
 
@@ -21,7 +23,8 @@ struct SpmStrides {
   int n;
 };
 
-enum SpmIoType { SPM_IO_F32 = 0, SPM_IO_BF16 = 1 };
+// SPM_IO_INT8: int8 activations with per-block scales (K1, K2).
+enum SpmIoType { SPM_IO_F32 = 0, SPM_IO_BF16 = 1, SPM_IO_INT8 = 2 };
 
 __device__ __forceinline__ float spm_ld(const float* p) { return *p; }
 __device__ __forceinline__ float spm_ld(const __nv_bfloat16* p) {
@@ -32,22 +35,79 @@ __device__ __forceinline__ void spm_st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// An int8 activation: its code times its block's scale, one rounding, as
+// kernels/quant.py dequantizes.  Other types ignore the scale.
+__device__ __forceinline__ float spm_ldq(const int8_t* p, float scale) {
+  return __fmul_rn((float)*p, scale);
+}
+template <typename T>
+__device__ __forceinline__ float spm_ldq(const T* p, float) {
+  return spm_ld(p);
+}
+
+// The int8 code of v in a block of scale `scale`: round half to even of the
+// IEEE quotient, clipped to +-127, and 0 where the quotient is NaN (a NaN or
+// infinite block), as kernels/quant.py and the reference's cast give.
+__device__ __forceinline__ int8_t spm_code(float v, float scale) {
+  const float q = rintf(__fdiv_rn(v, scale));
+  if (q != q) return 0;
+  return (int8_t)fminf(fmaxf(q, -127.f), 127.f);
+}
+
+// The larger of two magnitudes, NaN if either is NaN, as torch.amax and
+// jnp.max reduce (fmaxf would drop the NaN).  A block's absmax folds
+// fabsf of every lane through it, so a NaN or Inf in the block reaches
+// the scale and poisons the block's dequantized values.
+__device__ __forceinline__ float spm_max_nan(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
+// The scale of a block whose largest magnitude is `absmax`.
+__device__ __forceinline__ float spm_scale(float absmax) {
+  return __fadd_rn(__fdiv_rn(absmax, 127.f), 1e-12f);
+}
+
+// Coefficient tables.  An f32 table is a `const float4*` of (a, b, c, d)
+// per pair.  An int8 table is a SpmQCoeffs: char4 codes per pair and one
+// f32 scale per stage, dequantized on load with one rounded multiply per
+// coefficient, which is kernels/quant.py's dequantize_coeffs.  Both are
+// read through spm_cf(table, stage, pair index) and moved to a tile's first
+// pair with `+`.
+struct SpmQCoeffs {
+  const char4* q;
+  const float* scale;  // (L,) of the run
+  __host__ __device__ SpmQCoeffs operator+(long pairs) const {
+    return SpmQCoeffs{q + pairs, scale};
+  }
+};
+
+__device__ __forceinline__ float4 spm_cf(const float4* cf, int, long i) {
+  return __ldg(cf + i);
+}
+__device__ __forceinline__ float4 spm_cf(const SpmQCoeffs& cf, int l,
+                                         long i) {
+  const char4 v = __ldg(cf.q + i);
+  const float s = __ldg(cf.scale + l);
+  return make_float4(__fmul_rn((float)v.x, s), __fmul_rn((float)v.y, s),
+                     __fmul_rn((float)v.z, s), __fmul_rn((float)v.w, s));
+}
+
 // Apply the stages of `st` in place to the f32 tile `z` (rows x nt,
-// row-major, in shared memory).  `cf` points at this tile's first pair in
-// stage 0's coefficient slab; stage l's slab is `pair_stride` float4s
-// further.  Pair p of a stride-s stage mixes lanes i0 = (p/s)*2s + p%s and
+// row-major, in shared memory).  `cf` (either table) points at this tile's
+// first pair in stage 0's coefficient slab; stage l's slab is `pair_stride`
+// pairs further.  Pair p of a stride-s stage mixes lanes i0 = (p/s)*2s + p%s and
 // i1 = i0 + s with (a, b, c, d) = cf[p]:  y0 = a x0 + b x1,  y1 = c x0 + d x1.
 // One thread owns a pair for every row of the tile, so each coefficient is
 // read once per block and reused across its rows.
+template <typename CF>
 __device__ __forceinline__ void spm_apply_stages(
-    float* z, int rows, int nt, const float4* __restrict__ cf,
-    long pair_stride, const SpmStrides& st) {
+    float* z, int rows, int nt, const CF& cf, long pair_stride,
+    const SpmStrides& st) {
   const int half = nt >> 1;
   for (int l = 0; l < st.n; ++l) {
     const int s = st.s[l];
-    const float4* cfl = cf + (long)l * pair_stride;
     for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const float4 c = __ldg(cfl + p);
+      const float4 c = spm_cf(cf, l, (long)l * pair_stride + p);
       const int g = p / s;
       const int i0 = g * 2 * s + (p - g * s);
       const int i1 = i0 + s;
@@ -101,17 +161,17 @@ __device__ __forceinline__ float spm_act_grad(float u, int act) {
 // exactly as spm_apply_stages does, so the rematted tiles are bitwise the
 // forward's.  `buf` is a generic pointer: shared memory when the tiles fit
 // there, a global scratch slab otherwise.
+template <typename CF>
 __device__ __forceinline__ void spm_remat_stages(
-    float* buf, long tile, int rows, int nt, const float4* __restrict__ cf,
-    long pair_stride, const SpmStrides& st) {
+    float* buf, long tile, int rows, int nt, const CF& cf, long pair_stride,
+    const SpmStrides& st) {
   const int half = nt >> 1;
   for (int l = 0; l < st.n; ++l) {
     const int s = st.s[l];
-    const float4* cfl = cf + (long)l * pair_stride;
     const float* in = buf + (long)l * tile;
     float* out = buf + (long)(l + 1) * tile;
     for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const float4 c = __ldg(cfl + p);
+      const float4 c = spm_cf(cf, l, (long)l * pair_stride + p);
       const int g = p / s;
       const int i0 = g * 2 * s + (p - g * s);
       const int i1 = i0 + s;
@@ -135,18 +195,18 @@ __device__ __forceinline__ void spm_remat_stages(
 // `part` (stage l's slab `pair_stride` float4s further): written on the
 // block's first row chunk, added after.  One thread owns a pair, so every
 // partial has one writer and the sums are deterministic.
+template <typename CF>
 __device__ __forceinline__ void spm_walk_stages_bwd(
     const float* buf, long tile, float* delta, int rows, int nt,
-    const float4* __restrict__ cf, long pair_stride, const SpmStrides& st,
-    float4* part, bool first) {
+    const CF& cf, long pair_stride, const SpmStrides& st, float4* part,
+    bool first) {
   const int half = nt >> 1;
   for (int l = st.n - 1; l >= 0; --l) {
     const int s = st.s[l];
-    const float4* cfl = cf + (long)l * pair_stride;
     const float* in = buf + (long)l * tile;
     float4* pl = part + (long)l * pair_stride;
     for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const float4 c = __ldg(cfl + p);
+      const float4 c = spm_cf(cf, l, (long)l * pair_stride + p);
       const int g = p / s;
       const int i0 = g * 2 * s + (p - g * s);
       const int i1 = i0 + s;

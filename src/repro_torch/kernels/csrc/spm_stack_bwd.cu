@@ -30,6 +30,14 @@
 // writer per entry).  `spm_sum_partials` then sums the G slices in order.
 // No float atomics, so two launches give bitwise equal grads.
 //
+// Int8 modes (the reference's `x_scale` and `coeff_scale`): a saved int8 x
+// is dequantized on load with the scale of its (scale_rows, n_tile) block,
+// in the remat and in g_din alike, so the remat replays exactly the
+// activations the quantized forward produced; gy and g_x stay f32 or bf16.
+// An int8 table is dequantized per stage in the remat and in the reverse
+// walk (spm_common.cuh), so g_coeffs is the grad of the dequantized table.
+// The partials and the ordered sums are those of the f32 modes.
+//
 // What bounds it on an H100: memory, as for K1 (a few flops per element and
 // stage against the activations read and written once: x, gy, g_x).  This
 // first version spends its time in the shared-memory stage passes (L
@@ -38,14 +46,24 @@
 
 #include "spm_common.cuh"
 
-template <typename T>
+// The scale of row `row` of an int8 x in tile j (1 for f32/bf16 x, and for
+// a tile wholly past in_w, which reads no x).
+__device__ __forceinline__ float spm_row_scale(const float* xs, int row,
+                                               int j, int c0, int in_w,
+                                               int nt, int scale_rows) {
+  if (!xs || c0 >= in_w) return 1.f;
+  return xs[(long)(row / scale_rows) * ((in_w + nt - 1) / nt) + j];
+}
+
+template <typename T, typename TX, typename CF>
 __global__ void __launch_bounds__(512) spm_stack_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ gy, T* __restrict__ gx,
-    const float4* __restrict__ cf, const float* __restrict__ d_in,
-    const float* __restrict__ d_out, float4* __restrict__ part_cf,
-    float* __restrict__ part_vec, float* __restrict__ scratch, int B, int n,
-    int nt, int in_w, int gy_w, int gx_w, int vis, int cr, int G,
-    int has_bias, SpmStrides st) {
+    const TX* __restrict__ x, const float* __restrict__ xs,
+    const T* __restrict__ gy, T* __restrict__ gx, CF cf,
+    const float* __restrict__ d_in, const float* __restrict__ d_out,
+    float4* __restrict__ part_cf, float* __restrict__ part_vec,
+    float* __restrict__ scratch, int B, int n, int nt, int in_w, int gy_w,
+    int gx_w, int vis, int cr, int G, int has_bias, int scale_rows,
+    SpmStrides st) {
   extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int j = blockIdx.y;
@@ -71,18 +89,20 @@ __global__ void __launch_bounds__(512) spm_stack_bwd_kernel(
   float* pdin = part_vec + (long)g * 3 * n + c0;
   float* pdout = pdin + n;
   float* pbias = pdin + 2 * n;
-  const float4* cfj = cf + (long)j * (nt >> 1);
+  const CF cfj = cf + (long)j * (nt >> 1);
 
   bool first = true;
   for (int r0 = g * cr; r0 < B; r0 += G * cr) {
     const int rows = min(cr, B - r0);
     // remat: z_0 = [D_in] x, masked to in_w
     for (int r = 0; r < rows; ++r) {
-      const T* xr = x + (long)(r0 + r) * in_w;
+      const TX* xr = x + (long)(r0 + r) * in_w;
+      const float sx =
+          spm_row_scale(xs, r0 + r, j, c0, in_w, nt, scale_rows);
       float* zr = buf + (long)r * nt;
       for (int c = threadIdx.x; c < nt; c += blockDim.x) {
         const int gc = c0 + c;
-        float v = gc < in_w ? spm_ld(xr + gc) : 0.f;
+        float v = gc < in_w ? spm_ldq(xr + gc, sx) : 0.f;
         if (d_in) v = __fmul_rn(v, d_in[gc]);
         zr[c] = v;
       }
@@ -123,7 +143,11 @@ __global__ void __launch_bounds__(512) spm_stack_bwd_kernel(
         float out = dl;
         if (d_in) {
           const float xv =
-              gc < in_w ? spm_ld(x + (long)(r0 + r) * in_w + gc) : 0.f;
+              gc < in_w
+                  ? spm_ldq(x + (long)(r0 + r) * in_w + gc,
+                            spm_row_scale(xs, r0 + r, j, c0, in_w, nt,
+                                          scale_rows))
+                  : 0.f;
           si = __fadd_rn(si, __fmul_rn(dl, xv));
           out = __fmul_rn(dl, d_in[gc]);
         }
@@ -136,25 +160,26 @@ __global__ void __launch_bounds__(512) spm_stack_bwd_kernel(
   }
 }
 
-template <typename T>
+template <typename T, typename TX, typename CF>
 static cudaError_t launch_stack_bwd(
-    const void* x, const void* gy, void* gx, const void* cf,
+    const void* x, const void* xs, const void* gy, void* gx, CF cf,
     const void* d_in, const void* d_out, void* g_cf, void* g_vec,
     void* part_cf, void* part_vec, void* scratch, int B, int n, int nt,
     int in_w, int gy_w, int gx_w, int vis, int cr, int G, int has_bias,
-    const SpmStrides& st, cudaStream_t stream) {
+    int scale_rows, const SpmStrides& st, cudaStream_t stream) {
   static size_t smem_set = 0;
   const size_t smem =
       scratch ? 0 : (size_t)(st.n + 1) * cr * nt * sizeof(float);
-  cudaError_t e = spm_allow_smem(spm_stack_bwd_kernel<T>, smem, &smem_set);
+  cudaError_t e =
+      spm_allow_smem(spm_stack_bwd_kernel<T, TX, CF>, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const int gx_tiles = (gx_w + nt - 1) / nt;
   dim3 grid(G, gx_tiles > vis ? gx_tiles : vis);
-  spm_stack_bwd_kernel<T><<<grid, spm_threads(nt), smem, stream>>>(
-      (const T*)x, (const T*)gy, (T*)gx, (const float4*)cf,
+  spm_stack_bwd_kernel<T, TX, CF><<<grid, spm_threads(nt), smem, stream>>>(
+      (const TX*)x, (const float*)xs, (const T*)gy, (T*)gx, cf,
       (const float*)d_in, (const float*)d_out, (float4*)part_cf,
       (float*)part_vec, (float*)scratch, B, n, nt, in_w, gy_w, gx_w, vis,
-      cr, G, has_bias, st);
+      cr, G, has_bias, scale_rows, st);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long live = (long)vis * nt;
@@ -165,31 +190,82 @@ static cudaError_t launch_stack_bwd(
                         stream);
 }
 
-// C interface (loaded with ctypes).  d_in / d_out / scratch may be null
-// (scratch null: the remat tiles live in shared memory).  g_cf is
-// (L, n/2, 4) f32; g_vec (3, n) f32 holds g_din, g_dout, g_bias (rows of
-// absent operands are left meaningless).  part_cf (G, L, n/2, 4) and
-// part_vec (G, 3, n) are the partial buffers.  Returns the cudaError_t of
-// the launches (0 on success).
-extern "C" int spm_stack_bwd(int io_type, const void* x, const void* gy,
-                             void* gx, const void* cf, const void* d_in,
+// The cotangent type T, then whether x is int8 (xs non-null).
+template <typename T, typename CF>
+static cudaError_t dispatch_x(const void* x, const void* xs, const void* gy,
+                              void* gx, CF cf, const void* d_in,
+                              const void* d_out, void* g_cf, void* g_vec,
+                              void* part_cf, void* part_vec, void* scratch,
+                              int B, int n, int nt, int in_w, int gy_w,
+                              int gx_w, int vis, int cr, int G, int has_bias,
+                              int scale_rows, const SpmStrides& st,
+                              cudaStream_t s) {
+  if (xs) {
+    if (scale_rows <= 0 || B % scale_rows) return cudaErrorInvalidValue;
+    return launch_stack_bwd<T, int8_t>(
+        x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec,
+        scratch, B, n, nt, in_w, gy_w, gx_w, vis, cr, G, has_bias,
+        scale_rows, st, s);
+  }
+  return launch_stack_bwd<T, T>(x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec,
+                                part_cf, part_vec, scratch, B, n, nt, in_w,
+                                gy_w, gx_w, vis, cr, G, has_bias, scale_rows,
+                                st, s);
+}
+
+template <typename CF>
+static cudaError_t dispatch(int io_type, const void* x, const void* xs,
+                            const void* gy, void* gx, CF cf,
+                            const void* d_in, const void* d_out, void* g_cf,
+                            void* g_vec, void* part_cf, void* part_vec,
+                            void* scratch, int B, int n, int nt, int in_w,
+                            int gy_w, int gx_w, int vis, int cr, int G,
+                            int has_bias, int scale_rows,
+                            const SpmStrides& st, cudaStream_t s) {
+  if (io_type == SPM_IO_F32)
+    return dispatch_x<float>(x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec,
+                             part_cf, part_vec, scratch, B, n, nt, in_w,
+                             gy_w, gx_w, vis, cr, G, has_bias, scale_rows,
+                             st, s);
+  if (io_type == SPM_IO_BF16)
+    return dispatch_x<__nv_bfloat16>(
+        x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec,
+        scratch, B, n, nt, in_w, gy_w, gx_w, vis, cr, G, has_bias,
+        scale_rows, st, s);
+  return cudaErrorInvalidValue;
+}
+
+// C interface (loaded with ctypes).  io_type is the type of gy and g_x
+// (f32 or bf16); x is of that type too, or int8 when its block scales xs
+// (B / scale_rows, ceil(in_w / nt)) are given.  cf_scale non-null marks an
+// int8 coefficient table with one f32 scale a stage.  d_in / d_out /
+// scratch may be null (scratch null: the remat tiles live in shared
+// memory).  g_cf is (L, n/2, 4) f32; g_vec (3, n) f32 holds g_din, g_dout,
+// g_bias (rows of absent operands are left meaningless).  part_cf
+// (G, L, n/2, 4) and part_vec (G, 3, n) are the partial buffers.  Returns
+// the cudaError_t of the launches (0 on success).
+extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
+                             const void* gy, void* gx, const void* cf,
+                             const void* cf_scale, const void* d_in,
                              const void* d_out, void* g_cf, void* g_vec,
                              void* part_cf, void* part_vec, void* scratch,
                              int B, int n, int nt, int in_w, int gy_w,
                              int gx_w, int vis, int cr, int G, int has_bias,
-                             const int* strides, int L, void* stream) {
+                             int scale_rows, const int* strides, int L,
+                             void* stream) {
   SpmStrides st;
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || cr <= 0 || G <= 0 ||
       nt <= 0 || n % nt || vis <= 0 || vis * nt > n)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (io_type == SPM_IO_F32)
-    return (int)launch_stack_bwd<float>(
-        x, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, scratch,
-        B, n, nt, in_w, gy_w, gx_w, vis, cr, G, has_bias, st, s);
-  if (io_type == SPM_IO_BF16)
-    return (int)launch_stack_bwd<__nv_bfloat16>(
-        x, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, scratch,
-        B, n, nt, in_w, gy_w, gx_w, vis, cr, G, has_bias, st, s);
-  return (int)cudaErrorInvalidValue;
+  if (cf_scale)
+    return (int)dispatch(
+        io_type, x, xs, gy, gx,
+        SpmQCoeffs{(const char4*)cf, (const float*)cf_scale}, d_in, d_out,
+        g_cf, g_vec, part_cf, part_vec, scratch, B, n, nt, in_w, gy_w, gx_w,
+        vis, cr, G, has_bias, scale_rows, st, s);
+  return (int)dispatch(io_type, x, xs, gy, gx, (const float4*)cf, d_in,
+                       d_out, g_cf, g_vec, part_cf, part_vec, scratch, B, n,
+                       nt, in_w, gy_w, gx_w, vis, cr, G, has_bias,
+                       scale_rows, st, s);
 }

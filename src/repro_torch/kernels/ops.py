@@ -9,6 +9,12 @@ stored in x's dtype, as the reference's run chain stores it.  It is a
 backward launches K2 once per run, in reverse, carrying the dead-tile chain
 (``_fused_bwd`` of the reference).
 
+With ``quant_acts`` / ``quant_coeffs`` the chain runs K1's and K2's int8
+modes as the reference's quantized ``_fused_core`` does: int8 activations
+between quantize-at-entry and dequantize-at-exit (plans whose runs share
+one tile only), int8 coefficient tables with per-stage scales, f32
+compute.  ``spm_stack_fused_q8`` is the int8-in, int8-out forward.
+
 ``spm_block_fused`` launches K3 once for a whole norm -> SPM [-> act -> SPM
 -> residual] block; its backward is one K4 launch from x and the row
 statistics alone.
@@ -35,12 +41,13 @@ import torch.nn.functional as F
 
 from repro_torch.core.eligibility import (TINY_ROW_THRESHOLD,
                                           block_fusion_eligible,
-                                          tiny_row_call)
+                                          quant_acts_eligible, tiny_row_call)
+from repro_torch.kernels import quant as Q
 from repro_torch.kernels import spm_stack as K
 
 __all__ = ["MAX_TILE", "TINY_ROW_MAX_TILE", "plan_runs", "tile_cap_for_rows",
-           "plan_runs_for_rows", "spm_stack_fused", "forward_runs",
-           "backward_runs", "spm_block_fused"]
+           "plan_runs_for_rows", "spm_stack_fused", "spm_stack_fused_q8",
+           "forward_runs", "backward_runs", "spm_block_fused"]
 
 MAX_TILE = 2048
 # 232,448 B / (8 rows x 4 B) = 7264 lanes: a decode block of all its rows
@@ -121,65 +128,112 @@ def _widths(n: int, in_width, out_width):
 
 
 class _StackFn(torch.autograd.Function):
-    """The full operator over planned runs: K1 forward, K2 backward."""
+    """The full operator over planned runs: K1 forward, K2 backward.
+
+    With ``quant`` = ``(scale_rows, acts, coeffs)`` it is the reference's
+    quantized ``_fused_core``.  ``coeffs``: the f32 table is quantized per
+    stage here and again, deterministically, in the backward, whose
+    coefficient grads (of the dequantized table) pass straight through to
+    the f32 table.  ``acts``: rows are zero-padded to a multiple of
+    ``scale_rows``, x is quantized once at entry, the runs chain int8 codes
+    and scales, and the output is dequantized at exit into x's dtype; only
+    the int8 run inputs and their scales are saved, and the entry
+    quantization passes the cotangent straight through."""
 
     @staticmethod
-    def forward(ctx, z, coeffs, d_in, d_out, bias, runs, in_width,
-                out_width):
-        z, saved = forward_runs(z, coeffs, runs, d_in, d_out, bias,
-                                in_width, out_width)
+    def forward(ctx, x2, coeffs, d_in, d_out, bias, runs, in_width,
+                out_width, quant):
+        scale_rows, q_acts, q_coeffs = quant or (None, False, False)
+        kcf, scf = Q.quantize_coeffs(coeffs) if q_coeffs else (coeffs, None)
+        rows = x2.shape[0]
+        z = x2
+        if q_acts:
+            z = Q.quantize_blocks(_pad_rows(x2, scale_rows), scale_rows,
+                                  runs[0][1])
+        y, saved = forward_runs(z, kcf, runs, d_in, d_out, bias, in_width,
+                                out_width, coeff_scale=scf,
+                                scale_rows=scale_rows)
+        if q_acts:
+            y = Q.dequantize_blocks(*y, scale_rows, runs[-1][1],
+                                    dtype=x2.dtype)[:rows]
+            saved = [t for pair in saved for t in pair]
         ctx.runs, ctx.in_width, ctx.out_width = runs, in_width, out_width
+        ctx.quant, ctx.rows, ctx.x_dtype = quant, rows, x2.dtype
         ctx.has = (d_in is not None, d_out is not None, bias is not None)
         ctx.save_for_backward(coeffs, d_in, d_out, *saved)
-        return z
+        return y
 
     @staticmethod
     def backward(ctx, gy):
         coeffs, d_in, d_out, *saved = ctx.saved_tensors
         has_din, has_dout, has_bias = ctx.has
-        outs = backward_runs(K.spm_stack_bwd_kernel_call, saved, coeffs,
-                             gy.to(saved[0].dtype).contiguous(), ctx.runs,
-                             d_in, d_out, has_bias, ctx.in_width,
-                             ctx.out_width)
+        scale_rows, q_acts, q_coeffs = ctx.quant or (None, False, False)
+        kcf, scf = Q.quantize_coeffs(coeffs) if q_coeffs else (coeffs, None)
+        gy = gy.to(ctx.x_dtype).contiguous()
+        if q_acts:
+            gy = _pad_rows(gy, scale_rows)
+            saved = list(zip(saved[0::2], saved[1::2]))
+        outs = backward_runs(K.spm_stack_bwd_kernel_call, saved, kcf, gy,
+                             ctx.runs, d_in, d_out, has_bias, ctx.in_width,
+                             ctx.out_width, coeff_scale=scf,
+                             scale_rows=scale_rows)
         first, last = list(outs[0][2:]), list(outs[-1][2:])
         g_din = first.pop(0) if has_din else None
         if len(outs) == 1:
             last = first
         g_dout = last.pop(0) if has_dout else None
         g_bias = last.pop(0) if has_bias else None
-        delta = outs[0][0]
+        delta = outs[0][0][:ctx.rows]
         if ctx.in_width is not None and delta.shape[-1] != ctx.in_width:
             delta = delta[:, :ctx.in_width]   # g_x came back widened
         return (delta, torch.cat([o[1] for o in outs], dim=0), g_din,
-                g_dout, g_bias, None, None, None)
+                g_dout, g_bias, None, None, None, None)
+
+
+def _pad_rows(x2: torch.Tensor, block_rows: int) -> torch.Tensor:
+    pad = -x2.shape[0] % block_rows
+    return F.pad(x2, (0, 0, 0, pad)) if pad else x2
 
 
 def forward_runs(z, coeffs, runs, d_in, d_out, bias,
-                 in_width: Optional[int], out_width: Optional[int]
-                 ) -> Tuple[torch.Tensor, list]:
+                 in_width: Optional[int], out_width: Optional[int], *,
+                 coeff_scale: Optional[torch.Tensor] = None,
+                 scale_rows: Optional[int] = None):
     """A planned run chain: K1 once per run, ``d_in`` folded into the
     first and ``d_out``/``bias`` into the last; returns the output and each
-    run's input, which ``backward_runs`` takes back."""
+    run's input, which ``backward_runs`` takes back.  ``coeff_scale`` (L,)
+    marks an int8 table.  With ``z`` a ``(q int8, scales)`` pair every run
+    reads and writes int8 (``scale_rows`` rows a scale), and the output and
+    each saved input are such pairs."""
     saved, off = [], 0
     for r, (run_strides, n_tile) in enumerate(runs):
         last = r == len(runs) - 1
+        nL = len(run_strides)
         saved.append(z)
+        q8 = isinstance(z, tuple)
+        x, x_scale = z if q8 else (z, None)
         z = K.spm_stack_kernel_call(
-            z, coeffs[off: off + len(run_strides)],
+            x, coeffs[off: off + nL],
             d_in if r == 0 else None, d_out if last else None,
-            bias if last else None, strides=run_strides, n_tile=n_tile,
+            bias if last else None, x_scale,
+            None if coeff_scale is None else coeff_scale[off: off + nL],
+            strides=run_strides, n_tile=n_tile,
             in_width=in_width if r == 0 else None,
-            out_width=out_width if last else None)
-        off += len(run_strides)
+            out_width=out_width if last else None, quant_out=q8,
+            scale_rows=scale_rows)
+        off += nL
     return z, saved
 
 
 def backward_runs(bwd, saved, coeffs, gy, runs, d_in, d_out,
                   has_bias: bool, in_width: Optional[int],
-                  out_width: Optional[int]) -> list:
+                  out_width: Optional[int], *,
+                  coeff_scale: Optional[torch.Tensor] = None,
+                  scale_rows: Optional[int] = None) -> list:
     """The backward of a planned run chain: ``bwd`` (K2's wrapper or its
     plain version) once per run, in reverse, each run's g_x the cotangent
-    of the run before; returns each run's outputs in plan order.
+    of the run before; returns each run's outputs in plan order.  A saved
+    input may be a ``(q int8, scales)`` pair (``forward_runs``).
 
     The dead-tile chain (the reference's ``_fused_bwd``): a run's backward
     visits only the tiles holding live cotangent and returns a g_x that is
@@ -195,13 +249,18 @@ def backward_runs(bwd, saved, coeffs, gy, runs, d_in, d_out,
     for r in range(len(runs) - 1, -1, -1):
         run_strides, n_tile = runs[r]
         last = r == len(runs) - 1
-        outs[r] = bwd(saved[r], coeffs[offs[r]: offs[r] + len(run_strides)],
-                      delta, d_in if r == 0 else None,
-                      d_out if last else None, strides=run_strides,
-                      n_tile=n_tile, has_bias=last and has_bias,
+        lo, hi = offs[r], offs[r] + len(run_strides)
+        x, x_scale = saved[r] if isinstance(saved[r], tuple) \
+            else (saved[r], None)
+        outs[r] = bwd(x, coeffs[lo:hi], delta, d_in if r == 0 else None,
+                      d_out if last else None, x_scale,
+                      None if coeff_scale is None else coeff_scale[lo:hi],
+                      strides=run_strides, n_tile=n_tile,
+                      has_bias=last and has_bias,
                       in_width=in_width if r == 0 else None,
                       out_width=out_width if last else None,
-                      dead_from=None if last else dead)
+                      dead_from=None if last else dead,
+                      scale_rows=scale_rows)
         live = out_width if last else dead
         if live is not None and -(-live // n_tile) * n_tile < n:
             dead = -(-live // n_tile) * n_tile
@@ -217,11 +276,19 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
                     d_out: Optional[torch.Tensor] = None,
                     bias: Optional[torch.Tensor] = None,
                     in_width: Optional[int] = None,
-                    out_width: Optional[int] = None) -> torch.Tensor:
+                    out_width: Optional[int] = None,
+                    quant_acts: bool = False,
+                    quant_coeffs: bool = False) -> torch.Tensor:
     """The fused SPM operator over the last axis of ``x`` (..., in_width or
     n) -> (..., out_width or n), one K1 launch per planned run;
     differentiable in x, coeffs and the diagonals and bias (one K2 launch
-    per run)."""
+    per run).
+
+    ``quant_acts`` moves the run chain's activations as int8 with one
+    scale per (``scale_block_rows``, tile) block; a plan whose runs do not
+    share one tile (``quant_acts_eligible``) keeps f32/bf16 activation
+    I/O, as the reference does.  ``quant_coeffs`` moves the table as int8
+    with one scale a stage.  Compute stays f32 in both."""
     strides = tuple(int(s) for s in strides)
     n = 2 * coeffs.shape[1]
     in_width, out_width = _widths(n, in_width, out_width)
@@ -231,10 +298,53 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
     lead = x.shape[:-1]
     z = x.reshape(-1, expect).contiguous()
     runs = plan_runs_for_rows(n, strides, z.shape[0])
+    quant = None
+    q_acts = bool(quant_acts) and quant_acts_eligible(runs)
+    if q_acts or quant_coeffs:
+        quant = (Q.scale_block_rows(runs, z.shape[0], x.element_size())
+                 if q_acts else None, q_acts, bool(quant_coeffs))
     f32 = (lambda t: None if t is None else t.float().contiguous())
     z = _StackFn.apply(z, f32(coeffs), f32(d_in), f32(d_out), f32(bias),
-                       runs, in_width, out_width)
+                       runs, in_width, out_width, quant)
     return z.reshape(*lead, z.shape[-1])
+
+
+def spm_stack_fused_q8(qx: torch.Tensor, x_scale: torch.Tensor,
+                       coeffs: torch.Tensor, strides: Sequence[int], *,
+                       d_in: Optional[torch.Tensor] = None,
+                       d_out: Optional[torch.Tensor] = None,
+                       bias: Optional[torch.Tensor] = None,
+                       in_width: Optional[int] = None,
+                       out_width: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8 in, int8 out, forward only (the reference's inference entry).
+
+    ``qx`` (B, in_width or n) int8 and ``x_scale`` its (B // scale_rows,
+    tiles) f32 scales from ``quant.quantize_blocks``; ``scale_rows`` is
+    read off their shapes.  Every run reads and writes int8 and reads an
+    int8 table; returns ``(qy int8 (B, out_width or n), y_scale)`` without
+    dequantizing.  Raises when the plan's runs do not share one tile."""
+    strides = tuple(int(s) for s in strides)
+    n = 2 * coeffs.shape[1]
+    in_width, out_width = _widths(n, in_width, out_width)
+    if qx.dtype != torch.int8 or qx.dim() != 2:
+        raise TypeError(f"qx must be 2-D int8, got {qx.dtype}")
+    B = qx.shape[0]
+    if x_scale.shape[0] == 0 or B % x_scale.shape[0]:
+        raise ValueError(f"rows {B} not a multiple of scale rows "
+                         f"{x_scale.shape[0]}")
+    runs = plan_runs_for_rows(n, strides, B)
+    if not quant_acts_eligible(runs):
+        raise ValueError(f"run plan {runs} is not uniform-tile; int8 "
+                         "activation I/O cannot chain across its runs")
+    f32 = (lambda t: None if t is None else t.float().contiguous())
+    cf, scf = Q.quantize_coeffs(coeffs)
+    with torch.no_grad():
+        y, _ = forward_runs((qx.contiguous(), x_scale.float().contiguous()),
+                            cf, runs, f32(d_in), f32(d_out), f32(bias),
+                            in_width, out_width, coeff_scale=scf,
+                            scale_rows=B // x_scale.shape[0])
+    return y
 
 
 def spm_block_fused(x: torch.Tensor, *, coeffs1: torch.Tensor,

@@ -24,6 +24,14 @@ same function in f32, rounding where the kernel rounds) only when its input
 lies on the CPU.  For a CUDA tensor it launches the kernel, adds one to
 ``<wrapper>.launches`` and returns, or raises: there is no fallback.
 
+K1 and K2 have int8 modes (the reference's ``x_scale``, ``coeff_scale``
+and ``quant_out``; scale conventions in ``kernels/quant.py``): int8
+activations with one scale per (``scale_rows``, ``n_tile``) block, and int8
+coefficient tables with one scale per stage.  Compute stays f32.  K1's and
+K2's ``int8_launches`` count the launches in an int8 mode and
+``int8_io_launches`` those with int8 activations, beside ``launches``,
+which counts them all.
+
 The backward kernels sum their parameter grads over rows in per-block
 partials and finish with an ordered sum, so two launches agree bit for
 bit; against the plain version those sums differ in order only.  The plain
@@ -42,6 +50,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import quant as Q
 from repro_torch.kernels.ref import spm_stack_ref, stages_collect, walk_back
 
 __all__ = ["spm_stack_kernel_call", "spm_stack_plain",
@@ -49,12 +58,15 @@ __all__ = ["spm_stack_kernel_call", "spm_stack_plain",
            "spm_block_kernel_call", "spm_block_plain",
            "spm_block_bwd_kernel_call", "spm_block_bwd_plain",
            "pick_block_rows", "bwd_geometry", "bwd_live_tiles",
+           "int8_cta_rows",
            "reset_launch_counts", "SMEM_BYTES", "NUM_SMS", "ACTIVATIONS"]
 
 SMEM_BYTES = 232_448   # H100: dynamic shared memory one block may use
 NUM_SMS = 132          # H100 SXM streaming multiprocessors
 MAX_STAGES = 32        # csrc/spm_common.cuh SPM_MAX_STAGES
 _IO = {torch.float32: 0, torch.bfloat16: 1}
+_IO_INT8 = 2           # csrc/spm_common.cuh SPM_IO_INT8
+_Q8_STATIC_SMEM = 1024  # the int8 kernel's static shared memory, at most
 ACTIVATIONS = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
 
 _P = ctypes.c_void_p
@@ -101,27 +113,86 @@ def _check_vec(v: Optional[torch.Tensor], n: int, dev: torch.device,
                          f"{dev}, got {tuple(v.shape)} {v.dtype} {v.device}")
 
 
-def _check_cuda_operands(x, coeffs, vecs, n):
-    if x.dtype not in _IO:
+def _check_coeffs(cf, n: int, dev: torch.device, name: str,
+                  scale: Optional[torch.Tensor] = None) -> None:
+    """An f32 (L, n/2, 4) table read as float4s, or with ``scale`` an int8
+    one read as char4s with its (L,) f32 stage scales."""
+    if cf is None:
+        return
+    dt, align = (torch.float32, 16) if scale is None else (torch.int8, 4)
+    if (cf.dtype != dt or cf.device != dev or not cf.is_contiguous()
+            or cf.shape[1:] != (n // 2, 4) or cf.data_ptr() % align):
+        raise ValueError(f"{name}: need a contiguous {align}-byte-aligned "
+                         f"{dt} (L, {n // 2}, 4) tensor on {dev}")
+    if cf.shape[0] > MAX_STAGES:
+        raise ValueError(f"{name}: at most {MAX_STAGES} stages")
+    if scale is not None and (
+            scale.shape != (cf.shape[0],) or scale.dtype != torch.float32
+            or scale.device != dev or not scale.is_contiguous()):
+        raise ValueError(f"{name}: need contiguous f32 ({cf.shape[0]},) "
+                         f"stage scales on {dev}")
+
+
+def _check_cuda_operands(x, coeffs, vecs, n, x_scale=None, n_tile=None,
+                         scale_rows=None):
+    """x f32 or bf16 (int8 with ``x_scale``, its (B // scale_rows,
+    ceil(width / n_tile)) f32 block scales); ``coeffs`` pairs of (table,
+    name) or (table, name, stage scales); (n,) f32 vectors."""
+    if x_scale is None and x.dtype not in _IO:
         raise TypeError(f"kernel I/O must be f32 or bf16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    for cf, name in coeffs:
-        if cf is None:
-            continue
-        if (cf.dtype != torch.float32 or cf.device != x.device
-                or not cf.is_contiguous() or cf.shape[1:] != (n // 2, 4)
-                or cf.data_ptr() % 16):
-            raise ValueError(f"{name}: need a contiguous 16-byte-aligned "
-                             f"f32 (L, {n // 2}, 4) tensor on {x.device}")
-        if cf.shape[0] > MAX_STAGES:
-            raise ValueError(f"{name}: at most {MAX_STAGES} stages")
+    if x_scale is not None:
+        want = (x.shape[0] // scale_rows, -(-x.shape[1] // n_tile))
+        if (x_scale.shape != want or x_scale.dtype != torch.float32
+                or x_scale.device != x.device
+                or not x_scale.is_contiguous()):
+            raise ValueError(f"x_scale: need contiguous f32 {want} on "
+                             f"{x.device}, got {tuple(x_scale.shape)} "
+                             f"{x_scale.dtype}")
+    for cf, name, *scale in coeffs:
+        _check_coeffs(cf, n, x.device, name, *scale)
     for v, name in vecs:
         _check_vec(v, n, x.device, name)
 
 
+def _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows,
+                      quant_out=None):
+    """The int8 operands' dtypes and the scale grid, on any device."""
+    if (x_scale is not None) != (x.dtype == torch.int8):
+        raise TypeError("int8 x and x_scale go together")
+    if (coeff_scale is not None) != (coeffs.dtype == torch.int8):
+        raise TypeError("int8 coeffs and coeff_scale go together")
+    if quant_out is not None and quant_out != (x_scale is not None):
+        raise ValueError("int8 activation I/O reads and writes int8: "
+                         "x_scale and quant_out go together")
+    if x_scale is not None or quant_out:
+        if scale_rows is None or scale_rows <= 0 \
+                or x.shape[0] % scale_rows:
+            raise ValueError(f"rows {x.shape[0]} must be a multiple of "
+                             f"scale_rows={scale_rows}")
+
+
+def _count(fn, x_scale, coeff_scale) -> None:
+    fn.launches += 1
+    if x_scale is not None or coeff_scale is not None:
+        fn.int8_launches += 1
+    if x_scale is not None:
+        fn.int8_io_launches += 1
+
+
 def _strides_arg(strides: Sequence[int]):
     return (ctypes.c_int * max(1, len(strides)))(*strides)
+
+
+def _plain_coeffs(coeffs, coeff_scale) -> torch.Tensor:
+    return (coeffs.float() if coeff_scale is None
+            else Q.dequantize_coeffs(coeffs, coeff_scale))
+
+
+def _plain_x(x, x_scale, scale_rows, n_tile) -> torch.Tensor:
+    return (x.float() if x_scale is None
+            else Q.dequantize_blocks(x, x_scale, scale_rows, n_tile))
 
 
 # ---------------------------------------------------------------------------
@@ -131,40 +202,83 @@ def _strides_arg(strides: Sequence[int]):
 def spm_stack_plain(x: torch.Tensor, coeffs: torch.Tensor,
                     d_in: Optional[torch.Tensor] = None,
                     d_out: Optional[torch.Tensor] = None,
-                    bias: Optional[torch.Tensor] = None, *,
+                    bias: Optional[torch.Tensor] = None,
+                    x_scale: Optional[torch.Tensor] = None,
+                    coeff_scale: Optional[torch.Tensor] = None, *,
                     strides: Tuple[int, ...],
                     in_width: Optional[int] = None,
-                    out_width: Optional[int] = None) -> torch.Tensor:
+                    out_width: Optional[int] = None,
+                    n_tile: Optional[int] = None,
+                    quant_out: bool = False,
+                    scale_rows: Optional[int] = None):
     """K1's plain version: ``[D_out](B_l..B_1)[D_in] x [+bias]`` in f32,
     x zero-filled from ``in_width`` to n, the output cut to ``out_width``,
     returned in x's dtype.  Feature tiles need no emulation: every stride
-    of a run keeps its pairs inside one tile."""
+    of a run keeps its pairs inside one tile.
+
+    The int8 modes round where the kernel rounds: int8 x is ``q * scale``
+    of its (``scale_rows``, ``n_tile``) block, an int8 table ``q * scale``
+    of its stage, and ``quant_out`` returns ``(q int8, scales)`` with one
+    scale for each (``scale_rows``, ``n_tile``) block of the output, its
+    absmax taken over the whole tile, lanes past ``out_width`` included."""
     n = 2 * coeffs.shape[1]
-    z = x.float()
+    z = _plain_x(x, x_scale, scale_rows, n_tile)
     if z.shape[-1] < n:
         z = F.pad(z, (0, n - z.shape[-1]))
     if d_in is not None:
         z = z * d_in.float()
-    z = spm_stack_ref(z, coeffs.float(), tuple(strides))
+    z = spm_stack_ref(z, _plain_coeffs(coeffs, coeff_scale), tuple(strides))
     if d_out is not None:
         z = z * d_out.float()
     if bias is not None:
         z = z + bias.float()
-    if out_width is not None:
-        z = z[..., :out_width]
-    return z.to(x.dtype)
+    out_w = n if out_width is None else out_width
+    if quant_out:
+        q, scales = Q.quantize_blocks(z[:, :-(-out_w // n_tile) * n_tile],
+                                      scale_rows, n_tile)
+        return q[:, :out_w].contiguous(), scales
+    return z[:, :out_w].to(x.dtype)
+
+
+def int8_cta_rows(n_rows: int, n_tile: int, n_tiles: int,
+                   scale_rows: int) -> int:
+    """Rows a block takes in the int8 activation mode: ``pick_block_rows``,
+    within the scale block, and at least an eighth of it, so that a
+    cluster of at most 8 blocks (the portable size) holds one scale
+    block.  Raises when those rows' f32 tile exceeds shared memory."""
+    cta = min(pick_block_rows(n_rows, n_tile, n_tiles), scale_rows)
+    cta = max(cta, scale_rows // 8)
+    if cta * n_tile * 4 > SMEM_BYTES - _Q8_STATIC_SMEM:
+        raise ValueError(
+            f"a {scale_rows} x {n_tile} scale block needs {cta}-row blocks "
+            f"of {cta * n_tile * 4} B f32 in a cluster of "
+            f"{scale_rows // cta}: more than the {SMEM_BYTES} B of shared "
+            f"memory a block has")
+    return cta
 
 
 def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
                           d_in: Optional[torch.Tensor] = None,
                           d_out: Optional[torch.Tensor] = None,
-                          bias: Optional[torch.Tensor] = None, *,
+                          bias: Optional[torch.Tensor] = None,
+                          x_scale: Optional[torch.Tensor] = None,
+                          coeff_scale: Optional[torch.Tensor] = None, *,
                           strides: Tuple[int, ...], n_tile: int,
                           in_width: Optional[int] = None,
-                          out_width: Optional[int] = None) -> torch.Tensor:
+                          out_width: Optional[int] = None,
+                          quant_out: bool = False,
+                          scale_rows: Optional[int] = None):
     """K1: x (B, in_width or n) -> y (B, out_width or n) in x's dtype, for
     coeffs (L, n//2, 4) f32 whose strides all keep pairs inside an
-    ``n_tile``-wide tile; d_in/d_out/bias (n,) f32 are folded in."""
+    ``n_tile``-wide tile; d_in/d_out/bias (n,) f32 are folded in.
+
+    Int8 modes: ``coeff_scale`` (L,) f32 marks an int8 table, dequantized
+    a stage at a time on chip.  ``x_scale`` marks int8 x with one scale for
+    each (``scale_rows``, ``n_tile``) block and goes with ``quant_out``:
+    the result is requantized on the store and returned as ``(y int8,
+    y_scale (B // scale_rows, ceil(out_width / n_tile)) f32)``.  B must be
+    a multiple of ``scale_rows``; each scale block is one thread-block
+    cluster.  A scale block no cluster can hold on chip raises."""
     n = 2 * coeffs.shape[1]
     strides = tuple(int(s) for s in strides)
     in_w = n if in_width is None else int(in_width)
@@ -179,35 +293,52 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     for s in strides:
         if n_tile % (2 * s):
             raise ValueError(f"stride {s} crosses an {n_tile}-wide tile")
+    _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows, quant_out)
     if x.device.type == "cpu":
-        return spm_stack_plain(x, coeffs, d_in, d_out, bias, strides=strides,
-                               in_width=in_w, out_width=out_width)
+        return spm_stack_plain(x, coeffs, d_in, d_out, bias, x_scale,
+                               coeff_scale, strides=strides, in_width=in_w,
+                               out_width=out_width, n_tile=n_tile,
+                               quant_out=quant_out, scale_rows=scale_rows)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check_cuda_operands(x, [(coeffs, "coeffs")],
-                         [(d_in, "d_in"), (d_out, "d_out"),
-                          (bias, "bias")], n)
+    _check_cuda_operands(x, [(coeffs, "coeffs", coeff_scale)],
+                         [(d_in, "d_in"), (d_out, "d_out"), (bias, "bias")],
+                         n, x_scale, n_tile, scale_rows)
     B = x.shape[0]
-    y = torch.empty((B, out_w), dtype=x.dtype, device=x.device)
+    tiles = -(-out_w // n_tile)
+    if quant_out:
+        y = torch.empty((B, out_w), dtype=torch.int8, device=x.device)
+        ys = torch.empty((B // scale_rows, tiles), dtype=torch.float32,
+                         device=x.device)
+    else:
+        y = torch.empty((B, out_w), dtype=x.dtype, device=x.device)
+        ys = None
     if B == 0:
-        return y
-    block_rows = pick_block_rows(B, n_tile, -(-out_w // n_tile))
-    if block_rows * n_tile * 4 > SMEM_BYTES:
-        raise ValueError(f"{block_rows} rows x {n_tile} f32 exceed "
-                         f"{SMEM_BYTES} B of shared memory")
+        return (y, ys) if quant_out else y
+    if quant_out:
+        block_rows = int8_cta_rows(B, n_tile, tiles, scale_rows)
+    else:
+        block_rows = pick_block_rows(B, n_tile, tiles)
+        if block_rows * n_tile * 4 > SMEM_BYTES:
+            raise ValueError(f"{block_rows} rows x {n_tile} f32 exceed "
+                             f"{SMEM_BYTES} B of shared memory")
     fn = _fn("spm_stack", "spm_stack_fwd",
-             (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-              ctypes.POINTER(ctypes.c_int), _I, _P))
-    rc = fn(_IO[x.dtype], _ptr(x), _ptr(y), _ptr(coeffs), _ptr(d_in),
-            _ptr(d_out), _ptr(bias), B, n, n_tile, in_w, out_w, block_rows,
+             (_I,) + (_P,) * 9 + (_I,) * 7
+             + (ctypes.POINTER(ctypes.c_int), _I, _P))
+    io = _IO_INT8 if quant_out else _IO[x.dtype]
+    rc = fn(io, _ptr(x), _ptr(x_scale), _ptr(y), _ptr(ys), _ptr(coeffs),
+            _ptr(coeff_scale), _ptr(d_in), _ptr(d_out), _ptr(bias), B, n,
+            n_tile, in_w, out_w, block_rows, scale_rows or 0,
             _strides_arg(strides), len(strides), _stream(x))
     if rc != 0:
         raise RuntimeError(f"spm_stack_fwd launch failed: cudaError {rc}")
-    spm_stack_kernel_call.launches += 1
-    return y
+    _count(spm_stack_kernel_call, x_scale, coeff_scale)
+    return (y, ys) if quant_out else y
 
 
 spm_stack_kernel_call.launches = 0
+spm_stack_kernel_call.int8_launches = 0
+spm_stack_kernel_call.int8_io_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -266,21 +397,25 @@ def bwd_live_tiles(n: int, n_tile: int, in_width: Optional[int],
 def spm_stack_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
                         gy: torch.Tensor,
                         d_in: Optional[torch.Tensor] = None,
-                        d_out: Optional[torch.Tensor] = None, *,
+                        d_out: Optional[torch.Tensor] = None,
+                        x_scale: Optional[torch.Tensor] = None,
+                        coeff_scale: Optional[torch.Tensor] = None, *,
                         strides: Tuple[int, ...], n_tile: int,
                         has_bias: bool = False,
                         in_width: Optional[int] = None,
                         out_width: Optional[int] = None,
                         dead_from: Optional[int] = None,
+                        scale_rows: Optional[int] = None,
                         col_sum=_col_sum) -> tuple:
     """K2's plain version in f32: the same outputs as
     ``spm_stack_bwd_kernel_call``.  Every per-row value (the remat, the
     cotangent walk, g_x) rounds where the kernel rounds; only the sums
-    over rows differ in order.  Dead tiles come back as exact zeros."""
+    over rows differ in order.  Dead tiles come back as exact zeros.  An
+    int8 x or table is dequantized as K1's plain version does it."""
     n = 2 * coeffs.shape[1]
     vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width, dead_from)
-    cf = coeffs.float()
-    x_raw = x.float()
+    cf = _plain_coeffs(coeffs, coeff_scale)
+    x_raw = _plain_x(x, x_scale, scale_rows, n_tile)
     x_raw = F.pad(x_raw, (0, n - x_raw.shape[-1]))
     g = gy.float()
     g = F.pad(g, (0, n - g.shape[-1]))
@@ -300,7 +435,8 @@ def spm_stack_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
     g = g.clone()
     g[:, live:] = 0.0
     g_cf[:, live // 2:] = 0.0
-    out = (g[:, :gx_w].to(x.dtype), g_cf)
+    out = (g[:, :gx_w].to(gy.dtype if x_scale is not None else x.dtype),
+           g_cf)
     for v in (g_din, g_dout, g_bias):
         if v is not None:
             v = v.clone()
@@ -312,19 +448,28 @@ def spm_stack_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
 def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
                               gy: torch.Tensor,
                               d_in: Optional[torch.Tensor] = None,
-                              d_out: Optional[torch.Tensor] = None, *,
+                              d_out: Optional[torch.Tensor] = None,
+                              x_scale: Optional[torch.Tensor] = None,
+                              coeff_scale: Optional[torch.Tensor] = None, *,
                               strides: Tuple[int, ...], n_tile: int,
                               has_bias: bool = False,
                               in_width: Optional[int] = None,
                               out_width: Optional[int] = None,
-                              dead_from: Optional[int] = None) -> tuple:
+                              dead_from: Optional[int] = None,
+                              scale_rows: Optional[int] = None) -> tuple:
     """K2: the backward of one run from its saved input x (B, in_width or
     n) and the cotangent gy (B, out_width or n), both in x's dtype.
     Returns ``(g_x (B, gx_w) in x's dtype, g_coeffs (L, n//2, 4))`` then
     ``g_din``, ``g_dout``, ``g_bias`` (n,) for the operands present, all
     f32.  ``gx_w`` is ``bwd_live_tiles``'s: in_width, widened when it would
     leave visited tiles past its edge.  ``dead_from`` declares gy exactly
-    zero from that column on (an upstream run of a multi-run plan)."""
+    zero from that column on (an upstream run of a multi-run plan).
+
+    Int8 modes, as K1's: ``x_scale`` marks a saved int8 x (its
+    (``scale_rows``, ``n_tile``) blocks dequantized on load, so the remat
+    replays the quantized forward; gy and g_x are then f32 or bf16), and
+    ``coeff_scale`` an int8 table; g_coeffs is the grad of the
+    dequantized table."""
     n = 2 * coeffs.shape[1]
     strides = tuple(int(s) for s in strides)
     in_w = n if in_width is None else int(in_width)
@@ -341,22 +486,27 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     for s in strides:
         if n_tile % (2 * s):
             raise ValueError(f"stride {s} crosses an {n_tile}-wide tile")
+    _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows)
     kw = dict(strides=strides, n_tile=n_tile, has_bias=has_bias,
-              in_width=in_width, out_width=out_width, dead_from=dead_from)
+              in_width=in_width, out_width=out_width, dead_from=dead_from,
+              scale_rows=scale_rows)
     if x.device.type == "cpu":
-        return spm_stack_bwd_plain(x, coeffs, gy, d_in, d_out, **kw)
+        return spm_stack_bwd_plain(x, coeffs, gy, d_in, d_out, x_scale,
+                                   coeff_scale, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check_cuda_operands(x, [(coeffs, "coeffs")],
-                         [(d_in, "d_in"), (d_out, "d_out")], n)
-    if gy.dtype != x.dtype or gy.device != x.device \
+    _check_cuda_operands(x, [(coeffs, "coeffs", coeff_scale)],
+                         [(d_in, "d_in"), (d_out, "d_out")], n, x_scale,
+                         n_tile, scale_rows)
+    io_dt = x.dtype if x_scale is None else gy.dtype
+    if io_dt not in _IO or gy.dtype != io_dt or gy.device != x.device \
             or not gy.is_contiguous():
         raise ValueError("gy must be contiguous, on x's device, in x's "
-                         "dtype")
+                         "dtype (f32 or bf16 beside an int8 x)")
     vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width, dead_from)
     B, L = x.shape[0], len(strides)
     dev = x.device
-    gx = torch.empty((B, gx_w), dtype=x.dtype, device=dev)
+    gx = torch.empty((B, gx_w), dtype=io_dt, device=dev)
     g_cf = torch.empty((L, n // 2, 4), dtype=torch.float32, device=dev)
     g_vec = torch.empty((3, n), dtype=torch.float32, device=dev)
     if B == 0:
@@ -372,16 +522,17 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
             (grid_tiles * G * (L + 1) * cr * n_tile,), dtype=torch.float32,
             device=dev)
         fn = _fn("spm_stack_bwd", "spm_stack_bwd",
-                 (_I,) + (_P,) * 11 + (_I,) * 10
+                 (_I,) + (_P,) * 13 + (_I,) * 11
                  + (ctypes.POINTER(ctypes.c_int), _I, _P))
-        rc = fn(_IO[x.dtype], _ptr(x), _ptr(gy), _ptr(gx), _ptr(coeffs),
-                _ptr(d_in), _ptr(d_out), _ptr(g_cf), _ptr(g_vec),
-                _ptr(part_cf), _ptr(part_vec), _ptr(scratch), B, n, n_tile,
-                in_w, gy_w, gx_w, vis, cr, G, int(has_bias),
-                _strides_arg(strides), L, _stream(x))
+        rc = fn(_IO[io_dt], _ptr(x), _ptr(x_scale), _ptr(gy), _ptr(gx),
+                _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in), _ptr(d_out),
+                _ptr(g_cf), _ptr(g_vec), _ptr(part_cf), _ptr(part_vec),
+                _ptr(scratch), B, n, n_tile, in_w, gy_w, gx_w, vis, cr, G,
+                int(has_bias), scale_rows or 0, _strides_arg(strides), L,
+                _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_stack_bwd launch failed: cudaError {rc}")
-        spm_stack_bwd_kernel_call.launches += 1
+        _count(spm_stack_bwd_kernel_call, x_scale, coeff_scale)
     out = (gx, g_cf)
     for present, row in ((d_in is not None, 0), (d_out is not None, 1),
                          (has_bias, 2)):
@@ -391,6 +542,8 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
 
 
 spm_stack_bwd_kernel_call.launches = 0
+spm_stack_bwd_kernel_call.int8_launches = 0
+spm_stack_bwd_kernel_call.int8_io_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -758,8 +911,8 @@ spm_block_bwd_kernel_call.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    spm_stack_kernel_call.launches = 0
-    spm_stack_bwd_kernel_call.launches = 0
+    """Set every kernel wrapper's launch counts to 0."""
+    for fn in (spm_stack_kernel_call, spm_stack_bwd_kernel_call):
+        fn.launches = fn.int8_launches = fn.int8_io_launches = 0
     spm_block_kernel_call.launches = 0
     spm_block_bwd_kernel_call.launches = 0

@@ -1,7 +1,7 @@
 """Where a training step of the PyTorch port spends its device time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        [--steps 3] [--batch 8] [--seq 512] [--out profile.json]
+        [--steps 3] [--batch 8] [--seq 512] [--quantize] [--out profile.json]
 
 Trains full-width ``qwen3-1.7b`` (weights from seed 0) on one GPU through
 ``repro_torch.launch.train.train``: one warm-up step, ``--steps`` steps
@@ -11,8 +11,10 @@ stretch the step).  Prints the card's name and power limit, the median
 step time of each window, the device's busy time a step (the union of
 kernel intervals over the traced window), its idle share against the
 untraced step, and the device time by kernel, grouped into the port's SPM
-kernels (K1-K4) and the rest, as one JSON object; ``--out`` also writes it
-with the 40 costliest kernels.  Needs a GPU.
+kernels (K1-K4, K1's int8 activation mode apart) and the rest, as one JSON
+object; ``--out`` also writes it with the 40 costliest kernels.
+``--quantize`` profiles the int8 step (``launch.train --quantize``).  Needs
+a GPU.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ import subprocess
 import sys
 import time
 
-GROUPS = (("K1 spm_stack_fwd", "spm_stack_fwd_kernel"),
+# K1's int8 store is its int8_t instantiation: demangled or mangled
+GROUPS = (("K1 int8 spm_stack_fwd", "spm_stack_fwd_kernel<signed char"),
+          ("K1 int8 spm_stack_fwd", "spm_stack_fwd_kernelIa"),
+          ("K1 spm_stack_fwd", "spm_stack_fwd_kernel"),
           ("K2 spm_stack_bwd", "spm_stack_bwd_kernel"),
           ("K3 spm_block_fwd", "spm_block_fwd_kernel"),
           ("K4 spm_block_bwd", "spm_block_bwd_kernel"),
@@ -63,6 +68,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--quantize", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
@@ -78,7 +84,8 @@ def main() -> int:
     S = args.steps
     targs = launch_train.build_parser().parse_args(
         ["--steps", str(1 + 2 * S), "--batch", str(args.batch),
-         "--seq", str(args.seq), "--log-every", "1000"])
+         "--seq", str(args.seq), "--log-every", "1000"]
+        + (["--quantize"] if args.quantize else []))
     prof = profile(activities=[ProfilerActivity.CUDA])
     dts = {"untraced": [], "traced": []}
     marks = {}
@@ -115,6 +122,7 @@ def main() -> int:
     step_ms = statistics.median(dts["untraced"]) * 1e3
     busy_ms = per_step(busy_us(intervals))
     out = dict(gpu=smi, batch=args.batch, seq=args.seq, steps=S,
+               quantize=args.quantize,
                step_ms=step_ms,
                traced_step_ms=statistics.median(dts["traced"]) * 1e3,
                device_busy_ms=busy_ms,

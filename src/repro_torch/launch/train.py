@@ -3,15 +3,18 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --steps 6 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
-      --steps 2
+      --steps 2 [--quantize]
 
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--smoke`` takes the
 smoke-size config.  Weights are random, made from ``--seed``; batches are
 windows of the synthetic char corpus (``data/char_corpus.py``).  Each step
 is the forward, the closed-form backward through the SPM kernels and
 AdamW, with the non-finite guard and the chaos port always on, as in the
-reference.  Checkpoints, the fault policy, chaos plans, pods and int8
-modes are later slices: their flags raise ``NotImplementedError``.
+reference.  ``--quantize`` trains through the int8 modes of K1 and K2
+(``configs.with_quantized_io``: int8 activation I/O where a linear's runs
+share one tile, int8 coefficient tables everywhere), as the reference's
+flag does.  Checkpoints, the fault policy, chaos plans and pods are later
+slices: their flags raise ``NotImplementedError``.
 
 Tests and ``chip_smoke.py`` call ``train(args)``, which returns the final
 state.
@@ -26,7 +29,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke, with_overrides
+from repro_torch.configs import (ARCH_IDS, get_config, get_smoke,
+                                 with_overrides, with_quantized_io)
 from repro_torch.data.char_corpus import build_corpus
 from repro_torch.data.loader import DeterministicLoader
 from repro_torch.device import resolve_device
@@ -46,8 +50,6 @@ _LATER = {
               "§1, item 6)",
     "compress_pod_grads": "compressed pod grads are the multi-device slice "
                           "(ROADMAP.md §1, item 6)",
-    "quantize": "the int8 modes are not ported yet (ROADMAP.md §1, "
-                "item 3)",
 }
 
 
@@ -82,7 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--quantize", action="store_true")
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 SPM modes: activation I/O where a linear's "
+                         "runs share one tile, per-stage coefficient tables "
+                         "(configs.with_quantized_io)")
     ap.add_argument("--pod-dp", type=int, default=0)
     ap.add_argument("--compress-pod-grads", action="store_true")
     ap.add_argument("--chaos-spec", default="")
@@ -110,7 +115,10 @@ def train(args: argparse.Namespace,
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.linear_impl:
         cfg = with_overrides(cfg, linear_impl=args.linear_impl)
-    print(f"arch={cfg.name} impl={cfg.linear_impl} steps={args.steps} "
+    if args.quantize:
+        cfg = with_quantized_io(cfg)
+    print(f"arch={cfg.name} impl={cfg.linear_impl} quantize={args.quantize} "
+          f"steps={args.steps} "
           f"B={args.batch} T={args.seq} device={device}")
     corpus = build_corpus(200_000, seed=args.seed)
     loader = DeterministicLoader(make_batch_fn(cfg, args.seq, corpus),

@@ -50,6 +50,8 @@ class AttentionConfig:
     spm_use_kernel: Optional[bool] = None
     spm_schedule: str = "butterfly"
     spm_block_fuse: Optional[bool] = None
+    spm_quant_acts: bool = False
+    spm_quant_coeffs: bool = False
     q_chunk: int = 1024
     k_chunk: int = 1024
     param_dtype: torch.dtype = torch.float32
@@ -59,7 +61,8 @@ class AttentionConfig:
             d_in=d_in, d_out=d_out, impl=self.linear_impl, use_bias=False,
             n_stages=self.spm_stages, backward=self.spm_backward,
             use_kernel=self.spm_use_kernel, schedule=self.spm_schedule,
-            param_dtype=self.param_dtype)
+            param_dtype=self.param_dtype, quant_acts=self.spm_quant_acts,
+            quant_coeffs=self.spm_quant_coeffs)
 
     @property
     def q_proj(self) -> LinearConfig:

@@ -42,6 +42,8 @@ class FFNConfig:
     spm_use_kernel: Optional[bool] = None
     spm_schedule: str = "butterfly"
     spm_block_fuse: Optional[bool] = None
+    spm_quant_acts: bool = False
+    spm_quant_coeffs: bool = False
     param_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -53,7 +55,8 @@ class FFNConfig:
             d_in=d_in, d_out=d_out, impl=self.linear_impl, use_bias=False,
             n_stages=self.spm_stages, backward=self.spm_backward,
             use_kernel=self.spm_use_kernel, schedule=self.spm_schedule,
-            param_dtype=self.param_dtype)
+            param_dtype=self.param_dtype, quant_acts=self.spm_quant_acts,
+            quant_coeffs=self.spm_quant_coeffs)
 
     @property
     def up(self) -> LinearConfig:

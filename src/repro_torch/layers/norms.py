@@ -47,7 +47,8 @@ def norm_linear_apply(norm_params, params, x: torch.Tensor,
                       cfg: LinearConfig, block_fuse: Optional[bool] = None,
                       eps: float = 1e-6) -> torch.Tensor:
     """``linear_apply(params, rms_norm(norm_params, x))``, with the norm in
-    the kernel's prologue when ``block_fuse`` resolves on."""
+    the kernel's prologue when ``block_fuse`` resolves on and the linear
+    has block operands (not dense, not quantized)."""
     bundle = spm_block_operands(params, cfg)
     if resolve_block_fuse(block_fuse, bundle is not None):
         from repro_torch.kernels import ops as kernel_ops

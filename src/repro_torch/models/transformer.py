@@ -79,6 +79,8 @@ class ModelConfig:
     spm_schedule: str = "butterfly"
     ffn_activation: str = "swiglu"
     spm_block_fuse: Optional[bool] = None  # None/True: block kernel; False
+    spm_quant_acts: bool = False           # int8 activation I/O (K1/K2)
+    spm_quant_coeffs: bool = False         # int8 per-stage coefficient tables
     tie_embeddings: bool = True
     logits_dtype: Any = "float32"
     dtype: Any = "bfloat16"
@@ -95,7 +97,9 @@ class ModelConfig:
             spm_backward=self.spm_backward,
             spm_use_kernel=self.spm_use_kernel,
             spm_schedule=self.spm_schedule,
-            spm_block_fuse=self.spm_block_fuse, q_chunk=self.q_chunk,
+            spm_block_fuse=self.spm_block_fuse,
+            spm_quant_acts=self.spm_quant_acts,
+            spm_quant_coeffs=self.spm_quant_coeffs, q_chunk=self.q_chunk,
             k_chunk=self.k_chunk, param_dtype=dtype_of(self.param_dtype))
 
     def ffn_cfg(self) -> FFNConfig:
@@ -107,6 +111,8 @@ class ModelConfig:
             spm_use_kernel=self.spm_use_kernel,
             spm_schedule=self.spm_schedule,
             spm_block_fuse=self.spm_block_fuse,
+            spm_quant_acts=self.spm_quant_acts,
+            spm_quant_coeffs=self.spm_quant_coeffs,
             param_dtype=dtype_of(self.param_dtype))
 
     def embed_cfg(self) -> EmbeddingConfig:

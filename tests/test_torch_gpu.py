@@ -7,6 +7,8 @@ where no Hopper GPU is present; run them on the card with
 Tolerances are derived as in ``tests/test_torch_spm.py``.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -262,3 +264,137 @@ def test_smoke_train_steps_on_card_match_cpu(cuda):
     diff = sum(float(((p_gpu[k] - p_cpu[k]) ** 2).sum()) for k in p_cpu)
     moved = sum(float(((p_cpu[k] - p0[k]) ** 2).sum()) for k in p_cpu)
     assert diff ** 0.5 <= rel * moved ** 0.5
+
+
+@pytest.mark.parametrize("mode", ["acts", "coeffs", "both"])
+@pytest.mark.parametrize("n, strides, rows, in_w, out_w, dtype", [
+    (2048, QKV, 64, 2048, 2048, torch.bfloat16),   # 8-row blocks, cluster 8
+    (2048, QKV, 40, 2048, 1024, torch.float32),    # edge tile, padded rows
+    (6144, FFN, 8, 2048, 6144, torch.bfloat16)])   # one 6144 run, cluster 8
+def test_int8_k1_k2_match_plain(cuda, mode, n, strides, rows, in_w, out_w,
+                                dtype):
+    """K1's int8 codes and scales and K2's g_x bit for bit against the
+    plain versions, in each int8 mode, where a scale block spans a cluster
+    of several blocks; K2's parameter grads within gamma_rows times the sum
+    of magnitudes; second launches bitwise equal; the int8 launches
+    counted apart."""
+    from repro_torch.kernels import quant as Q
+    q_acts, q_cf = mode in ("acts", "both"), mode in ("coeffs", "both")
+    gen = torch.Generator(device="cuda").manual_seed(rows + n)
+    ((rs, nt),) = ops.plan_runs_for_rows(n, strides, rows)
+    sr = Q.scale_block_rows([(rs, nt)], rows, 2)
+    cf = _rnd(gen, len(strides), n // 2, 4, scale=0.5)
+    vec = [1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n),
+           0.1 * _rnd(gen, n)]
+    x = ops._pad_rows(_rnd(gen, rows, in_w), sr)
+    cf, cs = Q.quantize_coeffs(cf) if q_cf else (cf, None)
+    x, xs = Q.quantize_blocks(x, sr, nt) if q_acts else (x.to(dtype), None)
+    if q_acts:
+        assert K.int8_cta_rows(x.shape[0], nt, -(-out_w // nt), sr) < sr
+    kw = dict(strides=rs, n_tile=nt, in_width=None if in_w == n else in_w,
+              out_width=None if out_w == n else out_w, quant_out=q_acts,
+              scale_rows=sr)
+    K.reset_launch_counts()
+    got = K.spm_stack_kernel_call(x, cf, *vec, xs, cs, **kw)
+    again = K.spm_stack_kernel_call(x, cf, *vec, xs, cs, **kw)
+    want = K.spm_stack_plain(x, cf, *vec, xs, cs, **kw)
+    gy = _rnd(gen, x.shape[0], out_w).to(dtype)
+    bkw = dict(kw, has_bias=True)
+    bkw.pop("quant_out")
+    g = K.spm_stack_bwd_kernel_call(x, cf, gy, *vec[:2], xs, cs, **bkw)
+    g2 = K.spm_stack_bwd_kernel_call(x, cf, gy, *vec[:2], xs, cs, **bkw)
+    gp = K.spm_stack_bwd_plain(x, cf, gy, *vec[:2], xs, cs, **bkw)
+    mags = K.spm_stack_bwd_plain(x, cf, gy, *vec[:2], xs, cs,
+                                 col_sum=_abs_sum, **bkw)
+    torch.cuda.synchronize()
+    for fn in (K.spm_stack_kernel_call, K.spm_stack_bwd_kernel_call):
+        assert (fn.launches, fn.int8_launches,
+                fn.int8_io_launches) == (2, 2, 2 if q_acts else 0)
+    pairs = zip(got, want) if q_acts else [(got, want)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+    if q_acts:
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(g[0], gp[0]) and g[0].dtype == dtype
+    _grads_within(g[1:], gp[1:], mags[1:], x.shape[0])
+    assert all(torch.equal(a, b) for a, b in zip(g, g2))
+
+
+def test_int8_scale_block_too_large_raises(cuda):
+    """A 1024 x 512 scale block (n = 512, strides (1, 256), bf16: the
+    reference's grid) needs 128-row blocks of 256 KiB f32 in a cluster of
+    8: more shared memory than a block has, so the call raises instead of
+    running elsewhere."""
+    from repro_torch.kernels import quant as Q
+    strides = (1, 256)
+    runs = ops.plan_runs_for_rows(512, strides, 1024)
+    assert runs == ((strides, 512),)
+    sr = Q.scale_block_rows(runs, 1024, 2)
+    assert sr == 1024
+    x, xs = Q.quantize_blocks(torch.randn(1024, 512, device="cuda"), sr, 512)
+    cf = torch.randn(2, 256, 4, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        K.spm_stack_kernel_call(x, cf, None, None, None, xs, strides=strides,
+                                n_tile=512, quant_out=True, scale_rows=sr)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spm_stack_fused(torch.randn(1024, 512, device="cuda",
+                                        dtype=torch.bfloat16), cf, strides,
+                            quant_acts=True)
+
+
+def test_int8_k1_nonfinite_store_matches_plain(cuda):
+    """Scale blocks holding a NaN and an Inf (tile 0 of three, through
+    d_out) and an Inf alone (tile 1), each spanning a cluster of 8 blocks:
+    the cluster's absmax keeps them, so those scales are NaN and Inf and
+    every code 0, exactly the plain version's (NaN equal to NaN); tile 2
+    stays finite."""
+    from repro_torch.kernels import quant as Q
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    n, rows = 6144, 64
+    ((rs, nt),) = ops.plan_runs_for_rows(n, QKV, rows)
+    assert n // nt == 3
+    sr = Q.scale_block_rows([(rs, nt)], rows, 2)
+    assert K.int8_cta_rows(rows, nt, n // nt, sr) < sr
+    qx, xs = Q.quantize_blocks(_rnd(gen, rows, n), sr, nt)
+    qc, sc = Q.quantize_coeffs(_rnd(gen, len(rs), n // 2, 4, scale=0.5))
+    d_out = torch.ones(n, device="cuda")
+    d_out[5], d_out[9], d_out[nt + 3] = math.nan, math.inf, math.inf
+    kw = dict(strides=rs, n_tile=nt, quant_out=True, scale_rows=sr)
+    kq, ks = K.spm_stack_kernel_call(qx, qc, None, d_out, None, xs, sc, **kw)
+    pq, ps = K.spm_stack_plain(qx, qc, None, d_out, None, xs, sc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kq, pq)
+    assert torch.allclose(ks, ps, rtol=0, atol=0, equal_nan=True)
+    assert ks[:, 0].isnan().all() and ks[:, 1].isinf().all()
+    assert torch.isfinite(ks[:, 2]).all()
+    assert not kq[:, :2 * nt].any() and kq[:, 2 * nt:].any()
+
+
+def test_quantized_smoke_model_on_card_matches_cpu(cuda):
+    """The f32 smoke model under with_quantized_io: every linear's K1
+    launch moves int8 activations and no block kernel runs.  The CPU
+    replays the card's int8 codes (``kernels.codes.CodeTape``), so each
+    chain's CPU output from the card's entry must be the card's bit for
+    bit, the CPU's own entry codes within one of the card's, and the
+    logits within the f32 depth bound alone."""
+    from repro_torch.configs import with_quantized_io
+    from repro_torch.kernels.codes import CodeTape
+    cfg = with_quantized_io(get_smoke("qwen3-1.7b"))
+    params = T.init_model(cfg, seed=0, device="cpu")
+    toks = torch.arange(32).reshape(2, 16) % 11
+    card = T.init_model(cfg, seed=0, device="cpu").to("cuda")
+    K.reset_launch_counts()
+    with CodeTape() as rec:
+        got = T.forward(card, cfg, tokens=toks.cuda())[0]
+    torch.cuda.synchronize()
+    assert K.spm_stack_kernel_call.int8_io_launches == 7 * cfg.n_layers
+    assert K.spm_block_kernel_call.launches == 0
+    with CodeTape(replay=rec) as cpu:
+        want = T.forward(params, cfg, tokens=toks)[0]
+    codes = cpu.summary()
+    assert codes["chains"] == codes["recorded"] == 7 * cfg.n_layers
+    assert codes["out_differ"] == 0 and codes["entry_max_diff"] <= 1
+    depth = cfg.n_layers * (2 * cfg.d_model + 200) + 2 * cfg.d_model
+    rel = 8 * depth * 2.0 ** -23
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=0,
+                               atol=rel * want.abs().max().item())

@@ -341,7 +341,7 @@ def test_launch_train_two_smoke_steps_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "x"], ["--chaos-spec", "n"],
-                                  ["--pod-dp", "2"], ["--quantize"],
+                                  ["--pod-dp", "2"],
                                   ["--compress-pod-grads"]])
 def test_launch_train_refuses_later_slices(flag):
     args = launch_train.build_parser().parse_args(
