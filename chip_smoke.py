@@ -7,7 +7,7 @@ versions.
 Phases, each of which fails the run when it fails:
 
 1. **Build** K1 (``csrc/spm_stack.cu``) and K2 (``csrc/spm_stack_bwd.cu``)
-   with their int8 modes, K3 (``csrc/spm_block.cu``) and K4
+   with their int8 and windowed modes, K3 (``csrc/spm_block.cu``) and K4
    (``csrc/spm_block_bwd.cu``) from the checkout with ``nvcc`` for
    ``sm_90a``, one process per source, all at once.
 2. **Kernels**: each kernel against its plain version on the card, on the
@@ -74,6 +74,22 @@ Phases, each of which fails the run when it fails:
    decode tokens/s; then teacher-forced logits against the CPU at batch 4,
    prompt 16, 32 steps, the codes replayed as in phase 10, within phase
    4's bf16 bound, with at least ``MIN_DECIDED`` tokens decided.
+12. **Windowed kernels**: K1's and K2's ``col_base`` modes at the gate/up
+   shard shapes of ``with_feature_sharding(qwen3-1.7b, 4)`` (n_local 1536
+   of the global in_width 2048, tiles of 768, shards 0-3: live,
+   straddling, past the edge), 4096 and 8 rows, bf16 and f32: K1 bit for
+   bit (a dead shard exactly its bias), K2 as phase 5 with g_din exactly
+   zero past in_width; K2's gy window at the down shape.  Times, bounds
+   and ``torch.matmul`` with the window's dense (2048, 1536) map.
+13. **Sharded train and serve**: full-width ``with_feature_sharding(
+   qwen3-1.7b, 4)`` on a 4-shard mesh on one card under
+   ``activation_sharding(mesh, shard_feature=True)``: 6 steps of batch 8
+   x seq 512 with the third poisoned, then one ``generate`` of 8 x 512 +
+   16 tokens; K1/K2 launches (windowed counted apart) equal to the plan
+   from ``plan_steps`` and ``plan_runs_for_rows``, K3 = K4 = 0.  Step ms,
+   tokens/s and peak memory beside phase 6's.
+14. **Sharded train parity**: phase 7 on the sharded model, each side
+   under a 4-shard mesh on its own device.
 
 The line before the last lists the kernels as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or run away from
@@ -83,6 +99,7 @@ per-shape table goes to ``out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -830,10 +847,13 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
 # ---------------------------------------------------------------------------
 
 def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
-                           seq=16):
+                           seq=16, shards=0):
     """The same full-width weights, f32 activations, one step on the card
     (kernels) and on the CPU (plain versions): the loss, each parameter's
-    grad as a relative norm, and the updated params.
+    grad as a relative norm, and the updated params.  With ``shards``
+    (phase 14) the model is ``with_feature_sharding(cfg, shards)`` and each
+    side runs under a mesh of that many shards on its own device; the
+    card's side must launch the windowed modes and no K3/K4.
 
     Tolerance: both sides compute the same f32 function with the same
     ops, rounding in other orders (the kernels' row sums, cuBLAS against
@@ -845,7 +865,12 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
     probabilistic bound lambda sqrt(depth) eps relative (lambda = 8), as
     K3's row sum is.  AdamW's update is invariant to the grads' scale, so
     the params move by the grads' relative error times the update."""
+    from repro_torch.configs import with_feature_sharding
+    from repro_torch.kernels import spm_stack as K
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
     cfg = dataclasses.replace(cfg, dtype="float32")
+    if shards:
+        cfg = with_feature_sharding(cfg, shards)
     params = T.init_model(cfg, seed=0, device="cpu")
     card = copy.deepcopy(params).to(DEVICE)
     gen = torch.Generator().manual_seed(5)
@@ -860,18 +885,28 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
     out = {}
     for side, p in (("cpu", params), ("card", card)):
         dev = "cpu" if side == "cpu" else DEVICE
-        state = train_mod.make_train_state(p)
-        bd = {k: v.to(dev) for k, v in b.items()}
-        loss, _ = LM.lm_loss(p, bd, cfg)
-        loss.backward()
-        grads = {k: q.grad.detach().float().cpu() for k, q in
-                 p.named_parameters()}
-        p0 = {k: q.detach().cpu().clone() for k, q in p.named_parameters()}
-        step = train_mod.make_train_step(lambda pp, bb: LM.lm_loss(pp, bb,
-                                                                  cfg),
-                                         adamw.OptimizerConfig())
-        state, m = step(state, bd)
-        out[side] = dict(loss=loss.item(), grads=grads, p0=p0,
+        ctx = (activation_sharding(make_feature_mesh(shards, device=dev),
+                                   shard_feature=True)
+               if shards else contextlib.nullcontext())
+        K.reset_launch_counts()
+        with ctx:
+            state = train_mod.make_train_state(p)
+            bd = {k: v.to(dev) for k, v in b.items()}
+            loss, _ = LM.lm_loss(p, bd, cfg)
+            loss.backward()
+            grads = {k: q.grad.detach().float().cpu() for k, q in
+                     p.named_parameters()}
+            p0 = {k: q.detach().cpu().clone()
+                  for k, q in p.named_parameters()}
+            step = train_mod.make_train_step(
+                lambda pp, bb: LM.lm_loss(pp, bb, cfg),
+                adamw.OptimizerConfig())
+            state, m = step(state, bd)
+        counts = (K.spm_stack_kernel_call.window_launches,
+                  K.spm_stack_bwd_kernel_call.window_launches,
+                  K.spm_block_kernel_call.launches,
+                  K.spm_block_bwd_kernel_call.launches)
+        out[side] = dict(loss=loss.item(), grads=grads, p0=p0, counts=counts,
                          p1={k: q.detach().cpu() for k, q in
                              p.named_parameters()},
                          skipped=float(m["skipped"]))
@@ -892,11 +927,15 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
                           for k in c["p1"]))
     ok = (loss_ok and worst <= rel and diff <= rel * moved
           and a["skipped"] == 0.0 == c["skipped"])
-    res = dict(batch=batch, seq=seq, loss_card=a["loss"], loss_cpu=c["loss"],
-               loss_abs_err=loss_err, worst_grad_rel_err=worst,
-               worst_grad=worst_name, params_diff_norm=diff,
-               update_norm=moved, rel_tol=rel, seconds=secs)
-    log(f"train parity: loss card {a['loss']:.6f} cpu {c['loss']:.6f} "
+    if shards:      # the card's side ran the windowed kernels, no K3/K4
+        ok = ok and min(a["counts"][:2]) > 0 and a["counts"][2:] == (0, 0)
+    res = dict(batch=batch, seq=seq, shards=shards, loss_card=a["loss"],
+               loss_cpu=c["loss"], loss_abs_err=loss_err,
+               worst_grad_rel_err=worst, worst_grad=worst_name,
+               params_diff_norm=diff, update_norm=moved, rel_tol=rel,
+               card_window_and_block_launches=a["counts"], seconds=secs)
+    log(f"{'sharded ' if shards else ''}train parity: loss card "
+        f"{a['loss']:.6f} cpu {c['loss']:.6f} "
         f"(err {loss_err:.2e}), worst grad rel err {worst:.2e} "
         f"({worst_name}), params diff {diff:.3e} vs update {moved:.3e}; "
         f"tol {rel:.2e} relative ({secs:.1f} s) {'ok' if ok else 'FAIL'}")
@@ -1384,6 +1423,449 @@ def run_q8_serve_phase(torch, K, ops, T, LM, ServeEngine, cfg, batch=8,
     return res, ok
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the feature-sharded executor
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+
+
+def shard_run(spm_cfg, rows: int):
+    """The local run of a sharded linear's first step and its plan at
+    ``rows`` rows: ``(n_local, run strides, ((strides, n_tile), ...))``."""
+    from repro_torch.core.eligibility import plan_steps
+    from repro_torch.kernels import ops
+    steps = plan_steps(spm_cfg.n, spm_cfg.pairing.strides(),
+                       spm_cfg.n_shards)
+    n_local = spm_cfg.n // spm_cfg.n_shards
+    return n_local, steps, [ops.plan_runs_for_rows(n_local, st[2], rows)
+                            for st in steps if st[0] == "local"]
+
+
+def run_window_kernel_phase(torch, K, timer, scfg):
+    """K1's and K2's windowed (``col_base``) modes at the gate/up shard
+    shapes of ``scfg`` (n=6144 over 4 shards: n_local 1536, in_width 2048),
+    every shard (0 live, 1 straddling column 2048, 2 and 3 past it), at
+    training and decode rows, bf16 and f32; then K2 reading gy through the
+    window of a global out_width=2048 cotangent (the down projection's
+    shape).  K1 bit for bit and a dead shard exactly its bias; K2's g_x bit
+    for bit and its grads within gamma_rows of the sum of magnitudes (as
+    phase 5), g_din exactly zero past in_width; second launches bitwise.
+    The bound counts the x columns the window reads, not the slab's.
+    Last, the sharded path's unwindowed K1/K2 shapes, shard 0 (every shard
+    has its shape), bf16, 4096 and 8 rows, held to the same criteria: the
+    o projection's 9-stage run (n_local 512, d_out folded into the mix, so
+    not into K1) and the down projection's 12-stage run (n_local 1536),
+    with the operands the executor folds into them."""
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(2468)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    def mix(L, n):
+        th = (torch.rand(L, n // 2, generator=g, device=DEVICE) * 2 - 1) \
+            * math.pi
+        c, s = torch.cos(th), torch.sin(th)
+        return torch.stack([c, -s, s, c], dim=-1) + rnd(L, n // 2, 4,
+                                                        scale=0.05)
+
+    abs_sum = (lambda t: t.abs().sum(0))
+    lin = scfg.ffn_cfg().up
+    spm = lin.spm_config()
+    in_w = lin.d_in
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        esz = torch.tensor([], dtype=dt).element_size()
+        for rows in (4096, 8):
+            nl, steps, plans = shard_run(spm, rows)
+            assert steps[0][0] == "local" and len(plans[0]) == 1, plans
+            (rs, nt), = plans[0]
+            L = len(rs)
+            for shard in range(spm.n_shards):
+                base = shard * nl // nt
+                live = max(0, min(nl, in_w - shard * nl))
+                cf = mix(L, nl)
+                d_in, d_out, b = 1 + 0.1 * rnd(nl), 1 + 0.1 * rnd(nl), \
+                    0.1 * rnd(nl)
+                x = rnd(rows, in_w).to(dt)
+                gy = rnd(rows, nl).to(dt)
+                kw = dict(strides=rs, n_tile=nt, in_width=in_w,
+                          col_base=base)
+                y = K.spm_stack_kernel_call(x, cf, d_in, d_out, b, **kw)
+                y2 = K.spm_stack_kernel_call(x, cf, d_in, d_out, b, **kw)
+                yp = K.spm_stack_plain(x, cf, d_in, d_out, b, **kw)
+                bw = dict(kw, has_bias=True)
+                gk = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out,
+                                                 **bw)
+                gk2 = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out,
+                                                  **bw)
+                gp = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, **bw)
+                gm = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out,
+                                           col_sum=abs_sum, **bw)
+                torch.cuda.synchronize()
+                k1_err = (y.float() - yp.float()).abs().max().item()
+                dead_ok = (shard * nl < in_w
+                           or torch.equal(y, b.to(dt).expand(rows, -1)))
+                gx_err = (gk[0].float() - gp[0].float()).abs().max().item()
+                worst = grads_within(gk[1:], gp[1:], gm[1:], rows)
+                zeros = not gk[2][live:].any()
+                det = torch.equal(y, y2) and all(
+                    torch.equal(u, v) for u, v in zip(gk, gk2))
+                # the dense map of this shard's window: (in_width, n_local)
+                w = K.spm_stack_plain(torch.eye(in_w, device=DEVICE), cf,
+                                      d_in, d_out, None, **kw).to(dt)
+                k1 = dict(ms=timer(lambda: K.spm_stack_kernel_call(
+                    x, cf, d_in, d_out, b, **kw)),
+                    plain_ms=timer(lambda: K.spm_stack_plain(
+                        x, cf, d_in, d_out, b, **kw)),
+                    library_ms=timer(lambda: torch.matmul(x, w)))
+                k2 = dict(ms=timer(lambda: K.spm_stack_bwd_kernel_call(
+                    x, cf, gy, d_in, d_out, **bw)),
+                    plain_ms=timer(lambda: K.spm_stack_bwd_plain(
+                        x, cf, gy, d_in, d_out, **bw)),
+                    library_ms=timer(lambda: (torch.matmul(gy, w.T),
+                                              torch.matmul(x.T, gy))))
+                # K1 reads the live columns of x, writes the slab, reads
+                # the table and three vectors; K2 reads x's live columns,
+                # gy, the table and two vectors, writes g_x, the table's
+                # grads and three vector grads
+                k1["bound_ms"], k1["bound_by"] = bound(
+                    rows * (live + nl) * esz + L * nl // 2 * 16 + 3 * 4 * nl,
+                    rows * nl * (3 * L + 2))
+                k2["bound_ms"], k2["bound_by"] = bound(
+                    rows * (live + 2 * nl) * esz + 2 * L * nl // 2 * 16
+                    + 5 * 4 * nl, rows * nl * (10 * L + 6))
+                ok1 = k1_err == 0 and dead_ok and bool(
+                    torch.isfinite(y.float()).all())
+                ok2 = gx_err == 0 and worst <= 1 and zeros and all(
+                    bool(torch.isfinite(t.float()).all()) for t in gk)
+                common = dict(case=f"up shard {shard}", dtype=dname,
+                              rows=rows, n=nl, in_width=in_w, n_tile=nt,
+                              col_base=base, live_columns=live,
+                              deterministic=det, launches_per_call=1)
+                rows_out.append(dict(common, kernel="K1 col_base",
+                                     max_abs_err=k1_err, dead_is_bias=dead_ok,
+                                     ok=ok1 and det, **k1))
+                rows_out.append(dict(common, kernel="K2 col_base",
+                                     gx_max_abs_err=gx_err,
+                                     max_abs_err=max(gx_err, max(
+                                         (u - v).abs().max().item()
+                                         for u, v in zip(gk[1:], gp[1:]))),
+                                     grad_err_over_limit=worst,
+                                     dead_lane_grads_zero=zeros,
+                                     ok=ok2 and det, **k2))
+                log(f"col_base up s{shard} {dname:8s} rows={rows:5d} "
+                    f"base={base} live={live:4d} | K1 err={k1_err:.1e} "
+                    f"dead=bias:{dead_ok} ms={k1['ms']:.4f} plain_ms="
+                    f"{k1['plain_ms']:.4f} bound_ms={k1['bound_ms']:.4f} "
+                    f"({k1['bound_by']}) library_ms={k1['library_ms']:.4f} "
+                    f"| K2 gx_err={gx_err:.1e} grad err/limit={worst:.3f} "
+                    f"zeros={zeros} ms={k2['ms']:.4f} plain_ms="
+                    f"{k2['plain_ms']:.4f} bound_ms={k2['bound_ms']:.4f} "
+                    f"({k2['bound_by']}) library_ms="
+                    f"{k2['library_ms']:.4f} det={det} "
+                    f"{'ok' if ok1 and ok2 and det else 'FAIL'}")
+                if not (ok1 and ok2 and det):
+                    failures.append(f"col_base up shard {shard} {dname} "
+                                    f"rows={rows}")
+                # K2 reading gy through the window (out_width 2048)
+                xs = rnd(rows, nl).to(dt)
+                gyw = rnd(rows, in_w).to(dt)
+                gkw = dict(strides=rs, n_tile=nt, out_width=in_w,
+                           col_base=base, has_bias=True)
+                gk = K.spm_stack_bwd_kernel_call(xs, cf, gyw, d_in, d_out,
+                                                 **gkw)
+                gp = K.spm_stack_bwd_plain(xs, cf, gyw, d_in, d_out, **gkw)
+                gm = K.spm_stack_bwd_plain(xs, cf, gyw, d_in, d_out,
+                                           col_sum=abs_sum, **gkw)
+                torch.cuda.synchronize()
+                gx_err = (gk[0].float() - gp[0].float()).abs().max().item()
+                worst = grads_within(gk[1:], gp[1:], gm[1:], rows)
+                zeros = not gk[3][live:].any() and not gk[4][live:].any()
+                ok = gx_err == 0 and worst <= 1 and zeros
+                rows_out.append(dict(
+                    kernel="K2 col_base gy", case=f"down shard {shard}",
+                    dtype=dname, rows=rows, n=nl, out_width=in_w,
+                    n_tile=nt, col_base=base, live_columns=live,
+                    gx_max_abs_err=gx_err, grad_err_over_limit=worst,
+                    dead_lane_grads_zero=zeros, max_abs_err=gx_err, ok=ok))
+                log(f"col_base gy down s{shard} {dname:8s} rows={rows:5d} "
+                    f"K2 gx_err={gx_err:.1e} grad err/limit={worst:.3f} "
+                    f"zeros={zeros} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"col_base gy down shard {shard} "
+                                    f"{dname} rows={rows}")
+    dt = torch.bfloat16
+    acfg = scfg.attn_cfg(scfg.layers[0])
+    for name, lin in (("o", acfg.o_proj), ("down", scfg.ffn_cfg().down)):
+        spm = lin.spm_config()
+        for rows in (4096, 8):
+            nl, steps, plans = shard_run(spm, rows)
+            assert steps[0][0] == "local" and len(plans[0]) == 1, plans
+            (rs, nt), = plans[0]
+            last_local = len(steps) == 1
+            cf = mix(len(rs), nl)
+            d_in = 1 + 0.1 * rnd(nl)
+            d_out = 1 + 0.1 * rnd(nl) if last_local and spm.use_diag \
+                else None
+            b = 0.1 * rnd(nl) if last_local and spm.use_bias else None
+            x = rnd(rows, nl).to(dt)
+            gy = rnd(rows, nl).to(dt)
+            kw = dict(strides=rs, n_tile=nt)
+            bw = dict(kw, has_bias=b is not None)
+            y = K.spm_stack_kernel_call(x, cf, d_in, d_out, b, **kw)
+            y2 = K.spm_stack_kernel_call(x, cf, d_in, d_out, b, **kw)
+            yp = K.spm_stack_plain(x, cf, d_in, d_out, b, **kw)
+            gk = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out, **bw)
+            gk2 = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out, **bw)
+            gp = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, **bw)
+            gm = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out,
+                                       col_sum=abs_sum, **bw)
+            torch.cuda.synchronize()
+            k1_err = (y.float() - yp.float()).abs().max().item()
+            gx_err = (gk[0].float() - gp[0].float()).abs().max().item()
+            worst = grads_within(gk[1:], gp[1:], gm[1:], rows)
+            det = torch.equal(y, y2) and all(
+                torch.equal(u, v) for u, v in zip(gk, gk2))
+            ok1 = k1_err == 0 and bool(torch.isfinite(y.float()).all())
+            ok2 = gx_err == 0 and worst <= 1 and all(
+                bool(torch.isfinite(t.float()).all()) for t in gk)
+            k1_ms = timer(lambda: K.spm_stack_kernel_call(
+                x, cf, d_in, d_out, b, **kw))
+            k2_ms = timer(lambda: K.spm_stack_bwd_kernel_call(
+                x, cf, gy, d_in, d_out, **bw))
+            common = dict(case=f"{name} shard 0", dtype="bfloat16",
+                          rows=rows, n=nl, n_tile=nt, stages=len(rs),
+                          folds_d_out=d_out is not None, deterministic=det,
+                          launches_per_call=1)
+            rows_out.append(dict(common, kernel="K1", max_abs_err=k1_err,
+                                 ms=k1_ms, ok=ok1 and det))
+            rows_out.append(dict(common, kernel="K2", gx_max_abs_err=gx_err,
+                                 max_abs_err=max(gx_err, max(
+                                     (u - v).abs().max().item()
+                                     for u, v in zip(gk[1:], gp[1:]))),
+                                 grad_err_over_limit=worst, ms=k2_ms,
+                                 ok=ok2 and det))
+            log(f"shard {name:4s} s0 bfloat16 rows={rows:5d} n_local={nl} "
+                f"tile={nt} L={len(rs)} | K1 err={k1_err:.1e} "
+                f"ms={k1_ms:.4f} | K2 gx_err={gx_err:.1e} grad err/limit="
+                f"{worst:.3f} ms={k2_ms:.4f} det={det} "
+                f"{'ok' if ok1 and ok2 and det else 'FAIL'}")
+            if not (ok1 and ok2 and det):
+                failures.append(f"{name} shard 0 bfloat16 rows={rows}")
+    return rows_out, failures
+
+
+def planned_sharded_launches(scfg, rows: int) -> dict:
+    """K1 launches of one sharded forward over ``rows`` rows, from
+    ``plan_steps`` and ``plan_runs_for_rows``: every shard runs each local
+    step's planned runs, the first run of a linear whose input is narrower
+    than n in the windowed mode; no linear block-fuses (K3 0).  ``K1 bwd
+    remat``: the runs the backward remats (all but each step's last)."""
+    spec = scfg.layers[0]
+    acfg, fcfg = scfg.attn_cfg(spec), scfg.ffn_cfg()
+    k1 = win = remat = 0
+    for lin in (acfg.q_proj, acfg.kv_proj, acfg.kv_proj, acfg.o_proj,
+                fcfg.gate, fcfg.up, fcfg.down):
+        spm = lin.spm_config()
+        _, steps, plans = shard_run(spm, rows)
+        S = spm.n_shards
+        k1 += S * sum(len(p) for p in plans)
+        remat += S * sum(len(p) - 1 for p in plans)
+        if lin.d_in < spm.n and steps[0][0] == "local":
+            win += S
+    L = scfg.n_layers
+    return {"K1": L * k1, "K1 col_base": L * win, "K1 bwd remat": L * remat,
+            "K3": 0}
+
+
+def planned_sharded_train_launches(scfg, rows: int) -> dict:
+    """One sharded training step: the forward twice (remat), then K2 once
+    per forward run (windowed where the forward's is) plus the backward's
+    own remat runs; no K3/K4."""
+    f = planned_sharded_launches(scfg, rows)
+    m = 2 if scfg.remat else 1
+    return {"K1": m * f["K1"] + f["K1 bwd remat"],
+            "K1 col_base": m * f["K1 col_base"], "K2": f["K1"],
+            "K2 col_base": f["K1 col_base"], "K3": 0, "K4": 0}
+
+
+def sharded_counts(K) -> dict:
+    return {"K1": K.spm_stack_kernel_call.launches,
+            "K1 col_base": K.spm_stack_kernel_call.window_launches,
+            "K2": K.spm_stack_bwd_kernel_call.launches,
+            "K2 col_base": K.spm_stack_bwd_kernel_call.window_launches,
+            "K3": K.spm_block_kernel_call.launches,
+            "K4": K.spm_block_bwd_kernel_call.launches}
+
+
+def run_sharded_phase(torch, K, T, LM, train_mod, adamw, ServeEngine,
+                      launch_train, cfg, unsharded, batch=8, seq=512,
+                      steps=6, poisoned=2, new=16):
+    """Full-width ``with_feature_sharding(cfg, 4)`` on a 4-shard mesh on
+    one card, driven as the reference drives it: ``make_train_step`` under
+    ``activation_sharding(mesh, shard_feature=True)``, 6 steps of batch 8
+    x seq 512 with the third poisoned (as ``launch.train.train`` runs
+    them: its batches, seed and optimizer), then one ``generate`` of 8 x
+    512 prompts + 16 tokens.  Launches equal the plan, windowed ones
+    counted apart, K3 = K4 = 0; the poisoned step leaves the state
+    bitwise unchanged.  Step ms, tokens/s and peak memory beside the
+    unsharded step of the same call (phase 6); then a seventh step traced
+    on the device alone (``launch.profile_train``'s measure): its busy
+    time, the idle share of the median step and the time by kernel
+    group."""
+    from repro_torch.configs import with_feature_sharding
+    from repro_torch.data import DeterministicLoader, build_corpus
+    from repro_torch.launch.profile_train import busy_us, group_of
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    from torch.profiler import ProfilerActivity, profile
+    scfg = with_feature_sharding(cfg, SHARDS)
+    mesh = make_feature_mesh(SHARDS, device=DEVICE)
+    args = launch_train.build_parser().parse_args(
+        ["--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
+         "--seq", str(seq)])
+    loader = DeterministicLoader(
+        launch_train.make_batch_fn(scfg, seq,
+                                   build_corpus(200_000, seed=args.seed)),
+        batch, seed=args.seed)
+    opt_cfg = adamw.OptimizerConfig(lr=args.lr, total_steps=steps,
+                                    warmup_steps=max(steps // 20, 1))
+    step_fn = train_mod.make_train_step(
+        lambda p, b: LM.lm_loss(p, b, scfg), opt_cfg, chaos_guard=True)
+    params = T.init_model(scfg, seed=args.seed, device=DEVICE)
+    state = train_mod.make_train_state(params)
+    losses, skipped, secs = [], [], []
+    unchanged = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with activation_sharding(mesh, shard_feature=True):
+        for s in range(steps):
+            batch_s = {k: v.to(DEVICE) for k, v in loader.batch_at(s).items()}
+            if s == poisoned:
+                snap = ({k: v.detach().clone() for k, v in
+                         state["params"].named_parameters()},
+                        {m: {k: v.clone() for k, v in state["opt"][m].items()}
+                         for m in ("mu", "nu")},
+                        state["opt"]["count"].clone())
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch_s, float(s == poisoned))
+            metrics = LM.train_metrics(metrics)         # syncs the device
+            secs.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"])
+            skipped.append(metrics["skipped"])
+            if s == poisoned:
+                now = dict(state["params"].named_parameters())
+                unchanged = (
+                    torch.equal(state["opt"]["count"], snap[2])
+                    and all(torch.equal(now[k], v)
+                            for k, v in snap[0].items())
+                    and all(torch.equal(state["opt"][m][k], v)
+                            for m in ("mu", "nu")
+                            for k, v in snap[1][m].items()))
+                del snap
+        torch.cuda.synchronize()
+        train_got = sharded_counts(K)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = planned_sharded_train_launches(scfg, batch * seq)
+        train_want = {k: steps * v for k, v in per_step.items()}
+        # one more step with the device traced (profile_train's measure):
+        # its busy time against the untraced median step
+        batch_s = {k: v.to(DEVICE) for k, v in
+                   loader.batch_at(steps).items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, metrics = step_fn(state, batch_s, 0.0)
+            LM.train_metrics(metrics)
+        intervals, groups = [], {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            intervals.append((ev.time_range.start, ev.time_range.end))
+            gr = groups.setdefault(group_of(ev.name), [0, 0.0])
+            gr[0] += 1
+            gr[1] += ev.time_range.elapsed_us() / 1e3
+        busy_ms = busy_us(intervals) / 1e3
+        del state, params
+        torch.cuda.empty_cache()
+
+        sparams = T.init_model(scfg, seed=0, device=DEVICE)
+        eng = ServeEngine(cfg=scfg, params=sparams, max_len=seq + new,
+                          cache_dtype=torch.bfloat16, device=DEVICE)
+        gen = torch.Generator().manual_seed(7)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                generator=gen)
+        eng.generate(prompts[:, :16], max_new_tokens=2)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens, flags = eng.generate(prompts, max_new_tokens=new,
+                                     return_flags=True)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        serve_got = sharded_counts(K)
+        serve_peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    pre = planned_sharded_launches(scfg, batch * seq)
+    dec = planned_sharded_launches(scfg, batch)
+    serve_want = {"K1": pre["K1"] + (new - 1) * dec["K1"],
+                  "K1 col_base": pre["K1 col_base"]
+                  + (new - 1) * dec["K1 col_base"],
+                  "K2": 0, "K2 col_base": 0, "K3": 0, "K4": 0}
+    steady = sorted(secs[1:])
+    med = steady[len(steady) // 2] if len(steady) % 2 else \
+        0.5 * (steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+    finite = all(math.isfinite(v) for v in losses)
+    only = skipped == [float(s == poisoned) for s in range(steps)]
+    train_ok = finite and only and bool(unchanged) and train_got == train_want
+    in_range = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    serve_ok = (serve_got == serve_want and tuple(tokens.shape)
+                == (batch, new) and in_range and not bool(flags.any()))
+    res = dict(shards=SHARDS, mesh_devices=[str(d) for d in mesh.devices],
+               batch=batch, seq=seq, steps=steps, poisoned_step=poisoned,
+               losses=losses, skipped=skipped, step_s=secs,
+               step_ms_median=med * 1e3, tokens_per_s=batch * seq / med,
+               peak_mem_bytes=peak, launches=train_got, planned=train_want,
+               planned_per_step=per_step, poisoned_state_unchanged=unchanged,
+               traced_step_device_busy_ms=busy_ms,
+               device_idle_share=1.0 - busy_ms / (med * 1e3),
+               traced_step_groups={g: {"launches": n, "ms": ms} for g, (n, ms)
+                                   in sorted(groups.items(),
+                                             key=lambda kv: -kv[1][1])},
+               unsharded_step_ms_median=unsharded["step_ms_median"],
+               unsharded_tokens_per_s=unsharded["tokens_per_s"],
+               unsharded_peak_mem_bytes=unsharded["peak_mem_bytes"],
+               serve=dict(new_tokens=new, generate_s=gen_s,
+                          prefill_ms=prefill_s * 1e3,
+                          decode_tok_per_s=batch * (new - 1)
+                          / max(gen_s - prefill_s, 1e-9),
+                          peak_mem_bytes=serve_peak, launches=serve_got,
+                          planned=serve_want))
+    log(f"sharded train ({SHARDS} shards on {mesh.devices[0]}): {steps} "
+        f"steps of batch {batch} x seq {seq}, losses "
+        f"{[round(v, 4) for v in losses]}, skipped {skipped}, poisoned step "
+        f"unchanged={unchanged}, step {med * 1e3:.1f} ms (unsharded "
+        f"{unsharded['step_ms_median']:.1f}), {batch * seq / med:.0f} "
+        f"tokens/s (unsharded {unsharded['tokens_per_s']:.0f}), peak "
+        f"{peak / 2**30:.2f} GiB (unsharded "
+        f"{unsharded['peak_mem_bytes'] / 2**30:.2f}), launches {train_got} "
+        f"(planned {train_want}) {'ok' if train_ok else 'FAIL'}; a traced "
+        f"step: device busy {busy_ms:.1f} ms (idle "
+        f"{res['device_idle_share']:.1%} of the median step), by group "
+        + ", ".join(f"{g} {ms:.1f} ms/{n}" for g, (n, ms) in
+                    sorted(groups.items(), key=lambda kv: -kv[1][1])))
+    log(f"sharded serve: generate {batch} x {seq} + {new} in {gen_s:.2f} s, "
+        f"prefill {prefill_s * 1e3:.1f} ms, peak {serve_peak / 2**30:.2f} "
+        f"GiB, launches {serve_got} (planned {serve_want}), tokens "
+        f"{tuple(tokens.shape)} in range={in_range} "
+        f"flagged={int(flags.sum())} {'ok' if serve_ok else 'FAIL'}")
+    return res, train_ok and serve_ok
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1396,7 +1878,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
-    from repro_torch.configs import with_quantized_io
+    from repro_torch.configs import with_feature_sharding, with_quantized_io
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import quant as Q
     from repro_torch import train as train_mod
@@ -1449,6 +1931,15 @@ def main() -> int:
         torch, T, LM, train_mod, adamw, qcfg)
     q8_serve, q8_serve_ok = run_q8_serve_phase(torch, K, ops, T, LM,
                                                ServeEngine, qcfg)
+    win_rows, win_failures = run_window_kernel_phase(
+        torch, K, timer, with_feature_sharding(cfg, SHARDS))
+    kernel_rows += win_rows
+    failures += win_failures
+    sharded, sharded_ok = run_sharded_phase(
+        torch, K, T, LM, train_mod, adamw, ServeEngine, launch_train, cfg,
+        train)
+    sparity, sparity_ok = run_train_parity_phase(
+        torch, T, LM, train_mod, adamw, cfg, shards=SHARDS)
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -1462,6 +1953,8 @@ def main() -> int:
     k4 = head("K4", "q", "bfloat16", 4096)
     k1q = head("K1 int8", "o", "int8", 4096, "both")
     k2q = head("K2 int8", "o", "int8", 4096, "both")
+    k1w = head("K1 col_base", "up shard 0", "bfloat16", 4096)
+    k2w = head("K2 col_base", "up shard 0", "bfloat16", 4096)
     entries = []
     # launches: K1 and K3 from the serve phase (their main path), K2 and
     # K4 from the train phase (theirs); train_launches has all four
@@ -1484,13 +1977,21 @@ def main() -> int:
              "src/repro/kernels/spm_stack.py:157", q8_train["launches"]),
             ("K2 int8 spm_stack_bwd", k2q,
              "src/repro_torch/kernels/csrc/spm_stack_bwd.cu",
-             "src/repro/kernels/spm_stack.py:523", q8_train["launches"])):
+             "src/repro/kernels/spm_stack.py:523", q8_train["launches"]),
+            # windowed modes: launches from the sharded train phase
+            ("K1 col_base spm_stack_fwd", k1w,
+             "src/repro_torch/kernels/csrc/spm_stack.cu",
+             "src/repro/kernels/spm_stack.py:393", sharded["launches"]),
+            ("K2 col_base spm_stack_bwd", k2w,
+             "src/repro_torch/kernels/csrc/spm_stack_bwd.cu",
+             "src/repro/kernels/spm_stack.py:664", sharded["launches"])):
         key = name.rsplit(" ", 1)[0]
+        by = (q8_train if "int8" in key else
+              sharded if "col_base" in key else train)
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[key],
-            train_launches=(q8_train if "int8" in key else train)[
-                "launches"][key],
+            train_launches=by["launches"][key],
             max_abs_err=max(x["max_abs_err"] for x in kernel_rows
                             if x["kernel"] == key),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -1499,6 +2000,7 @@ def main() -> int:
                   train=train, train_parity=tparity, int8_nonfinite=nonfinite,
                   int8_train=q8_train,
                   int8_train_parity=q8_tparity, int8_serve=q8_serve,
+                  sharded=sharded, sharded_train_parity=sparity,
                   seconds=time.perf_counter() - t_start,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",
                                    "K2": "o projection, bf16, 4096 rows",
@@ -1507,20 +2009,27 @@ def main() -> int:
                                    "K1 int8": "o projection, int8 "
                                               "activations and table, 4096 "
                                               "rows",
-                                   "K2 int8": "the same"})
+                                   "K2 int8": "the same",
+                                   "K1 col_base": "gate/up shard 0 of 4 "
+                                                  "(n_local 1536 of "
+                                                  "in_width 2048), bf16, "
+                                                  "4096 rows",
+                                   "K2 col_base": "the same"})
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     ok = (not failures and serve_ok and parity_ok and train_ok
-          and tparity_ok and q8_train_ok and q8_tparity_ok and q8_serve_ok)
+          and tparity_ok and q8_train_ok and q8_tparity_ok and q8_serve_ok
+          and sharded_ok and sparity_ok)
     log(f"total {report['seconds']:.1f} s")
     if not ok:
         print(f"chip_smoke: FAILED kernels={failures} serve={serve_ok} "
               f"parity={parity_ok} train={train_ok} "
               f"train_parity={tparity_ok} int8_train={q8_train_ok} "
               f"int8_train_parity={q8_tparity_ok} "
-              f"int8_serve={q8_serve_ok}", file=sys.stderr)
+              f"int8_serve={q8_serve_ok} sharded={sharded_ok} "
+              f"sharded_train_parity={sparity_ok}", file=sys.stderr)
         return 1
     log(f"kernels: {[e['name'] for e in entries]}")
     print(smi)

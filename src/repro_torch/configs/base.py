@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 from repro_torch.models.transformer import LayerSpec, ModelConfig
 
 __all__ = ["dense_layers", "with_overrides", "with_fused_linears",
-           "with_quantized_io"]
+           "with_feature_sharding", "with_quantized_io"]
 
 
 def dense_layers(n: int) -> Tuple[LayerSpec, ...]:
@@ -28,6 +28,17 @@ def with_fused_linears(cfg: ModelConfig,
     (None = auto, the kernel path; True = the same, forced; False = the
     composition)."""
     return dataclasses.replace(cfg, spm_use_kernel=on)
+
+
+def with_feature_sharding(cfg: ModelConfig, n_shards: int) -> ModelConfig:
+    """Switch every SPM linear to the two_level schedule with its feature
+    axis distributable over ``n_shards`` shards.  The sharded executor
+    (``parallel/spm_shard.py``) engages inside
+    ``parallel.ctx.activation_sharding(mesh, shard_feature=True)`` with a
+    mesh of that many shards; elsewhere the schedule runs unsharded.
+    Sharded linears never block-fuse."""
+    return dataclasses.replace(cfg, spm_schedule="two_level",
+                               spm_n_shards=n_shards)
 
 
 def with_quantized_io(cfg: ModelConfig) -> ModelConfig:

@@ -5,6 +5,11 @@ numpy by the caller (e.g. ``jax.tree.map(np.asarray, params)``), and returns
 the port's ``Params`` tree.  Scanned configs store their layers stacked,
 ``{"l0": leaf (n_groups, ...), ...}`` (``transformer.py:276-279`` of the
 reference); those are unstacked into one tree per layer.
+
+A feature-sharded config (``configs.with_feature_sharding``) needs no leaf
+of its own: the sharded executor reads the same (L, n/2, 4) coefficient
+tables and (n,) vectors, and the same converted params give the same
+output with the feature mesh on and off (``tests/test_torch_shard.py``).
 """
 
 from __future__ import annotations

@@ -1,22 +1,39 @@
-"""Fast-path predicates for the single-device SPM executors.
+"""Fast-path predicates for the SPM executors (port of
+``repro/core/eligibility.py`` without the overlap schedule).
 
-Port of the single-device half of ``repro/core/eligibility.py``.  The
-tri-state knobs keep their meaning with one change: ``None`` (auto) means
-"on the card" here where it meant "on TPU" there.  The port's home is the
+The tri-state knobs keep their meaning with one change: ``None`` (auto)
+means "on the card" here where it meant "on TPU" there.  The port's home is the
 GPU, so auto resolves to the kernel path; on CPU tensors the kernel
 wrappers run their plain PyTorch versions, which makes the port's CPU path
 the reference's forced-kernel path (``use_kernel=True``,
 ``spm_block_fuse=True``, interpret mode).  ``False`` keeps the composition
 (``core/spm.py``), which computes in ``x.dtype``.
+
+The feature-sharded executor (``parallel/spm_shard.py``) reads
+``plan_steps``, ``sharded_eligible`` and ``resolve_shard_kernel``.  The
+matrix of which executor can take an operator is the reference's:
+
+===========================  ===========  ============  ================
+property                     composition  fused kernel  sharded executor
+===========================  ===========  ============  ================
+permutation pairings         yes          no            no
+odd n                        yes          no            no
+backward=custom_inverse      yes          no            no
+n % n_shards != 0            yes          yes           no
+odd n_local (stride-1 list)  yes          yes           no
+non-XOR cross stride         yes          yes           no
+===========================  ===========  ============  ================
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 from repro_torch.core.pairings import Schedule
 
-__all__ = ["kernel_eligible", "use_fused_kernel", "TINY_ROW_THRESHOLD",
+__all__ = ["plan_steps", "sharded_eligible", "resolve_shard_kernel",
+           "kernel_eligible", "use_fused_kernel", "TINY_ROW_THRESHOLD",
            "tiny_row_call", "BLOCK_MAX_TILE", "BLOCK_ACTIVATIONS",
            "block_fusion_eligible", "resolve_block_fuse",
            "quant_acts_eligible"]
@@ -40,6 +57,76 @@ def quant_acts_eligible(runs) -> bool:
     keep f32/bf16 activation I/O, the reference's own fallback; int8
     coefficients have no such condition."""
     return len({n_tile for _, n_tile in runs}) == 1
+
+
+def _is_pow2(k: int) -> bool:
+    return k > 0 and (k & (k - 1)) == 0
+
+
+@functools.lru_cache(maxsize=None)
+def plan_steps(n: int, strides: Tuple[int, ...],
+               n_shards: int) -> Tuple[tuple, ...]:
+    """Split a stride schedule into shard-executable steps:
+    ``("local", stage_offset, run_strides)`` for a maximal run of stages
+    whose pairs stay inside one ``n_local = n / n_shards`` block, and
+    ``("cross", stage_index, k)`` for a stage of stride ``k * n_local``
+    (``k`` a power of two) that pairs shard ``j`` with shard ``j XOR k``.
+    Raises ``ValueError`` for a stage that is neither."""
+    if n % n_shards:
+        raise ValueError(f"n={n} not divisible by n_shards={n_shards}")
+    n_local = n // n_shards
+    steps = []
+    run: list = []
+    run_start = 0
+    for ell, s in enumerate(strides):
+        if n % (2 * s):
+            raise ValueError(f"stride {s} invalid for n={n}")
+        if s < n_local and n_local % (2 * s) == 0:
+            if not run:
+                run_start = ell
+            run.append(s)
+            continue
+        if run:
+            steps.append(("local", run_start, tuple(run)))
+            run = []
+        k, rem = divmod(s, n_local)
+        if rem or not _is_pow2(k) or n_shards % (2 * k):
+            raise ValueError(
+                f"stride {s} is neither local to n_local={n_local} nor a "
+                f"power-of-two multiple partner exchange over "
+                f"{n_shards} shards")
+        steps.append(("cross", ell, k))
+    if run:
+        steps.append(("local", run_start, tuple(run)))
+    return tuple(steps)
+
+
+def sharded_eligible(cfg, sched: Optional[Schedule] = None) -> bool:
+    """Whether the sharded executor can express this operator exactly:
+    even n divisible by ``n_shards > 1``, all-structured stages each either
+    shard-local or an XOR partner exchange, and a backward other than
+    ``custom_inverse`` (the executor saves step inputs, not outputs)."""
+    if cfg.n_shards <= 1 or cfg.odd or cfg.n % cfg.n_shards:
+        return False
+    if cfg.backward == "custom_inverse":
+        return False
+    sched = cfg.pairing if sched is None else sched
+    if not sched.all_structured:
+        return False
+    try:
+        plan_steps(cfg.n, sched.strides(), cfg.n_shards)
+    except ValueError:
+        return False
+    return True
+
+
+def resolve_shard_kernel(cfg, steps) -> bool:
+    """Whether the sharded executor's local runs take the kernel path:
+    ``False`` never, a schedule without local steps never (nothing to
+    fuse), otherwise (``True`` or auto) the kernels."""
+    if cfg.use_kernel is False:
+        return False
+    return any(step[0] == "local" for step in steps)
 
 
 def kernel_eligible(cfg, sched: Optional[Schedule] = None) -> bool:

@@ -4,6 +4,14 @@
 SPM linears operate over ``n = even_ceil(max(d_in, d_out))`` and tell
 ``spm_apply`` the true widths, so the kernel zero-fills the input to n on
 chip and stores only the ``d_out`` outputs.
+
+``schedule="two_level"`` with ``n_shards > 1`` makes the feature axis
+distributable: under ``parallel/ctx.activation_sharding(mesh,
+shard_feature=True)`` with ``n_shards`` shards, ``spm_apply`` runs the
+linear in ``parallel/spm_shard.py``; outside such a block the same config
+runs unsharded (two_level is a reordered butterfly).  Model configs carry
+these as ``spm_schedule`` / ``spm_n_shards``
+(``configs.base.with_feature_sharding``).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ class LinearConfig:
     schedule: str = "butterfly"
     backward: str = "autodiff"
     init_scale: float = 0.05
+    n_shards: int = 1                    # two_level feature shards
     param_dtype: torch.dtype = torch.float32
     use_kernel: Optional[bool] = None    # None/True: kernel path; False: off
     quant_acts: bool = False             # int8 activation I/O (kernel path;
@@ -81,7 +90,7 @@ def _spm_config(cfg: LinearConfig) -> SPMConfig:
         n=cfg.n, n_stages=n_stages, variant=variant,
         schedule=cfg.schedule, use_diag=True, use_bias=cfg.use_bias,
         backward=backward, init_scale=cfg.init_scale,
-        param_dtype=cfg.param_dtype,
+        n_shards=cfg.n_shards, param_dtype=cfg.param_dtype,
         use_kernel=cfg.use_kernel, quant_acts=cfg.quant_acts,
         quant_coeffs=cfg.quant_coeffs)
 
@@ -117,10 +126,12 @@ def linear_apply(params, x: torch.Tensor, cfg: LinearConfig) -> torch.Tensor:
 def spm_block_operands(params, cfg: LinearConfig) -> Optional[dict]:
     """One stack's operands for the block kernel (``coeffs``, ``d_in``,
     ``d_out``, ``bias`` or None, ``strides``, ``n``), or None when this
-    linear cannot be a stack of a fused block: dense, quantized (the block
-    kernel moves f32 tiles), kernel-ineligible, or not a single full-width
-    run."""
-    if not cfg.is_spm or cfg.quant_acts or cfg.quant_coeffs:
+    linear cannot be a stack of a fused block: dense, sharded (its feature
+    axis is split over a mesh), quantized (the block kernel moves f32
+    tiles), kernel-ineligible, or not a single full-width run."""
+    if not cfg.is_spm or cfg.n_shards > 1:
+        return None
+    if cfg.quant_acts or cfg.quant_coeffs:
         return None
     scfg = cfg.spm_config()
     sched = scfg.pairing

@@ -7,7 +7,10 @@ with each stage B_l made of n//2 independent 2x2 blocks on disjoint pairs.
 Both parameterizations normalize to per-stage coefficients ``(L, n//2, 4)``
 = (a, b, c, d); the rotation variant maps theta to (cos, -sin, sin, cos).
 
-``spm_apply`` routes an eligible operator through the fused kernel path
+``spm_apply`` routes a ``two_level`` operator with ``n_shards > 1`` through
+the feature-sharded executor (``parallel/spm_shard.py``) when a matching
+feature mesh is active (``parallel/ctx.activation_sharding(mesh,
+shard_feature=True)``), an eligible operator through the fused kernel path
 (``kernels/ops.spm_stack_fused``: K1 on the card, its plain f32 version on
 CPU tensors) and everything else through the composition below, which
 computes in ``x.dtype`` as the reference's XLA composition does.  The
@@ -31,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import pairings
-from repro_torch.core.eligibility import use_fused_kernel
+from repro_torch.core.eligibility import sharded_eligible, use_fused_kernel
 from repro_torch.core.pairings import Schedule, Stage
 from repro_torch.kernels.ref import stage_vjp
 from repro_torch.params import Params
@@ -55,6 +58,9 @@ class SPMConfig:
     backward: str = "autodiff"        # "autodiff" | "custom" | "custom_inverse"
     init_mode: str = "orthogonal"     # "orthogonal" | "identity"
     init_scale: float = 0.05
+    # Shards of the feature axis for schedule="two_level": the schedule's
+    # block split, and the mesh size the sharded executor needs.
+    n_shards: int = 1
     seed: int = 0
     param_dtype: torch.dtype = torch.float32
     # Fused kernel path, tri-state: None (auto) and True take the kernel
@@ -80,7 +86,7 @@ class SPMConfig:
     def pairing(self) -> Schedule:
         """The operator's pairing schedule (built once)."""
         return pairings.make_schedule(self.schedule, self.n, self.n_stages,
-                                      seed=self.seed)
+                                      n_shards=self.n_shards, seed=self.seed)
 
     @property
     def n_pairs(self) -> int:
@@ -317,7 +323,9 @@ def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
     axis.  ``in_width`` / ``out_width`` embed a rectangular map: x is
     (..., in_width), zero-filled to n, and the first ``out_width`` outputs
     are returned.  The kernel path computes in f32 with I/O in x's dtype;
-    the composition computes in x's dtype."""
+    the composition computes in x's dtype.  A sharded operator
+    (``n_shards > 1``) under a feature mesh of that size runs in the
+    sharded executor, whose local runs take the kernel path."""
     n = cfg.n
     in_width = None if in_width == n else in_width
     out_width = None if out_width == n else out_width
@@ -325,6 +333,13 @@ def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
     if x.shape[-1] != expect:
         raise ValueError(f"expected (..., {expect}), got {tuple(x.shape)}")
     sched = cfg.pairing
+    if cfg.n_shards > 1:
+        from repro_torch.parallel import ctx as par_ctx  # lazy: core light
+        mesh = par_ctx.feature_mesh(cfg.n_shards)
+        if mesh is not None and sharded_eligible(cfg, sched):
+            from repro_torch.parallel import spm_shard
+            return spm_shard.spm_apply_sharded(
+                params, x, cfg, mesh, in_width=in_width, out_width=out_width)
     if use_fused_kernel(cfg, sched):
         from repro_torch.kernels import ops as kernel_ops  # lazy: core light
         return kernel_ops.spm_stack_fused(

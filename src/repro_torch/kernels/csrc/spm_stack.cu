@@ -24,6 +24,16 @@
 // Grid: (ceil(B / block_rows), ceil(out_w / n_tile)).  The row tail and the
 // output edge are masked here: no padded copies.
 //
+// Windowed read (the reference's `col_base`, :393-454, the feature-sharded
+// executor's first local run): x is the whole (B, in_w) operand shared by
+// the shards, in_w the global width, and tile j reads x's columns
+// x_off + j*nt + c, zero from in_w on; the table, d_in / d_out / bias, y
+// and the grid (n / nt tiles, out_w = n) are the shard's own.  Only x's
+// column and its mask move by x_off, so a shard whose window lies wholly
+// past in_w reads no x at all and stores exactly bias (or zero).  The TPU
+// kernel clamps a block past the operand's edge onto the last valid one
+// and masks it; here the load itself is under the mask.
+//
 // Int8 activation I/O (the reference's `x_scale` and `quant_out`, which
 // the fused path uses together): x is int8 with one f32 scale for each
 // (scale_rows, n_tile) block, dequantized on load, and the result is
@@ -47,7 +57,8 @@
 namespace cg = cooperative_groups;
 
 // One kernel for both stores.  Q8 = false: T is f32 or bf16, the store is
-// masked to out_w.  Q8 = true: T is int8, x is dequantized on load with
+// masked to out_w, and x is read x_off columns on (the windowed read; 0
+// otherwise).  Q8 = true: T is int8, x is dequantized on load with
 // its block's scale from xs (B / scale_rows, ceil(in_w / nt)), the launch
 // is in clusters of scale_rows / block_rows blocks along x, B is a
 // multiple of scale_rows (the caller pads rows), and the store requantizes
@@ -57,8 +68,8 @@ __global__ void __launch_bounds__(512) spm_stack_fwd_kernel(
     const T* __restrict__ x, const float* __restrict__ xs, T* __restrict__ y,
     float* __restrict__ ys, CF cf, const float* __restrict__ d_in,
     const float* __restrict__ d_out, const float* __restrict__ bias, int B,
-    int n, int nt, int in_w, int out_w, int block_rows, int scale_rows,
-    SpmStrides st) {
+    int n, int nt, int in_w, int out_w, int x_off, int block_rows,
+    int scale_rows, SpmStrides st) {
   extern __shared__ float z[];
   const int row0 = blockIdx.x * block_rows;
   const int rows = min(block_rows, B - row0);
@@ -73,7 +84,8 @@ __global__ void __launch_bounds__(512) spm_stack_fwd_kernel(
     float* zr = z + (long)r * nt;
     for (int c = threadIdx.x; c < nt; c += blockDim.x) {
       const int gc = c0 + c;
-      float v = gc < in_w ? spm_ldq(xr + gc, sx) : 0.f;
+      const int xc = x_off + gc;  // x's own column (global when windowed)
+      float v = xc < in_w ? spm_ldq(xr + xc, sx) : 0.f;
       if (d_in) v = __fmul_rn(v, d_in[gc]);
       zr[c] = v;
     }
@@ -146,8 +158,9 @@ template <typename T, typename CF>
 static cudaError_t launch_stack(const void* x, void* y, CF cf,
                                 const void* d_in, const void* d_out,
                                 const void* bias, int B, int n, int nt,
-                                int in_w, int out_w, int block_rows,
-                                const SpmStrides& st, cudaStream_t stream) {
+                                int in_w, int out_w, int x_off,
+                                int block_rows, const SpmStrides& st,
+                                cudaStream_t stream) {
   static size_t smem_set = 0;  // largest dynamic shared memory opted into
   const size_t smem = (size_t)block_rows * nt * sizeof(float);
   cudaError_t e = spm_allow_smem(spm_stack_fwd_kernel<T, CF, false>, smem,
@@ -158,7 +171,7 @@ static cudaError_t launch_stack(const void* x, void* y, CF cf,
       <<<grid, spm_threads(nt), smem, stream>>>(
           (const T*)x, nullptr, (T*)y, nullptr, cf, (const float*)d_in,
           (const float*)d_out, (const float*)bias, B, n, nt, in_w, out_w,
-          block_rows, 0, st);
+          x_off, block_rows, 0, st);
   return cudaGetLastError();
 }
 
@@ -194,7 +207,7 @@ static cudaError_t launch_stack_q8(const void* x, const void* xs, void* y,
                          (const int8_t*)x, (const float*)xs, (int8_t*)y,
                          (float*)ys, cf, (const float*)d_in,
                          (const float*)d_out, (const float*)bias, B, n, nt,
-                         in_w, out_w, block_rows, scale_rows, st);
+                         in_w, out_w, 0, block_rows, scale_rows, st);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -203,16 +216,17 @@ template <typename CF>
 static cudaError_t dispatch(int io_type, const void* x, const void* xs,
                             void* y, void* ys, CF cf, const void* d_in,
                             const void* d_out, const void* bias, int B,
-                            int n, int nt, int in_w, int out_w,
+                            int n, int nt, int in_w, int out_w, int x_off,
                             int block_rows, int scale_rows,
                             const SpmStrides& st, cudaStream_t s) {
   if (io_type == SPM_IO_F32)
     return launch_stack<float>(x, y, cf, d_in, d_out, bias, B, n, nt, in_w,
-                               out_w, block_rows, st, s);
+                               out_w, x_off, block_rows, st, s);
   if (io_type == SPM_IO_BF16)
     return launch_stack<__nv_bfloat16>(x, y, cf, d_in, d_out, bias, B, n,
-                                       nt, in_w, out_w, block_rows, st, s);
-  if (io_type == SPM_IO_INT8)
+                                       nt, in_w, out_w, x_off, block_rows,
+                                       st, s);
+  if (io_type == SPM_IO_INT8 && x_off == 0)
     return launch_stack_q8(x, xs, y, ys, cf, d_in, d_out, bias, B, n, nt,
                            in_w, out_w, block_rows, scale_rows, st, s);
   return cudaErrorInvalidValue;
@@ -221,26 +235,27 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
 // C interface (loaded with ctypes).  io_type SPM_IO_INT8 is the int8
 // activation mode: x int8 with scales xs, y int8 with scales ys (both
 // ignored otherwise).  cf_scale non-null marks an int8 coefficient table
-// with one f32 scale a stage.  d_in / d_out / bias may be null.  Returns
-// the cudaError_t of the launch (0 on success).
+// with one f32 scale a stage.  d_in / d_out / bias may be null.  x_off > 0
+// is the windowed read (f32 / bf16 only): x (B, in_w) is read x_off
+// columns on.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int spm_stack_fwd(int io_type, const void* x, const void* xs,
                              void* y, void* ys, const void* cf,
                              const void* cf_scale, const void* d_in,
                              const void* d_out, const void* bias, int B,
-                             int n, int nt, int in_w, int out_w,
+                             int n, int nt, int in_w, int out_w, int x_off,
                              int block_rows, int scale_rows,
                              const int* strides, int L, void* stream) {
   SpmStrides st;
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || block_rows <= 0 ||
-      nt <= 0 || n % nt)
+      nt <= 0 || n % nt || x_off < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cf_scale)
     return (int)dispatch(io_type, x, xs, y, ys,
                          SpmQCoeffs{(const char4*)cf, (const float*)cf_scale},
-                         d_in, d_out, bias, B, n, nt, in_w, out_w,
+                         d_in, d_out, bias, B, n, nt, in_w, out_w, x_off,
                          block_rows, scale_rows, st, s);
   return (int)dispatch(io_type, x, xs, y, ys, (const float4*)cf, d_in, d_out,
-                       bias, B, n, nt, in_w, out_w, block_rows, scale_rows,
-                       st, s);
+                       bias, B, n, nt, in_w, out_w, x_off, block_rows,
+                       scale_rows, st, s);
 }

@@ -17,6 +17,14 @@
 // g_x columns are stored as zeros and their parameter grads come out of the
 // final sum as zeros.
 //
+// Windowed reads (the reference's `col_base`, :664-699, the feature-sharded
+// executor's first local run): x is read x_off columns on and gy gy_off
+// columns on, each masked at its own (global) width in_w / gy_w, while the
+// table, the vectors, g_x (the shard's full (B, n) slab, gx_w = n) and the
+// grid are the shard's own; every tile is visited (vis = n / nt), as the
+// reference keeps its sharded grid uniform.  Lanes of x past in_w remat as
+// zeros, so g_din and the pair grads there are exact zeros.
+//
 // Remat storage (what the TPU keeps in VMEM): the L stage inputs plus one
 // tile for z_L, which the cotangent then overwrites, L+1 f32 tiles of
 // (rows x n_tile).  They stay in shared memory when one row's L+1 tiles
@@ -62,8 +70,8 @@ __global__ void __launch_bounds__(512) spm_stack_bwd_kernel(
     const float* __restrict__ d_in, const float* __restrict__ d_out,
     float4* __restrict__ part_cf, float* __restrict__ part_vec,
     float* __restrict__ scratch, int B, int n, int nt, int in_w, int gy_w,
-    int gx_w, int vis, int cr, int G, int has_bias, int scale_rows,
-    SpmStrides st) {
+    int gx_w, int x_off, int gy_off, int vis, int cr, int G, int has_bias,
+    int scale_rows, SpmStrides st) {
   extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int j = blockIdx.y;
@@ -102,7 +110,8 @@ __global__ void __launch_bounds__(512) spm_stack_bwd_kernel(
       float* zr = buf + (long)r * nt;
       for (int c = threadIdx.x; c < nt; c += blockDim.x) {
         const int gc = c0 + c;
-        float v = gc < in_w ? spm_ldq(xr + gc, sx) : 0.f;
+        const int xc = x_off + gc;
+        float v = xc < in_w ? spm_ldq(xr + xc, sx) : 0.f;
         if (d_in) v = __fmul_rn(v, d_in[gc]);
         zr[c] = v;
       }
@@ -113,10 +122,11 @@ __global__ void __launch_bounds__(512) spm_stack_bwd_kernel(
     // epilogue grads from gy; delta = gy [* d_out] replaces z_L
     for (int c = threadIdx.x; c < nt; c += blockDim.x) {
       const int gc = c0 + c;
+      const int yc = gy_off + gc;
       float sb = 0.f, sd = 0.f;
       for (int r = 0; r < rows; ++r) {
         const float gv =
-            gc < gy_w ? spm_ld(gy + (long)(r0 + r) * gy_w + gc) : 0.f;
+            yc < gy_w ? spm_ld(gy + (long)(r0 + r) * gy_w + yc) : 0.f;
         float* dz = delta + (long)r * nt + c;
         sb = __fadd_rn(sb, gv);
         if (d_out) {
@@ -137,14 +147,15 @@ __global__ void __launch_bounds__(512) spm_stack_bwd_kernel(
     // g_din and g_x
     for (int c = threadIdx.x; c < nt; c += blockDim.x) {
       const int gc = c0 + c;
+      const int xc = x_off + gc;
       float si = 0.f;
       for (int r = 0; r < rows; ++r) {
         const float dl = delta[(long)r * nt + c];
         float out = dl;
         if (d_in) {
           const float xv =
-              gc < in_w
-                  ? spm_ldq(x + (long)(r0 + r) * in_w + gc,
+              xc < in_w
+                  ? spm_ldq(x + (long)(r0 + r) * in_w + xc,
                             spm_row_scale(xs, r0 + r, j, c0, in_w, nt,
                                           scale_rows))
                   : 0.f;
@@ -165,8 +176,9 @@ static cudaError_t launch_stack_bwd(
     const void* x, const void* xs, const void* gy, void* gx, CF cf,
     const void* d_in, const void* d_out, void* g_cf, void* g_vec,
     void* part_cf, void* part_vec, void* scratch, int B, int n, int nt,
-    int in_w, int gy_w, int gx_w, int vis, int cr, int G, int has_bias,
-    int scale_rows, const SpmStrides& st, cudaStream_t stream) {
+    int in_w, int gy_w, int gx_w, int x_off, int gy_off, int vis, int cr,
+    int G, int has_bias, int scale_rows, const SpmStrides& st,
+    cudaStream_t stream) {
   static size_t smem_set = 0;
   const size_t smem =
       scratch ? 0 : (size_t)(st.n + 1) * cr * nt * sizeof(float);
@@ -178,8 +190,8 @@ static cudaError_t launch_stack_bwd(
   spm_stack_bwd_kernel<T, TX, CF><<<grid, spm_threads(nt), smem, stream>>>(
       (const TX*)x, (const float*)xs, (const T*)gy, (T*)gx, cf,
       (const float*)d_in, (const float*)d_out, (float4*)part_cf,
-      (float*)part_vec, (float*)scratch, B, n, nt, in_w, gy_w, gx_w, vis,
-      cr, G, has_bias, scale_rows, st);
+      (float*)part_vec, (float*)scratch, B, n, nt, in_w, gy_w, gx_w, x_off,
+      gy_off, vis, cr, G, has_bias, scale_rows, st);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long live = (long)vis * nt;
@@ -197,20 +209,21 @@ static cudaError_t dispatch_x(const void* x, const void* xs, const void* gy,
                               const void* d_out, void* g_cf, void* g_vec,
                               void* part_cf, void* part_vec, void* scratch,
                               int B, int n, int nt, int in_w, int gy_w,
-                              int gx_w, int vis, int cr, int G, int has_bias,
-                              int scale_rows, const SpmStrides& st,
-                              cudaStream_t s) {
+                              int gx_w, int x_off, int gy_off, int vis,
+                              int cr, int G, int has_bias, int scale_rows,
+                              const SpmStrides& st, cudaStream_t s) {
   if (xs) {
-    if (scale_rows <= 0 || B % scale_rows) return cudaErrorInvalidValue;
+    if (scale_rows <= 0 || B % scale_rows || x_off || gy_off)
+      return cudaErrorInvalidValue;
     return launch_stack_bwd<T, int8_t>(
         x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec,
-        scratch, B, n, nt, in_w, gy_w, gx_w, vis, cr, G, has_bias,
+        scratch, B, n, nt, in_w, gy_w, gx_w, 0, 0, vis, cr, G, has_bias,
         scale_rows, st, s);
   }
   return launch_stack_bwd<T, T>(x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec,
                                 part_cf, part_vec, scratch, B, n, nt, in_w,
-                                gy_w, gx_w, vis, cr, G, has_bias, scale_rows,
-                                st, s);
+                                gy_w, gx_w, x_off, gy_off, vis, cr, G,
+                                has_bias, scale_rows, st, s);
 }
 
 template <typename CF>
@@ -219,19 +232,20 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
                             const void* d_in, const void* d_out, void* g_cf,
                             void* g_vec, void* part_cf, void* part_vec,
                             void* scratch, int B, int n, int nt, int in_w,
-                            int gy_w, int gx_w, int vis, int cr, int G,
-                            int has_bias, int scale_rows,
-                            const SpmStrides& st, cudaStream_t s) {
+                            int gy_w, int gx_w, int x_off, int gy_off,
+                            int vis, int cr, int G, int has_bias,
+                            int scale_rows, const SpmStrides& st,
+                            cudaStream_t s) {
   if (io_type == SPM_IO_F32)
     return dispatch_x<float>(x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec,
                              part_cf, part_vec, scratch, B, n, nt, in_w,
-                             gy_w, gx_w, vis, cr, G, has_bias, scale_rows,
-                             st, s);
+                             gy_w, gx_w, x_off, gy_off, vis, cr, G, has_bias,
+                             scale_rows, st, s);
   if (io_type == SPM_IO_BF16)
     return dispatch_x<__nv_bfloat16>(
         x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec,
-        scratch, B, n, nt, in_w, gy_w, gx_w, vis, cr, G, has_bias,
-        scale_rows, st, s);
+        scratch, B, n, nt, in_w, gy_w, gx_w, x_off, gy_off, vis, cr, G,
+        has_bias, scale_rows, st, s);
   return cudaErrorInvalidValue;
 }
 
@@ -242,20 +256,22 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
 // scratch may be null (scratch null: the remat tiles live in shared
 // memory).  g_cf is (L, n/2, 4) f32; g_vec (3, n) f32 holds g_din, g_dout,
 // g_bias (rows of absent operands are left meaningless).  part_cf
-// (G, L, n/2, 4) and part_vec (G, 3, n) are the partial buffers.  Returns
-// the cudaError_t of the launches (0 on success).
+// (G, L, n/2, 4) and part_vec (G, 3, n) are the partial buffers.  x_off /
+// gy_off > 0 are the windowed reads of x / gy (f32 / bf16 x only).
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
                              const void* gy, void* gx, const void* cf,
                              const void* cf_scale, const void* d_in,
                              const void* d_out, void* g_cf, void* g_vec,
                              void* part_cf, void* part_vec, void* scratch,
                              int B, int n, int nt, int in_w, int gy_w,
-                             int gx_w, int vis, int cr, int G, int has_bias,
-                             int scale_rows, const int* strides, int L,
-                             void* stream) {
+                             int gx_w, int x_off, int gy_off, int vis,
+                             int cr, int G, int has_bias, int scale_rows,
+                             const int* strides, int L, void* stream) {
   SpmStrides st;
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || cr <= 0 || G <= 0 ||
-      nt <= 0 || n % nt || vis <= 0 || vis * nt > n)
+      nt <= 0 || n % nt || vis <= 0 || vis * nt > n || x_off < 0 ||
+      gy_off < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cf_scale)
@@ -263,9 +279,9 @@ extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
         io_type, x, xs, gy, gx,
         SpmQCoeffs{(const char4*)cf, (const float*)cf_scale}, d_in, d_out,
         g_cf, g_vec, part_cf, part_vec, scratch, B, n, nt, in_w, gy_w, gx_w,
-        vis, cr, G, has_bias, scale_rows, st, s);
+        x_off, gy_off, vis, cr, G, has_bias, scale_rows, st, s);
   return (int)dispatch(io_type, x, xs, gy, gx, (const float4*)cf, d_in,
                        d_out, g_cf, g_vec, part_cf, part_vec, scratch, B, n,
-                       nt, in_w, gy_w, gx_w, vis, cr, G, has_bias,
-                       scale_rows, st, s);
+                       nt, in_w, gy_w, gx_w, x_off, gy_off, vis, cr, G,
+                       has_bias, scale_rows, st, s);
 }

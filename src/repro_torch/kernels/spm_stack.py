@@ -24,6 +24,14 @@ same function in f32, rounding where the kernel rounds) only when its input
 lies on the CPU.  For a CUDA tensor it launches the kernel, adds one to
 ``<wrapper>.launches`` and returns, or raises: there is no fallback.
 
+K1 and K2 have a windowed mode (the reference's ``col_base``), the read of
+the feature-sharded executor (``parallel/spm_shard.py``): x is the whole
+(B, in_width) operand shared by the shards and the kernel reads one shard's
+window of it, column ``(col_base + j) * n_tile + c`` against the global
+``in_width``, while the table, the vectors, y and g_x are the shard's own.
+K2 can read gy the same way against the global ``out_width``.  Their
+``window_launches`` count the launches in this mode.
+
 K1 and K2 have int8 modes (the reference's ``x_scale``, ``coeff_scale``
 and ``quant_out``; scale conventions in ``kernels/quant.py``): int8
 activations with one scale per (``scale_rows``, ``n_tile``) block, and int8
@@ -173,8 +181,10 @@ def _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows,
                              f"scale_rows={scale_rows}")
 
 
-def _count(fn, x_scale, coeff_scale) -> None:
+def _count(fn, x_scale, coeff_scale, col_base=None) -> None:
     fn.launches += 1
+    if col_base is not None:
+        fn.window_launches += 1
     if x_scale is not None or coeff_scale is not None:
         fn.int8_launches += 1
     if x_scale is not None:
@@ -183,6 +193,26 @@ def _count(fn, x_scale, coeff_scale) -> None:
 
 def _strides_arg(strides: Sequence[int]):
     return (ctypes.c_int * max(1, len(strides)))(*strides)
+
+
+def _window(t: torch.Tensor, col_base: int, n_tile: int,
+            n: int) -> torch.Tensor:
+    """Columns ``[col_base*n_tile, col_base*n_tile + n)`` of ``t`` (B, w),
+    zero past w: the lanes a windowed kernel reads."""
+    c0 = col_base * n_tile
+    t = F.pad(t, (0, max(0, c0 + n - t.shape[-1])))
+    return t[:, c0: c0 + n]
+
+
+def _check_window(col_base, in_width, out_width, quant) -> None:
+    if col_base is None:
+        return
+    if col_base < 0 or quant:
+        raise ValueError("the windowed mode takes a base tile >= 0 and no "
+                         "int8 activations")
+    if in_width is None and out_width is None:
+        raise ValueError("the windowed mode reads x (in_width) or gy "
+                         "(out_width) at the global column")
 
 
 def _plain_coeffs(coeffs, coeff_scale) -> torch.Tensor:
@@ -210,11 +240,14 @@ def spm_stack_plain(x: torch.Tensor, coeffs: torch.Tensor,
                     out_width: Optional[int] = None,
                     n_tile: Optional[int] = None,
                     quant_out: bool = False,
-                    scale_rows: Optional[int] = None):
+                    scale_rows: Optional[int] = None,
+                    col_base: Optional[int] = None):
     """K1's plain version: ``[D_out](B_l..B_1)[D_in] x [+bias]`` in f32,
     x zero-filled from ``in_width`` to n, the output cut to ``out_width``,
     returned in x's dtype.  Feature tiles need no emulation: every stride
-    of a run keeps its pairs inside one tile.
+    of a run keeps its pairs inside one tile.  With ``col_base`` x is the
+    global (B, in_width) operand and its window from column
+    ``col_base * n_tile`` is read, zero past ``in_width``.
 
     The int8 modes round where the kernel rounds: int8 x is ``q * scale``
     of its (``scale_rows``, ``n_tile``) block, an int8 table ``q * scale``
@@ -223,6 +256,8 @@ def spm_stack_plain(x: torch.Tensor, coeffs: torch.Tensor,
     absmax taken over the whole tile, lanes past ``out_width`` included."""
     n = 2 * coeffs.shape[1]
     z = _plain_x(x, x_scale, scale_rows, n_tile)
+    if col_base is not None:
+        z = _window(z, col_base, n_tile, n)
     if z.shape[-1] < n:
         z = F.pad(z, (0, n - z.shape[-1]))
     if d_in is not None:
@@ -267,10 +302,16 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
                           in_width: Optional[int] = None,
                           out_width: Optional[int] = None,
                           quant_out: bool = False,
-                          scale_rows: Optional[int] = None):
+                          scale_rows: Optional[int] = None,
+                          col_base: Optional[int] = None):
     """K1: x (B, in_width or n) -> y (B, out_width or n) in x's dtype, for
     coeffs (L, n//2, 4) f32 whose strides all keep pairs inside an
     ``n_tile``-wide tile; d_in/d_out/bias (n,) f32 are folded in.
+
+    Windowed mode (``col_base``, a base feature tile): x is the global
+    (B, in_width) operand, in_width may exceed n, and feature tile j reads
+    x's tile ``col_base + j``, zero from the global ``in_width`` on; y is
+    the full (B, n) slab.  No ``out_width``, no int8 activations.
 
     Int8 modes: ``coeff_scale`` (L,) f32 marks an int8 table, dequantized
     a stage at a time on chip.  ``x_scale`` marks int8 x with one scale for
@@ -286,7 +327,8 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     if x.dim() != 2 or x.shape[1] != in_w:
         raise ValueError(f"expected x (B, {in_w}), got {tuple(x.shape)}")
     if coeffs.shape[0] != len(strides) or n % n_tile or not (
-            0 < in_w <= n and 0 < out_w <= n):
+            0 < in_w and (col_base is not None or in_w <= n)
+            and 0 < out_w <= n):
         raise ValueError(f"bad run: n={n} n_tile={n_tile} "
                          f"L={coeffs.shape[0]} strides={strides} "
                          f"in={in_w} out={out_w}")
@@ -294,11 +336,15 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
         if n_tile % (2 * s):
             raise ValueError(f"stride {s} crosses an {n_tile}-wide tile")
     _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows, quant_out)
+    _check_window(col_base, in_width, None, x_scale is not None or quant_out)
+    if col_base is not None and out_width is not None:
+        raise ValueError("K1's windowed mode stores the whole (B, n) slab")
     if x.device.type == "cpu":
         return spm_stack_plain(x, coeffs, d_in, d_out, bias, x_scale,
                                coeff_scale, strides=strides, in_width=in_w,
                                out_width=out_width, n_tile=n_tile,
-                               quant_out=quant_out, scale_rows=scale_rows)
+                               quant_out=quant_out, scale_rows=scale_rows,
+                               col_base=col_base)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_cuda_operands(x, [(coeffs, "coeffs", coeff_scale)],
@@ -323,22 +369,24 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
             raise ValueError(f"{block_rows} rows x {n_tile} f32 exceed "
                              f"{SMEM_BYTES} B of shared memory")
     fn = _fn("spm_stack", "spm_stack_fwd",
-             (_I,) + (_P,) * 9 + (_I,) * 7
+             (_I,) + (_P,) * 9 + (_I,) * 8
              + (ctypes.POINTER(ctypes.c_int), _I, _P))
     io = _IO_INT8 if quant_out else _IO[x.dtype]
+    x_off = 0 if col_base is None else int(col_base) * n_tile
     rc = fn(io, _ptr(x), _ptr(x_scale), _ptr(y), _ptr(ys), _ptr(coeffs),
             _ptr(coeff_scale), _ptr(d_in), _ptr(d_out), _ptr(bias), B, n,
-            n_tile, in_w, out_w, block_rows, scale_rows or 0,
+            n_tile, in_w, out_w, x_off, block_rows, scale_rows or 0,
             _strides_arg(strides), len(strides), _stream(x))
     if rc != 0:
         raise RuntimeError(f"spm_stack_fwd launch failed: cudaError {rc}")
-    _count(spm_stack_kernel_call, x_scale, coeff_scale)
+    _count(spm_stack_kernel_call, x_scale, coeff_scale, col_base)
     return (y, ys) if quant_out else y
 
 
 spm_stack_kernel_call.launches = 0
 spm_stack_kernel_call.int8_launches = 0
 spm_stack_kernel_call.int8_io_launches = 0
+spm_stack_kernel_call.window_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -406,18 +454,27 @@ def spm_stack_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
                         out_width: Optional[int] = None,
                         dead_from: Optional[int] = None,
                         scale_rows: Optional[int] = None,
+                        col_base: Optional[int] = None,
                         col_sum=_col_sum) -> tuple:
     """K2's plain version in f32: the same outputs as
     ``spm_stack_bwd_kernel_call``.  Every per-row value (the remat, the
     cotangent walk, g_x) rounds where the kernel rounds; only the sums
     over rows differ in order.  Dead tiles come back as exact zeros.  An
-    int8 x or table is dequantized as K1's plain version does it."""
+    int8 x or table is dequantized as K1's plain version does it.  With
+    ``col_base`` x (with ``in_width``) and gy (with ``out_width``) are read
+    through the window, as K1's plain version reads x."""
     n = 2 * coeffs.shape[1]
-    vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width, dead_from)
     cf = _plain_coeffs(coeffs, coeff_scale)
     x_raw = _plain_x(x, x_scale, scale_rows, n_tile)
-    x_raw = F.pad(x_raw, (0, n - x_raw.shape[-1]))
     g = gy.float()
+    if col_base is not None:
+        if in_width is not None:
+            x_raw = _window(x_raw, col_base, n_tile, n)
+        if out_width is not None:
+            g = _window(g, col_base, n_tile, n)
+        in_width = out_width = dead_from = None
+    vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width, dead_from)
+    x_raw = F.pad(x_raw, (0, n - x_raw.shape[-1]))
     g = F.pad(g, (0, n - g.shape[-1]))
     z = x_raw * d_in.float() if d_in is not None else x_raw
     z, zs = stages_collect(z, cf, strides)
@@ -456,7 +513,8 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
                               in_width: Optional[int] = None,
                               out_width: Optional[int] = None,
                               dead_from: Optional[int] = None,
-                              scale_rows: Optional[int] = None) -> tuple:
+                              scale_rows: Optional[int] = None,
+                              col_base: Optional[int] = None) -> tuple:
     """K2: the backward of one run from its saved input x (B, in_width or
     n) and the cotangent gy (B, out_width or n), both in x's dtype.
     Returns ``(g_x (B, gx_w) in x's dtype, g_coeffs (L, n//2, 4))`` then
@@ -469,7 +527,13 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     (``scale_rows``, ``n_tile``) blocks dequantized on load, so the remat
     replays the quantized forward; gy and g_x are then f32 or bf16), and
     ``coeff_scale`` an int8 table; g_coeffs is the grad of the
-    dequantized table."""
+    dequantized table.
+
+    Windowed mode (``col_base``, a base feature tile, as K1's): with
+    ``in_width`` x is the global (B, in_width) operand read through the
+    window, with ``out_width`` gy the global (B, out_width) one, each zero
+    past its global width; g_x is the full (B, n) slab and every tile is
+    visited (no ``dead_from``).  No int8 x."""
     n = 2 * coeffs.shape[1]
     strides = tuple(int(s) for s in strides)
     in_w = n if in_width is None else int(in_width)
@@ -478,8 +542,9 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
             or gy.shape != (x.shape[0], gy_w):
         raise ValueError(f"expected x (B, {in_w}) and gy (B, {gy_w}), got "
                          f"{tuple(x.shape)} and {tuple(gy.shape)}")
+    cap = max(in_w, gy_w) if col_base is not None else n
     if coeffs.shape[0] != len(strides) or n % n_tile or not (
-            0 < in_w <= n and 0 < gy_w <= n):
+            0 < in_w <= cap and 0 < gy_w <= cap):
         raise ValueError(f"bad run: n={n} n_tile={n_tile} "
                          f"L={coeffs.shape[0]} strides={strides} "
                          f"in={in_w} out={gy_w}")
@@ -487,9 +552,12 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
         if n_tile % (2 * s):
             raise ValueError(f"stride {s} crosses an {n_tile}-wide tile")
     _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows)
+    _check_window(col_base, in_width, out_width, x_scale is not None)
+    if col_base is not None and dead_from is not None:
+        raise ValueError("the windowed mode visits every tile: no dead_from")
     kw = dict(strides=strides, n_tile=n_tile, has_bias=has_bias,
               in_width=in_width, out_width=out_width, dead_from=dead_from,
-              scale_rows=scale_rows)
+              scale_rows=scale_rows, col_base=col_base)
     if x.device.type == "cpu":
         return spm_stack_bwd_plain(x, coeffs, gy, d_in, d_out, x_scale,
                                    coeff_scale, **kw)
@@ -503,7 +571,14 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
             or not gy.is_contiguous():
         raise ValueError("gy must be contiguous, on x's device, in x's "
                          "dtype (f32 or bf16 beside an int8 x)")
-    vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width, dead_from)
+    if col_base is None:
+        vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width,
+                                   dead_from)
+        x_off = gy_off = 0
+    else:
+        vis, gx_w = n // n_tile, n
+        x_off = int(col_base) * n_tile if in_width is not None else 0
+        gy_off = int(col_base) * n_tile if out_width is not None else 0
     B, L = x.shape[0], len(strides)
     dev = x.device
     gx = torch.empty((B, gx_w), dtype=io_dt, device=dev)
@@ -522,17 +597,17 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
             (grid_tiles * G * (L + 1) * cr * n_tile,), dtype=torch.float32,
             device=dev)
         fn = _fn("spm_stack_bwd", "spm_stack_bwd",
-                 (_I,) + (_P,) * 13 + (_I,) * 11
+                 (_I,) + (_P,) * 13 + (_I,) * 13
                  + (ctypes.POINTER(ctypes.c_int), _I, _P))
         rc = fn(_IO[io_dt], _ptr(x), _ptr(x_scale), _ptr(gy), _ptr(gx),
                 _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in), _ptr(d_out),
                 _ptr(g_cf), _ptr(g_vec), _ptr(part_cf), _ptr(part_vec),
-                _ptr(scratch), B, n, n_tile, in_w, gy_w, gx_w, vis, cr, G,
-                int(has_bias), scale_rows or 0, _strides_arg(strides), L,
-                _stream(x))
+                _ptr(scratch), B, n, n_tile, in_w, gy_w, gx_w, x_off,
+                gy_off, vis, cr, G, int(has_bias), scale_rows or 0,
+                _strides_arg(strides), L, _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_stack_bwd launch failed: cudaError {rc}")
-        _count(spm_stack_bwd_kernel_call, x_scale, coeff_scale)
+        _count(spm_stack_bwd_kernel_call, x_scale, coeff_scale, col_base)
     out = (gx, g_cf)
     for present, row in ((d_in is not None, 0), (d_out is not None, 1),
                          (has_bias, 2)):
@@ -544,6 +619,7 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
 spm_stack_bwd_kernel_call.launches = 0
 spm_stack_bwd_kernel_call.int8_launches = 0
 spm_stack_bwd_kernel_call.int8_io_launches = 0
+spm_stack_bwd_kernel_call.window_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -914,5 +990,6 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
     for fn in (spm_stack_kernel_call, spm_stack_bwd_kernel_call):
         fn.launches = fn.int8_launches = fn.int8_io_launches = 0
+        fn.window_launches = 0
     spm_block_kernel_call.launches = 0
     spm_block_bwd_kernel_call.launches = 0

@@ -9,7 +9,9 @@ loop over an ``nn.ModuleList`` (the reference's ``scan`` over stacked
 params; ``convert.params_from_jax`` unstacks those).  With ``remat`` (the
 default, as in the reference) and no cache, each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint`` wraps it
-there: the backward recomputes the layer's forward, kernels included.
+there: the backward recomputes the layer's forward, kernels included, under
+the feature-sharding context of the original forward
+(``parallel/ctx.use_context``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.layers.embedding import (EmbeddingConfig, embed,
 from repro_torch.layers.ffn import FFNConfig, ffn_block_apply, init_ffn
 from repro_torch.layers.norms import init_rms_norm, rms_norm
 from repro_torch.layers.rope import rope_angles
+from repro_torch.parallel import ctx as par_ctx
 from repro_torch.params import Params
 
 __all__ = ["LayerSpec", "ModelConfig", "init_model", "init_cache",
@@ -76,7 +79,10 @@ class ModelConfig:
     spm_stages: Optional[int] = None
     spm_backward: str = "custom"
     spm_use_kernel: Optional[bool] = None  # None/True: kernels; False: off
-    spm_schedule: str = "butterfly"
+    spm_schedule: str = "butterfly"        # "two_level" + spm_n_shards > 1:
+    spm_n_shards: int = 1                  # feature axis distributable over
+                                           # a feature mesh
+                                           # (parallel/spm_shard.py)
     ffn_activation: str = "swiglu"
     spm_block_fuse: Optional[bool] = None  # None/True: block kernel; False
     spm_quant_acts: bool = False           # int8 activation I/O (K1/K2)
@@ -96,7 +102,7 @@ class ModelConfig:
             linear_impl=self.linear_impl, spm_stages=self.spm_stages,
             spm_backward=self.spm_backward,
             spm_use_kernel=self.spm_use_kernel,
-            spm_schedule=self.spm_schedule,
+            spm_schedule=self.spm_schedule, spm_n_shards=self.spm_n_shards,
             spm_block_fuse=self.spm_block_fuse,
             spm_quant_acts=self.spm_quant_acts,
             spm_quant_coeffs=self.spm_quant_coeffs, q_chunk=self.q_chunk,
@@ -109,7 +115,7 @@ class ModelConfig:
             linear_impl=self.linear_impl, activation=self.ffn_activation,
             spm_stages=self.spm_stages, spm_backward=self.spm_backward,
             spm_use_kernel=self.spm_use_kernel,
-            spm_schedule=self.spm_schedule,
+            spm_schedule=self.spm_schedule, spm_n_shards=self.spm_n_shards,
             spm_block_fuse=self.spm_block_fuse,
             spm_quant_acts=self.spm_quant_acts,
             spm_quant_coeffs=self.spm_quant_coeffs,
@@ -183,6 +189,13 @@ def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, h: torch.Tensor,
     return ffn_block_apply(lp["mlp"], lp["norm2"], h, cfg.ffn_cfg())
 
 
+def _recompute_safe_layer(sharding, lp, spec, cfg, h, cos, sin):
+    """A checkpointed layer: its recompute, which may run on another
+    thread, sees the forward's feature-sharding context."""
+    with par_ctx.use_context(sharding):
+        return _apply_layer(lp, spec, cfg, h, cos, sin, None, None)
+
+
 def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, cache=None,
             cache_index: Optional[int] = None, last_only: bool = False):
@@ -199,11 +212,12 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
         positions = (start + torch.arange(T, device=tokens.device)
                      ).expand(B, T)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    sharding = par_ctx.current_context()
     for i, spec in enumerate(cfg.layers):
         lp = params["layers"][i]
         if cache is None and cfg.remat:
             h = torch.utils.checkpoint.checkpoint(
-                _apply_layer, lp, spec, cfg, h, cos, sin, None, None,
+                _recompute_safe_layer, sharding, lp, spec, cfg, h, cos, sin,
                 use_reentrant=False)
         else:
             lc = None if cache is None else cache[i]["mixer"]

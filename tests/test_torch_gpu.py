@@ -398,3 +398,133 @@ def test_quantized_smoke_model_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), rtol=0,
                                atol=rel * want.abs().max().item())
+
+
+SHARD_FFN = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)   # two_level n=6144
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [8, 300])
+@pytest.mark.parametrize("shard", [0, 1, 2, 3])
+def test_window_k1_k2_match_plain(cuda, dtype, rows, shard):
+    """The windowed (``col_base``) modes at the gate/up shard shapes: one
+    shard's n_local=1536 slab of the global in_width=2048 input, tiles of
+    768 (shard 0 live, 1 straddling, 2 and 3 past the edge).  K1 and K2's
+    g_x bit for bit, K2's grads within gamma_rows of the sum of
+    magnitudes, the window launches counted apart; then K2's gy window
+    against a global out_width=2048 cotangent."""
+    nl, nt, in_w = 1536, 768, 2048
+    base = shard * nl // nt
+    gen = torch.Generator(device="cuda").manual_seed(shard + rows)
+    cf = _rnd(gen, len(SHARD_FFN), nl // 2, 4, scale=0.5)
+    d_in, d_out, b = (1 + 0.1 * _rnd(gen, nl), 1 + 0.1 * _rnd(gen, nl),
+                      0.1 * _rnd(gen, nl))
+    x = _rnd(gen, rows, in_w).to(dtype)
+    kw = dict(strides=SHARD_FFN, n_tile=nt, in_width=in_w, col_base=base)
+    before = (K.spm_stack_kernel_call.window_launches,
+              K.spm_stack_bwd_kernel_call.window_launches)
+    y = K.spm_stack_kernel_call(x, cf, d_in, d_out, b, **kw)
+    want = K.spm_stack_plain(x, cf, d_in, d_out, b, **kw)
+    gy = _rnd(gen, rows, nl).to(dtype)
+    got = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out,
+                                      has_bias=True, **kw)
+    ref = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, has_bias=True, **kw)
+    mags = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, has_bias=True,
+                                 col_sum=_abs_sum, **kw)
+    torch.cuda.synchronize()
+    assert (K.spm_stack_kernel_call.window_launches - before[0],
+            K.spm_stack_bwd_kernel_call.window_launches - before[1]) == (1, 1)
+    assert y.shape == (rows, nl) and torch.equal(y, want)
+    if shard >= 2:
+        assert torch.equal(y, b.to(dtype).expand(rows, -1))
+    assert got[0].shape == (rows, nl) and torch.equal(got[0], ref[0])
+    _grads_within(got[1:], ref[1:], mags[1:], rows)
+    live = max(0, min(nl, in_w - shard * nl))
+    assert not got[2][live:].any()                # g_din past in_width
+    # gy read through the window: the down projection's shape
+    xs = _rnd(gen, rows, nl).to(dtype)
+    gkw = dict(strides=SHARD_FFN, n_tile=nt, out_width=in_w, col_base=base,
+               has_bias=True)
+    gyw = _rnd(gen, rows, in_w).to(dtype)
+    got = K.spm_stack_bwd_kernel_call(xs, cf, gyw, d_in, d_out, **gkw)
+    ref = K.spm_stack_bwd_plain(xs, cf, gyw, d_in, d_out, **gkw)
+    mags = K.spm_stack_bwd_plain(xs, cf, gyw, d_in, d_out,
+                                 col_sum=_abs_sum, **gkw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    _grads_within(got[1:], ref[1:], mags[1:], rows)
+    assert not got[4][live:].any()                # g_bias past out_width
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, L, in_w, out_w, rows", [
+    (2048, 11, 2048, 1024, 40), (6144, 12, 2048, 6144, 40),
+    (6144, 12, 6144, 2048, 33), (96, 7, 64, 96, 12)])
+def test_sharded_operator_matches_unsharded_on_card(cuda, dtype, n, L, in_w,
+                                                    out_w, rows):
+    """The sharded operator over a 4-shard mesh on the card against the
+    unsharded port on the card: K1/K2 launch once per shard and planned
+    run, the windowed ones for a narrow input; in f32 the forward is the
+    unsharded one bit for bit (the kernels and the mix round alike), in
+    bf16 within one rounding per stored slab; the grads within the
+    operator's depth."""
+    from repro_torch.core.spm import SPMConfig, init_spm, spm_apply
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    cfg = SPMConfig(n=n, n_stages=L, schedule="two_level", n_shards=4,
+                    backward="custom")
+    gen = torch.Generator(device="cuda").manual_seed(n + rows)
+    p = init_spm(cfg, gen, torch.device("cuda"))
+    for k in ("d_in", "d_out", "bias"):
+        p[k].data += 0.1 * _rnd(gen, n)
+    for v in p.parameters():
+        v.requires_grad_(True)
+    x = _rnd(gen, rows, in_w).to(dtype).requires_grad_(True)
+    gy = _rnd(gen, rows, out_w).to(dtype)
+    wrt = [x] + list(p.parameters())
+
+    def run():
+        y = spm_apply(p, x, cfg, in_width=in_w, out_width=out_w)
+        return [y] + list(torch.autograd.grad(y, wrt, gy))
+
+    un = run()
+    K.reset_launch_counts()
+    with activation_sharding(make_feature_mesh(4), shard_feature=True):
+        sh = run()
+    torch.cuda.synchronize()
+    from repro_torch.core.eligibility import plan_steps
+    steps = plan_steps(n, cfg.pairing.strides(), 4)
+    runs = sum(len(ops.plan_runs_for_rows(n // 4, s[2], rows))
+               for s in steps if s[0] == "local")
+    assert K.spm_stack_kernel_call.launches >= 4 * runs
+    assert K.spm_stack_bwd_kernel_call.launches == 4 * runs
+    windowed = 4 if in_w < n and steps[0][0] == "local" else 0
+    assert K.spm_stack_kernel_call.window_launches == windowed
+    assert K.spm_stack_bwd_kernel_call.window_launches == windowed
+    if dtype == torch.float32:
+        assert torch.equal(sh[0], un[0])
+    io = len(steps) + 1
+    for a, b in zip(sh, un):
+        np.testing.assert_allclose(
+            a.detach().float().cpu().numpy(),
+            b.detach().float().cpu().numpy(), rtol=0,
+            atol=io * _tol(dtype, 2 * (3 * L + 3) + rows, b))
+
+
+@pytest.mark.parametrize("mesh_dev, x_dev", [("cpu", "cuda"), ("cuda", "cpu")])
+def test_sharded_operator_refuses_a_mesh_off_the_input_device(cuda, mesh_dev,
+                                                              x_dev):
+    """A CPU mesh with a CUDA input (and the reverse) raises: the sharded
+    path never moves the card's work to the CPU's plain versions."""
+    from repro_torch.core.spm import SPMConfig, init_spm, spm_apply
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    cfg = SPMConfig(n=64, n_stages=6, schedule="two_level", n_shards=4,
+                    backward="custom")
+    p = init_spm(cfg, torch.Generator(device=x_dev).manual_seed(0),
+                 torch.device(x_dev))
+    x = torch.ones(3, 64, device=x_dev)
+    K.reset_launch_counts()
+    with activation_sharding(make_feature_mesh(4, device=mesh_dev),
+                             shard_feature=True):
+        with pytest.raises(ValueError, match="input's device"):
+            spm_apply(p, x, cfg)
+    assert K.spm_stack_kernel_call.launches == 0
