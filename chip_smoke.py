@@ -7,8 +7,9 @@ versions.
 Phases, each of which fails the run when it fails:
 
 1. **Build** K1 (``csrc/spm_stack.cu``) and K2 (``csrc/spm_stack_bwd.cu``)
-   with their int8 and windowed modes, K3 (``csrc/spm_block.cu``) and K4
-   (``csrc/spm_block_bwd.cu``) from the checkout with ``nvcc`` for
+   with their int8 and windowed modes, K3 (``csrc/spm_block.cu``), K4
+   (``csrc/spm_block_bwd.cu``), K5 (``csrc/spm_overlap.cu``) and K6
+   (``csrc/spm_overlap_bwd.cu``) from the checkout with ``nvcc`` for
    ``sm_90a``, one process per source, all at once.
 2. **Kernels**: each kernel against its plain version on the card, on the
    same inputs, at the serving path's shapes, in bf16 and f32, with random
@@ -90,6 +91,25 @@ Phases, each of which fails the run when it fails:
    tokens/s and peak memory beside phase 6's.
 14. **Sharded train parity**: phase 7 on the sharded model, each side
    under a 4-shard mesh on its own device.
+15. **Pair kernels**: K5 and K6 against their plain versions
+   (``pair_cases``: the q/k/v/o pair over 4 shards, the 2-shard pair that
+   ends its schedule with d_out and bias folded, a windowed first run, an
+   int8 table) at 4096 and 8 rows, bf16 and f32: K5 bit for bit, K6's g_x
+   bit for bit and its grads within gamma_rows; times, bounds and the
+   pair step's dense products as yardstick.  Then K1's and K2's windowed
+   modes with an int8 table at phase 12's shard shapes, held as there.
+16. **Overlap train and serve**: phase 13 with ``with_overlap_executor``:
+   each q/k/v/o pair one K5 launch over every shard forward (twice with
+   remat) and one K6 backward, gate/up/down step-serial; launches equal
+   to the plan from ``plan_steps``, ``overlap_segments`` and
+   ``plan_runs_for_rows``, K3 = K4 = 0.  Step ms, tokens/s, peak memory
+   and a traced step's busy ms beside phase 13's.
+17. **int8 overlap train**: phase 16's model with ``with_quantized_io``,
+   3 steps: every K1/K2/K5/K6 launch reads an int8 table (counted apart,
+   as planned), no int8 activations.
+18. **Overlap train parity**: phase 14 with the overlap schedule: the
+   card's pairs through K5/K6 against phase 14's CPU step (the same f32
+   function, the grads summed in other groups), reused.
 
 The line before the last lists the kernels as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or run away from
@@ -165,6 +185,15 @@ def bound(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def untimed(fn):
+    """In place of ``Timer`` for a case that is checked but not timed."""
+    return None
+
+
+def fmt_ms(t) -> str:
+    return "untimed" if t is None else f"{t:.4f}"
 
 
 MANT_BITS = {"float32": 23, "bfloat16": 7}
@@ -847,13 +876,20 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
 # ---------------------------------------------------------------------------
 
 def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
-                           seq=16, shards=0):
+                           seq=16, shards=0, overlap=False, cpu_side=None):
     """The same full-width weights, f32 activations, one step on the card
     (kernels) and on the CPU (plain versions): the loss, each parameter's
     grad as a relative norm, and the updated params.  With ``shards``
     (phase 14) the model is ``with_feature_sharding(cfg, shards)`` and each
     side runs under a mesh of that many shards on its own device; the
-    card's side must launch the windowed modes and no K3/K4.
+    card's side must launch the windowed modes and no K3/K4.  With
+    ``overlap`` (phase 18) the model also takes ``with_overlap_executor``:
+    the card runs each q/k/v/o pair through K5/K6 (which it must launch).
+    ``cpu_side``: the CPU's results of an earlier call on the same weights
+    and batch, reused in place of a new CPU run (phase 18 reuses phase
+    14's step-serial step: the overlap schedule computes the same f32
+    function, its grads summed in other groups, which the bound covers).
+    Returns ``(result, ok, the CPU's side)``.
 
     Tolerance: both sides compute the same f32 function with the same
     ops, rounding in other orders (the kernels' row sums, cuBLAS against
@@ -865,12 +901,15 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
     probabilistic bound lambda sqrt(depth) eps relative (lambda = 8), as
     K3's row sum is.  AdamW's update is invariant to the grads' scale, so
     the params move by the grads' relative error times the update."""
-    from repro_torch.configs import with_feature_sharding
+    from repro_torch.configs import (with_feature_sharding,
+                                     with_overlap_executor)
     from repro_torch.kernels import spm_stack as K
     from repro_torch.parallel import activation_sharding, make_feature_mesh
     cfg = dataclasses.replace(cfg, dtype="float32")
     if shards:
         cfg = with_feature_sharding(cfg, shards)
+    if overlap:
+        cfg = with_overlap_executor(cfg, True)
     params = T.init_model(cfg, seed=0, device="cpu")
     card = copy.deepcopy(params).to(DEVICE)
     gen = torch.Generator().manual_seed(5)
@@ -882,8 +921,10 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
     depth = 2 * (cfg.n_layers * per_layer + 2 * cfg.d_model)
     rel = 8 * math.sqrt(depth) * EPS["float32"]
     t0 = time.perf_counter()
-    out = {}
+    out = {} if cpu_side is None else {"cpu": cpu_side}
     for side, p in (("cpu", params), ("card", card)):
+        if side in out:
+            continue
         dev = "cpu" if side == "cpu" else DEVICE
         ctx = (activation_sharding(make_feature_mesh(shards, device=dev),
                                    shard_feature=True)
@@ -905,11 +946,15 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
         counts = (K.spm_stack_kernel_call.window_launches,
                   K.spm_stack_bwd_kernel_call.window_launches,
                   K.spm_block_kernel_call.launches,
-                  K.spm_block_bwd_kernel_call.launches)
-        out[side] = dict(loss=loss.item(), grads=grads, p0=p0, counts=counts,
-                         p1={k: q.detach().cpu() for k, q in
-                             p.named_parameters()},
-                         skipped=float(m["skipped"]))
+                  K.spm_block_bwd_kernel_call.launches,
+                  K.spm_overlap_kernel_call.launches,
+                  K.spm_overlap_bwd_kernel_call.launches)
+        p1 = {k: q.detach().cpu() for k, q in p.named_parameters()}
+        moved = math.sqrt(sum(float(((p1[k] - p0[k]) ** 2).sum())
+                              for k in p1))
+        out[side] = dict(loss=loss.item(), grads=grads, counts=counts,
+                         p1=p1, moved=moved, skipped=float(m["skipped"]))
+        del p0
     secs = time.perf_counter() - t0
     a, c = out["card"], out["cpu"]
     loss_err = abs(a["loss"] - c["loss"])
@@ -923,23 +968,30 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
             worst_name, worst = k, r
     diff = math.sqrt(sum(float(((a["p1"][k] - c["p1"][k]) ** 2).sum())
                          for k in c["p1"]))
-    moved = math.sqrt(sum(float(((c["p1"][k] - c["p0"][k]) ** 2).sum())
-                          for k in c["p1"]))
+    moved = c["moved"]
     ok = (loss_ok and worst <= rel and diff <= rel * moved
           and a["skipped"] == 0.0 == c["skipped"])
     if shards:      # the card's side ran the windowed kernels, no K3/K4
-        ok = ok and min(a["counts"][:2]) > 0 and a["counts"][2:] == (0, 0)
-    res = dict(batch=batch, seq=seq, shards=shards, loss_card=a["loss"],
+        ok = ok and min(a["counts"][:2]) > 0 and a["counts"][2:4] == (0, 0)
+    # the overlap schedule ran its pairs through K5/K6 on the card only
+    ok = ok and (min(a["counts"][4:]) > 0) == overlap \
+        and c["counts"][4:] == (0, 0)
+    res = dict(batch=batch, seq=seq, shards=shards, overlap=overlap,
+               cpu_reused=cpu_side is not None,
+               loss_card=a["loss"],
                loss_cpu=c["loss"], loss_abs_err=loss_err,
                worst_grad_rel_err=worst, worst_grad=worst_name,
                params_diff_norm=diff, update_norm=moved, rel_tol=rel,
-               card_window_and_block_launches=a["counts"], seconds=secs)
-    log(f"{'sharded ' if shards else ''}train parity: loss card "
+               card_window_block_pair_launches=a["counts"], seconds=secs)
+    log(f"{'overlap ' if overlap else ''}{'sharded ' if shards else ''}"
+        f"train parity: loss card "
         f"{a['loss']:.6f} cpu {c['loss']:.6f} "
         f"(err {loss_err:.2e}), worst grad rel err {worst:.2e} "
         f"({worst_name}), params diff {diff:.3e} vs update {moved:.3e}; "
-        f"tol {rel:.2e} relative ({secs:.1f} s) {'ok' if ok else 'FAIL'}")
-    return res, ok
+        f"tol {rel:.2e} relative ({secs:.1f} s"
+        f"{', the CPU side reused' if cpu_side is not None else ''}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return res, ok, c
 
 
 # ---------------------------------------------------------------------------
@@ -1657,70 +1709,137 @@ def run_window_kernel_phase(torch, K, timer, scfg):
     return rows_out, failures
 
 
+def linear_plan(lin, rows: int) -> dict:
+    """Launches of one sharded linear over ``rows`` rows on the card, from
+    ``plan_steps``, ``overlap_segments``, ``plan_runs`` and
+    ``plan_runs_for_rows``: under the overlap schedule a ``pair`` segment
+    whose local run plans to one kernel run is one K5 forward and one K6
+    backward over every shard; every other local step is K1 for each
+    shard and planned run over all the rows (on the card the rows are one
+    block; K2 likewise; ``K1 bwd remat`` the runs the backward remats),
+    the first run windowed when the input is narrower than n."""
+    from repro_torch.core.eligibility import (overlap_segments, plan_steps,
+                                              resolve_overlap)
+    from repro_torch.kernels import ops
+    spm = lin.spm_config()
+    S = spm.n_shards
+    nl = spm.n // S
+    steps = plan_steps(spm.n, spm.pairing.strides(), S)
+    win = lin.d_in < spm.n and steps[0][0] == "local"
+    out = dict.fromkeys(("K1", "K1 col_base", "K1 bwd remat", "K5",
+                         "K5 col_base"), 0)
+    i = 0
+    for seg in (overlap_segments(steps) if resolve_overlap(spm, steps)
+                else tuple(("one", st) for st in steps)):
+        if seg[0] == "pair" and len(ops.plan_runs(nl, seg[1][2])) == 1:
+            out["K5"] += 1
+            out["K5 col_base"] += int(i == 0 and win)
+            i += 2
+            continue
+        for st in seg[1:]:
+            if st[0] == "local":
+                runs = ops.plan_runs_for_rows(nl, st[2], rows)
+                out["K1"] += S * len(runs)
+                out["K1 bwd remat"] += S * (len(runs) - 1)
+                out["K1 col_base"] += S * int(i == 0 and win)
+            i += 1
+    return out
+
+
 def planned_sharded_launches(scfg, rows: int) -> dict:
-    """K1 launches of one sharded forward over ``rows`` rows, from
-    ``plan_steps`` and ``plan_runs_for_rows``: every shard runs each local
-    step's planned runs, the first run of a linear whose input is narrower
-    than n in the windowed mode; no linear block-fuses (K3 0).  ``K1 bwd
-    remat``: the runs the backward remats (all but each step's last)."""
+    """Launches of one sharded forward over ``rows`` rows: ``linear_plan``
+    summed over every linear of every layer; no linear block-fuses (K3
+    0)."""
     spec = scfg.layers[0]
     acfg, fcfg = scfg.attn_cfg(spec), scfg.ffn_cfg()
-    k1 = win = remat = 0
+    tot = dict.fromkeys(("K1", "K1 col_base", "K1 bwd remat", "K5",
+                         "K5 col_base"), 0)
     for lin in (acfg.q_proj, acfg.kv_proj, acfg.kv_proj, acfg.o_proj,
                 fcfg.gate, fcfg.up, fcfg.down):
-        spm = lin.spm_config()
-        _, steps, plans = shard_run(spm, rows)
-        S = spm.n_shards
-        k1 += S * sum(len(p) for p in plans)
-        remat += S * sum(len(p) - 1 for p in plans)
-        if lin.d_in < spm.n and steps[0][0] == "local":
-            win += S
-    L = scfg.n_layers
-    return {"K1": L * k1, "K1 col_base": L * win, "K1 bwd remat": L * remat,
-            "K3": 0}
+        for k, v in linear_plan(lin, rows).items():
+            tot[k] += scfg.n_layers * v
+    tot["K3"] = 0
+    return tot
+
+
+def with_int8(plan: dict, quant: bool) -> dict:
+    """``plan`` with the int8 counts: under ``with_quantized_io`` every
+    sharded K1/K2/K5/K6 launch reads an int8 table (the sharded path takes
+    no int8 activations); none otherwise."""
+    out = dict(plan)
+    for k in ("K1", "K2", "K5", "K6"):
+        out[f"{k} int8"] = plan.get(k, 0) if quant else 0
+    out["K1 int8 io"] = out["K2 int8 io"] = 0
+    return out
 
 
 def planned_sharded_train_launches(scfg, rows: int) -> dict:
     """One sharded training step: the forward twice (remat), then K2 once
-    per forward run (windowed where the forward's is) plus the backward's
-    own remat runs; no K3/K4."""
+    per forward K1 run (windowed where the forward's is) plus the
+    backward's own remat runs, K6 once per K5; no K3/K4."""
     f = planned_sharded_launches(scfg, rows)
     m = 2 if scfg.remat else 1
-    return {"K1": m * f["K1"] + f["K1 bwd remat"],
-            "K1 col_base": m * f["K1 col_base"], "K2": f["K1"],
-            "K2 col_base": f["K1 col_base"], "K3": 0, "K4": 0}
+    return with_int8(
+        {"K1": m * f["K1"] + f["K1 bwd remat"],
+         "K1 col_base": m * f["K1 col_base"], "K2": f["K1"],
+         "K2 col_base": f["K1 col_base"], "K3": 0, "K4": 0,
+         "K5": m * f["K5"], "K5 col_base": m * f["K5 col_base"],
+         "K6": f["K5"], "K6 col_base": f["K5 col_base"]},
+        scfg.spm_quant_coeffs)
 
 
 def sharded_counts(K) -> dict:
-    return {"K1": K.spm_stack_kernel_call.launches,
-            "K1 col_base": K.spm_stack_kernel_call.window_launches,
-            "K2": K.spm_stack_bwd_kernel_call.launches,
-            "K2 col_base": K.spm_stack_bwd_kernel_call.window_launches,
-            "K3": K.spm_block_kernel_call.launches,
-            "K4": K.spm_block_bwd_kernel_call.launches}
+    out = {"K1": K.spm_stack_kernel_call.launches,
+           "K1 col_base": K.spm_stack_kernel_call.window_launches,
+           "K2": K.spm_stack_bwd_kernel_call.launches,
+           "K2 col_base": K.spm_stack_bwd_kernel_call.window_launches,
+           "K3": K.spm_block_kernel_call.launches,
+           "K4": K.spm_block_bwd_kernel_call.launches,
+           "K5": K.spm_overlap_kernel_call.launches,
+           "K5 col_base": K.spm_overlap_kernel_call.window_launches,
+           "K6": K.spm_overlap_bwd_kernel_call.launches,
+           "K6 col_base": K.spm_overlap_bwd_kernel_call.window_launches}
+    for k, fn in (("K1", K.spm_stack_kernel_call),
+                  ("K2", K.spm_stack_bwd_kernel_call),
+                  ("K5", K.spm_overlap_kernel_call),
+                  ("K6", K.spm_overlap_bwd_kernel_call)):
+        out[f"{k} int8"] = fn.int8_launches
+    out["K1 int8 io"] = K.spm_stack_kernel_call.int8_io_launches
+    out["K2 int8 io"] = K.spm_stack_bwd_kernel_call.int8_io_launches
+    return out
 
 
 def run_sharded_phase(torch, K, T, LM, train_mod, adamw, ServeEngine,
-                      launch_train, cfg, unsharded, batch=8, seq=512,
-                      steps=6, poisoned=2, new=16):
+                      launch_train, cfg, baseline, batch=8, seq=512,
+                      steps=6, poisoned=2, new=16, overlap=False,
+                      quant=False, serve=True, trace=True,
+                      label="sharded"):
     """Full-width ``with_feature_sharding(cfg, 4)`` on a 4-shard mesh on
-    one card, driven as the reference drives it: ``make_train_step`` under
-    ``activation_sharding(mesh, shard_feature=True)``, 6 steps of batch 8
-    x seq 512 with the third poisoned (as ``launch.train.train`` runs
-    them: its batches, seed and optimizer), then one ``generate`` of 8 x
-    512 prompts + 16 tokens.  Launches equal the plan, windowed ones
-    counted apart, K3 = K4 = 0; the poisoned step leaves the state
-    bitwise unchanged.  Step ms, tokens/s and peak memory beside the
-    unsharded step of the same call (phase 6); then a seventh step traced
-    on the device alone (``launch.profile_train``'s measure): its busy
-    time, the idle share of the median step and the time by kernel
+    one card (``overlap``: with ``with_overlap_executor``; ``quant``: with
+    ``with_quantized_io``), driven as the reference drives it:
+    ``make_train_step`` under ``activation_sharding(mesh,
+    shard_feature=True)``, ``steps`` steps of batch 8 x seq 512 with the
+    ``poisoned``-th poisoned (as ``launch.train.train`` runs them: its
+    batches, seed and optimizer), then (``serve``) one ``generate`` of 8 x
+    512 prompts + 16 tokens.  Launches equal the plan, windowed and int8
+    ones counted apart, K3 = K4 = 0; the poisoned step leaves the state
+    bitwise unchanged.  Step ms, tokens/s and peak memory beside
+    ``baseline``'s step of the same call; then (``trace``) one more step
+    traced on the device alone (``launch.profile_train``'s measure): its
+    busy time, the idle share of the median step and the time by kernel
     group."""
-    from repro_torch.configs import with_feature_sharding
+    from repro_torch.configs import (with_feature_sharding,
+                                     with_overlap_executor,
+                                     with_quantized_io)
     from repro_torch.data import DeterministicLoader, build_corpus
     from repro_torch.launch.profile_train import busy_us, group_of
     from repro_torch.parallel import activation_sharding, make_feature_mesh
     from torch.profiler import ProfilerActivity, profile
     scfg = with_feature_sharding(cfg, SHARDS)
+    if overlap:
+        scfg = with_overlap_executor(scfg, True)
+    if quant:
+        scfg = with_quantized_io(scfg)
     mesh = make_feature_mesh(SHARDS, device=DEVICE)
     args = launch_train.build_parser().parse_args(
         ["--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
@@ -1770,100 +1889,374 @@ def run_sharded_phase(torch, K, T, LM, train_mod, adamw, ServeEngine,
         peak = torch.cuda.max_memory_allocated()
         per_step = planned_sharded_train_launches(scfg, batch * seq)
         train_want = {k: steps * v for k, v in per_step.items()}
-        # one more step with the device traced (profile_train's measure):
-        # its busy time against the untraced median step
-        batch_s = {k: v.to(DEVICE) for k, v in
-                   loader.batch_at(steps).items()}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            state, metrics = step_fn(state, batch_s, 0.0)
-            LM.train_metrics(metrics)
-        intervals, groups = [], {}
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            intervals.append((ev.time_range.start, ev.time_range.end))
-            gr = groups.setdefault(group_of(ev.name), [0, 0.0])
-            gr[0] += 1
-            gr[1] += ev.time_range.elapsed_us() / 1e3
-        busy_ms = busy_us(intervals) / 1e3
+        busy_ms, groups = None, {}
+        if trace:
+            # one more step with the device traced (profile_train's
+            # measure): its busy time against the untraced median step
+            batch_s = {k: v.to(DEVICE) for k, v in
+                       loader.batch_at(steps).items()}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, metrics = step_fn(state, batch_s, 0.0)
+                LM.train_metrics(metrics)
+            intervals = []
+            for ev in prof.events():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                intervals.append((ev.time_range.start, ev.time_range.end))
+                gr = groups.setdefault(group_of(ev.name), [0, 0.0])
+                gr[0] += 1
+                gr[1] += ev.time_range.elapsed_us() / 1e3
+            busy_ms = busy_us(intervals) / 1e3
         del state, params
         torch.cuda.empty_cache()
+        if not serve:
+            tokens = flags = None
 
-        sparams = T.init_model(scfg, seed=0, device=DEVICE)
-        eng = ServeEngine(cfg=scfg, params=sparams, max_len=seq + new,
-                          cache_dtype=torch.bfloat16, device=DEVICE)
-        gen = torch.Generator().manual_seed(7)
-        prompts = torch.randint(0, cfg.vocab_size, (batch, seq),
-                                generator=gen)
-        eng.generate(prompts[:, :16], max_new_tokens=2)   # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        tokens, flags = eng.generate(prompts, max_new_tokens=new,
-                                     return_flags=True)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        serve_got = sharded_counts(K)
-        serve_peak = torch.cuda.max_memory_allocated()
-        t0 = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=1)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-    pre = planned_sharded_launches(scfg, batch * seq)
-    dec = planned_sharded_launches(scfg, batch)
-    serve_want = {"K1": pre["K1"] + (new - 1) * dec["K1"],
-                  "K1 col_base": pre["K1 col_base"]
-                  + (new - 1) * dec["K1 col_base"],
-                  "K2": 0, "K2 col_base": 0, "K3": 0, "K4": 0}
+        if serve:
+            sparams = T.init_model(scfg, seed=0, device=DEVICE)
+            eng = ServeEngine(cfg=scfg, params=sparams, max_len=seq + new,
+                              cache_dtype=torch.bfloat16, device=DEVICE)
+            gen = torch.Generator().manual_seed(7)
+            prompts = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                    generator=gen)
+            eng.generate(prompts[:, :16], max_new_tokens=2)   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            tokens, flags = eng.generate(prompts, max_new_tokens=new,
+                                         return_flags=True)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            serve_got = sharded_counts(K)
+            serve_peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            eng.generate(prompts, max_new_tokens=1)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            del eng, sparams
+            torch.cuda.empty_cache()
     steady = sorted(secs[1:])
     med = steady[len(steady) // 2] if len(steady) % 2 else \
         0.5 * (steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
     finite = all(math.isfinite(v) for v in losses)
     only = skipped == [float(s == poisoned) for s in range(steps)]
-    train_ok = finite and only and bool(unchanged) and train_got == train_want
-    in_range = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
-    serve_ok = (serve_got == serve_want and tuple(tokens.shape)
-                == (batch, new) and in_range and not bool(flags.any()))
+    train_ok = (finite and only and train_got == train_want
+                and (poisoned is None or bool(unchanged)))
     res = dict(shards=SHARDS, mesh_devices=[str(d) for d in mesh.devices],
+               overlap=overlap, int8_tables=quant,
                batch=batch, seq=seq, steps=steps, poisoned_step=poisoned,
                losses=losses, skipped=skipped, step_s=secs,
                step_ms_median=med * 1e3, tokens_per_s=batch * seq / med,
                peak_mem_bytes=peak, launches=train_got, planned=train_want,
                planned_per_step=per_step, poisoned_state_unchanged=unchanged,
                traced_step_device_busy_ms=busy_ms,
-               device_idle_share=1.0 - busy_ms / (med * 1e3),
+               device_idle_share=(None if busy_ms is None
+                                  else 1.0 - busy_ms / (med * 1e3)),
                traced_step_groups={g: {"launches": n, "ms": ms} for g, (n, ms)
                                    in sorted(groups.items(),
                                              key=lambda kv: -kv[1][1])},
-               unsharded_step_ms_median=unsharded["step_ms_median"],
-               unsharded_tokens_per_s=unsharded["tokens_per_s"],
-               unsharded_peak_mem_bytes=unsharded["peak_mem_bytes"],
-               serve=dict(new_tokens=new, generate_s=gen_s,
-                          prefill_ms=prefill_s * 1e3,
-                          decode_tok_per_s=batch * (new - 1)
-                          / max(gen_s - prefill_s, 1e-9),
-                          peak_mem_bytes=serve_peak, launches=serve_got,
-                          planned=serve_want))
-    log(f"sharded train ({SHARDS} shards on {mesh.devices[0]}): {steps} "
+               baseline=baseline["label"],
+               baseline_step_ms_median=baseline["step_ms_median"],
+               baseline_tokens_per_s=baseline["tokens_per_s"],
+               baseline_peak_mem_bytes=baseline["peak_mem_bytes"],
+               label=label)
+    log(f"{label} train ({SHARDS} shards on {mesh.devices[0]}): {steps} "
         f"steps of batch {batch} x seq {seq}, losses "
         f"{[round(v, 4) for v in losses]}, skipped {skipped}, poisoned step "
-        f"unchanged={unchanged}, step {med * 1e3:.1f} ms (unsharded "
-        f"{unsharded['step_ms_median']:.1f}), {batch * seq / med:.0f} "
-        f"tokens/s (unsharded {unsharded['tokens_per_s']:.0f}), peak "
-        f"{peak / 2**30:.2f} GiB (unsharded "
-        f"{unsharded['peak_mem_bytes'] / 2**30:.2f}), launches {train_got} "
-        f"(planned {train_want}) {'ok' if train_ok else 'FAIL'}; a traced "
-        f"step: device busy {busy_ms:.1f} ms (idle "
-        f"{res['device_idle_share']:.1%} of the median step), by group "
-        + ", ".join(f"{g} {ms:.1f} ms/{n}" for g, (n, ms) in
-                    sorted(groups.items(), key=lambda kv: -kv[1][1])))
-    log(f"sharded serve: generate {batch} x {seq} + {new} in {gen_s:.2f} s, "
+        f"unchanged={unchanged}, step {med * 1e3:.1f} ms ({baseline['label']}"
+        f" {baseline['step_ms_median']:.1f}), {batch * seq / med:.0f} "
+        f"tokens/s ({baseline['tokens_per_s']:.0f}), peak "
+        f"{peak / 2**30:.2f} GiB ({baseline['peak_mem_bytes'] / 2**30:.2f}),"
+        f" launches {train_got} (planned {train_want}) "
+        f"{'ok' if train_ok else 'FAIL'}"
+        + ("" if busy_ms is None else
+           f"; a traced step: device busy {busy_ms:.1f} ms (idle "
+           f"{res['device_idle_share']:.1%} of the median step), by group "
+           + ", ".join(f"{g} {ms:.1f} ms/{n}" for g, (n, ms) in
+                       sorted(groups.items(), key=lambda kv: -kv[1][1]))))
+    if not serve:
+        return res, train_ok
+    pre = planned_sharded_launches(scfg, batch * seq)
+    dec = planned_sharded_launches(scfg, batch)
+    serve_want = with_int8(
+        {"K1": pre["K1"] + (new - 1) * dec["K1"],
+         "K1 col_base": pre["K1 col_base"] + (new - 1) * dec["K1 col_base"],
+         "K2": 0, "K2 col_base": 0, "K3": 0, "K4": 0,
+         "K5": pre["K5"] + (new - 1) * dec["K5"],
+         "K5 col_base": pre["K5 col_base"] + (new - 1) * dec["K5 col_base"],
+         "K6": 0, "K6 col_base": 0}, quant)
+    in_range = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    serve_ok = (serve_got == serve_want and tuple(tokens.shape)
+                == (batch, new) and in_range and not bool(flags.any()))
+    res["serve"] = dict(new_tokens=new, generate_s=gen_s,
+                        prefill_ms=prefill_s * 1e3,
+                        decode_tok_per_s=batch * (new - 1)
+                        / max(gen_s - prefill_s, 1e-9),
+                        peak_mem_bytes=serve_peak, launches=serve_got,
+                        planned=serve_want)
+    log(f"{label} serve: generate {batch} x {seq} + {new} in {gen_s:.2f} s, "
         f"prefill {prefill_s * 1e3:.1f} ms, peak {serve_peak / 2**30:.2f} "
         f"GiB, launches {serve_got} (planned {serve_want}), tokens "
         f"{tuple(tokens.shape)} in range={in_range} "
         f"flagged={int(flags.sum())} {'ok' if serve_ok else 'FAIL'}")
     return res, train_ok and serve_ok
+
+
+# ---------------------------------------------------------------------------
+# phases 15-18: the overlap schedule (K5/K6) and int8 tables when sharded
+# ---------------------------------------------------------------------------
+
+def pair_cases(cfg):
+    """(label, S, n_local, strides, k, in_width, fold, int8) of the K5/K6
+    cases: the q/k/v/o pair of ``with_feature_sharding(cfg, 4)`` (n_local
+    512, 9 stages, k=1, d_in folded, the schedule going on to cross k=2),
+    the same operator's pair over 2 shards (n_local 1024, 10 stages), which
+    ends its schedule (d_out and bias folded, the t sums), a windowed first
+    run (the input n - n_local/2 wide, 1792: shard 3 straddles), and the
+    q/k/v/o pair with an int8 table."""
+    from repro_torch.configs import with_feature_sharding
+    from repro_torch.core.eligibility import plan_steps
+    out = []
+    for S, label, win, fold, q8 in ((4, "qkvo", False, False, False),
+                                    (2, "S=2 end", False, True, False),
+                                    (4, "window", True, False, False),
+                                    (4, "int8 table", False, False, True)):
+        spm = with_feature_sharding(cfg, S).attn_cfg(
+            cfg.layers[0]).o_proj.spm_config()
+        steps = plan_steps(spm.n, spm.pairing.strides(), S)
+        assert steps[0][0] == "local" and steps[1] == ("cross",
+                                                        steps[1][1], 1)
+        assert (len(steps) == 2) == fold, steps
+        nl = spm.n // S
+        out.append((label, S, nl, steps[0][2], 1,
+                    spm.n - nl // 2 if win else None, fold, q8))
+    return out
+
+
+def run_pair_kernel_phase(torch, K, Q, timer, cfg):
+    """K5 and K6 against their plain versions on the card (``pair_cases``)
+    at 4096 and 8 rows, bf16 and f32: K5 bit for bit (every product and
+    sum rounds as the plain version's eager ops do), K6's g_x bit for bit
+    and its table grads and s, t and g_din sums within gamma_rows of the
+    sum of their terms' magnitudes (as phase 5); second launches bitwise.
+    Times (in bf16; the f32 cases are checked, not timed), bounds, and as
+    yardstick the S/2 dense products of the pair step, ``(B, 2 n_local) @
+    (2 n_local, 2 n_local)`` (K6: the two of their backward), one batched
+    ``torch.matmul`` each.  Then K1's and K2's windowed mode with an int8
+    table at the gate/up shard shapes (phase 12's cases, the table
+    quantized per stage of the shard), held as phase 12 holds them."""
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(97531)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    def mix(*lead):
+        th = (torch.rand(*lead, generator=g, device=DEVICE) * 2 - 1) \
+            * math.pi
+        c, s_ = torch.cos(th), torch.sin(th)
+        return (torch.stack([c, -s_, s_, c], dim=-1)
+                + rnd(*lead, 4, scale=0.05)).contiguous()
+
+    abs_sum = (lambda t: t.abs().sum(0))
+    for label, S, nl, strides, k, in_w, fold, q8 in pair_cases(cfg):
+        n, L = S * nl, len(strides)
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[-1]
+            esz = torch.tensor([], dtype=dt).element_size()
+            for rows in (4096, 8):
+                cf, scale = mix(S, L, nl // 2), None
+                cf_bytes = S * L * nl // 2 * 16
+                if q8:
+                    q, scale = Q.quantize_coeffs(cf.reshape(S * L, nl // 2,
+                                                            4))
+                    cf, scale = q.reshape(S, L, nl // 2, 4), \
+                        scale.reshape(S, L)
+                    cf_bytes = S * L * (nl // 2 * 4 + 4)
+                ma, mb, u, v = (1 + 0.1 * rnd(n) for _ in range(4))
+                d_in = 1 + 0.1 * rnd(n)
+                d_out = 1 + 0.1 * rnd(n) if fold else None
+                bias = 0.1 * rnd(n) if fold else None
+                x = rnd(rows, in_w or n).to(dt)
+                gy = rnd(rows, n).to(dt)
+                kw = dict(strides=strides, n_tile=nl, k=k, in_width=in_w)
+                fwd = (x, cf, ma, mb, d_in, d_out, bias, scale)
+                bwd = (x, cf, gy, u, v, d_in, d_out, scale)
+                y = K.spm_overlap_kernel_call(*fwd, **kw)
+                y2 = K.spm_overlap_kernel_call(*fwd, **kw)
+                yp = K.spm_overlap_plain(*fwd, **kw)
+                gk = K.spm_overlap_bwd_kernel_call(*bwd, **kw)
+                gk2 = K.spm_overlap_bwd_kernel_call(*bwd, **kw)
+                gp = K.spm_overlap_bwd_plain(*bwd, **kw)
+                gm = K.spm_overlap_bwd_plain(*bwd, col_sum=abs_sum, **kw)
+                torch.cuda.synchronize()
+                k5_err = (y.float() - yp.float()).abs().max().item()
+                gx_err = (gk[0].float() - gp[0].float()).abs().max().item()
+                worst = grads_within(gk[1:], gp[1:], gm[1:], rows)
+                det = torch.equal(y, y2) and all(
+                    torch.equal(a, b) for a, b in zip(gk, gk2))
+                # the yardstick: the pair step's S/2 dense 2 n_local maps
+                xb = torch.randn(S // 2, rows, 2 * nl, generator=g,
+                                 device=DEVICE).to(dt)
+                w = torch.randn(S // 2, 2 * nl, 2 * nl, generator=g,
+                                device=DEVICE).to(dt)
+                gb = torch.randn(S // 2, rows, 2 * nl, generator=g,
+                                 device=DEVICE).to(dt)
+                live = min(in_w or n, n)
+                vec5 = 3 + (2 if fold else 0)
+                tm = timer if dt == torch.bfloat16 else untimed
+                k5 = dict(ms=tm(lambda: K.spm_overlap_kernel_call(
+                    *fwd, **kw)),
+                    plain_ms=tm(lambda: K.spm_overlap_plain(*fwd, **kw)),
+                    library_ms=tm(lambda: torch.matmul(xb, w)))
+                k6 = dict(ms=tm(lambda: K.spm_overlap_bwd_kernel_call(
+                    *bwd, **kw)),
+                    plain_ms=tm(lambda: K.spm_overlap_bwd_plain(
+                        *bwd, **kw)),
+                    library_ms=tm(lambda: (
+                        torch.matmul(gb, w.transpose(1, 2)),
+                        torch.matmul(xb.transpose(1, 2), gb))))
+                # K5 reads x's live columns, the tables and the vectors and
+                # writes y; K6 reads x, gy, the tables and vectors, writes
+                # g_x, the tables' grads (f32) and its vector sums
+                n_sums = 2 + 1 + (2 if fold else 0)
+                k5["bound_ms"], k5["bound_by"] = bound(
+                    rows * (live + n) * esz + cf_bytes + vec5 * 4 * n,
+                    rows * n * (3 * L + 4 + (2 if fold else 0)))
+                k6["bound_ms"], k6["bound_by"] = bound(
+                    rows * (live + 2 * n) * esz + cf_bytes
+                    + S * L * nl // 2 * 16 + (3 + fold) * 4 * n
+                    + n_sums * 4 * n, rows * n * (10 * L + 14))
+                ok5 = k5_err == 0 and bool(torch.isfinite(y.float()).all())
+                ok6 = gx_err == 0 and worst <= 1 and all(
+                    bool(torch.isfinite(t.float()).all()) for t in gk)
+                common = dict(case=label, dtype=dname, rows=rows, shards=S,
+                              n_local=nl, stages=L, k=k, in_width=in_w,
+                              folds_d_out=fold, int8_table=q8,
+                              deterministic=det, launches_per_call=1)
+                rows_out.append(dict(common, kernel="K5",
+                                     max_abs_err=k5_err, ok=ok5 and det,
+                                     **k5))
+                rows_out.append(dict(common, kernel="K6",
+                                     gx_max_abs_err=gx_err,
+                                     max_abs_err=max(gx_err, max(
+                                         (a - b).abs().max().item()
+                                         for a, b in zip(gk[1:], gp[1:]))),
+                                     grad_err_over_limit=worst,
+                                     ok=ok6 and det, **k6))
+                log(f"pair {label:10s} S={S} n_local={nl} L={L} {dname:8s} "
+                    f"rows={rows:5d} | K5 err={k5_err:.1e} "
+                    f"ms={fmt_ms(k5['ms'])} "
+                    f"plain_ms={fmt_ms(k5['plain_ms'])} "
+                    f"bound_ms={k5['bound_ms']:.4f} ({k5['bound_by']}) "
+                    f"library_ms={fmt_ms(k5['library_ms'])} | K6 "
+                    f"gx_err={gx_err:.1e} grad err/limit={worst:.3f} "
+                    f"ms={fmt_ms(k6['ms'])} "
+                    f"plain_ms={fmt_ms(k6['plain_ms'])} "
+                    f"bound_ms={k6['bound_ms']:.4f} ({k6['bound_by']}) "
+                    f"library_ms={fmt_ms(k6['library_ms'])} "
+                    f"det={det} {'ok' if ok5 and ok6 and det else 'FAIL'}")
+                if not (ok5 and ok6 and det):
+                    failures.append(f"pair {label} {dname} rows={rows}")
+    # K1 / K2 windowed with an int8 table: the gate/up shards
+    from repro_torch.configs import with_feature_sharding
+    lin = with_feature_sharding(cfg, SHARDS).ffn_cfg().up
+    spm = lin.spm_config()
+    in_w = lin.d_in
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        esz = torch.tensor([], dtype=dt).element_size()
+        for rows in (4096, 8):
+            nl, steps, plans = shard_run(spm, rows)
+            (rs, nt), = plans[0]
+            L = len(rs)
+            for shard in range(spm.n_shards):
+                base = shard * nl // nt
+                live = max(0, min(nl, in_w - shard * nl))
+                q, scale = Q.quantize_coeffs(mix(L, nl // 2))
+                d_in, d_out, b = 1 + 0.1 * rnd(nl), 1 + 0.1 * rnd(nl), \
+                    0.1 * rnd(nl)
+                x = rnd(rows, in_w).to(dt)
+                gy = rnd(rows, nl).to(dt)
+                kw = dict(coeff_scale=scale, strides=rs, n_tile=nt,
+                          in_width=in_w, col_base=base)
+                bw = dict(kw, has_bias=True)
+                y = K.spm_stack_kernel_call(x, q, d_in, d_out, b, **kw)
+                y2 = K.spm_stack_kernel_call(x, q, d_in, d_out, b, **kw)
+                yp = K.spm_stack_plain(x, q, d_in, d_out, b, **kw)
+                gk = K.spm_stack_bwd_kernel_call(x, q, gy, d_in, d_out, **bw)
+                gk2 = K.spm_stack_bwd_kernel_call(x, q, gy, d_in, d_out,
+                                                  **bw)
+                gp = K.spm_stack_bwd_plain(x, q, gy, d_in, d_out, **bw)
+                gm = K.spm_stack_bwd_plain(x, q, gy, d_in, d_out,
+                                           col_sum=abs_sum, **bw)
+                torch.cuda.synchronize()
+                k1_err = (y.float() - yp.float()).abs().max().item()
+                dead_ok = (shard * nl < in_w
+                           or torch.equal(y, b.to(dt).expand(rows, -1)))
+                gx_err = (gk[0].float() - gp[0].float()).abs().max().item()
+                worst = grads_within(gk[1:], gp[1:], gm[1:], rows)
+                zeros = not gk[2][live:].any()
+                det = torch.equal(y, y2) and all(
+                    torch.equal(a, c) for a, c in zip(gk, gk2))
+                w = K.spm_stack_plain(torch.eye(in_w, device=DEVICE), q,
+                                      d_in, d_out, None, **kw).to(dt)
+                tm = timer if dt == torch.bfloat16 else untimed
+                k1 = dict(ms=tm(lambda: K.spm_stack_kernel_call(
+                    x, q, d_in, d_out, b, **kw)),
+                    plain_ms=tm(lambda: K.spm_stack_plain(
+                        x, q, d_in, d_out, b, **kw)),
+                    library_ms=tm(lambda: torch.matmul(x, w)))
+                k2 = dict(ms=tm(lambda: K.spm_stack_bwd_kernel_call(
+                    x, q, gy, d_in, d_out, **bw)),
+                    plain_ms=tm(lambda: K.spm_stack_bwd_plain(
+                        x, q, gy, d_in, d_out, **bw)),
+                    library_ms=tm(lambda: (torch.matmul(gy, w.T),
+                                           torch.matmul(x.T, gy))))
+                # as phase 12, the table read as int8 codes and L scales
+                cfb = L * (nl // 2 * 4 + 4)
+                k1["bound_ms"], k1["bound_by"] = bound(
+                    rows * (live + nl) * esz + cfb + 3 * 4 * nl,
+                    rows * nl * (3 * L + 2))
+                k2["bound_ms"], k2["bound_by"] = bound(
+                    rows * (live + 2 * nl) * esz + cfb + L * nl // 2 * 16
+                    + 5 * 4 * nl, rows * nl * (10 * L + 6))
+                ok1 = k1_err == 0 and dead_ok and bool(
+                    torch.isfinite(y.float()).all())
+                ok2 = gx_err == 0 and worst <= 1 and zeros and all(
+                    bool(torch.isfinite(t.float()).all()) for t in gk)
+                common = dict(case=f"up shard {shard}", dtype=dname,
+                              rows=rows, n=nl, in_width=in_w, n_tile=nt,
+                              col_base=base, live_columns=live,
+                              deterministic=det, launches_per_call=1)
+                rows_out.append(dict(common, kernel="K1 col_base int8",
+                                     max_abs_err=k1_err, dead_is_bias=dead_ok,
+                                     ok=ok1 and det, **k1))
+                rows_out.append(dict(common, kernel="K2 col_base int8",
+                                     gx_max_abs_err=gx_err,
+                                     max_abs_err=max(gx_err, max(
+                                         (a - c).abs().max().item()
+                                         for a, c in zip(gk[1:], gp[1:]))),
+                                     grad_err_over_limit=worst,
+                                     dead_lane_grads_zero=zeros,
+                                     ok=ok2 and det, **k2))
+                log(f"col_base int8 up s{shard} {dname:8s} rows={rows:5d} "
+                    f"live={live:4d} | K1 err={k1_err:.1e} dead=bias:"
+                    f"{dead_ok} ms={fmt_ms(k1['ms'])} "
+                    f"plain_ms={fmt_ms(k1['plain_ms'])} "
+                    f"bound_ms={k1['bound_ms']:.4f} ({k1['bound_by']}) "
+                    f"library_ms={fmt_ms(k1['library_ms'])} | K2 "
+                    f"gx_err={gx_err:.1e} grad err/limit={worst:.3f} "
+                    f"zeros={zeros} ms={fmt_ms(k2['ms'])} "
+                    f"plain_ms={fmt_ms(k2['plain_ms'])} "
+                    f"bound_ms={k2['bound_ms']:.4f} ({k2['bound_by']}) "
+                    f"library_ms={fmt_ms(k2['library_ms'])} "
+                    f"det={det} {'ok' if ok1 and ok2 and det else 'FAIL'}")
+                if not (ok1 and ok2 and det):
+                    failures.append(f"col_base int8 up shard {shard} "
+                                    f"{dname} rows={rows}")
+    return rows_out, failures
 
 
 def main() -> int:
@@ -1905,41 +2298,76 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    phase_s = {}
+
+    def phase(tag, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[tag] = time.perf_counter() - t
+        log(f"phase {tag}: {phase_s[tag]:.1f} s")
+        return out
+
     timer = Timer(torch)
-    kernel_rows, failures = run_kernel_phase(torch, K, ops, timer)
+    kernel_rows, failures = phase("2", run_kernel_phase, torch, K, ops,
+                                  timer)
     cfg = get_config("qwen3-1.7b")
-    params, serve, serve_ok, served = run_serve_phase(
-        torch, K, ops, T, ServeEngine, cfg)
-    parity, parity_ok = run_parity_phase(torch, LM, cfg, params, *served)
+    params, serve, serve_ok, served = phase(
+        "3", run_serve_phase, torch, K, ops, T, ServeEngine, cfg)
+    parity, parity_ok = phase("4", run_parity_phase, torch, LM, cfg, params,
+                              *served)
     del params, served
-    bwd_rows, bwd_failures = run_bwd_kernel_phase(torch, K, ops, timer)
+    bwd_rows, bwd_failures = phase("5", run_bwd_kernel_phase, torch, K, ops,
+                                   timer)
     kernel_rows += bwd_rows
     failures += bwd_failures
-    train, train_ok = run_train_phase(torch, K, ops, launch_train, cfg)
-    tparity, tparity_ok = run_train_parity_phase(torch, T, LM, train_mod,
-                                                 adamw, cfg)
-    q8_rows, q8_failures = run_q8_kernel_phase(torch, K, ops, Q, timer)
+    train, train_ok = phase("6", run_train_phase, torch, K, ops,
+                            launch_train, cfg)
+    tparity, tparity_ok, _ = phase("7", run_train_parity_phase, torch, T,
+                                   LM, train_mod, adamw, cfg)
+    q8_rows, q8_failures = phase("8", run_q8_kernel_phase, torch, K, ops, Q,
+                                 timer)
     kernel_rows += q8_rows
     failures += q8_failures
-    nonfinite = run_q8_nonfinite_case(torch, K, ops, Q)
+    nonfinite = phase("8 nonfinite", run_q8_nonfinite_case, torch, K, ops,
+                      Q)
     if not nonfinite["ok"]:
         failures.append("int8 nonfinite")
     qcfg = with_quantized_io(cfg)
-    q8_train, q8_train_ok = run_train_phase(torch, K, ops, launch_train, cfg,
-                                            quantize=True)
-    q8_tparity, q8_tparity_ok = run_q8_train_parity_phase(
-        torch, T, LM, train_mod, adamw, qcfg)
-    q8_serve, q8_serve_ok = run_q8_serve_phase(torch, K, ops, T, LM,
-                                               ServeEngine, qcfg)
-    win_rows, win_failures = run_window_kernel_phase(
-        torch, K, timer, with_feature_sharding(cfg, SHARDS))
+    q8_train, q8_train_ok = phase("9", run_train_phase, torch, K, ops,
+                                  launch_train, cfg, quantize=True)
+    q8_tparity, q8_tparity_ok = phase(
+        "10", run_q8_train_parity_phase, torch, T, LM, train_mod, adamw,
+        qcfg)
+    q8_serve, q8_serve_ok = phase("11", run_q8_serve_phase, torch, K, ops,
+                                  T, LM, ServeEngine, qcfg)
+    win_rows, win_failures = phase("12", run_window_kernel_phase, torch, K,
+                                   timer, with_feature_sharding(cfg, SHARDS))
     kernel_rows += win_rows
     failures += win_failures
-    sharded, sharded_ok = run_sharded_phase(
-        torch, K, T, LM, train_mod, adamw, ServeEngine, launch_train, cfg,
-        train)
-    sparity, sparity_ok = run_train_parity_phase(
-        torch, T, LM, train_mod, adamw, cfg, shards=SHARDS)
+    sharded, sharded_ok = phase(
+        "13", run_sharded_phase, torch, K, T, LM, train_mod, adamw,
+        ServeEngine, launch_train, cfg, dict(train, label="unsharded"))
+    sparity, sparity_ok, sharded_cpu = phase(
+        "14", run_train_parity_phase, torch, T, LM, train_mod, adamw, cfg,
+        shards=SHARDS)
+    pair_rows, pair_failures = phase("15", run_pair_kernel_phase, torch, K,
+                                     Q, timer, cfg)
+    kernel_rows += pair_rows
+    failures += pair_failures
+    overlap, overlap_ok = phase(
+        "16", run_sharded_phase, torch, K, T, LM, train_mod, adamw,
+        ServeEngine, launch_train, cfg,
+        dict(sharded, label="step-serial sharded"), overlap=True,
+        label="overlap")
+    q8_overlap, q8_overlap_ok = phase(
+        "17", run_sharded_phase, torch, K, T, LM, train_mod, adamw,
+        ServeEngine, launch_train, cfg, dict(overlap, label="overlap"),
+        steps=3, poisoned=None, overlap=True, quant=True, serve=False,
+        trace=False, label="int8 overlap")
+    oparity, oparity_ok, _ = phase(
+        "18", run_train_parity_phase, torch, T, LM, train_mod, adamw, cfg,
+        shards=SHARDS, overlap=True, cpu_side=sharded_cpu)
+    del sharded_cpu
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -1955,6 +2383,10 @@ def main() -> int:
     k2q = head("K2 int8", "o", "int8", 4096, "both")
     k1w = head("K1 col_base", "up shard 0", "bfloat16", 4096)
     k2w = head("K2 col_base", "up shard 0", "bfloat16", 4096)
+    k5 = head("K5", "qkvo", "bfloat16", 4096)
+    k6 = head("K6", "qkvo", "bfloat16", 4096)
+    k1wq = head("K1 col_base int8", "up shard 0", "bfloat16", 4096)
+    k2wq = head("K2 col_base int8", "up shard 0", "bfloat16", 4096)
     entries = []
     # launches: K1 and K3 from the serve phase (their main path), K2 and
     # K4 from the train phase (theirs); train_launches has all four
@@ -1996,12 +2428,43 @@ def main() -> int:
                             if x["kernel"] == key),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # the pair kernels: launches from the overlap train phase; the windowed
+    # int8-table modes from the int8 overlap phase, whose every K1/K2
+    # launch read an int8 table (held to the plan)
+    q8l = q8_overlap["launches"]
+    for name, key, r, src, rep_, launches in (
+            ("K5 spm_overlap_fwd", "K5", k5,
+             "src/repro_torch/kernels/csrc/spm_overlap.cu",
+             "src/repro/kernels/spm_stack.py:1319",
+             overlap["launches"]["K5"]),
+            ("K6 spm_overlap_bwd", "K6", k6,
+             "src/repro_torch/kernels/csrc/spm_overlap_bwd.cu",
+             "src/repro/kernels/spm_stack.py:1479",
+             overlap["launches"]["K6"]),
+            ("K1 col_base int8 spm_stack_fwd", "K1 col_base int8", k1wq,
+             "src/repro_torch/kernels/csrc/spm_stack.cu",
+             "src/repro/kernels/spm_stack.py:393",
+             q8l["K1 col_base"] if q8l["K1 int8"] == q8l["K1"] else 0),
+            ("K2 col_base int8 spm_stack_bwd", "K2 col_base int8", k2wq,
+             "src/repro_torch/kernels/csrc/spm_stack_bwd.cu",
+             "src/repro/kernels/spm_stack.py:664",
+             q8l["K2 col_base"] if q8l["K2 int8"] == q8l["K2"] else 0)):
+        entries.append(dict(
+            name=name, route="cuda", source=src, replaces=rep_,
+            launches=launches,
+            max_abs_err=max(x["max_abs_err"] for x in kernel_rows
+                            if x["kernel"] == key),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     report = dict(gpu=smi, kernels=kernel_rows, serve=serve, parity=parity,
                   train=train, train_parity=tparity, int8_nonfinite=nonfinite,
                   int8_train=q8_train,
                   int8_train_parity=q8_tparity, int8_serve=q8_serve,
                   sharded=sharded, sharded_train_parity=sparity,
+                  overlap=overlap, int8_overlap=q8_overlap,
+                  overlap_train_parity=oparity,
                   seconds=time.perf_counter() - t_start,
+                  phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",
                                    "K2": "o projection, bf16, 4096 rows",
                                    "K3": "q projection, bf16, 4096 rows",
@@ -2014,14 +2477,23 @@ def main() -> int:
                                                   "(n_local 1536 of "
                                                   "in_width 2048), bf16, "
                                                   "4096 rows",
-                                   "K2 col_base": "the same"})
+                                   "K2 col_base": "the same",
+                                   "K5": "q/k/v/o pair over 4 shards "
+                                         "(n_local 512, 9 stages, k=1), "
+                                         "bf16, 4096 rows",
+                                   "K6": "the same",
+                                   "K1 col_base int8": "gate/up shard 0 "
+                                                       "with an int8 table, "
+                                                       "bf16, 4096 rows",
+                                   "K2 col_base int8": "the same"})
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     ok = (not failures and serve_ok and parity_ok and train_ok
           and tparity_ok and q8_train_ok and q8_tparity_ok and q8_serve_ok
-          and sharded_ok and sparity_ok)
+          and sharded_ok and sparity_ok and overlap_ok and q8_overlap_ok
+          and oparity_ok)
     log(f"total {report['seconds']:.1f} s")
     if not ok:
         print(f"chip_smoke: FAILED kernels={failures} serve={serve_ok} "
@@ -2029,7 +2501,9 @@ def main() -> int:
               f"train_parity={tparity_ok} int8_train={q8_train_ok} "
               f"int8_train_parity={q8_tparity_ok} "
               f"int8_serve={q8_serve_ok} sharded={sharded_ok} "
-              f"sharded_train_parity={sparity_ok}", file=sys.stderr)
+              f"sharded_train_parity={sparity_ok} overlap={overlap_ok} "
+              f"int8_overlap={q8_overlap_ok} "
+              f"overlap_train_parity={oparity_ok}", file=sys.stderr)
         return 1
     log(f"kernels: {[e['name'] for e in entries]}")
     print(smi)

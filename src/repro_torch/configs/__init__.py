@@ -2,6 +2,7 @@
 
 from repro_torch.configs.base import (dense_layers,  # noqa: F401
                                       with_feature_sharding,
+                                      with_overlap_executor,
                                       with_fused_linears, with_overrides,
                                       with_quantized_io)
 from repro_torch.configs.registry import (ARCH_IDS, get_config,  # noqa: F401

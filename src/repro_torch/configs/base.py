@@ -9,7 +9,8 @@ from typing import Optional, Tuple
 from repro_torch.models.transformer import LayerSpec, ModelConfig
 
 __all__ = ["dense_layers", "with_overrides", "with_fused_linears",
-           "with_feature_sharding", "with_quantized_io"]
+           "with_feature_sharding", "with_overlap_executor",
+           "with_quantized_io"]
 
 
 def dense_layers(n: int) -> Tuple[LayerSpec, ...]:
@@ -39,6 +40,17 @@ def with_feature_sharding(cfg: ModelConfig, n_shards: int) -> ModelConfig:
     Sharded linears never block-fuse."""
     return dataclasses.replace(cfg, spm_schedule="two_level",
                                spm_n_shards=n_shards)
+
+
+def with_overlap_executor(cfg: ModelConfig,
+                          on: Optional[bool] = True) -> ModelConfig:
+    """Set the sharded executor's overlap knob ``spm_overlap`` on every SPM
+    linear (True: the overlap schedule, each ``{local run -> cross}`` pair
+    one K5 launch forward and one K6 backward on the card; None = auto and
+    False: the step-serial schedule).  Consulted only where the sharded
+    executor engages (``with_feature_sharding`` and a matching
+    ``activation_sharding`` context)."""
+    return dataclasses.replace(cfg, spm_overlap=on)
 
 
 def with_quantized_io(cfg: ModelConfig) -> ModelConfig:

@@ -10,6 +10,10 @@ A feature-sharded config (``configs.with_feature_sharding``) needs no leaf
 of its own: the sharded executor reads the same (L, n/2, 4) coefficient
 tables and (n,) vectors, and the same converted params give the same
 output with the feature mesh on and off (``tests/test_torch_shard.py``).
+Neither does the overlap schedule (``configs.with_overlap_executor``) nor
+int8 tables on the sharded path (``with_quantized_io``): both read those
+same tables and quantize each shard's own at run time
+(``tests/test_torch_overlap.py``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Fast-path predicates for the SPM executors (port of
-``repro/core/eligibility.py`` without the overlap schedule).
+``repro/core/eligibility.py``).
 
 The tri-state knobs keep their meaning with one change: ``None`` (auto)
 means "on the card" here where it meant "on TPU" there.  The port's home is the
@@ -10,8 +10,13 @@ the reference's forced-kernel path (``use_kernel=True``,
 (``core/spm.py``), which computes in ``x.dtype``.
 
 The feature-sharded executor (``parallel/spm_shard.py``) reads
-``plan_steps``, ``sharded_eligible`` and ``resolve_shard_kernel``.  The
-matrix of which executor can take an operator is the reference's:
+``plan_steps``, ``sharded_eligible``, ``resolve_shard_kernel``, and for its
+overlap schedule ``overlap_segments``, ``resolve_overlap``, ``resolve_rdma``
+and ``OVERLAP_ROW_BLOCKS``.  The port has no TPU, so the overlap knob's auto
+stays off (``True`` forces the schedule), and the fused pair kernels (K5,
+K6) take the place of the reference's RDMA pair whenever the kernel path is
+on and the input is on the card.  The matrix of which executor can take an
+operator is the reference's:
 
 ===========================  ===========  ============  ================
 property                     composition  fused kernel  sharded executor
@@ -33,10 +38,15 @@ from typing import Optional, Tuple
 from repro_torch.core.pairings import Schedule
 
 __all__ = ["plan_steps", "sharded_eligible", "resolve_shard_kernel",
-           "kernel_eligible", "use_fused_kernel", "TINY_ROW_THRESHOLD",
+           "resolve_overlap", "resolve_rdma", "overlap_segments",
+           "OVERLAP_ROW_BLOCKS", "kernel_eligible", "use_fused_kernel", "TINY_ROW_THRESHOLD",
            "tiny_row_call", "BLOCK_MAX_TILE", "BLOCK_ACTIVATIONS",
            "block_fusion_eligible", "resolve_block_fuse",
            "quant_acts_eligible"]
+
+# Row blocks a shard slab splits into under the overlap schedule (the
+# reference's value): block i's exchange can hide under block i+1's work.
+OVERLAP_ROW_BLOCKS = 4
 
 # Decode calls reach the kernels with rows = batch slots (1-8).  At or
 # under this row count the planner widens feature tiles
@@ -101,6 +111,24 @@ def plan_steps(n: int, strides: Tuple[int, ...],
     return tuple(steps)
 
 
+@functools.lru_cache(maxsize=None)
+def overlap_segments(steps: Tuple[tuple, ...]) -> Tuple[tuple, ...]:
+    """Group ``plan_steps`` output into overlap segments: ``("pair",
+    local_step, cross_step)`` for a local run followed by a cross stage
+    (the shape K5/K6 fuse), ``("one", step)`` for any other step."""
+    segs = []
+    i = 0
+    while i < len(steps):
+        if (steps[i][0] == "local" and i + 1 < len(steps)
+                and steps[i + 1][0] == "cross"):
+            segs.append(("pair", steps[i], steps[i + 1]))
+            i += 2
+        else:
+            segs.append(("one", steps[i]))
+            i += 1
+    return tuple(segs)
+
+
 def sharded_eligible(cfg, sched: Optional[Schedule] = None) -> bool:
     """Whether the sharded executor can express this operator exactly:
     even n divisible by ``n_shards > 1``, all-structured stages each either
@@ -127,6 +155,27 @@ def resolve_shard_kernel(cfg, steps) -> bool:
     if cfg.use_kernel is False:
         return False
     return any(step[0] == "local" for step in steps)
+
+
+def resolve_overlap(cfg, steps) -> bool:
+    """Whether the sharded executor takes the overlap schedule (row-block
+    split steps, pairs fused into K5/K6 on the card): ``False`` never, a
+    schedule without a cross stage never (nothing to overlap), ``True``
+    always, and auto (``None``) never: the reference engages it on auto
+    only on a TPU."""
+    overlap = getattr(cfg, "overlap", None)
+    if overlap is False or not any(step[0] == "cross" for step in steps):
+        return False
+    return bool(overlap)
+
+
+def resolve_rdma(use_kernel: bool, on_cuda: bool) -> bool:
+    """Whether the overlap schedule's ``{local run -> cross}`` pairs run as
+    one fused kernel each (K5 forward, K6 backward): the kernel path on and
+    the input on the card.  Elsewhere (a CPU input, the composition) the
+    pairs take the per-block exchange, as the reference's interpret mode
+    does."""
+    return bool(use_kernel and on_cuda)
 
 
 def kernel_eligible(cfg, sched: Optional[Schedule] = None) -> bool:

@@ -51,6 +51,8 @@ class LinearConfig:
     n_shards: int = 1                    # two_level feature shards
     param_dtype: torch.dtype = torch.float32
     use_kernel: Optional[bool] = None    # None/True: kernel path; False: off
+    overlap: Optional[bool] = None       # sharded overlap schedule (True:
+                                         # on; None/False: step-serial)
     quant_acts: bool = False             # int8 activation I/O (kernel path;
                                          # see SPMConfig.quant_acts)
     quant_coeffs: bool = False           # int8 per-stage coefficient tables
@@ -91,7 +93,8 @@ def _spm_config(cfg: LinearConfig) -> SPMConfig:
         schedule=cfg.schedule, use_diag=True, use_bias=cfg.use_bias,
         backward=backward, init_scale=cfg.init_scale,
         n_shards=cfg.n_shards, param_dtype=cfg.param_dtype,
-        use_kernel=cfg.use_kernel, quant_acts=cfg.quant_acts,
+        use_kernel=cfg.use_kernel, overlap=cfg.overlap,
+        quant_acts=cfg.quant_acts,
         quant_coeffs=cfg.quant_coeffs)
 
 

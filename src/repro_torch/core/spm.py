@@ -66,12 +66,19 @@ class SPMConfig:
     # Fused kernel path, tri-state: None (auto) and True take the kernel
     # path when eligible; False keeps the composition.
     use_kernel: Optional[bool] = None
+    # Overlap schedule of the sharded executor, tri-state
+    # (eligibility.resolve_overlap): True splits every step into row
+    # blocks and fuses each {local run -> cross} pair into K5/K6 on the
+    # card; None (auto) and False keep the step-serial schedule.
+    overlap: Optional[bool] = None
     # Int8 modes of the kernel path (kernels/quant.py conventions), inert
     # on the composition; compute stays f32.  quant_acts: int8 activation
     # I/O between the runs, for plans whose runs share one tile
     # (eligibility.quant_acts_eligible; others keep f32/bf16 I/O).
     # quant_coeffs: int8 coefficient tables with one scale a stage; the
-    # coefficient grads are those of the dequantized table.
+    # coefficient grads are those of the dequantized table.  The sharded
+    # executor reads quant_coeffs alone (one scale a stage of each shard's
+    # own table) and ignores quant_acts, as the reference's does.
     quant_acts: bool = False
     quant_coeffs: bool = False
 

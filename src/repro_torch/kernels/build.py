@@ -28,7 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # kernel library name -> its source file (headers are hashed with every one)
 SOURCES = {"spm_stack": "spm_stack.cu", "spm_stack_bwd": "spm_stack_bwd.cu",
-           "spm_block": "spm_block.cu", "spm_block_bwd": "spm_block_bwd.cu"}
+           "spm_block": "spm_block.cu", "spm_block_bwd": "spm_block_bwd.cu",
+           "spm_overlap": "spm_overlap.cu",
+           "spm_overlap_bwd": "spm_overlap_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,5 +1,6 @@
 // Shared device code of the hand-written SPM kernels (K1 spm_stack.cu, K2
-// spm_stack_bwd.cu, K3 spm_block.cu, K4 spm_block_bwd.cu): I/O conversions,
+// spm_stack_bwd.cu, K3 spm_block.cu, K4 spm_block_bwd.cu, K5
+// spm_overlap.cu, K6 spm_overlap_bwd.cu): I/O conversions,
 // the coefficient tables (f32, or int8 with per-stage scales), the
 // in-place stage walk of the forwards, the out-of-place remat and the
 // reverse walk of the backwards, and the ordered sum of per-block partials.
@@ -80,6 +81,28 @@ struct SpmQCoeffs {
     return SpmQCoeffs{q + pairs, scale};
   }
 };
+
+// Shard `j`'s table in a stack of per-shard tables (S, L, pairs, 4), each
+// shard's L stages `pairs` apart (K5, K6): an int8 stack also moves to the
+// shard's row of the (S, L) scales.
+__device__ __forceinline__ const float4* spm_cf_shard(const float4* cf,
+                                                      int j, int L,
+                                                      long pairs) {
+  return cf + (long)j * L * pairs;
+}
+__device__ __forceinline__ SpmQCoeffs spm_cf_shard(const SpmQCoeffs& cf,
+                                                   int j, int L,
+                                                   long pairs) {
+  return SpmQCoeffs{cf.q + (long)j * L * pairs, cf.scale + (long)j * L};
+}
+
+// The shard of cluster rank r in cluster m for the partner distance
+// 2^kbit: bit kbit of the shard index is r, the bits below and above it
+// are m's.  The two ranks of a cluster are partners.
+__device__ __forceinline__ int spm_pair_shard(int m, int r, int kbit) {
+  const int low = m & ((1 << kbit) - 1);
+  return ((m >> kbit) << (kbit + 1)) | (r << kbit) | low;
+}
 
 __device__ __forceinline__ float4 spm_cf(const float4* cf, int, long i) {
   return __ldg(cf + i);

@@ -13,13 +13,23 @@ their launch counters.
 * **K4** ``spm_block_bwd_kernel_call`` — that block's backward from x and
   rstd (``csrc/spm_block_bwd.cu``); replaces ``_block_bwd_kernel`` /
   ``spm_block_bwd_kernel_call`` (:925 / :1117).
+* **K5** ``spm_overlap_kernel_call`` — one ``{local run -> cross stage}``
+  pair of the sharded executor over every shard: each shard's local run,
+  the exchange with its XOR-k partner and the 2x2 mix
+  (``csrc/spm_overlap.cu``); replaces ``_overlap_kernel`` /
+  ``spm_overlap_kernel_call`` (:1319 / :1382).
+* **K6** ``spm_overlap_bwd_kernel_call`` — that pair's backward from the
+  local run's input (``csrc/spm_overlap_bwd.cu``); replaces
+  ``_overlap_bwd_kernel`` / ``spm_overlap_bwd_kernel_call`` (:1479 /
+  :1590).
 
-All four are memory-bound on an H100 (a few flops per element and stage
+All six are memory-bound on an H100 (a few flops per element and stage
 against 2-4 bytes of I/O per element): the bound is the bytes moved over
 3.35 TB/s.  The sources say what each design does about it.
 
 A wrapper runs its plain version (``spm_stack_plain``,
-``spm_stack_bwd_plain``, ``spm_block_plain``, ``spm_block_bwd_plain``: the
+``spm_stack_bwd_plain``, ``spm_block_plain``, ``spm_block_bwd_plain``,
+``spm_overlap_plain``, ``spm_overlap_bwd_plain``: the
 same function in f32, rounding where the kernel rounds) only when its input
 lies on the CPU.  For a CUDA tensor it launches the kernel, adds one to
 ``<wrapper>.launches`` and returns, or raises: there is no fallback.
@@ -30,7 +40,9 @@ the feature-sharded executor (``parallel/spm_shard.py``): x is the whole
 window of it, column ``(col_base + j) * n_tile + c`` against the global
 ``in_width``, while the table, the vectors, y and g_x are the shard's own.
 K2 can read gy the same way against the global ``out_width``.  Their
-``window_launches`` count the launches in this mode.
+``window_launches`` count the launches in this mode; K5's and K6's count
+those reading a rectangular input (``in_width``), their
+``int8_launches`` those with an int8 table.
 
 K1 and K2 have int8 modes (the reference's ``x_scale``, ``coeff_scale``
 and ``quant_out``; scale conventions in ``kernels/quant.py``): int8
@@ -65,6 +77,8 @@ __all__ = ["spm_stack_kernel_call", "spm_stack_plain",
            "spm_stack_bwd_kernel_call", "spm_stack_bwd_plain",
            "spm_block_kernel_call", "spm_block_plain",
            "spm_block_bwd_kernel_call", "spm_block_bwd_plain",
+           "spm_overlap_kernel_call", "spm_overlap_plain",
+           "spm_overlap_bwd_kernel_call", "spm_overlap_bwd_plain",
            "pick_block_rows", "bwd_geometry", "bwd_live_tiles",
            "int8_cta_rows",
            "reset_launch_counts", "SMEM_BYTES", "NUM_SMS", "ACTIVATIONS"]
@@ -181,9 +195,9 @@ def _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows,
                              f"scale_rows={scale_rows}")
 
 
-def _count(fn, x_scale, coeff_scale, col_base=None) -> None:
+def _count(fn, x_scale, coeff_scale, window: bool = False) -> None:
     fn.launches += 1
-    if col_base is not None:
+    if window:
         fn.window_launches += 1
     if x_scale is not None or coeff_scale is not None:
         fn.int8_launches += 1
@@ -379,7 +393,8 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
             _strides_arg(strides), len(strides), _stream(x))
     if rc != 0:
         raise RuntimeError(f"spm_stack_fwd launch failed: cudaError {rc}")
-    _count(spm_stack_kernel_call, x_scale, coeff_scale, col_base)
+    _count(spm_stack_kernel_call, x_scale, coeff_scale,
+           col_base is not None)
     return (y, ys) if quant_out else y
 
 
@@ -607,7 +622,8 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
                 _strides_arg(strides), L, _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_stack_bwd launch failed: cudaError {rc}")
-        _count(spm_stack_bwd_kernel_call, x_scale, coeff_scale, col_base)
+        _count(spm_stack_bwd_kernel_call, x_scale, coeff_scale,
+               col_base is not None)
     out = (gx, g_cf)
     for present, row in ((d_in is not None, 0), (d_out is not None, 1),
                          (has_bias, 2)):
@@ -986,10 +1002,340 @@ def spm_block_bwd_kernel_call(x: torch.Tensor, gy: torch.Tensor,
 spm_block_bwd_kernel_call.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K5 / K6: a {local run -> cross stage} pair of the sharded executor
+# ---------------------------------------------------------------------------
+#
+# One launch covers every shard of a feature mesh on one device.  The
+# operands are global: x (B, in_w) with shard j's lanes at columns
+# j * n_local + c (zero from in_w on: the windowed read of a rectangular
+# first run is the same read), the stacked local tables (S, L, n_local/2,
+# 4), and (n,) vectors whose slice j is shard j's.  Shard j pairs with
+# shard j ^ k; the role (low: j & k == 0) is resolved in the vectors the
+# caller passes, so the kernels are role-free.
+
+
+def _check_pair(x, coeffs, coeff_scale, vecs, strides, n_tile, k,
+                in_width):
+    """Shapes of a pair call, on any device: returns ``(S, n_local, n,
+    in_w)``."""
+    if coeffs.dim() != 4 or coeffs.shape[3] != 4:
+        raise ValueError(f"coeffs: need (S, L, n_local/2, 4), got "
+                         f"{tuple(coeffs.shape)}")
+    S, L = coeffs.shape[:2]
+    nl = 2 * coeffs.shape[2]
+    n = S * nl
+    in_w = n if in_width is None else int(in_width)
+    if S < 2 or S & (S - 1) or k <= 0 or k & (k - 1) or S % (2 * k):
+        raise ValueError(f"{S} shards cannot pair over k={k}")
+    if L != len(strides) or nl % n_tile or not 0 < in_w <= n:
+        raise ValueError(f"bad pair: S={S} n_local={nl} n_tile={n_tile} "
+                         f"L={L} strides={strides} in={in_w}")
+    for st in strides:
+        if n_tile % (2 * st):
+            raise ValueError(f"stride {st} crosses an {n_tile}-wide tile")
+    if x.dim() != 2 or x.shape[1] != in_w:
+        raise ValueError(f"expected x (B, {in_w}), got {tuple(x.shape)}")
+    if (coeff_scale is not None) != (coeffs.dtype == torch.int8):
+        raise TypeError("int8 coeffs and coeff_scale go together")
+    if coeff_scale is not None and coeff_scale.shape != (S, L):
+        raise ValueError(f"coeff_scale: need ({S}, {L}), got "
+                         f"{tuple(coeff_scale.shape)}")
+    for v, name in vecs:
+        if v is not None and v.shape != (n,):
+            raise ValueError(f"{name}: need ({n},), got {tuple(v.shape)}")
+    return S, nl, n, in_w
+
+
+def _pair_tables(coeffs, coeff_scale) -> torch.Tensor:
+    """The stacked local tables in f32, int8 ones dequantized per shard and
+    stage as the kernels dequantize them on load."""
+    if coeff_scale is None:
+        return coeffs.float()
+    S, L = coeffs.shape[:2]
+    return Q.dequantize_coeffs(coeffs.reshape(S * L, *coeffs.shape[2:]),
+                               coeff_scale.reshape(S * L)
+                               ).reshape(coeffs.shape)
+
+
+def _check_pair_cuda(x, coeffs, coeff_scale, vecs) -> None:
+    """The kernels' operand rules on the card: contiguous f32 or bf16 x,
+    contiguous aligned tables and scales, contiguous f32 vectors."""
+    if x.dtype not in _IO or not x.is_contiguous():
+        raise TypeError(f"kernel I/O must be contiguous f32 or bf16, got "
+                        f"{x.dtype}")
+    if not coeffs.is_contiguous() or (coeff_scale is not None
+                                      and not coeff_scale.is_contiguous()):
+        raise ValueError("coeffs and coeff_scale must be contiguous")
+    _check_coeffs(coeffs[0], 2 * coeffs.shape[2], x.device, "coeffs",
+                  None if coeff_scale is None else coeff_scale[0])
+    for v, name in vecs:
+        _check_vec(v, coeffs.shape[0] * 2 * coeffs.shape[2], x.device, name)
+
+
+def _kbit(k: int) -> int:
+    return k.bit_length() - 1
+
+
+def spm_overlap_plain(x: torch.Tensor, coeffs: torch.Tensor,
+                      mix_a: torch.Tensor, mix_b: torch.Tensor,
+                      d_in: Optional[torch.Tensor] = None,
+                      d_out: Optional[torch.Tensor] = None,
+                      bias: Optional[torch.Tensor] = None,
+                      coeff_scale: Optional[torch.Tensor] = None, *,
+                      strides: Tuple[int, ...], n_tile: int, k: int,
+                      in_width: Optional[int] = None) -> torch.Tensor:
+    """K5's plain version over every shard, rounding where the kernel
+    rounds: shard j's local run in f32 from its lanes of x (zero from
+    ``in_width`` on) [times d_in], rounded to x's dtype (the slab a shard
+    sends), then ``y = mix_a * z_j + mix_b * z_(j^k)`` in f32, ``* d_out``
+    after the add, ``+ bias``, one rounding on the store."""
+    S, nl, n, _ = _check_pair(x, coeffs, coeff_scale,
+                              [(mix_a, "mix_a"), (mix_b, "mix_b"),
+                               (d_in, "d_in"), (d_out, "d_out"),
+                               (bias, "bias")], strides, n_tile, k, in_width)
+    cf = _pair_tables(coeffs, coeff_scale)
+    xf = F.pad(x.float(), (0, n - x.shape[1]))
+    sent = []
+    for j in range(S):
+        z = xf[:, j * nl:(j + 1) * nl]
+        if d_in is not None:
+            z = z * d_in[j * nl:(j + 1) * nl].float()
+        sent.append(spm_stack_ref(z, cf[j], tuple(strides)
+                                  ).to(x.dtype).float())
+    ys = []
+    for j in range(S):
+        sl = slice(j * nl, (j + 1) * nl)
+        y = mix_a[sl].float() * sent[j] + mix_b[sl].float() * sent[j ^ k]
+        if d_out is not None:
+            y = y * d_out[sl].float()
+        if bias is not None:
+            y = y + bias[sl].float()
+        ys.append(y)
+    return torch.cat(ys, dim=-1).to(x.dtype)
+
+
+def spm_overlap_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
+                            mix_a: torch.Tensor, mix_b: torch.Tensor,
+                            d_in: Optional[torch.Tensor] = None,
+                            d_out: Optional[torch.Tensor] = None,
+                            bias: Optional[torch.Tensor] = None,
+                            coeff_scale: Optional[torch.Tensor] = None, *,
+                            strides: Tuple[int, ...], n_tile: int, k: int,
+                            in_width: Optional[int] = None) -> torch.Tensor:
+    """K5: x (B, in_width or n) -> y (B, n) in x's dtype, for the stacked
+    local tables coeffs (S, L, n_local/2, 4) f32 (or int8 with
+    ``coeff_scale`` (S, L) f32) whose strides keep pairs inside an
+    ``n_tile``-wide tile.  Shard j's local run reads its lanes of x,
+    columns ``j * n_local + c``, zero from ``in_width`` on (the windowed
+    read of a rectangular first run), folds d_in, and is mixed with shard
+    ``j ^ k``'s: ``y = mix_a * z + mix_b * z_partner`` (the role-resolved
+    cross coefficients), then ``* d_out`` and ``+ bias`` when the schedule
+    ends on this cross stage.  Vectors are (n,) f32."""
+    strides = tuple(int(st) for st in strides)
+    S, nl, n, in_w = _check_pair(
+        x, coeffs, coeff_scale, [(mix_a, "mix_a"), (mix_b, "mix_b"),
+                                 (d_in, "d_in"), (d_out, "d_out"),
+                                 (bias, "bias")], strides, n_tile, k,
+        in_width)
+    if x.device.type == "cpu":
+        return spm_overlap_plain(x, coeffs, mix_a, mix_b, d_in, d_out, bias,
+                                 coeff_scale, strides=strides, n_tile=n_tile,
+                                 k=k, in_width=in_width)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    vecs = [(mix_a, "mix_a"), (mix_b, "mix_b"), (d_in, "d_in"),
+            (d_out, "d_out"), (bias, "bias")]
+    _check_pair_cuda(x, coeffs, coeff_scale, vecs)
+    B = x.shape[0]
+    y = torch.empty((B, n), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return y
+    tiles = nl // n_tile
+    per_row = n_tile * (4 + x.element_size())     # f32 tile + send slot
+    block_rows = pick_block_rows(B, n_tile, S * tiles)
+    while block_rows > 1 and block_rows * per_row > SMEM_BYTES:
+        block_rows //= 2
+    if block_rows * per_row > SMEM_BYTES:
+        raise ValueError(f"a {n_tile}-wide tile and its send slot exceed "
+                         f"{SMEM_BYTES} B of shared memory")
+    fn = _fn("spm_overlap", "spm_overlap_fwd",
+             (_I,) + (_P,) * 9 + (_I,) * 7
+             + (ctypes.POINTER(ctypes.c_int), _I, _P))
+    rc = fn(_IO[x.dtype], _ptr(x), _ptr(y), _ptr(coeffs), _ptr(coeff_scale),
+            _ptr(mix_a), _ptr(mix_b), _ptr(d_in), _ptr(d_out), _ptr(bias),
+            B, S, nl, n_tile, in_w, _kbit(k), block_rows,
+            _strides_arg(strides), len(strides), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"spm_overlap_fwd launch failed: cudaError {rc}")
+    _count(spm_overlap_kernel_call, None, coeff_scale,
+           in_width is not None)
+    return y
+
+
+spm_overlap_kernel_call.launches = 0
+spm_overlap_kernel_call.int8_launches = 0
+spm_overlap_kernel_call.window_launches = 0
+
+
+def spm_overlap_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
+                          gy: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                          d_in: Optional[torch.Tensor] = None,
+                          d_out: Optional[torch.Tensor] = None,
+                          coeff_scale: Optional[torch.Tensor] = None, *,
+                          strides: Tuple[int, ...], n_tile: int, k: int,
+                          in_width: Optional[int] = None,
+                          col_sum=_col_sum) -> tuple:
+    """K6's plain version over every shard, rounding where the kernel
+    rounds: each shard's package is its cotangent ``gy [* d_out]`` and its
+    rematted run output ``z_out``, both rounded to gy's dtype; ``s_own =
+    sum delta * z_out`` and ``s_swp = sum delta * z_partner`` over the
+    packages, ``t_own``/``t_swp`` the same over the raw gy (with d_out);
+    the transpose mix ``u * delta + v * delta_partner`` in f32 enters the
+    reverse walk over the f32 remat.  Only the sums over rows differ from
+    the kernel's, in order."""
+    S, nl, n, _ = _check_pair(x, coeffs, coeff_scale,
+                              [(u, "u"), (v, "v"), (d_in, "d_in"),
+                               (d_out, "d_out")], strides, n_tile, k,
+                              in_width)
+    if gy.shape != (x.shape[0], n):
+        raise ValueError(f"expected gy ({x.shape[0]}, {n}), got "
+                         f"{tuple(gy.shape)}")
+    strides = tuple(strides)
+    io = gy.dtype
+    cf = _pair_tables(coeffs, coeff_scale)
+    xf = F.pad(x.float(), (0, n - x.shape[1]))
+    gyf = gy.float()
+    sls = [slice(j * nl, (j + 1) * nl) for j in range(S)]
+    x_raw, zs, pk_d, pk_z = [], [], [], []
+    for j, sl in enumerate(sls):
+        x_raw.append(xf[:, sl])
+        z0 = x_raw[j] * d_in[sl].float() if d_in is not None else x_raw[j]
+        z, zj = stages_collect(z0, cf[j], strides)
+        zs.append(zj)
+        d = gyf[:, sl] * d_out[sl].float() if d_out is not None \
+            else gyf[:, sl]
+        pk_d.append(d.to(io).float())
+        pk_z.append(z.to(io).float())
+    gx, g_cf, outs = [], [], {k_: [] for k_ in
+                              ("s_own", "s_swp", "g_din", "t_own", "t_swp")}
+    for j, sl in enumerate(sls):
+        p = j ^ k
+        outs["s_own"].append(col_sum(pk_d[j] * pk_z[j]))
+        outs["s_swp"].append(col_sum(pk_d[j] * pk_z[p]))
+        if d_out is not None:
+            outs["t_own"].append(col_sum(gyf[:, sl] * pk_z[j]))
+            outs["t_swp"].append(col_sum(gyf[:, sl] * pk_z[p]))
+        dmid = u[sl].float() * pk_d[j] + v[sl].float() * pk_d[p]
+        d0, gc = walk_back(zs[j], dmid, cf[j], strides, col_sum)
+        g_cf.append(gc)
+        if d_in is not None:
+            outs["g_din"].append(col_sum(d0 * x_raw[j]))
+            d0 = d0 * d_in[sl].float()
+        gx.append(d0)
+    res = (torch.cat(gx, dim=-1).to(io), torch.stack(g_cf, dim=0),
+           torch.cat(outs["s_own"]), torch.cat(outs["s_swp"]))
+    if d_in is not None:
+        res += (torch.cat(outs["g_din"]),)
+    if d_out is not None:
+        res += (torch.cat(outs["t_own"]), torch.cat(outs["t_swp"]))
+    return res
+
+
+def spm_overlap_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
+                                gy: torch.Tensor, u: torch.Tensor,
+                                v: torch.Tensor,
+                                d_in: Optional[torch.Tensor] = None,
+                                d_out: Optional[torch.Tensor] = None,
+                                coeff_scale: Optional[torch.Tensor] = None,
+                                *, strides: Tuple[int, ...], n_tile: int,
+                                k: int, in_width: Optional[int] = None
+                                ) -> tuple:
+    """K6: the backward of one K5 pair from the local run's input x (B,
+    in_width or n, as K5 reads it) and the cotangent gy (B, n) of K5's
+    output, in x's dtype.  ``u``/``v`` (n,) are the role-resolved
+    transpose mix (``delta_mid = u * delta + v * delta_partner``).  With
+    ``d_out`` (the pair ends the schedule) each shard's sent cotangent is
+    ``gy * d_out``.  Returns ``(g_x (B, n) in x's dtype, g_coeffs (S, L,
+    n_local/2, 4), s_own (n,), s_swp (n,)[, g_din (n,)][, t_own (n,),
+    t_swp (n,)])``, all grads f32: ``s_own = sum delta * z_out``, ``s_swp
+    = sum delta * z_partner`` (the caller places them by role), ``t_own``/
+    ``t_swp`` the same sums over the raw gy, for ``g_dout = mix_a * t_own
+    + mix_b * t_swp``."""
+    strides = tuple(int(st) for st in strides)
+    vecs = [(u, "u"), (v, "v"), (d_in, "d_in"), (d_out, "d_out")]
+    S, nl, n, in_w = _check_pair(x, coeffs, coeff_scale, vecs, strides,
+                                 n_tile, k, in_width)
+    if gy.shape != (x.shape[0], n):
+        raise ValueError(f"expected gy ({x.shape[0]}, {n}), got "
+                         f"{tuple(gy.shape)}")
+    if x.device.type == "cpu":
+        return spm_overlap_bwd_plain(x, coeffs, gy, u, v, d_in, d_out,
+                                     coeff_scale, strides=strides,
+                                     n_tile=n_tile, k=k, in_width=in_width)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_pair_cuda(x, coeffs, coeff_scale, vecs)
+    if gy.dtype != x.dtype or gy.device != x.device \
+            or not gy.is_contiguous():
+        raise ValueError("gy must be contiguous, on x's device, in x's "
+                         "dtype")
+    B, L = x.shape[0], len(strides)
+    dev = x.device
+    tiles = nl // n_tile
+    gx = torch.empty((B, n), dtype=x.dtype, device=dev)
+    g_cf = torch.empty((S, L, nl // 2, 4), dtype=torch.float32, device=dev)
+    g_vec = torch.empty((5, n), dtype=torch.float32, device=dev)
+    if B == 0:
+        for t in (gx, g_cf, g_vec):
+            t.zero_()
+    else:
+        # the package (the cotangent and z_out in x's dtype) rides beside
+        # the L+1 remat tiles, as floats per row
+        pkg = -(-2 * n_tile * x.element_size() // 4)
+        cr, G, in_shared = bwd_geometry(B, n_tile, L + 1, S * tiles,
+                                        extra=pkg)
+        if not in_shared and cr * pkg * 4 > SMEM_BYTES:
+            raise ValueError(f"a {n_tile}-wide package exceeds {SMEM_BYTES}"
+                             f" B of shared memory")
+        part_cf = torch.empty((G, S, L, nl // 2, 4), dtype=torch.float32,
+                              device=dev)
+        part_vec = torch.empty((G, 5, n), dtype=torch.float32, device=dev)
+        scratch = None if in_shared else torch.empty(
+            (S * tiles * G * (L + 1) * cr * n_tile,), dtype=torch.float32,
+            device=dev)
+        fn = _fn("spm_overlap_bwd", "spm_overlap_bwd",
+                 (_I,) + (_P,) * 14 + (_I,) * 8
+                 + (ctypes.POINTER(ctypes.c_int), _I, _P))
+        rc = fn(_IO[x.dtype], _ptr(x), _ptr(gy), _ptr(gx), _ptr(coeffs),
+                _ptr(coeff_scale), _ptr(u), _ptr(v), _ptr(d_in),
+                _ptr(d_out), _ptr(g_cf), _ptr(g_vec), _ptr(part_cf),
+                _ptr(part_vec), _ptr(scratch), B, S, nl, n_tile, in_w,
+                _kbit(k), cr, G, _strides_arg(strides), L, _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"spm_overlap_bwd launch failed: cudaError "
+                               f"{rc}")
+        _count(spm_overlap_bwd_kernel_call, None, coeff_scale,
+               in_width is not None)
+    res = (gx, g_cf, g_vec[0], g_vec[1])
+    if d_in is not None:
+        res += (g_vec[4],)
+    if d_out is not None:
+        res += (g_vec[2], g_vec[3])
+    return res
+
+
+spm_overlap_bwd_kernel_call.launches = 0
+spm_overlap_bwd_kernel_call.int8_launches = 0
+spm_overlap_bwd_kernel_call.window_launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
-    for fn in (spm_stack_kernel_call, spm_stack_bwd_kernel_call):
-        fn.launches = fn.int8_launches = fn.int8_io_launches = 0
-        fn.window_launches = 0
-    spm_block_kernel_call.launches = 0
-    spm_block_bwd_kernel_call.launches = 0
+    for fn in (spm_stack_kernel_call, spm_stack_bwd_kernel_call,
+               spm_block_kernel_call, spm_block_bwd_kernel_call,
+               spm_overlap_kernel_call, spm_overlap_bwd_kernel_call):
+        for name in ("launches", "int8_launches", "int8_io_launches",
+                     "window_launches"):
+            if hasattr(fn, name):
+                setattr(fn, name, 0)

@@ -33,7 +33,9 @@ GROUPS = (("K1 int8 spm_stack_fwd", "spm_stack_fwd_kernel<signed char"),
           ("K2 spm_stack_bwd", "spm_stack_bwd_kernel"),
           ("K3 spm_block_fwd", "spm_block_fwd_kernel"),
           ("K4 spm_block_bwd", "spm_block_bwd_kernel"),
-          ("K2/K4 partial sums", "spm_sum_partials"),
+          ("K5 spm_overlap_fwd", "spm_overlap_fwd_kernel"),
+          ("K6 spm_overlap_bwd", "spm_overlap_bwd_kernel"),
+          ("K2/K4/K6 partial sums", "spm_sum_partials"),
           ("matmul (gemm)", "gemm"), ("matmul (gemm)", "sm90_xmma"),
           ("matmul (gemm)", "cutlass"), ("softmax", "softmax"),
           ("reduce", "reduce_kernel"), ("elementwise", "elementwise"),

@@ -50,6 +50,7 @@ class AttentionConfig:
     spm_use_kernel: Optional[bool] = None
     spm_schedule: str = "butterfly"
     spm_n_shards: int = 1
+    spm_overlap: Optional[bool] = None
     spm_block_fuse: Optional[bool] = None
     spm_quant_acts: bool = False
     spm_quant_coeffs: bool = False
@@ -62,7 +63,8 @@ class AttentionConfig:
             d_in=d_in, d_out=d_out, impl=self.linear_impl, use_bias=False,
             n_stages=self.spm_stages, backward=self.spm_backward,
             use_kernel=self.spm_use_kernel, schedule=self.spm_schedule,
-            n_shards=self.spm_n_shards, param_dtype=self.param_dtype, quant_acts=self.spm_quant_acts,
+            n_shards=self.spm_n_shards, overlap=self.spm_overlap,
+            param_dtype=self.param_dtype, quant_acts=self.spm_quant_acts,
             quant_coeffs=self.spm_quant_coeffs)
 
     @property

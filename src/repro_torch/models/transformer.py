@@ -83,6 +83,7 @@ class ModelConfig:
     spm_n_shards: int = 1                  # feature axis distributable over
                                            # a feature mesh
                                            # (parallel/spm_shard.py)
+    spm_overlap: Optional[bool] = None     # its overlap schedule (K5/K6)
     ffn_activation: str = "swiglu"
     spm_block_fuse: Optional[bool] = None  # None/True: block kernel; False
     spm_quant_acts: bool = False           # int8 activation I/O (K1/K2)
@@ -103,6 +104,7 @@ class ModelConfig:
             spm_backward=self.spm_backward,
             spm_use_kernel=self.spm_use_kernel,
             spm_schedule=self.spm_schedule, spm_n_shards=self.spm_n_shards,
+            spm_overlap=self.spm_overlap,
             spm_block_fuse=self.spm_block_fuse,
             spm_quant_acts=self.spm_quant_acts,
             spm_quant_coeffs=self.spm_quant_coeffs, q_chunk=self.q_chunk,
@@ -116,6 +118,7 @@ class ModelConfig:
             spm_stages=self.spm_stages, spm_backward=self.spm_backward,
             spm_use_kernel=self.spm_use_kernel,
             spm_schedule=self.spm_schedule, spm_n_shards=self.spm_n_shards,
+            spm_overlap=self.spm_overlap,
             spm_block_fuse=self.spm_block_fuse,
             spm_quant_acts=self.spm_quant_acts,
             spm_quant_coeffs=self.spm_quant_coeffs,

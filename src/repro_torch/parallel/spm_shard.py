@@ -1,5 +1,5 @@
-"""The feature-sharded two_level SPM executor, step-serial (port of
-``repro/parallel/spm_shard.py`` without the overlap schedule).
+"""The feature-sharded two_level SPM executor (port of
+``repro/parallel/spm_shard.py``).
 
 With ``n = n_shards * n_local`` features in contiguous shard blocks, every
 stage of a two_level schedule (``core/eligibility.plan_steps``) is one of
@@ -19,9 +19,12 @@ The whole operator is one ``torch.autograd.Function`` over the global
 ``(rows, in_width or n)`` input (the reference's ``custom_vjp`` around its
 ``shard_map``).  Its forward walks the steps in order, every shard's local
 run and then, at a cross step, every shard's exchange and mix; the backward
-walks them in reverse.  The exchange is its own transpose, so the backward
-issues the same hand-overs (of the saved stage input, for the coefficient
-grads, and of the cotangent).  Each shard returns only the coefficient-grad
+walks them in reverse.  Between steps the activations are global ``(rows,
+n)`` tensors: a step reads each shard's columns as a view and assembles
+its shards' outputs, a fused pair takes and returns the global tensor.
+The exchange is its own transpose, so the backward issues the same
+hand-overs (of the saved stage input, for the coefficient grads, and of
+the cotangent).  Each shard returns only the coefficient-grad
 components its role owns (low: a, b; high: c, d); the per-step tables are
 built outside the Function by differentiable indexing (``_step_tables``),
 so autograd's scatter-add merges the two partners' partials into the shared
@@ -38,16 +41,43 @@ and K2's ``col_base`` mode, x read at global column ``(col_base + j) *
 n_tile + c`` and zero past the global ``in_width``, so no padded copy is
 made.  The backward remats through the same windowed read and K2 returns
 the shard's ``(rows, n_local)`` g_x slab; the slabs are assembled and cut
-to ``in_width``.  The output is assembled to ``(rows, n)`` and cut to
-``out_width``; its cotangent enters the backward zero-padded to n.
+to ``in_width``.  Without the kernel path a rectangular input enters
+zero-padded to n.  The output is cut to ``out_width``; its cotangent
+enters the backward zero-padded to n.
 
-The mesh (``parallel/ctx.FeatureMesh``) binds each shard to a device.  This
-slice keeps every shard on the input's own device, and a mesh that places
-one elsewhere raises: a hand-over is then the partner's slab itself, and no
-shard's work leaves the card (or the CPU) its input is on.  Shards on
-distinct cards with a real transport, and the overlap schedule (K5/K6), are
-later slices (ROADMAP.md).  The mix computes in the activation dtype, rounding
-after each operation as the reference's CPU run does (bf16 included).
+**The overlap schedule** (``SPMConfig.overlap``, resolved by
+``core/eligibility.resolve_overlap``): every step splits the rows into
+``ShardPlan.row_blocks`` and runs block by block, the reference's
+row-block pipeline, and each ``{local run -> cross stage}`` pair
+(``overlap_segments``) whose local run plans to one kernel run is one
+fused kernel launch over every shard on the card (``rdma_crosses``,
+``core/eligibility.resolve_rdma``): K5 forward, the local run, the
+exchange with the partner and the mix, and K6 backward, which remats the
+local run's output, so the forward keeps no input for that cross step.
+Elsewhere (a CPU input, the composition) a pair runs block by block
+through the exchange, as the reference's interpret mode does.  The row
+blocks change only how the per-block grad partials are grouped: the
+reference's split on a CPU input, so that the tests compare like with
+like, and one block on the card, where the mesh is one device and no
+exchange latency is there to hide (the steps outside the pairs would
+only issue their per-shard ops once a block).
+
+**int8 tables** (``quant_cf``: the kernel path and ``quant_coeffs``): every
+shard-local run, K1/K2 and K5/K6 alike, reads an int8 table with one scale
+a stage taken from that shard's own table (``_quant_tables``), requantized
+the same way in the backward, so the grads are those of the dequantized
+tables (straight through).  Cross-stage coefficients stay f32, and int8
+activations (``quant_acts``) do not apply here, as in the reference.
+
+The mesh (``parallel/ctx.FeatureMesh``) binds each shard to a device.
+Every shard must be on the input's own device, and a mesh that places one
+elsewhere raises: a hand-over is then the partner's slab itself (in K5/K6
+the partner block's shared memory), and no shard's work leaves the card
+(or the CPU) its input is on.  Shards on distinct cards with a real
+transport are a later slice (ROADMAP.md).  The mix of a cross step outside
+a pair kernel computes in the activation dtype, rounding after each
+operation as the reference's CPU run does (bf16 included); K5 mixes in f32
+after one rounding of each slab, as the reference's pair kernel does.
 """
 
 from __future__ import annotations
@@ -61,13 +91,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import spm as spm_mod
-from repro_torch.core.eligibility import plan_steps, resolve_shard_kernel
+from repro_torch.core.eligibility import (OVERLAP_ROW_BLOCKS,
+                                          overlap_segments, plan_steps,
+                                          resolve_overlap, resolve_rdma,
+                                          resolve_shard_kernel)
 from repro_torch.core.pairings import Stage
+from repro_torch.kernels import quant as Q
 from repro_torch.kernels import spm_stack as K
-from repro_torch.kernels.ops import plan_runs_for_rows
+from repro_torch.kernels.ops import plan_runs, plan_runs_for_rows
 from repro_torch.parallel.ctx import FeatureMesh
 
-__all__ = ["spm_apply_sharded", "cross_partner_perm", "ShardPlan"]
+__all__ = ["spm_apply_sharded", "cross_partner_perm", "ShardPlan",
+           "pick_row_blocks"]
 
 AXIS = "model"
 
@@ -97,7 +132,10 @@ class ShardPlan:
     square).  ``win_in``: the first local run reads the input through K1's
     and K2's windowed (``col_base``) mode; ``fold_*``: the diagonal and
     bias operands fold into the boundary runs or the ending mix instead of
-    running as separate elementwise ops."""
+    running as separate elementwise ops.  ``row_blocks`` (empty: the
+    step-serial schedule) are the overlap schedule's row blocks,
+    ``rdma_crosses`` the cross steps fused with their local run into K5/K6,
+    ``quant_cf`` whether the local runs read int8 tables."""
 
     n: int
     n_local: int
@@ -109,6 +147,19 @@ class ShardPlan:
     use_kernel: bool
     in_width: Optional[int] = None
     out_width: Optional[int] = None
+    row_blocks: Tuple[int, ...] = ()
+    rdma_crosses: Tuple[int, ...] = ()
+    quant_cf: bool = False
+
+    @property
+    def overlap(self) -> bool:
+        """Whether the row-block (overlap) schedule is engaged."""
+        return bool(self.row_blocks)
+
+    @property
+    def segments(self) -> Tuple[tuple, ...]:
+        """The overlap segmentation of ``steps`` (``overlap_segments``)."""
+        return overlap_segments(self.steps)
 
     @property
     def first_local(self) -> bool:
@@ -157,6 +208,14 @@ class ShardPlan:
         the kernels."""
         return self.has_dout and not self.fold_dout
 
+    @property
+    def saved_step_inputs(self) -> Tuple[bool, ...]:
+        """Which steps' inputs the forward keeps: not the first under
+        ``win_in`` (x itself is kept), not a fused pair's cross step (K6
+        remats it from the pair's input), every other."""
+        return tuple(not ((i == 0 and self.win_in) or i in self.rdma_crosses)
+                     for i in range(len(self.steps)))
+
     def shard_slice(self, j: int) -> slice:
         """Shard j's columns of the (n,) feature axis."""
         return slice(j * self.n_local, (j + 1) * self.n_local)
@@ -168,6 +227,14 @@ def _cross_rows_on(n_shards: int, n_local: int, k: int,
     """``_cross_coeff_rows`` as an index tensor on ``device``, made once:
     a copy from the host at every call would wait for the device."""
     return torch.as_tensor(_cross_coeff_rows(n_shards, n_local, k),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _low_on(n_shards: int, k: int, device: torch.device) -> torch.Tensor:
+    """(S, 1) bool: whether shard j is the low partner of a cross stage
+    (``j & k == 0``), on ``device``, made once."""
+    return torch.as_tensor([[(j & k) == 0] for j in range(n_shards)],
                            device=device)
 
 
@@ -194,14 +261,97 @@ def _step_tables(coeffs: torch.Tensor, steps, n_shards: int,
     return tuple(tabs)
 
 
-def _window_slab(x_full: torch.Tensor, base_col: int, n_local: int,
-                 width: int) -> torch.Tensor:
-    """One shard's (rows, n_local) slab of a feature-complete (rows, width)
-    operand, zero past ``width``: the read of the composition path (the
-    kernel path reads the window in K1 and K2 without this copy)."""
-    col = base_col + torch.arange(n_local, device=x_full.device)
-    slab = x_full[:, col.clamp(max=width - 1)]
-    return torch.where(col < width, slab, torch.zeros_like(slab))
+def _quant_tables(plan: ShardPlan, tables) -> Tuple[Optional[tuple], ...]:
+    """Under ``quant_cf``, each local step's int8 tables ``(q (S, Lr,
+    n_local/2, 4), scales (S, Lr))``: one scale a stage of each shard's own
+    table (``kernels/quant.quantize_coeffs`` of that shard's slab, as the
+    reference quantizes inside its shard body); None for cross steps and
+    without ``quant_cf``."""
+    out = []
+    for step, t in zip(plan.steps, tables):
+        if not plan.quant_cf or step[0] != "local":
+            out.append(None)
+            continue
+        S, Lr = t.shape[:2]
+        q, sc = Q.quantize_coeffs(t.detach().reshape(S * Lr, *t.shape[2:]))
+        out.append((q.reshape(t.shape), sc.reshape(S, Lr)))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# the overlap schedule's row blocks
+# ---------------------------------------------------------------------------
+
+def pick_row_blocks(rows: int, block_rows: int,
+                    target: int = OVERLAP_ROW_BLOCKS) -> Tuple[int, ...]:
+    """Per-shard row-block sizes of the overlap schedule (the reference's
+    arithmetic): ``rows`` split into at most ``target`` contiguous blocks,
+    each a multiple of ``block_rows``, the last taking any remainder."""
+    if rows <= 0:
+        return (max(rows, 0),) if rows else ()
+    units = max(1, rows // block_rows)
+    nb = max(1, min(target, units))
+    base, extra = divmod(units, nb)
+    sizes = [(base + (1 if b < extra else 0)) * block_rows
+             for b in range(nb)]
+    sizes[-1] += rows - sum(sizes)
+    return tuple(sz for sz in sizes if sz > 0)
+
+
+def _overlap_row_blocks(steps, n_local: int, rows: int, dtype_bytes: int,
+                        use_kernel: bool) -> Tuple[int, ...]:
+    """The row blocks the reference's overlap schedule gives ``rows``:
+    with the kernel path, its row block (``pick_block_rows_for_plan``, of
+    which ``kernels/quant.scale_block_rows`` is the copy) halved while the
+    slab has fewer than ``OVERLAP_ROW_BLOCKS`` of them (not below 8), and
+    the rows padded to it; one row without.  The reference's zero padding
+    rows come off the last block here (they add nothing)."""
+    if use_kernel:
+        br = min(Q.scale_block_rows(plan_runs(n_local, st[2]), rows,
+                                    dtype_bytes)
+                 for st in steps if st[0] == "local")
+        while br > 8 and rows // br < OVERLAP_ROW_BLOCKS:
+            br //= 2
+    else:
+        br = 1
+    padded = -(-rows // br) * br
+    blocks = list(pick_row_blocks(padded, br))
+    if blocks:
+        blocks[-1] -= padded - rows
+    return tuple(b for b in blocks if b > 0)
+
+
+def _rdma_cross_indices(steps, n_local: int) -> Tuple[int, ...]:
+    """The cross steps a fused pair kernel (K5/K6) takes: the cross of each
+    ``("pair", local, cross)`` segment whose local run plans to one kernel
+    run (the reference's rule)."""
+    out = []
+    i = 0
+    for seg in overlap_segments(steps):
+        if seg[0] == "pair":
+            if len(plan_runs(n_local, seg[1][2])) == 1:
+                out.append(i + 1)
+            i += 2
+        else:
+            i += 1
+    return tuple(out)
+
+
+def _overlap_split(t: torch.Tensor, blocks: Tuple[int, ...]):
+    """``t``'s rows cut into the plan's row blocks (views)."""
+    return [t] if len(blocks) <= 1 else list(torch.split(t, blocks, dim=0))
+
+
+def _join(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def _sum_vec_lists(parts):
+    """The sum over row blocks, in block order, of per-block grads (None
+    where absent)."""
+    if parts[0] is None:
+        return None
+    return functools.reduce(torch.add, parts)
 
 
 # ---------------------------------------------------------------------------
@@ -274,28 +424,42 @@ def _cross_bwd(z_in, delta, cfs, k: int, plan: ShardPlan, d_out=None,
     return g_in, g_cf, g_dout, g_bias
 
 
+def _cross_role_vecs(cf: torch.Tensor, k: int):
+    """The role-resolved forward mix vectors of a cross step over all
+    shards, (n,) each: ``y = mix_a * z + mix_b * zp`` with (mix_a, mix_b)
+    = (a, b) on the low partner and (d, c) on the high."""
+    low = _low_on(cf.shape[0], k, cf.device)
+    return (torch.where(low, cf[..., 0], cf[..., 3]).reshape(-1),
+            torch.where(low, cf[..., 1], cf[..., 2]).reshape(-1))
+
+
 # ---------------------------------------------------------------------------
 # shard-local runs
 # ---------------------------------------------------------------------------
 
 def _segment_fwd(z, cf, run: Tuple[int, ...], plan: ShardPlan, *,
-                 d_in=None, d_out=None, bias=None,
+                 qcf=None, d_in=None, d_out=None, bias=None,
                  col_base: Optional[int] = None):
     """A maximal run of local stages on one shard's slab: K1 once per
     planned run, ``d_in`` folded into the first and ``d_out``/``bias`` into
     the last, or the composition with the kernel path off.  With
     ``col_base`` (a global column) ``z`` is the whole (rows, in_width)
-    input and the first run reads this shard's window of it."""
+    input and the first run reads this shard's window of it.  ``qcf``:
+    the run's int8 table and stage scales (``quant_cf``)."""
     if plan.use_kernel:
+        kcf, scf = qcf if qcf is not None else (cf, None)
         runs = plan_runs_for_rows(plan.n_local, run, z.shape[0])
+        z = z.contiguous()
         off = 0
         for r, (run_strides, n_tile) in enumerate(runs):
             first, last = r == 0, r == len(runs) - 1
             win = first and col_base is not None
+            sl = slice(off, off + len(run_strides))
             z = K.spm_stack_kernel_call(
-                z, cf[off: off + len(run_strides)],
-                d_in if first else None, d_out if last else None,
-                bias if last else None, strides=run_strides, n_tile=n_tile,
+                z, kcf[sl], d_in if first else None,
+                d_out if last else None, bias if last else None,
+                coeff_scale=None if scf is None else scf[sl],
+                strides=run_strides, n_tile=n_tile,
                 in_width=plan.in_width if win else None,
                 col_base=col_base // n_tile if win else None)
             off += len(run_strides)
@@ -306,25 +470,29 @@ def _segment_fwd(z, cf, run: Tuple[int, ...], plan: ShardPlan, *,
 
 
 def _segment_bwd(z_in, delta, cf, run: Tuple[int, ...], plan: ShardPlan, *,
-                 d_in=None, d_out=None, has_bias: bool = False,
+                 qcf=None, d_in=None, d_out=None, has_bias: bool = False,
                  col_base: Optional[int] = None):
     """The closed-form backward of a local run from its saved input: the
     forward's runs are rematted but for the last, then K2 once per run in
     reverse (the first in the windowed mode with ``col_base``, returning
     this shard's (rows, n_local) g_x), or with the kernel path off the
     composition's per-stage eqs. 12-14.  Returns ``(delta, g_coeffs,
-    g_din, g_dout, g_bias)``, the last three None unless folded here."""
+    g_din, g_dout, g_bias)``, g_coeffs in the table's dtype, the last
+    three None unless folded here."""
     if plan.use_kernel:
+        kcf, scf = qcf if qcf is not None else (cf, None)
         runs = plan_runs_for_rows(plan.n_local, run, delta.shape[0])
-        zs, z, off = [], z_in, 0
+        delta = delta.contiguous()
+        zs, z, off = [], z_in.contiguous(), 0
         for r, (run_strides, n_tile) in enumerate(runs):
             zs.append(z)
             win = r == 0 and col_base is not None
+            sl = slice(off, off + len(run_strides))
             if r < len(runs) - 1:          # the last output is not needed
                 z = K.spm_stack_kernel_call(
-                    z, cf[off: off + len(run_strides)],
-                    d_in if r == 0 else None, strides=run_strides,
-                    n_tile=n_tile,
+                    z, kcf[sl], d_in if r == 0 else None,
+                    coeff_scale=None if scf is None else scf[sl],
+                    strides=run_strides, n_tile=n_tile,
                     in_width=plan.in_width if win else None,
                     col_base=col_base // n_tile if win else None)
             off += len(run_strides)
@@ -335,9 +503,11 @@ def _segment_bwd(z_in, delta, cf, run: Tuple[int, ...], plan: ShardPlan, *,
             run_strides, n_tile = runs[r]
             first, last = r == 0, r == len(runs) - 1
             win = first and col_base is not None
+            sl = slice(int(offs[r]), int(offs[r + 1]))
             out = K.spm_stack_bwd_kernel_call(
-                zs[r], cf[offs[r]: offs[r + 1]], delta,
+                zs[r], kcf[sl], delta,
                 d_in if first else None, d_out if last else None,
+                coeff_scale=None if scf is None else scf[sl],
                 strides=run_strides, n_tile=n_tile,
                 has_bias=last and has_bias,
                 in_width=plan.in_width if win else None,
@@ -361,16 +531,96 @@ def _segment_bwd(z_in, delta, cf, run: Tuple[int, ...], plan: ShardPlan, *,
         delta, gc, _ = spm_mod._stage_grads(
             zs[i], delta, cf[i].to(delta.dtype), Stage(stride=run[i]), None)
         g_cf.append(gc)
-    return delta, torch.stack(g_cf[::-1], dim=0), None, None, None
+    return (delta, torch.stack(g_cf[::-1], dim=0).to(cf.dtype), None, None,
+            None)
+
+
+# ---------------------------------------------------------------------------
+# the fused pairs (K5 forward, K6 backward)
+# ---------------------------------------------------------------------------
+
+def _pair_run(plan: ShardPlan, li: int):
+    """The strides and tile of a fused pair's local run (one planned
+    run)."""
+    (run_strides, n_tile), = plan_runs(plan.n_local, plan.steps[li][2])
+    return run_strides, n_tile
+
+
+def _pair_fwd(plan: ShardPlan, glob: dict, li: int, ci: int,
+              x: torch.Tensor) -> torch.Tensor:
+    """One ``{local run -> cross}`` pair over every shard through K5 (its
+    plain version on a CPU input): x is the global (rows, n) input, or the
+    (rows, in_width) one under ``win_in``; returns the global (rows, n)
+    output.  When the pair's cross stage ends the schedule, d_out scales
+    the mixed sum after the add and bias follows, on the store."""
+    k = plan.steps[ci][2]
+    first, last = li == 0, ci == len(plan.steps) - 1
+    run_strides, n_tile = _pair_run(plan, li)
+    mix_a, mix_b = _cross_role_vecs(glob["tabs"][ci], k)
+    q = glob["qtabs"][li]
+    cf, scf = q if q is not None else (glob["tabs"][li], None)
+    return K.spm_overlap_kernel_call(
+        x, cf, mix_a, mix_b,
+        d_in=glob["d_in"] if first and plan.fold_din else None,
+        d_out=glob["d_out"] if last and plan.fold_dout else None,
+        bias=glob["bias"] if last and plan.fold_bias else None,
+        coeff_scale=scf, strides=run_strides, n_tile=n_tile, k=k,
+        in_width=plan.in_width if first and plan.win_in else None)
+
+
+def _pair_bwd(plan: ShardPlan, glob: dict, li: int, ci: int,
+              x: torch.Tensor, gy: torch.Tensor):
+    """The backward of a fused pair through K6 from the pair's input ``x``
+    (as ``_pair_fwd`` read it) and the global cotangent ``gy`` of its
+    output.  Returns ``(g_x (rows, n), g_local (S, Lr, n_local/2, 4),
+    g_cross (S, n_local, 4), g_din, g_dout, g_bias)``, the vectors (n,) or
+    None: s_own / s_swp placed in the role-owned (a, b) / (c, d) slots,
+    ``g_dout = mix_a * t_own + mix_b * t_swp`` from the raw-cotangent
+    sums, ``g_bias`` the raw cotangent summed."""
+    S, nl = plan.n_shards, plan.n_local
+    k = plan.steps[ci][2]
+    first, last = li == 0, ci == len(plan.steps) - 1
+    fold_dout = last and plan.fold_dout
+    run_strides, n_tile = _pair_run(plan, li)
+    cfc = glob["tabs"][ci]
+    low = _low_on(S, k, cfc.device)
+    # the transpose mix: g_mid = u * delta + v * delta_p with (u, v) =
+    # (a, c) on the low partner and (d, b) on the high
+    u = torch.where(low, cfc[..., 0], cfc[..., 3]).reshape(-1)
+    v = torch.where(low, cfc[..., 2], cfc[..., 1]).reshape(-1)
+    q = glob["qtabs"][li]
+    cf, scf = q if q is not None else (glob["tabs"][li], None)
+    out = K.spm_overlap_bwd_kernel_call(
+        x, cf, gy, u, v,
+        d_in=glob["d_in"] if first and plan.fold_din else None,
+        d_out=glob["d_out"] if fold_dout else None, coeff_scale=scf,
+        strides=run_strides, n_tile=n_tile, k=k,
+        in_width=plan.in_width if first and plan.win_in else None)
+    gx, g_local, s_own, s_swp = out[:4]
+    vecs = list(out[4:])                  # [g_din?] + [t_own, t_swp]?
+    g_din = vecs.pop(0) if first and plan.fold_din else None
+    g_dout = g_bias = None
+    if fold_dout:
+        mix_a, mix_b = _cross_role_vecs(cfc, k)
+        g_dout = mix_a.float() * vecs[0] + mix_b.float() * vecs[1]
+    if last and plan.fold_bias:
+        g_bias = gy.float().sum(0)
+    so, sw = s_own.reshape(S, nl), s_swp.reshape(S, nl)
+    zero = torch.zeros_like(so)
+    g_cross = torch.where(low[..., None],
+                          torch.stack([so, sw, zero, zero], dim=-1),
+                          torch.stack([zero, zero, sw, so], dim=-1))
+    return gx, g_local, g_cross.to(cfc.dtype), g_din, g_dout, g_bias
 
 
 # ---------------------------------------------------------------------------
 # the walk over all shards
 # ---------------------------------------------------------------------------
 
-def _shard_operands(plan: ShardPlan, tables, d_in, d_out, bias):
-    """Shard j's operands: its table of every step and its slices of the
-    (n,) vectors (None where absent)."""
+def _shard_operands(plan: ShardPlan, tables, qtabs, d_in, d_out, bias):
+    """Shard j's operands: its table of every step (and its int8 table of
+    each local step under ``quant_cf``) and its slices of the (n,)
+    vectors (None where absent)."""
     ops = []
     for j in range(plan.n_shards):
         sl = plan.shard_slice(j)
@@ -379,109 +629,171 @@ def _shard_operands(plan: ShardPlan, tables, d_in, d_out, bias):
             return None if v is None else v[sl]
 
         ops.append(dict(tabs=[t[j] for t in tables],
+                        qtabs=[None if q is None else (q[0][j], q[1][j])
+                               for q in qtabs],
                         d_in=vec(d_in), d_out=vec(d_out), bias=vec(bias)))
     return ops
 
 
-def _walk_fwd(plan: ShardPlan, ops, x2: torch.Tensor):
-    """The forward over all shards: returns the per-shard output slabs and
-    the residuals ``(x_res, step_ins, z_last)`` (per-shard lists; x_res is
-    x2 itself under ``win_in``; None where not kept)."""
+def _spans(plan: ShardPlan):
+    """``(segment, first step index)`` of the walk: the overlap segments,
+    or every step alone on the step-serial schedule."""
+    segs = (plan.segments if plan.overlap
+            else tuple(("one", st) for st in plan.steps))
+    out, i = [], 0
+    for seg in segs:
+        out.append((seg, i))
+        i += len(seg) - 1
+    return out
+
+
+def _is_fused(plan: ShardPlan, seg, i0: int) -> bool:
+    return seg[0] == "pair" and (i0 + 1) in plan.rdma_crosses
+
+
+def _step_fwd(plan: ShardPlan, ops, i: int, z, blocks):
+    """Step i over all shards, row block by row block, from the global
+    ``(rows, n)`` input (the ``(rows, in_width)`` one of a windowed first
+    run, which every shard reads whole): returns the global output."""
     S = plan.n_shards
-    fdt = x2.dtype
-    if plan.in_width is None:
-        z = [x2[:, plan.shard_slice(j)].contiguous() for j in range(S)]
-    elif plan.win_in:
-        z = [x2] * S
-    else:
-        z = [_window_slab(x2, j * plan.n_local, plan.n_local, plan.in_width)
-             for j in range(S)]
-    x_res = x2 if plan.win_in else (list(z) if plan.saves_x_res else None)
-    if plan.has_din and not plan.fold_din:
-        z = [z[j] * ops[j]["d_in"].to(fdt) for j in range(S)]
-    step_ins = []
-    n_steps = len(plan.steps)
-    for i, step in enumerate(plan.steps):
-        first, last = i == 0, i == n_steps - 1
-        step_ins.append(None if (first and plan.win_in) else list(z))
+    step = plan.steps[i]
+    first, last = i == 0, i == len(plan.steps) - 1
+    win = first and plan.win_in
+    outs = []
+    for zb in _overlap_split(z, blocks):
+        blk = [zb if win else zb[:, plan.shard_slice(j)] for j in range(S)]
         if step[0] == "cross":
             k = step[2]
-            zp = _exchange(z, k)
-            z = [_cross_mix(
-                z[j], zp[j], ops[j]["tabs"][i], j & k == 0,
+            zp = _exchange(blk, k)
+            ys = [_cross_mix(
+                blk[j], zp[j], ops[j]["tabs"][i], j & k == 0,
                 d_out=ops[j]["d_out"] if last and plan.fold_dout else None,
                 bias=ops[j]["bias"] if last and plan.fold_bias else None)
                 for j in range(S)]
         else:
-            z = [_segment_fwd(
-                z[j], ops[j]["tabs"][i], step[2], plan,
+            ys = [_segment_fwd(
+                blk[j], ops[j]["tabs"][i], step[2], plan,
+                qcf=ops[j]["qtabs"][i],
                 d_in=ops[j]["d_in"] if first and plan.fold_din else None,
                 d_out=ops[j]["d_out"] if last and plan.fold_dout else None,
                 bias=ops[j]["bias"] if last and plan.fold_bias else None,
-                col_base=j * plan.n_local if first and plan.win_in else None)
+                col_base=j * plan.n_local if win else None)
                 for j in range(S)]
-    z_last = list(z) if plan.saves_z_last else None
+        outs.append(torch.cat(ys, dim=-1))
+    return _join(outs)
+
+
+def _step_bwd(plan: ShardPlan, ops, i: int, z_in, delta, blocks):
+    """The backward of step i over all shards, row block by row block, from
+    its global input (as ``_step_fwd`` read it) and the global cotangent:
+    ``(delta (rows, n), g_table (S, ...), g_din, g_dout, g_bias)``, each
+    grad summed over the blocks in order, the (n,) vectors None unless
+    folded here."""
+    S = plan.n_shards
+    step = plan.steps[i]
+    first, last = i == 0, i == len(plan.steps) - 1
+    win = first and plan.win_in
+    parts = []
+    for zb, db in zip(_overlap_split(z_in, blocks),
+                      _overlap_split(delta, blocks)):
+        zs = [zb if win else zb[:, plan.shard_slice(j)] for j in range(S)]
+        ds = [db[:, plan.shard_slice(j)] for j in range(S)]
+        if step[0] == "cross":
+            parts.append((*_cross_bwd(
+                zs, ds, [o["tabs"][i] for o in ops], step[2], plan,
+                d_out=([o["d_out"] for o in ops] if last and plan.fold_dout
+                       else None),
+                has_bias=last and plan.fold_bias), None))
+            continue
+        outs = [_segment_bwd(
+            zs[j], ds[j], ops[j]["tabs"][i], step[2], plan,
+            qcf=ops[j]["qtabs"][i],
+            d_in=ops[j]["d_in"] if first and plan.fold_din else None,
+            d_out=ops[j]["d_out"] if last and plan.fold_dout else None,
+            has_bias=last and plan.fold_bias,
+            col_base=j * plan.n_local if win else None) for j in range(S)]
+        parts.append(tuple([o[m] for o in outs] for m in (0, 1, 3, 4, 2)))
+
+    def summed(m, join):
+        if parts[0][m] is None or parts[0][m][0] is None:
+            return None
+        return _sum_vec_lists([join(p[m]) for p in parts])
+
+    return (_join([torch.cat(p[0], dim=-1) for p in parts]),
+            summed(1, torch.stack), summed(4, torch.cat), summed(2, torch.cat),
+            summed(3, torch.cat))
+
+
+def _walk_fwd(plan: ShardPlan, ops, glob, x2: torch.Tensor):
+    """The forward over all shards from the global input x2: returns the
+    global (rows, n) output and the residuals ``(x_res, step_ins,
+    z_last)``, each a global tensor or None: x_res is x2 itself under
+    ``win_in``, else the pre-D_in input; a step input is None where not
+    kept.  A rectangular input without the windowed read enters
+    zero-padded to n."""
+    fdt = x2.dtype
+    blocks = plan.row_blocks or (x2.shape[0],)
+    z = x2
+    if plan.in_width is not None and not plan.win_in:
+        z = F.pad(x2, (0, plan.n - plan.in_width))
+    x_res = z if plan.saves_x_res else None
+    if plan.has_din and not plan.fold_din:
+        z = z * glob["d_in"].to(fdt)
+    keep = plan.saved_step_inputs
+    step_ins: List = [None] * len(plan.steps)
+    for seg, i0 in _spans(plan):
+        if _is_fused(plan, seg, i0):
+            if keep[i0]:
+                step_ins[i0] = z
+            z = _pair_fwd(plan, glob, i0, i0 + 1, z)
+            continue
+        for i in range(i0, i0 + len(seg) - 1):
+            if keep[i]:
+                step_ins[i] = z
+            z = _step_fwd(plan, ops, i, z, blocks)
+    z_last = z if plan.saves_z_last else None
     if plan.has_dout and not plan.fold_dout:
-        z = [z[j] * ops[j]["d_out"].to(fdt) for j in range(S)]
+        z = z * glob["d_out"].to(fdt)
     if plan.has_bias and not plan.fold_bias:
-        z = [z[j] + ops[j]["bias"].to(fdt) for j in range(S)]
+        z = z + glob["bias"].to(fdt)
     return z, (x_res, step_ins, z_last)
 
 
-def _walk_bwd(plan: ShardPlan, ops, res, gys: List[torch.Tensor]):
-    """The backward over all shards from the per-shard output cotangent
-    slabs: returns per-shard ``(g_x slabs, g_tables (per step), g_din,
-    g_dout, g_bias)``, the vector grads None where absent."""
-    S = plan.n_shards
+def _walk_bwd(plan: ShardPlan, ops, glob, res, gy2: torch.Tensor):
+    """The backward over all shards from the global output cotangent:
+    returns ``(g_x (rows, n), g_tables (per step, (S, ...)), g_din, g_dout,
+    g_bias)``, the vectors (n,) or None where absent."""
     x_res, step_ins, z_last = res
+    blocks = plan.row_blocks or (gy2.shape[0],)
     g_din = g_dout = g_bias = None
-    delta = gys
+    delta = gy2
     if plan.has_bias and not plan.fold_bias:
-        g_bias = [g.float().sum(0) for g in gys]
+        g_bias = gy2.float().sum(0)
     if plan.has_dout and not plan.fold_dout:
-        g_dout = [(gys[j].float() * z_last[j].float()).sum(0)
-                  for j in range(S)]
-        delta = [gys[j] * ops[j]["d_out"].to(gys[j].dtype)
-                 for j in range(S)]
-    n_steps = len(plan.steps)
-    g_tabs: List[Optional[list]] = [None] * n_steps
-    for i in range(n_steps - 1, -1, -1):
-        step = plan.steps[i]
-        first, last = i == 0, i == n_steps - 1
-        if step[0] == "cross":
-            delta, g_tabs[i], gd, gb = _cross_bwd(
-                step_ins[i], delta, [o["tabs"][i] for o in ops], step[2],
-                plan,
-                d_out=([o["d_out"] for o in ops]
-                       if last and plan.fold_dout else None),
-                has_bias=last and plan.fold_bias)
-            g_dout = gd if gd is not None else g_dout
+        g_dout = (gy2.float() * z_last.float()).sum(0)
+        delta = gy2 * glob["d_out"].to(gy2.dtype)
+    g_tabs: List = [None] * len(plan.steps)
+    for seg, i0 in reversed(_spans(plan)):
+        vecs = []
+        if _is_fused(plan, seg, i0):
+            li, ci = i0, i0 + 1
+            x_in = x_res if li == 0 and plan.win_in else step_ins[li]
+            delta, g_tabs[li], g_tabs[ci], *v = _pair_bwd(
+                plan, glob, li, ci, x_in, delta.contiguous())
+            vecs.append(v)
+        else:
+            for i in range(i0 + len(seg) - 2, i0 - 1, -1):
+                z_in = x_res if i == 0 and plan.win_in else step_ins[i]
+                delta, g_tabs[i], *v = _step_bwd(plan, ops, i, z_in, delta,
+                                                 blocks)
+                vecs.append(v)
+        for gd, go, gb in vecs:
+            g_din = gd if gd is not None else g_din
+            g_dout = go if go is not None else g_dout
             g_bias = gb if gb is not None else g_bias
-            continue
-        outs = []
-        for j in range(S):
-            z_in = x_res if (first and plan.win_in) else step_ins[i][j]
-            outs.append(_segment_bwd(
-                z_in, delta[j], ops[j]["tabs"][i],
-                step[2], plan,
-                d_in=ops[j]["d_in"] if first and plan.fold_din else None,
-                d_out=ops[j]["d_out"] if last and plan.fold_dout else None,
-                has_bias=last and plan.fold_bias,
-                col_base=j * plan.n_local if first and plan.win_in
-                else None))
-        delta = [o[0] for o in outs]
-        g_tabs[i] = [o[1] for o in outs]
-        if first and plan.fold_din:
-            g_din = [o[2] for o in outs]
-        if last and plan.fold_dout:
-            g_dout = [o[3] for o in outs]
-        if last and plan.fold_bias:
-            g_bias = [o[4] for o in outs]
     if plan.has_din and not plan.fold_din:
-        g_din = [(delta[j].float() * x_res[j].float()).sum(0)
-                 for j in range(S)]
-        delta = [delta[j] * ops[j]["d_in"].to(delta[j].dtype)
-                 for j in range(S)]
+        g_din = (delta.float() * x_res.float()).sum(0)
+        delta = delta * glob["d_in"].to(delta.dtype)
     return delta, g_tabs, g_din, g_dout, g_bias
 
 
@@ -492,61 +804,43 @@ class _ShardedCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, plan: ShardPlan, d_in, d_out, bias, x2, *tables):
-        ops = _shard_operands(plan, tables, d_in, d_out, bias)
-        z, (x_res, step_ins, z_last) = _walk_fwd(plan, ops, x2)
-        y2 = torch.cat(z, dim=-1)
+        qtabs = _quant_tables(plan, tables)
+        ops = _shard_operands(plan, tables, qtabs, d_in, d_out, bias)
+        glob = dict(tabs=tables, qtabs=qtabs, d_in=d_in, d_out=d_out,
+                    bias=bias)
+        y2, (x_res, step_ins, z_last) = _walk_fwd(plan, ops, glob, x2)
         if plan.out_width is not None:
             y2 = y2[:, :plan.out_width].contiguous()
-        # residuals flattened for save_for_backward (so that a checkpoint
-        # around the caller can drop and rebuild them)
-        S = plan.n_shards
-        saved = [x2 if plan.win_in else None]
-        saved += x_res if isinstance(x_res, list) else [None] * S
-        for ins in step_ins:
-            saved += ins if ins is not None else [None] * S
-        saved += z_last if z_last is not None else [None] * S
         ctx.plan = plan
         ctx.x_dtype = x2.dtype
-        ctx.layout = (isinstance(x_res, list),
-                      [ins is not None for ins in step_ins],
-                      z_last is not None)
-        ctx.save_for_backward(d_in, d_out, bias, *tables, *saved)
+        ctx.save_for_backward(d_in, d_out, bias, x_res, z_last, *step_ins,
+                              *tables)
         return y2
 
     @staticmethod
     def backward(ctx, gy2):
         plan = ctx.plan
-        S, n_steps = plan.n_shards, len(plan.steps)
-        d_in, d_out, bias, *rest = ctx.saved_tensors
-        tables, saved = rest[:n_steps], rest[n_steps:]
-        x2_win, saved = saved[0], saved[1:]
-        has_x_list, has_ins, has_z_last = ctx.layout
-        x_res = x2_win if plan.win_in else (
-            list(saved[:S]) if has_x_list else None)
-        saved = saved[S:]
-        step_ins = []
-        for keep in has_ins:
-            step_ins.append(list(saved[:S]) if keep else None)
-            saved = saved[S:]
-        z_last = list(saved[:S]) if has_z_last else None
-        ops = _shard_operands(plan, tables, d_in, d_out, bias)
+        d_in, d_out, bias, x_res, z_last, *rest = ctx.saved_tensors
+        step_ins = rest[:len(plan.steps)]
+        tables = tuple(rest[len(plan.steps):])
+        qtabs = _quant_tables(plan, tables)
+        ops = _shard_operands(plan, tables, qtabs, d_in, d_out, bias)
+        glob = dict(tabs=tables, qtabs=qtabs, d_in=d_in, d_out=d_out,
+                    bias=bias)
         gy2 = gy2.to(ctx.x_dtype)
         if plan.out_width is not None:
             gy2 = F.pad(gy2, (0, plan.n - plan.out_width))
-        gys = [gy2[:, plan.shard_slice(j)].contiguous() for j in range(S)]
-        delta, g_tabs, g_din, g_dout, g_bias = _walk_bwd(
-            plan, ops, (x_res, step_ins, z_last), gys)
-        g_x2 = torch.cat(delta, dim=-1)
+        gy2 = gy2.contiguous()
+        g_x2, g_tabs, g_din, g_dout, g_bias = _walk_bwd(
+            plan, ops, glob, (x_res, step_ins, z_last), gy2)
         if plan.in_width is not None:
             g_x2 = g_x2[:, :plan.in_width]
-        g_tables = [torch.stack(gs, dim=0).to(t.dtype)
-                    for gs, t in zip(g_tabs, tables)]
 
-        def vec(parts, like):
-            return None if like is None else torch.cat(parts).to(like.dtype)
+        def vec(g, like):
+            return None if like is None else g.to(like.dtype)
 
         return (None, vec(g_din, d_in), vec(g_dout, d_out), vec(g_bias, bias),
-                g_x2, *g_tables)
+                g_x2, *(g.to(t.dtype) for g, t in zip(g_tabs, tables)))
 
 
 def _device_of(dev: torch.device) -> torch.device:
@@ -566,8 +860,13 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
 
     ``x`` is (..., in_width or n).  A rectangular input enters whole and
     the first local run reads each shard's window of it (K1's and K2's
-    ``col_base`` mode; a local gather without the kernel path).  The
-    output is assembled from the shards' slabs and cut to ``out_width``.
+    ``col_base`` mode, or K5's read; a local gather without the kernel
+    path).  The output is assembled from the shards' slabs and cut to
+    ``out_width``.  ``cfg.overlap`` engages the overlap schedule
+    (``core/eligibility.resolve_overlap``), its pairs fused into K5/K6 on
+    a CUDA input with the kernel path on; ``cfg.quant_coeffs`` with the
+    kernel path gives every local run int8 tables (``quant_cf``), and
+    ``cfg.quant_acts`` does not apply here.
     """
     n = cfg.n
     if mesh.shape[AXIS] != cfg.n_shards:
@@ -581,9 +880,6 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
             f"{x.device}: every shard must be on the input's device")
     # rows shard over no mesh axis: a FeatureMesh has no data axis
     # (``parallel/sharding.data_axes``; ROADMAP.md §1: DP axes)
-    if cfg.quant_acts or cfg.quant_coeffs:
-        raise NotImplementedError("int8 tables on the sharded path are a "
-                                  "later slice (ROADMAP.md §1: quant_cf)")
     in_width = None if in_width == n else in_width
     out_width = None if out_width == n else out_width
     steps = plan_steps(n, cfg.pairing.strides(), cfg.n_shards)
@@ -593,11 +889,18 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
         raise ValueError(f"expected (..., {in_w}), got {tuple(x.shape)}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, in_w).contiguous()
+    use_kernel = resolve_shard_kernel(cfg, steps)
+    overlap = resolve_overlap(cfg, steps)
+    rdma = overlap and resolve_rdma(use_kernel, x.device.type == "cuda")
     plan = ShardPlan(
         n=n, n_local=n_local, n_shards=cfg.n_shards, steps=steps,
         has_din=cfg.use_diag, has_dout=cfg.use_diag, has_bias=cfg.use_bias,
-        use_kernel=resolve_shard_kernel(cfg, steps), in_width=in_width,
-        out_width=out_width)
+        use_kernel=use_kernel, in_width=in_width, out_width=out_width,
+        row_blocks=(() if not overlap else (x2.shape[0],) if rdma
+                    else _overlap_row_blocks(steps, n_local, x2.shape[0],
+                                             x2.element_size(), use_kernel)),
+        rdma_crosses=_rdma_cross_indices(steps, n_local) if rdma else (),
+        quant_cf=use_kernel and bool(cfg.quant_coeffs))
     coeffs = spm_mod.stage_coeffs(params, cfg)
     if plan.use_kernel:
         coeffs = coeffs.float()        # the kernels read f32 tables

@@ -528,3 +528,201 @@ def test_sharded_operator_refuses_a_mesh_off_the_input_device(cuda, mesh_dev,
         with pytest.raises(ValueError, match="input's device"):
             spm_apply(p, x, cfg)
     assert K.spm_stack_kernel_call.launches == 0
+
+
+# K5/K6 cases: (S, n_local, strides, n_tile, k, rows, in_w, fold, int8):
+# the q/k/v/o pair of qwen3-1.7b over 4 shards (n_local 512, 9 stages, d_in
+# folded), its 2-shard pair ending the schedule (d_out and bias folded), a
+# k=2 pair, a windowed first run with several feature tiles a shard (the
+# smoke FFN's shape), and an int8 table.
+PAIR_CASES = [
+    (4, 512, tuple(1 << i for i in range(9)), 512, 1, 300, None, False,
+     False),
+    (4, 512, tuple(1 << i for i in range(9)), 512, 1, 8, None, False, False),
+    (2, 1024, tuple(1 << i for i in range(10)), 1024, 1, 64, None, True,
+     False),
+    (4, 64, (1, 2, 4, 8), 64, 2, 33, None, True, False),
+    (4, 24, (1, 2, 4), 8, 1, 40, 64, True, False),
+    (4, 512, tuple(1 << i for i in range(9)), 512, 1, 300, 1792, False,
+     True),
+]
+
+
+def _pair_operands(gen, S, nl, strides, rows, in_w, fold, dtype):
+    n = S * nl
+    th = (torch.rand(S, len(strides), nl // 2, generator=gen,
+                     device="cuda") * 2 - 1) * math.pi
+    c, s = torch.cos(th), torch.sin(th)
+    cf = torch.stack([c, -s, s, c], dim=-1).contiguous()
+    vecs = [1 + 0.1 * _rnd(gen, n) for _ in range(4)]     # mix_a/b or u/v
+    d_in = 1 + 0.1 * _rnd(gen, n)
+    d_out = 1 + 0.1 * _rnd(gen, n) if fold else None
+    bias = 0.1 * _rnd(gen, n) if fold else None
+    x = _rnd(gen, rows, in_w or n).to(dtype)
+    gy = _rnd(gen, rows, n).to(dtype)
+    return cf, vecs, d_in, d_out, bias, x, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S, nl, strides, nt, k, rows, in_w, fold, q8",
+                         PAIR_CASES)
+def test_k5_k6_match_plain(cuda, dtype, S, nl, strides, nt, k, rows, in_w,
+                           fold, q8):
+    """K5 bit for bit its plain version (every product and sum rounds
+    alike); K6's g_x bit for bit, its table grads and the s, t and g_din
+    sums within gamma_rows of the sum of their terms' magnitudes; one
+    launch each, the window and int8 launches counted apart."""
+    from repro_torch.kernels import quant as Q
+    gen = torch.Generator(device="cuda").manual_seed(S * nl + rows)
+    cf, (ma, mb, u, v), d_in, d_out, bias, x, gy = _pair_operands(
+        gen, S, nl, strides, rows, in_w, fold, dtype)
+    scale = None
+    if q8:
+        L = len(strides)
+        q, scale = Q.quantize_coeffs(cf.reshape(S * L, nl // 2, 4))
+        cf, scale = q.reshape(S, L, nl // 2, 4), scale.reshape(S, L)
+    kw = dict(strides=strides, n_tile=nt, k=k, in_width=in_w)
+    K.reset_launch_counts()
+    y = K.spm_overlap_kernel_call(x, cf, ma, mb, d_in, d_out, bias, scale,
+                                  **kw)
+    got = K.spm_overlap_bwd_kernel_call(x, cf, gy, u, v, d_in, d_out, scale,
+                                        **kw)
+    want = K.spm_overlap_plain(x, cf, ma, mb, d_in, d_out, bias, scale, **kw)
+    ref = K.spm_overlap_bwd_plain(x, cf, gy, u, v, d_in, d_out, scale, **kw)
+    mags = K.spm_overlap_bwd_plain(x, cf, gy, u, v, d_in, d_out, scale,
+                                   col_sum=_abs_sum, **kw)
+    torch.cuda.synchronize()
+    for fn in (K.spm_overlap_kernel_call, K.spm_overlap_bwd_kernel_call):
+        assert (fn.launches, fn.window_launches, fn.int8_launches) == (
+            1, int(in_w is not None), int(q8))
+    assert y.shape == (rows, S * nl) and torch.equal(y, want)
+    assert len(got) == len(ref) == 5 + (2 if fold else 0)
+    assert got[0].dtype == dtype and torch.equal(got[0], ref[0])
+    _grads_within(got[1:], ref[1:], mags[1:], rows)
+
+
+def _overlap_io(steps, pairs):
+    """``(fwd, bwd)``: the roundings to the I/O dtype on a path of a
+    sharded operator with the kernel path, d_in, d_out and bias, forward
+    and backward (as ``tests/test_torch_overlap.py`` ``_depth_io`` counts
+    them): a local step once, a cross step's mix three times (cast,
+    product, sum), an elementwise d_out or bias op twice; a fused pair (a
+    cross step in ``pairs``) its sent slab and store, and backward its
+    sent cotangent when d_out folds into it and g_x."""
+    last = len(steps) - 1
+    fwd = bwd = 0
+    for i, st in enumerate(steps):
+        if i in pairs:
+            continue
+        if i + 1 in pairs:
+            fwd, bwd = fwd + 2, bwd + 1
+        else:
+            r = 1 if st[0] == "local" else 3
+            fwd, bwd = fwd + r, bwd + r
+    if steps[-1][0] == "cross" and last not in pairs:
+        fwd, bwd = fwd + 4, bwd + 2
+    return fwd, bwd + int(last in pairs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, L, S, in_w, out_w, rows", [
+    (2048, 11, 4, 2048, 2048, 300), (2048, 11, 2, 2048, 1024, 40),
+    (96, 7, 4, 64, 96, 12), (64, 9, 8, 64, 64, 40)])
+def test_overlap_operator_matches_serial_on_card(cuda, dtype, n, L, S, in_w,
+                                                 out_w, rows):
+    """The overlap schedule on the card (each fused pair one K5 and one K6
+    launch over every shard) against the step-serial sharded operator on
+    the card: in f32 the forward bit for bit (K5's local run and mix round
+    as K1 and the step-serial mix do).  Every output within a per-element
+    bound: ``depth`` f32 roundings and both sides' I/O roundings on a path
+    (``_overlap_io``; in bf16 the step-serial mix rounds each cast, product
+    and sum), each at most one unit roundoff of the element's magnitude,
+    the same operator run on the absolute values of the params, input
+    and cotangent; a parameter grad adds one f32 rounding per row."""
+    from repro_torch.core.eligibility import overlap_segments, plan_steps
+    from repro_torch.core.spm import SPMConfig, init_spm, spm_apply
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    from repro_torch.parallel.spm_shard import _rdma_cross_indices
+    gen = torch.Generator(device="cuda").manual_seed(n + rows + S)
+    cfgs = [SPMConfig(n=n, n_stages=L, schedule="two_level", n_shards=S,
+                      backward="custom", overlap=ov) for ov in (False, True)]
+    p = init_spm(cfgs[0], gen, torch.device("cuda"))
+    for key in ("d_in", "d_out", "bias"):
+        p[key].data += 0.1 * _rnd(gen, n)
+    for t in p.parameters():
+        t.requires_grad_(True)
+    x = _rnd(gen, rows, in_w).to(dtype).requires_grad_(True)
+    gy = _rnd(gen, rows, out_w).to(dtype)
+    wrt = [x] + list(p.parameters())
+    outs = []
+    for cfg in cfgs:
+        K.reset_launch_counts()
+        with activation_sharding(make_feature_mesh(S), shard_feature=True):
+            y = spm_apply(p, x, cfg, in_width=in_w, out_width=out_w)
+            outs.append([y] + list(torch.autograd.grad(y, wrt, gy)))
+    torch.cuda.synchronize()
+    steps = plan_steps(n, cfgs[0].pairing.strides(), S)
+    pairs = len(_rdma_cross_indices(steps, n // S))
+    assert pairs and any(sg[0] == "pair" for sg in overlap_segments(steps))
+    assert K.spm_overlap_kernel_call.launches == pairs
+    assert K.spm_overlap_bwd_kernel_call.launches == pairs
+    ser, ov = outs
+    if dtype == torch.float32:
+        assert torch.equal(ov[0], ser[0])
+    # the magnitudes: the unsharded operator on absolute values, in f32
+    from repro_torch.params import Params
+    pa = Params({k: t.detach().abs() for k, t in p.named_parameters()})
+    for t in pa.parameters():
+        t.requires_grad_(True)
+    xa = x.detach().float().abs().requires_grad_(True)
+    ya = spm_apply(pa, xa, cfgs[0], in_width=in_w, out_width=out_w)
+    mags = [ya] + list(torch.autograd.grad(ya, [xa] + list(pa.parameters()),
+                                           gy.float().abs()))
+    io = [a + b for a, b in zip(_overlap_io(steps, ()),
+                                _overlap_io(steps, _rdma_cross_indices(
+                                    steps, n // S)))]
+    eps32 = float(torch.finfo(torch.float32).eps)
+    u_io = float(torch.finfo(dtype).eps) / 2
+    depth = 3 * L + 3
+    names = ["y", "x"] + [k for k, _ in p.named_parameters()]
+    for name, a, b, m in zip(names, ov, ser, mags):
+        d, f = (depth, io[0]) if name == "y" else (2 * depth, io[1])
+        if name not in ("y", "x"):
+            d += rows
+            f = {"mix": io[0] + io[1], "d_in": io[1], "d_out": io[0],
+                 "bias": 0}[name]
+        lim = (d * eps32 + f * u_io) * m.detach().float()
+        err = (a.detach().float() - b.detach().float()).abs()
+        assert bool((err <= lim).all()), (name, (err - lim).max().item())
+
+
+def test_overlap_raises_without_the_pair_kernel(cuda, monkeypatch):
+    """A CUDA input on the kernel path with K5's library missing raises: the
+    overlap path never falls back to the per-block exchange (or a plain
+    version) on the card."""
+    from repro_torch.core.spm import SPMConfig, init_spm, spm_apply
+    from repro_torch.kernels import build
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    from repro_torch.parallel import spm_shard as sh
+    cfg = SPMConfig(n=64, n_stages=6, schedule="two_level", n_shards=4,
+                    backward="custom", overlap=True)
+    p = init_spm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                 torch.device("cuda"))
+    real = build.library
+
+    def missing(name):
+        if name.startswith("spm_overlap"):
+            raise build.BuildError(f"{name}: not built")
+        return real(name)
+
+    mixes = []
+    monkeypatch.setattr(build, "library", missing)
+    monkeypatch.setattr(sh, "_cross_mix", lambda *a, **kw: mixes.append(1))
+    K._fn.cache_clear()
+    try:
+        with activation_sharding(make_feature_mesh(4), shard_feature=True):
+            with pytest.raises(build.BuildError, match="spm_overlap"):
+                spm_apply(p, torch.ones(16, 64, device="cuda"), cfg)
+    finally:
+        K._fn.cache_clear()
+    assert not mixes
