@@ -39,8 +39,13 @@ Phases, each of which fails the run when it fails:
    at 4096 rows and the two-stack forms at 256 rows.  K2's g_x bit for bit,
    K4's within 2 I/O ulps plus K3's f32 term; every parameter grad within
    gamma_k times the sum of its terms' magnitudes (k rows); a second launch
-   bitwise equal to the first.  Times as in phase 2; K2's yardstick is the
-   two ``torch.matmul`` of a dense linear's backward.
+   bitwise equal to the first.  Times as in phase 2, each K2 and K6 time
+   (here and in phases 8, 12, 15) logged beside the previous design's
+   (``PREV_MS``); K2's yardstick is the two ``torch.matmul`` of a dense
+   linear's backward.
+   Then (``5 ragged``) K2 and K6 in every mode at 4072 rows (no chunk or
+   row group of the backward engine comes out even) and 8, untimed, held
+   to the same criteria.
 6. **Train**: full-width ``qwen3-1.7b`` from a seed through
    ``launch.train.train``: batch 8, seq 512, 6 steps, the third poisoned.
    Every loss finite, only the poisoned step skipped and the state bitwise
@@ -586,6 +591,73 @@ def gamma_k(k: int) -> float:
     return k * U32 / (1 - k * U32)
 
 
+# K2's and K6's times with their previous design (a block a feature tile and
+# row chunk, the table read from L2 and the grad partials read and written
+# in device memory every chunk), from this script's run on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (bf16 unless the key says otherwise): (kernel,
+# case, mode, dtype, rows) -> ms.  Logged beside this run's times.
+PREV_MS = {
+    ('K2', 'o', None, 'bfloat16', 4096): 0.702,
+    ('K2', 'gate/up', None, 'bfloat16', 4096): 2.256,
+    ('K2', 'down', None, 'bfloat16', 4096): 2.3065,
+    ('K2', 'up-tiny', None, 'bfloat16', 8): 0.0986,
+    ('K2', 'rect-dead', None, 'bfloat16', 1024): 0.2009,
+    ('K2', 'o', None, 'float32', 4096): 0.7889,
+    ('K2', 'gate/up', None, 'float32', 4096): 2.4407,
+    ('K2', 'down', None, 'float32', 4096): 2.5185,
+    ('K2', 'up-tiny', None, 'float32', 8): 0.0975,
+    ('K2', 'rect-dead', None, 'float32', 1024): 0.2139,
+    ('K2 int8', 'o', 'acts', 'int8', 4096): 0.7558,
+    ('K2 int8', 'o', 'coeffs', 'bfloat16', 4096): 0.7764,
+    ('K2 int8', 'o', 'both', 'int8', 4096): 0.8147,
+    ('K2 int8', 'kv', 'both', 'int8', 4096): 0.8079,
+    ('K2 int8', 'up-decode', 'both', 'int8', 8): 0.1129,
+    ('K2 int8', 'o-4072', 'both', 'int8', 4072): 0.8075,
+    ('K2 int8', 'gate/up', 'coeffs', 'bfloat16', 4096): 2.4216,
+    ('K2 col_base', 'up shard 0', None, 'bfloat16', 4096): 0.39,
+    ('K2 col_base', 'up shard 1', None, 'bfloat16', 4096): 0.3851,
+    ('K2 col_base', 'up shard 2', None, 'bfloat16', 4096): 0.3376,
+    ('K2 col_base', 'up shard 3', None, 'bfloat16', 4096): 0.3368,
+    ('K2 col_base', 'up shard 0', None, 'bfloat16', 8): 0.034,
+    ('K2 col_base', 'up shard 1', None, 'bfloat16', 8): 0.0335,
+    ('K2 col_base', 'up shard 2', None, 'bfloat16', 8): 0.0313,
+    ('K2 col_base', 'up shard 3', None, 'bfloat16', 8): 0.0314,
+    ('K2 col_base', 'up shard 0', None, 'float32', 4096): 0.3923,
+    ('K2 col_base', 'up shard 1', None, 'float32', 4096): 0.3859,
+    ('K2 col_base', 'up shard 2', None, 'float32', 4096): 0.3352,
+    ('K2 col_base', 'up shard 3', None, 'float32', 4096): 0.3359,
+    ('K2 col_base', 'up shard 0', None, 'float32', 8): 0.0336,
+    ('K2 col_base', 'up shard 1', None, 'float32', 8): 0.0334,
+    ('K2 col_base', 'up shard 2', None, 'float32', 8): 0.031,
+    ('K2 col_base', 'up shard 3', None, 'float32', 8): 0.0316,
+    ('K2', 'o shard 0', None, 'bfloat16', 4096): 0.122,
+    ('K2', 'o shard 0', None, 'bfloat16', 8): 0.0346,
+    ('K2', 'down shard 0', None, 'bfloat16', 4096): 0.3859,
+    ('K2', 'down shard 0', None, 'bfloat16', 8): 0.0342,
+    ('K6', 'qkvo', None, 'bfloat16', 4096): 0.5772,
+    ('K6', 'qkvo', None, 'bfloat16', 8): 0.0454,
+    ('K6', 'S=2 end', None, 'bfloat16', 4096): 0.4854,
+    ('K6', 'S=2 end', None, 'bfloat16', 8): 0.0394,
+    ('K6', 'window', None, 'bfloat16', 4096): 0.5726,
+    ('K6', 'window', None, 'bfloat16', 8): 0.0447,
+    ('K6', 'int8 table', None, 'bfloat16', 4096): 0.5942,
+    ('K6', 'int8 table', None, 'bfloat16', 8): 0.0459,
+    ('K2 col_base int8', 'up shard 0', None, 'bfloat16', 4096): 0.437,
+    ('K2 col_base int8', 'up shard 1', None, 'bfloat16', 4096): 0.4294,
+    ('K2 col_base int8', 'up shard 2', None, 'bfloat16', 4096): 0.3796,
+    ('K2 col_base int8', 'up shard 3', None, 'bfloat16', 4096): 0.3791,
+    ('K2 col_base int8', 'up shard 0', None, 'bfloat16', 8): 0.0368,
+    ('K2 col_base int8', 'up shard 1', None, 'bfloat16', 8): 0.0366,
+    ('K2 col_base int8', 'up shard 2', None, 'bfloat16', 8): 0.0347,
+    ('K2 col_base int8', 'up shard 3', None, 'bfloat16', 8): 0.0346,
+}
+
+
+def prev_ms(kernel, case, dtype, rows, mode=None):
+    """The previous design's time of a K2/K6 case (None where untimed)."""
+    return PREV_MS.get((kernel, case, mode, dtype, rows))
+
+
 def k2_cases():
     """(label, n, strides, rows, in_w, out_w): the backward of the o
     projection and of gate/up and down at 4096 rows (two runs for the
@@ -656,6 +728,23 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
         return 1 + 0.1 * rnd(n)
 
     abs_sum = (lambda t: t.abs().sum(0))
+    # the backward engine's launch shapes for the main runs, and how many of
+    # their clusters the card holds at once (the planner's CLUSTERS_RESIDENT)
+    qkv = tuple(1 << i for i in range(11))
+    for kern, args, kw in (
+            ("K2", (4096, 2048, qkv, 1, 2, 2), {}),
+            ("K2", (4096, 2048, qkv, 3, 2, 2), {}),
+            ("K2", (4096, 6144, (3072,), 1, 2, 2), {}),
+            ("K6", (4096, 512, qkv[:9], 2, 2),
+             dict(nvec=5, package=True, sides=2))):
+        plan = K.bwd_plan(*args, **kw)
+        held = K.bwd_clusters_resident(kern, torch.bfloat16, args[2], plan)
+        log(f"{kern} plan rows={args[0]} tile={args[1]} L={len(args[2])} "
+            f"tiles={args[3]}: lane blocks {plan.lane_blocks}, rows a chunk "
+            f"{plan.chunk_rows}, row groups {plan.groups}, threads "
+            f"{plan.threads}, {plan.smem_bytes} B shared; clusters of "
+            f"{plan.cluster} resident {held} (planned "
+            f"{K.CLUSTERS_RESIDENT[plan.cluster]})")
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
         esz = torch.tensor([], dtype=dt).element_size()
@@ -709,17 +798,19 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
             ok = gx_err == 0 and worst <= 1 and det and all(
                 bool(torch.isfinite(t.float()).all()) for a in kern
                 for t in a)
+            p15 = prev_ms("K2", label, dname, rows)
             rows_out.append(dict(
                 kernel="K2", case=label, dtype=dname, rows=rows, n=n,
                 in_width=in_w, out_width=out_w,
                 runs=[[list(rs), nt] for rs, nt in runs],
                 launches_per_call=len(runs), gx_max_abs_err=gx_err,
                 max_abs_err=err, grad_err_over_limit=worst,
-                deterministic=det, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=bby, library_ms=lib_ms, ok=ok))
+                deterministic=det, ms=ms, prev_ms=p15, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=bby, library_ms=lib_ms, ok=ok))
             log(f"K2 {label:9s} {dname:8s} rows={rows:5d} runs={len(runs)} "
                 f"gx_err={gx_err:.3e} (tol 0) grad err/limit={worst:.3f} "
-                f"det={det} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"det={det} ms={ms:.4f} (before {fmt_ms(p15)}) "
+                f"plain_ms={plain_ms:.4f} "
                 f"bound_ms={bms:.4f} ({bby}) library_ms={lib_ms:.4f} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -780,6 +871,159 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
                 f"bound_ms={bms:.4f} ({bby}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"K4 {label} {dname} rows={rows}")
+    return rows_out, failures
+
+
+def _flat(out):
+    """A backward's outputs as one tuple: a run chain's per-run tuples
+    (g_x first) or one call's."""
+    if isinstance(out, list):
+        return tuple(t for run in out for t in run)
+    return tuple(out)
+
+
+def check_bwd(torch, call, plain, mags, rows):
+    """Run a K2/K6 case twice and hold it to its plain version: every g_x
+    bit for bit, every other output within gamma_rows of the sum of its
+    terms' magnitudes, the second launch bitwise the first, all finite.
+    Returns (ok, g_x error, grad error over its limit, deterministic)."""
+    a, b = call(), call()
+    pl, mg = plain(), mags()
+    torch.cuda.synchronize()
+    gxs = [(u, v) for u, v in zip(a if isinstance(a, list) else [a],
+                                  pl if isinstance(pl, list) else [pl])]
+    gx_err = max((u[0].float() - v[0].float()).abs().max().item()
+                 for u, v in gxs)
+    worst = max(grads_within(u[1:], v[1:], m[1:], rows) for (u, v), m in
+                zip(gxs, mg if isinstance(mg, list) else [mg]))
+    det = all(torch.equal(u, v) for u, v in zip(_flat(a), _flat(b)))
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in _flat(a))
+    return gx_err == 0 and worst <= 1 and det and finite, gx_err, worst, det
+
+
+def run_bwd_ragged_phase(torch, K, ops, Q, cfg):
+    """K2 and K6 in every mode at a row count that fills no chunk or row
+    group evenly (4072) and at 8 rows, untimed, held as phases 5, 12 and
+    15 hold them (``check_bwd``): K2's o run in bf16 and f32, the gate/up
+    and down chains, a run whose dead-tile skip fires, an int8 table, the
+    x window, the gy window and the x window with an int8 table at the
+    gate/up shard shapes; K6's q/k/v/o pair, the 2-shard pair folding
+    d_out, a windowed pair and an int8 table.  (Int8 activations pad rows
+    to the scale block: phase 8 covers them, 4072 rows included.)"""
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(1357)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    def mix(*lead):
+        th = (torch.rand(*lead, generator=g, device=DEVICE) * 2 - 1) \
+            * math.pi
+        c, s_ = torch.cos(th), torch.sin(th)
+        return (torch.stack([c, -s_, s_, c], dim=-1)
+                + rnd(*lead, 4, scale=0.05)).contiguous()
+
+    abs_sum = (lambda t: t.abs().sum(0))
+    qkv = tuple(1 << i for i in range(11))
+    ffn = qkv + (3072,)
+
+    def record(kernel, case, dtype, rows, res):
+        ok, gx_err, worst, det = res
+        rows_out.append(dict(kernel=kernel, case=case, dtype=dtype,
+                             rows=rows, gx_max_abs_err=gx_err,
+                             grad_err_over_limit=worst, deterministic=det,
+                             ok=ok))
+        log(f"ragged {kernel:16s} {case:14s} {dtype:8s} rows={rows:5d} "
+            f"gx_err={gx_err:.1e} grad err/limit={worst:.3f} det={det} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"ragged {kernel} {case} {dtype} rows={rows}")
+
+    # K2 run chains through the executor's run plan
+    chains = [("o", 2048, qkv, 2048, 2048, torch.bfloat16, 4072),
+              ("o", 2048, qkv, 2048, 2048, torch.float32, 4072),
+              ("o", 2048, qkv, 2048, 2048, torch.bfloat16, 8),
+              ("gate/up", 6144, ffn, 2048, 6144, torch.bfloat16, 4072),
+              ("down", 6144, ffn, 6144, 2048, torch.bfloat16, 4072),
+              ("rect-dead", 4096, qkv, 4096, 1024, torch.bfloat16, 4072)]
+    for label, n, strides, in_w, out_w, dt, rows in chains:
+        for q8 in ((False, True) if label == "o" and rows == 4072
+                   and dt == torch.bfloat16 else (False,)):
+            cf = mix(len(strides), n // 2)
+            kcf, scf = Q.quantize_coeffs(cf) if q8 else (cf, None)
+            d_in, d_out, b = 1 + 0.1 * rnd(n), 1 + 0.1 * rnd(n), \
+                0.1 * rnd(n)
+            x = rnd(rows, in_w).to(dt)
+            gy = rnd(rows, out_w).to(dt)
+            runs = ops.plan_runs_for_rows(n, strides, rows)
+            widths = (None if in_w == n else in_w,
+                      None if out_w == n else out_w)
+            _, saved = ops.forward_runs(x, kcf, runs, d_in, d_out, b,
+                                        *widths, coeff_scale=scf)
+            args = (saved, kcf, gy, runs, d_in, d_out, True, *widths)
+            kw = dict(coeff_scale=scf)
+            res = check_bwd(
+                torch,
+                lambda: ops.backward_runs(K.spm_stack_bwd_kernel_call,
+                                          *args, **kw),
+                lambda: ops.backward_runs(K.spm_stack_bwd_plain, *args,
+                                          **kw),
+                lambda: ops.backward_runs(functools.partial(
+                    K.spm_stack_bwd_plain, col_sum=abs_sum), *args, **kw),
+                rows)
+            record("K2 int8 table" if q8 else "K2", label,
+                   str(dt).split(".")[-1], rows, res)
+    # K2's windows at the gate/up shard shapes (shard 1 straddles in_w)
+    from repro_torch.configs import with_feature_sharding
+    lin = with_feature_sharding(cfg, SHARDS).ffn_cfg().up
+    nl, _, plans = shard_run(lin.spm_config(), 4072)
+    (rs, nt), = plans[0]
+    in_w = lin.d_in
+    for kind in ("x", "gy", "x int8 table"):
+        cf = mix(len(rs), nl // 2)
+        kcf, scf = Q.quantize_coeffs(cf) if "int8" in kind else (cf, None)
+        d_in, d_out = 1 + 0.1 * rnd(nl), 1 + 0.1 * rnd(nl)
+        shard = 1 if kind != "gy" else 0
+        base = shard * nl // nt
+        if kind == "gy":
+            x = rnd(4072, nl).to(torch.bfloat16)
+            gy = rnd(4072, in_w).to(torch.bfloat16)
+            kw = dict(strides=rs, n_tile=nt, out_width=in_w, col_base=base,
+                      has_bias=True)
+        else:
+            x = rnd(4072, in_w).to(torch.bfloat16)
+            gy = rnd(4072, nl).to(torch.bfloat16)
+            kw = dict(coeff_scale=scf, strides=rs, n_tile=nt, in_width=in_w,
+                      col_base=base, has_bias=True)
+        res = check_bwd(
+            torch,
+            lambda: K.spm_stack_bwd_kernel_call(x, kcf, gy, d_in, d_out,
+                                                **kw),
+            lambda: K.spm_stack_bwd_plain(x, kcf, gy, d_in, d_out, **kw),
+            lambda: K.spm_stack_bwd_plain(x, kcf, gy, d_in, d_out,
+                                          col_sum=abs_sum, **kw),
+            4072)
+        record("K2 col_base", f"{kind} s{shard}", "bfloat16", 4072, res)
+    # K6's pair cases
+    for label, S, nl, strides, k, in_w, fold, q8 in pair_cases(cfg):
+        n = S * nl
+        L = len(strides)
+        cf, scale = mix(S, L, nl // 2), None
+        if q8:
+            q, scale = Q.quantize_coeffs(cf.reshape(S * L, nl // 2, 4))
+            cf, scale = q.reshape(S, L, nl // 2, 4), scale.reshape(S, L)
+        u, v, d_in = (1 + 0.1 * rnd(n) for _ in range(3))
+        d_out = 1 + 0.1 * rnd(n) if fold else None
+        x = rnd(4072, in_w or n).to(torch.bfloat16)
+        gy = rnd(4072, n).to(torch.bfloat16)
+        kw = dict(strides=strides, n_tile=nl, k=k, in_width=in_w)
+        bwd = (x, cf, gy, u, v, d_in, d_out, scale)
+        res = check_bwd(
+            torch, lambda: K.spm_overlap_bwd_kernel_call(*bwd, **kw),
+            lambda: K.spm_overlap_bwd_plain(*bwd, **kw),
+            lambda: K.spm_overlap_bwd_plain(*bwd, col_sum=abs_sum, **kw),
+            4072)
+        record("K6", label, "bfloat16", 4072, res)
     return rows_out, failures
 
 
@@ -1156,12 +1400,13 @@ def run_q8_kernel_phase(torch, K, ops, Q, timer):
                         for u, v in zip(outs[0], outs[2]))),
                 ms=ms, plain_ms=plain_ms, bound_ms=fbound, bound_by=fby,
                 library_ms=f_lib, ok=fwd_ok and fwd_det))
+            b15 = prev_ms("K2 int8", label, base["dtype"], rows, mode)
             rows_out.append(dict(
                 base, kernel="K2 int8", gx_max_abs_err=gx_err,
                 max_abs_err=gx_err, grad_err_over_limit=worst,
-                deterministic=bwd_det, ms=bms_, plain_ms=bplain_ms,
-                bound_ms=bbound, bound_by=bby, library_ms=b_lib,
-                ok=gx_err == 0 and worst <= 1 and bwd_det))
+                deterministic=bwd_det, ms=bms_, prev_ms=b15,
+                plain_ms=bplain_ms, bound_ms=bbound, bound_by=bby,
+                library_ms=b_lib, ok=gx_err == 0 and worst <= 1 and bwd_det))
             log(f"int8 {label:9s} {mode:6s} rows={rows:5d} runs={len(runs)} "
                 f"scale_rows={sr} cluster={base['cluster']} | K1 bitwise="
                 f"{fwd_ok} det={fwd_det} ms={ms:.4f} plain_ms="
@@ -1169,7 +1414,8 @@ def run_q8_kernel_phase(torch, K, ops, Q, timer):
                 f"{f_lib:.4f} | K2 gx_err={gx_err:.3e} grad err/limit="
                 f"{worst:.3f} det={bwd_det} ms={bms_:.4f} plain_ms="
                 f"{bplain_ms:.4f} bound_ms={bbound:.4f} ({bby}) library_ms="
-                f"{b_lib:.4f} {'ok' if ok else 'FAIL'}")
+                f"{b_lib:.4f} (before {fmt_ms(b15)}) "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"int8 {label} {mode}")
     return rows_out, failures
@@ -1599,6 +1845,8 @@ def run_window_kernel_phase(torch, K, timer, scfg):
                 rows_out.append(dict(common, kernel="K1 col_base",
                                      max_abs_err=k1_err, dead_is_bias=dead_ok,
                                      ok=ok1 and det, **k1))
+                k2["prev_ms"] = prev_ms("K2 col_base", f"up shard {shard}",
+                                        dname, rows)
                 rows_out.append(dict(common, kernel="K2 col_base",
                                      gx_max_abs_err=gx_err,
                                      max_abs_err=max(gx_err, max(
@@ -1613,7 +1861,8 @@ def run_window_kernel_phase(torch, K, timer, scfg):
                     f"{k1['plain_ms']:.4f} bound_ms={k1['bound_ms']:.4f} "
                     f"({k1['bound_by']}) library_ms={k1['library_ms']:.4f} "
                     f"| K2 gx_err={gx_err:.1e} grad err/limit={worst:.3f} "
-                    f"zeros={zeros} ms={k2['ms']:.4f} plain_ms="
+                    f"zeros={zeros} ms={k2['ms']:.4f} (before "
+                    f"{fmt_ms(k2['prev_ms'])}) plain_ms="
                     f"{k2['plain_ms']:.4f} bound_ms={k2['bound_ms']:.4f} "
                     f"({k2['bound_by']}) library_ms="
                     f"{k2['library_ms']:.4f} det={det} "
@@ -1693,16 +1942,18 @@ def run_window_kernel_phase(torch, K, timer, scfg):
                           launches_per_call=1)
             rows_out.append(dict(common, kernel="K1", max_abs_err=k1_err,
                                  ms=k1_ms, ok=ok1 and det))
+            s15 = prev_ms("K2", f"{name} shard 0", "bfloat16", rows)
             rows_out.append(dict(common, kernel="K2", gx_max_abs_err=gx_err,
                                  max_abs_err=max(gx_err, max(
                                      (u - v).abs().max().item()
                                      for u, v in zip(gk[1:], gp[1:]))),
                                  grad_err_over_limit=worst, ms=k2_ms,
-                                 ok=ok2 and det))
+                                 prev_ms=s15, ok=ok2 and det))
             log(f"shard {name:4s} s0 bfloat16 rows={rows:5d} n_local={nl} "
                 f"tile={nt} L={len(rs)} | K1 err={k1_err:.1e} "
                 f"ms={k1_ms:.4f} | K2 gx_err={gx_err:.1e} grad err/limit="
-                f"{worst:.3f} ms={k2_ms:.4f} det={det} "
+                f"{worst:.3f} ms={k2_ms:.4f} (before {fmt_ms(s15)}) "
+                f"det={det} "
                 f"{'ok' if ok1 and ok2 and det else 'FAIL'}")
             if not (ok1 and ok2 and det):
                 failures.append(f"{name} shard 0 bfloat16 rows={rows}")
@@ -2138,6 +2389,7 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                 rows_out.append(dict(common, kernel="K5",
                                      max_abs_err=k5_err, ok=ok5 and det,
                                      **k5))
+                k6["prev_ms"] = prev_ms("K6", label, dname, rows)
                 rows_out.append(dict(common, kernel="K6",
                                      gx_max_abs_err=gx_err,
                                      max_abs_err=max(gx_err, max(
@@ -2152,7 +2404,8 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                     f"bound_ms={k5['bound_ms']:.4f} ({k5['bound_by']}) "
                     f"library_ms={fmt_ms(k5['library_ms'])} | K6 "
                     f"gx_err={gx_err:.1e} grad err/limit={worst:.3f} "
-                    f"ms={fmt_ms(k6['ms'])} "
+                    f"ms={fmt_ms(k6['ms'])} (before "
+                    f"{fmt_ms(k6['prev_ms'])}) "
                     f"plain_ms={fmt_ms(k6['plain_ms'])} "
                     f"bound_ms={k6['bound_ms']:.4f} ({k6['bound_by']}) "
                     f"library_ms={fmt_ms(k6['library_ms'])} "
@@ -2233,6 +2486,8 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                 rows_out.append(dict(common, kernel="K1 col_base int8",
                                      max_abs_err=k1_err, dead_is_bias=dead_ok,
                                      ok=ok1 and det, **k1))
+                k2["prev_ms"] = prev_ms("K2 col_base int8",
+                                        f"up shard {shard}", dname, rows)
                 rows_out.append(dict(common, kernel="K2 col_base int8",
                                      gx_max_abs_err=gx_err,
                                      max_abs_err=max(gx_err, max(
@@ -2248,7 +2503,8 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                     f"bound_ms={k1['bound_ms']:.4f} ({k1['bound_by']}) "
                     f"library_ms={fmt_ms(k1['library_ms'])} | K2 "
                     f"gx_err={gx_err:.1e} grad err/limit={worst:.3f} "
-                    f"zeros={zeros} ms={fmt_ms(k2['ms'])} "
+                    f"zeros={zeros} ms={fmt_ms(k2['ms'])} (before "
+                    f"{fmt_ms(k2['prev_ms'])}) "
                     f"plain_ms={fmt_ms(k2['plain_ms'])} "
                     f"bound_ms={k2['bound_ms']:.4f} ({k2['bound_by']}) "
                     f"library_ms={fmt_ms(k2['library_ms'])} "
@@ -2320,6 +2576,9 @@ def main() -> int:
                                    timer)
     kernel_rows += bwd_rows
     failures += bwd_failures
+    ragged_rows, ragged_failures = phase("5 ragged", run_bwd_ragged_phase,
+                                         torch, K, ops, Q, cfg)
+    failures += ragged_failures
     train, train_ok = phase("6", run_train_phase, torch, K, ops,
                             launch_train, cfg)
     tparity, tparity_ok, _ = phase("7", run_train_parity_phase, torch, T,
@@ -2456,7 +2715,8 @@ def main() -> int:
                             if x["kernel"] == key),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    report = dict(gpu=smi, kernels=kernel_rows, serve=serve, parity=parity,
+    report = dict(gpu=smi, kernels=kernel_rows, ragged=ragged_rows,
+                  serve=serve, parity=parity,
                   train=train, train_parity=tparity, int8_nonfinite=nonfinite,
                   int8_train=q8_train,
                   int8_train_parity=q8_tparity, int8_serve=q8_serve,

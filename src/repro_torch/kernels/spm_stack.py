@@ -25,7 +25,11 @@ their launch counters.
 
 All six are memory-bound on an H100 (a few flops per element and stage
 against 2-4 bytes of I/O per element): the bound is the bytes moved over
-3.35 TB/s.  The sources say what each design does about it.
+3.35 TB/s.  The sources say what each design does about it.  K2 and K6 run
+on one backward engine (``csrc/spm_bwd_engine.cuh``) whose launch shape
+the pure-Python planner ``bwd_plan`` chooses (its mirrors of the engine's
+stage modes, passes and slot maps are checked on the CPU); K4 keeps
+``bwd_geometry``.
 
 A wrapper runs its plain version (``spm_stack_plain``,
 ``spm_stack_bwd_plain``, ``spm_block_plain``, ``spm_block_bwd_plain``,
@@ -65,7 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,7 +84,10 @@ __all__ = ["spm_stack_kernel_call", "spm_stack_plain",
            "spm_overlap_kernel_call", "spm_overlap_plain",
            "spm_overlap_bwd_kernel_call", "spm_overlap_bwd_plain",
            "pick_block_rows", "bwd_geometry", "bwd_live_tiles",
-           "int8_cta_rows",
+           "BwdPlan", "bwd_plan", "bwd_smem_bytes", "bwd_slot_pairs",
+           "bwd_stage_modes", "bwd_passes", "bwd_quad_lanes",
+           "bwd_row_slices",
+           "bwd_row_chunks", "bwd_clusters_resident", "int8_cta_rows",
            "reset_launch_counts", "SMEM_BYTES", "NUM_SMS", "ACTIVATIONS"]
 
 SMEM_BYTES = 232_448   # H100: dynamic shared memory one block may use
@@ -207,6 +214,12 @@ def _count(fn, x_scale, coeff_scale, window: bool = False) -> None:
 
 def _strides_arg(strides: Sequence[int]):
     return (ctypes.c_int * max(1, len(strides)))(*strides)
+
+
+def _shape_args(plan) -> tuple:
+    """A ``BwdPlan``'s launch shape as the backward kernels take it."""
+    return (plan.lane_blocks, plan.lanes, plan.pair_slots, plan.row_slices,
+            plan.chunk_rows, plan.groups)
 
 
 def _window(t: torch.Tensor, col_base: int, n_tile: int,
@@ -433,6 +446,268 @@ def bwd_geometry(n_rows: int, width: int, n_tiles: int, n_live: int,
     return cr, groups, in_shared
 
 
+# Clusters of C blocks, one block an SM, that an H100's GPCs hold at once
+# (cudaOccupancyMaxActiveClusters at the plans' shared memory, measured on
+# an H100 80GB HBM3 by chip_smoke.py): the row groups of a backward launch
+# are sized to one wave of them.
+CLUSTERS_RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15}
+BWD_MIN_ROWS = 5       # rows a chunk the planner takes more lane blocks for
+BWD_MAX_THREADS = 512  # csrc/spm_bwd_engine.cuh __launch_bounds__
+
+
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def bwd_smem_bytes(n_stages: int, lanes: int, chunk_rows: int, nvec: int,
+                   x_bytes: int, io_bytes: int, package: bool,
+                   row_slices: int = 1, spare: bool = True,
+                   passes: Optional[int] = None,
+                   gy_bytes: Optional[int] = None) -> int:
+    """Shared memory of one block of the backward engine
+    (``csrc/spm_bwd_engine.cuh`` ``layout``): the table and its grad sums
+    (``n_stages`` x ``lanes``/2 float4 each), two passes' grad sums of row
+    slices 1 .. ``row_slices`` - 1, the stages' and passes' set-up (24 and
+    28 bytes each), ``nvec`` per-lane sums, ``passes`` + 1 f32 remat tiles
+    of ``chunk_rows`` x ``lanes`` (each pass's input and z_L; one more,
+    ``spare``, for the cotangent to change layout into when a stage runs
+    in layout B), x staged twice, gy once (``gy_bytes`` a lane: its 4-byte
+    word when z_L is in layout B) and, for K6, the two-slab package."""
+    L, w, R = n_stages, lanes, chunk_rows
+    P = L if passes is None else passes
+    gyb = io_bytes if gy_bytes is None else gy_bytes
+    b = 2 * _align16(L * (w // 2) * 16)
+    b += _align16(4 * (row_slices - 1) * (w // 2) * 16)
+    b += _align16(L * 24) + _align16(P * 28) + _align16(nvec * w * 4)
+    b += _align16((P + 1 + spare) * R * w * 4) + 2 * _align16(R * w * x_bytes)
+    b += _align16(R * w * gyb)
+    if package:
+        b += 2 * _align16(R * w * io_bytes)
+    return b
+
+
+class BwdPlan(NamedTuple):
+    """The launch shape of a K2 or K6 backward (``bwd_plan``)."""
+    lane_blocks: int   # C: blocks splitting a feature tile's lanes
+    lanes: int         # w = n_tile / C, lanes a block owns
+    pair_slots: int    # w / 2 pairs a block processes in each stage
+    row_slices: int    # threads share a slot's rows in this many slices
+    threads: int       # pair_slots * row_slices
+    chunk_rows: int    # R: rows a chunk (one walk between barriers)
+    groups: int        # G: row groups, one cluster each, per tile
+    cluster: int       # blocks a cluster: lane_blocks * sides
+    smem_bytes: int
+
+
+def bwd_plan(n_rows: int, n_tile: int, strides: Sequence[int], tiles: int,
+             io_bytes: int, x_bytes: Optional[int] = None, nvec: int = 3,
+             package: bool = False, sides: int = 1) -> BwdPlan:
+    """The backward engine's launch shape for ``n_rows`` rows of ``tiles``
+    independent ``n_tile``-wide feature tiles (K6: partner pairs times
+    shard tiles) of a run of ``strides``, I/O of ``io_bytes`` a value
+    and x of ``x_bytes``; ``sides`` = 2 doubles each cluster for K6's
+    partner shards.  Lane blocks C (1, 2, 4, 8; C * sides <= 8): the
+    fewest whose chunk holds ``BWD_MIN_ROWS`` rows (or all of them), else
+    the C holding the most: a pass across blocks costs more than the rows
+    more blocks would add.  Row groups G: one wave of resident clusters
+    over the tiles, at most one a chunk, the rows then spread evenly over
+    the groups' chunks.  Row slices: ``bwd_row_slices``.  Raises when no
+    split holds one row's remat and the table on chip."""
+    x_bytes = io_bytes if x_bytes is None else x_bytes
+    strides = tuple(int(st) for st in strides)
+    L = len(strides)
+
+    def smem(w, R):
+        C = n_tile // w
+        modes = bwd_stage_modes(n_tile, C, strides)
+        # K2 keeps z_L in its last pass's layout, K6 (the package) in A
+        tail_b = bool(modes) and modes[-1] == "B" and not package
+        return bwd_smem_bytes(L, w, R, nvec, x_bytes, io_bytes, package,
+                              bwd_row_slices(w // 2), "B" in modes,
+                              len(bwd_passes(n_tile, C, strides)),
+                              4 if tail_b else io_bytes)
+
+    best = None
+    want = min(BWD_MIN_ROWS, n_rows)
+    for C in (1, 2, 4, 8):
+        if C * sides > 8 or n_tile % (2 * C) or n_tile // C // 2 > \
+                BWD_MAX_THREADS:
+            continue
+        w = n_tile // C
+        R = 0
+        while R < n_rows and smem(w, R + 1) <= SMEM_BYTES:
+            R += 1
+        if R >= want:
+            best = (C, w, R)
+            break
+        if R >= 1 and (best is None or R > best[2]):
+            best = (C, w, R)
+    if best is None:
+        raise ValueError(
+            f"the backward of a {L}-stage run on a {n_tile}-wide tile does "
+            f"not fit {SMEM_BYTES} B of shared memory in any split of its "
+            f"lanes over up to {8 // sides} blocks")
+    C, w, R = best
+    chunks = -(-n_rows // R)
+    G = min(chunks, max(1, CLUSTERS_RESIDENT[C * sides] // max(1, tiles)))
+    per_group = -(-n_rows // G)
+    R = -(-per_group // -(-per_group // R))
+    G = min(G, -(-n_rows // R))
+    pb = w // 2
+    rs = bwd_row_slices(pb)
+    return BwdPlan(C, w, pb, rs, pb * rs, R, G, C * sides, smem(w, R))
+
+
+def bwd_row_slices(pair_slots: int) -> int:
+    """Row slices for a block of ``pair_slots`` slots (threads = slots x
+    slices, a warp on consecutive slots of one slice): the fewest, a power
+    of two up to 32, giving 128 threads, within ``BWD_MAX_THREADS``."""
+    rs = 1
+    while rs < 32 and pair_slots * rs < 128 and \
+            pair_slots * rs * 2 <= BWD_MAX_THREADS:
+        rs *= 2
+    return rs
+
+
+def bwd_stage_modes(n_tile: int, lane_blocks: int, strides: Sequence[int]
+                    ) -> List[str]:
+    """How the backward engine runs each stage of a tile split over C lane
+    blocks of w lanes (``csrc/spm_bwd_engine.cuh`` ``setup_stages``): "A"
+    (block c owns lanes [c w, (c+1) w)) when w % 2s == 0; "B" (block c
+    owns the lanes equal to c mod C) for a run of two or more other
+    stages whose strides C divides; else across blocks in layout A,
+    "paired" when s is a multiple of w (blocks c and c ^ s/w split the
+    pairs between them), "cross" otherwise."""
+    C, w = lane_blocks, n_tile // lane_blocks
+    L = len(strides)
+    out, l = [], 0
+    while l < L:
+        e = l
+        while e < L and w % (2 * strides[e]) and strides[e] % C == 0:
+            e += 1
+        if e - l >= 2:
+            out += ["B"] * (e - l)
+            l = e
+            continue
+        s = strides[l]
+        out.append("A" if w % (2 * s) == 0 else
+                   "paired" if s % w == 0 else "cross")
+        l += 1
+    return out
+
+
+def bwd_passes(n_tile: int, lane_blocks: int, strides: Sequence[int]
+               ) -> List[Tuple[int, int]]:
+    """The backward engine's passes (``csrc/spm_bwd_engine.cuh``
+    ``plan_walk``): ``(first stage, stages)``; two consecutive stages
+    local to one layout ("A" or "B") fuse when their strides, in that
+    layout's offsets (s, or s / C in B), nest: the larger a multiple of
+    twice the smaller.  A fused pass keeps only its first stage's input,
+    recomputing the second's in the reverse walk."""
+    C = lane_blocks
+    modes = bwd_stage_modes(n_tile, C, strides)
+    out, l = [], 0
+    while l < len(strides):
+        n = 1
+        if l + 1 < len(strides) and modes[l] == modes[l + 1] \
+                and modes[l] in ("A", "B"):
+            f = C if modes[l] == "B" else 1
+            a, b = sorted((strides[l] // f, strides[l + 1] // f))
+            if b % (2 * a) == 0:
+                n = 2
+        out.append((l, n))
+        l += n
+    return out
+
+
+def bwd_quad_lanes(n_tile: int, lane_blocks: int, strides: Sequence[int],
+                   first: int) -> List[List[Tuple[int, int, int, int]]]:
+    """The quads of a fused pass from stage ``first`` (``csrc/
+    spm_bwd_engine.cuh`` ``quad``): ``[c][u]`` -> the tile lanes at
+    offsets m0, m0 + d1, m0 + d2, m0 + d1 + d2 of block c (d1, d2 the two
+    stages' strides in the pass's layout); stage ``first`` pairs the first
+    with the second and the third with the fourth, the next stage the
+    first with the third and the second with the fourth."""
+    C = lane_blocks
+    w = n_tile // C
+    b_lay = bwd_stage_modes(n_tile, C, strides)[first] == "B"
+    f = C if b_lay else 1
+    d1, d2 = strides[first] // f, strides[first + 1] // f
+    da, db = min(d1, d2), max(d1, d2)
+    out = []
+    for c in range(C):
+        quads = []
+        for u in range(w // 4):
+            ub, rb = divmod(u, db // 2)
+            m0 = ub * 2 * db + (rb // da) * 2 * da + rb % da
+            ms = (m0, m0 + d1, m0 + d2, m0 + d1 + d2)
+            quads.append(tuple(m * C + c if b_lay else c * w + m
+                               for m in ms))
+        out.append(quads)
+    return out
+
+
+def bwd_slot_pairs(n_tile: int, lane_blocks: int, strides: Sequence[int]
+                   ) -> List[List[List[int]]]:
+    """The pair each slot of each lane block processes in each stage
+    (``csrc/spm_bwd_engine.cuh`` ``slot_lane0``): ``[l][c][q]`` -> the
+    pair's index in the tile, whose lanes are ``(p // s) * 2s + p % s``
+    and that plus s.  In layout A (and "cross") slot q of block c is pair
+    ``c w/2 + q``; in layout B the pair of the block's offsets m0 = ``(q //
+    d) 2d + q % d`` and m0 + d, d = s / C, lanes ``m C + c``; "paired":
+    lane ``c w + q`` of the low block, ``c w + w/2 + q - s`` of the high
+    one."""
+    C = lane_blocks
+    w = n_tile // C
+    half = w // 2
+    out = []
+    for s, mode in zip(strides, bwd_stage_modes(n_tile, C, strides)):
+        rows = []
+        for c in range(C):
+            row = []
+            for q in range(half):
+                if mode == "B":
+                    d = s // C
+                    row.append((q // d) * s + (q % d) * C + c)
+                    continue
+                if mode == "paired":
+                    lane = c * w + half + q - s if (c // (s // w)) & 1 \
+                        else c * w + q
+                    row.append((lane // (2 * s)) * s + lane % (2 * s))
+                    continue
+                row.append(c * half + q)
+            rows.append(row)
+        out.append(rows)
+    return out
+
+
+def bwd_clusters_resident(kernel: str, dtype: torch.dtype,
+                          strides: Sequence[int], plan: BwdPlan) -> int:
+    """Clusters of ``plan``'s shape the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) for ``kernel`` "K2" or "K6" with
+    f32 or bf16 I/O; needs the card and the built kernels."""
+    lib, name = (("spm_stack_bwd", "spm_stack_bwd_clusters") if kernel == "K2"
+                 else ("spm_overlap_bwd", "spm_overlap_bwd_clusters"))
+    fn = _fn(lib, name, (_I, ctypes.POINTER(ctypes.c_int)) + (_I,) * 6)
+    return int(fn(_IO[dtype], _strides_arg(strides), len(strides),
+                  plan.lane_blocks, plan.lanes, plan.pair_slots,
+                  plan.row_slices, plan.chunk_rows))
+
+
+def bwd_row_chunks(n_rows: int, chunk_rows: int, groups: int
+                   ) -> List[Tuple[int, int, int]]:
+    """``(group, first row, rows)`` of every chunk a backward launch walks,
+    in each group's order: group g takes chunks g, g + G, ... (the kernels'
+    row loop)."""
+    out = []
+    for g in range(groups):
+        r0 = g * chunk_rows
+        while r0 < n_rows:
+            out.append((g, r0, min(chunk_rows, n_rows - r0)))
+            r0 += groups * chunk_rows
+    return out
+
+
 def bwd_live_tiles(n: int, n_tile: int, in_width: Optional[int],
                    out_width: Optional[int], dead_from: Optional[int]
                    ) -> Tuple[int, int]:
@@ -603,22 +878,20 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
         for t in (gx, g_cf, g_vec):
             t.zero_()
     else:
-        cr, G, in_shared = bwd_geometry(B, n_tile, L + 1, vis)
+        plan = bwd_plan(B, n_tile, strides, vis, gy.element_size(),
+                        x.element_size())
+        G = plan.groups
         part_cf = torch.empty((G, L, n // 2, 4), dtype=torch.float32,
                               device=dev)
         part_vec = torch.empty((G, 3, n), dtype=torch.float32, device=dev)
-        grid_tiles = max(vis, -(-gx_w // n_tile))
-        scratch = None if in_shared else torch.empty(
-            (grid_tiles * G * (L + 1) * cr * n_tile,), dtype=torch.float32,
-            device=dev)
         fn = _fn("spm_stack_bwd", "spm_stack_bwd",
-                 (_I,) + (_P,) * 13 + (_I,) * 13
+                 (_I,) + (_P,) * 12 + (_I,) * 17
                  + (ctypes.POINTER(ctypes.c_int), _I, _P))
         rc = fn(_IO[io_dt], _ptr(x), _ptr(x_scale), _ptr(gy), _ptr(gx),
                 _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in), _ptr(d_out),
-                _ptr(g_cf), _ptr(g_vec), _ptr(part_cf), _ptr(part_vec),
-                _ptr(scratch), B, n, n_tile, in_w, gy_w, gx_w, x_off,
-                gy_off, vis, cr, G, int(has_bias), scale_rows or 0,
+                _ptr(g_cf), _ptr(g_vec), _ptr(part_cf), _ptr(part_vec), B,
+                n, n_tile, in_w, gy_w, gx_w, x_off, gy_off, vis,
+                int(has_bias), scale_rows or 0, *_shape_args(plan),
                 _strides_arg(strides), L, _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_stack_bwd launch failed: cudaError {rc}")
@@ -1290,28 +1563,21 @@ def spm_overlap_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
         for t in (gx, g_cf, g_vec):
             t.zero_()
     else:
-        # the package (the cotangent and z_out in x's dtype) rides beside
-        # the L+1 remat tiles, as floats per row
-        pkg = -(-2 * n_tile * x.element_size() // 4)
-        cr, G, in_shared = bwd_geometry(B, n_tile, L + 1, S * tiles,
-                                        extra=pkg)
-        if not in_shared and cr * pkg * 4 > SMEM_BYTES:
-            raise ValueError(f"a {n_tile}-wide package exceeds {SMEM_BYTES}"
-                             f" B of shared memory")
+        # a cluster holds both partners of a pair (and the package)
+        plan = bwd_plan(B, n_tile, strides, S // 2 * tiles,
+                        x.element_size(), nvec=5, package=True, sides=2)
+        G = plan.groups
         part_cf = torch.empty((G, S, L, nl // 2, 4), dtype=torch.float32,
                               device=dev)
         part_vec = torch.empty((G, 5, n), dtype=torch.float32, device=dev)
-        scratch = None if in_shared else torch.empty(
-            (S * tiles * G * (L + 1) * cr * n_tile,), dtype=torch.float32,
-            device=dev)
         fn = _fn("spm_overlap_bwd", "spm_overlap_bwd",
-                 (_I,) + (_P,) * 14 + (_I,) * 8
+                 (_I,) + (_P,) * 13 + (_I,) * 12
                  + (ctypes.POINTER(ctypes.c_int), _I, _P))
         rc = fn(_IO[x.dtype], _ptr(x), _ptr(gy), _ptr(gx), _ptr(coeffs),
                 _ptr(coeff_scale), _ptr(u), _ptr(v), _ptr(d_in),
                 _ptr(d_out), _ptr(g_cf), _ptr(g_vec), _ptr(part_cf),
-                _ptr(part_vec), _ptr(scratch), B, S, nl, n_tile, in_w,
-                _kbit(k), cr, G, _strides_arg(strides), L, _stream(x))
+                _ptr(part_vec), B, S, nl, n_tile, in_w, _kbit(k),
+                *_shape_args(plan), _strides_arg(strides), L, _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_overlap_bwd launch failed: cudaError "
                                f"{rc}")

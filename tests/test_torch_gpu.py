@@ -156,14 +156,24 @@ def _abs_sum(t):
 @pytest.mark.parametrize("n, strides, n_tile, rows, in_w, out_w, dead", [
     (2048, QKV, 2048, 300, 2048, 2048, None),
     (6144, FFN[:11], 2048, 64, 2048, 6144, None),
-    (6144, FFN, 6144, 8, 2048, 6144, None),          # remat in global scratch
+    (6144, FFN, 6144, 8, 2048, 6144, None),          # 8 lane blocks, layout B
     (4096, QKV, 2048, 33, 4096, 1024, None),         # dead-tile skip
-    (6144, FFN[:11], 2048, 40, 6144, 6144, 2048)])   # dead_from
+    (6144, FFN[:11], 2048, 40, 6144, 6144, 2048),    # dead_from
+    (2048, QKV, 2048, 4072, 2048, 2048, None),       # ragged, layouts A and B
+    (2048, QKV, 2048, 1, 2048, 2048, None),          # one row
+    (1536, (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64), 768, 1000, 1536,
+     1536, None),                                    # strides not powers of 2
+    (512, QKV[:9], 512, 1000, 512, 512, None),       # one lane block
+    (6144, (3072,), 6144, 1000, 6144, 2048, None),   # blocks 4 apart pair up
+    (256, QKV[:8], 256, 77, 201, 256, None)])        # unaligned rows of x
 def test_k2_matches_plain(cuda, dtype, n, strides, n_tile, rows, in_w,
                           out_w, dead):
     """g_x bit for bit; parameter grads within gamma_rows times the sum of
     their terms' magnitudes (the same terms summed in another order); a
-    second launch bitwise equal."""
+    second launch bitwise equal.  The cases span the planner's lane splits
+    (``bwd_plan``: 1, 2, 4 and 8 lane blocks a tile), strides in layouts A
+    and B and a lone stride pairing blocks lane for lane, ragged row
+    counts and rows whose 16-byte staging does not align."""
     gen = torch.Generator(device="cuda").manual_seed(rows + n)
     cf = _rnd(gen, len(strides), n // 2, 4, scale=0.5)
     d_in, d_out = 1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n)
@@ -184,6 +194,76 @@ def test_k2_matches_plain(cuda, dtype, n, strides, n_tile, rows, in_w,
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
     _grads_within(got[1:], want[1:], mags[1:], rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _forced_plan(monkeypatch, C, R, G):
+    """Make the backward kernels take C lane blocks, R-row chunks and G row
+    groups whatever the planner would choose."""
+    plan = K.bwd_plan
+
+    def forced(n_rows, n_tile, *a, **kw):
+        p = plan(n_rows, n_tile, *a, **kw)
+        w = n_tile // C
+        rs = K.bwd_row_slices(w // 2)
+        return p._replace(lane_blocks=C, lanes=w, pair_slots=w // 2,
+                          row_slices=rs, threads=w // 2 * rs,
+                          chunk_rows=R, groups=G,
+                          cluster=C * p.cluster // p.lane_blocks)
+    monkeypatch.setattr(K, "bwd_plan", forced)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_k2_every_lane_split_matches_plain(cuda, monkeypatch, dtype, C):
+    """The engine forced to each lane split of a 96-wide tile whose
+    strides take every mode (``bwd_stage_modes``; at 8 blocks of 12 lanes:
+    layout A, a run in layout B, a stride reaching across blocks
+    wherever, a pair of blocks lane for lane) and fused passes in both
+    layouts (``bwd_passes``): g_x bit for bit, grads within gamma_rows, a
+    second launch bitwise; 77 rows in chunks of 5 over 3 row groups, x
+    and gy rows not 16-byte aligned."""
+    n, strides = 96, (1, 2, 3, 6, 24, 48, 4, 12)
+    _forced_plan(monkeypatch, C, 5, 3)
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    cf = _rnd(gen, len(strides), n // 2, 4, scale=0.5)
+    d_in, d_out = 1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n)
+    x = _rnd(gen, 77, 90).to(dtype)
+    gy = _rnd(gen, 77, n).to(dtype)
+    kw = dict(strides=strides, n_tile=n, has_bias=True, in_width=90)
+    got = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out, **kw)
+    again = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out, **kw)
+    want = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, **kw)
+    mags = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, col_sum=_abs_sum,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    _grads_within(got[1:], want[1:], mags[1:], 77)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_k6_every_lane_split_matches_plain(cuda, monkeypatch, dtype, C):
+    """K6 forced to each lane split of 4 shards of 96 lanes (the K2
+    test's strides: layouts A and B, fused passes, a pair of blocks lane
+    for lane), d_out folded, a windowed input: g_x bit for bit, the grads
+    and sums within gamma_rows, a second launch bitwise; 77 rows in
+    chunks of 5 over 3 row groups."""
+    S, nl, strides = 4, 96, (1, 2, 3, 6, 24, 48, 4, 12)
+    _forced_plan(monkeypatch, C, 5, 3)
+    gen = torch.Generator(device="cuda").manual_seed(10 + C)
+    cf, (_, _, u, v), d_in, d_out, _, x, gy = _pair_operands(
+        gen, S, nl, strides, 77, 300, True, dtype)
+    kw = dict(strides=strides, n_tile=nl, k=2, in_width=300)
+    got = K.spm_overlap_bwd_kernel_call(x, cf, gy, u, v, d_in, d_out, **kw)
+    again = K.spm_overlap_bwd_kernel_call(x, cf, gy, u, v, d_in, d_out, **kw)
+    ref = K.spm_overlap_bwd_plain(x, cf, gy, u, v, d_in, d_out, **kw)
+    mags = K.spm_overlap_bwd_plain(x, cf, gy, u, v, d_in, d_out,
+                                   col_sum=_abs_sum, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    _grads_within(got[1:], ref[1:], mags[1:], 77)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -270,7 +350,8 @@ def test_smoke_train_steps_on_card_match_cpu(cuda):
 @pytest.mark.parametrize("n, strides, rows, in_w, out_w, dtype", [
     (2048, QKV, 64, 2048, 2048, torch.bfloat16),   # 8-row blocks, cluster 8
     (2048, QKV, 40, 2048, 1024, torch.float32),    # edge tile, padded rows
-    (6144, FFN, 8, 2048, 6144, torch.bfloat16)])   # one 6144 run, cluster 8
+    (6144, FFN, 8, 2048, 6144, torch.bfloat16),    # one 6144 run, cluster 8
+    (2048, QKV, 1000, 2048, 2048, torch.bfloat16)])  # ragged chunks
 def test_int8_k1_k2_match_plain(cuda, mode, n, strides, rows, in_w, out_w,
                                 dtype):
     """K1's int8 codes and scales and K2's g_x bit for bit against the
@@ -404,7 +485,7 @@ SHARD_FFN = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)   # two_level n=6144
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [8, 300])
+@pytest.mark.parametrize("rows", [8, 300, 1000])
 @pytest.mark.parametrize("shard", [0, 1, 2, 3])
 def test_window_k1_k2_match_plain(cuda, dtype, rows, shard):
     """The windowed (``col_base``) modes at the gate/up shard shapes: one
@@ -545,6 +626,11 @@ PAIR_CASES = [
     (4, 24, (1, 2, 4), 8, 1, 40, 64, True, False),
     (4, 512, tuple(1 << i for i in range(9)), 512, 1, 300, 1792, False,
      True),
+    (4, 512, tuple(1 << i for i in range(9)), 512, 1, 4072, None, False,
+     False),                                     # ragged row chunks
+    (4, 512, tuple(1 << i for i in range(9)), 512, 1, 1, None, False, False),
+    (2, 1024, tuple(1 << i for i in range(10)), 1024, 1, 1000, None, True,
+     False),                                     # 4 lane blocks a side
 ]
 
 
