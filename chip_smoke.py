@@ -19,7 +19,11 @@ Phases, each of which fails the run when it fails:
    the kernel's and the plain version's time, the bound (the function's
    bytes over 3.35 TB/s or its f32 operations over 67 TFLOP/s, whichever
    is larger) and, for K1, a dense ``torch.matmul`` of the same map as a
-   yardstick the port never calls.
+   yardstick the port never calls.  Each K1 and K3 time (here and in
+   phases 8, 12 and 15, K5's too) is logged beside the previous design's
+   (``PREV_MS``), each K1 and K5 case with its launch shape
+   (``kernels.spm_stack.fwd_plan``) and the clusters of that shape the
+   card holds at once; second launches bitwise.
 3. **Serve**: full-width ``qwen3-1.7b`` with weights made from a seed,
    ``ServeEngine.generate`` for batch 8, prompt 512, 64 greedy tokens, bf16
    KV cache; each kernel's launch count must equal the count the port's own
@@ -103,6 +107,9 @@ Phases, each of which fails the run when it fails:
    bit for bit and its grads within gamma_rows; times, bounds and the
    pair step's dense products as yardstick.  Then K1's and K2's windowed
    modes with an int8 table at phase 12's shard shapes, held as there.
+   Then (``15 ragged``) K1 and K5 in every mode at 4072 rows (no chunk or
+   row group of the forward engine comes out even) and one row, bf16 and
+   f32, untimed: bit for bit, second launches bitwise.
 16. **Overlap train and serve**: phase 13 with ``with_overlap_executor``:
    each q/k/v/o pair one K5 launch over every shard forward (twice with
    remat) and one K6 backward, gate/up/down step-serial; launches equal
@@ -336,20 +343,34 @@ def run_kernel_phase(torch, K, ops, timer):
                           launches=[dict(kw, bias=None) for kw in launches])
             dense = dense.to(dt)
             lib_ms = timer(lambda: torch.matmul(x, dense))
-            ok = err == 0 and bool(torch.isfinite(kern.float()).all())
+            again = chain(K.spm_stack_kernel_call)
+            ok = (err == 0 and torch.equal(kern, again)
+                  and bool(torch.isfinite(kern.float()).all()))
+            plans = [fwd_plan_of(K, rows, kw["n_tile"], kw["strides"],
+                                 -(-(kw["out_width"] or n) // kw["n_tile"]),
+                                 x.element_size()) for kw in launches]
+            prev = prev_ms("K1", label, dname, rows)
+            # clusters of the first run's shape the card holds at once
+            held = K.fwd_clusters_resident(
+                "K1", dt, launches[0]["strides"], launches[0]["n_tile"],
+                K.FwdPlan(**plans[0]))
+            ok = ok and held >= 1
             rows_out.append(dict(
                 kernel="K1", case=label, dtype=dname, rows=rows, n=n,
                 in_width=in_w, out_width=out_w,
-                runs=[[list(rs), nt] for rs, nt in runs],
+                runs=[[list(rs), nt] for rs, nt in runs], fwd_plans=plans,
+                clusters_resident=held,
                 launches_per_call=len(runs), max_abs_err=err, tol=0.0,
-                out_scale=scale, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=bby, plan_bound_ms=plan_bms, library_ms=lib_ms,
-                ok=ok))
+                out_scale=scale, ms=ms, prev_ms=prev, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=bby, plan_bound_ms=plan_bms,
+                library_ms=lib_ms, ok=ok))
             log(f"K1 {label:5s} {dname:8s} rows={rows:5d} runs={len(runs)} "
                 f"err={err:.3e} tol=0 max|y|={scale:.3f} ms={ms:.4f} "
+                f"(before {fmt_ms(prev)}) "
                 f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({bby}) "
                 f"plan_bound_ms={plan_bms:.4f} library_ms={lib_ms:.4f} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"plans={[plan_str(q) for q in plans]} resident clusters="
+                f"{held} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"K1 {label} {dname} rows={rows}")
 
@@ -389,8 +410,10 @@ def run_kernel_phase(torch, K, ops, timer):
             bms, bby = bound(nbytes, flops)
             ok = (worst <= 1 and rerr <= rtol
                   and bool(torch.isfinite(kern.float()).all()))
+            prev = prev_ms("K3", label, dname, rows)
             rows_out.append(dict(
                 kernel="K3", case=label, dtype=dname, rows=rows, n=n,
+                prev_ms=prev,
                 in_width=n, out_width=out_w, activation=act,
                 two_stacks=two, launches_per_call=1, max_abs_err=err,
                 err_over_limit=worst, tol_f32_term=t32, tol_ulps=2,
@@ -400,8 +423,8 @@ def run_kernel_phase(torch, K, ops, timer):
             log(f"K3 {label:8s} {dname:8s} rows={rows:5d} err={err:.3e} "
                 f"err/limit={worst:.3f} (2 ulps + {t32:.2e}) max|y|="
                 f"{scale:.3f} rstd_rel={rerr:.2e} (tol {rtol:.2e}) "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
-                f"({bby}) {'ok' if ok else 'FAIL'}")
+                f"ms={ms:.4f} (before {fmt_ms(prev)}) plain_ms={plain_ms:.4f} "
+                f"bound_ms={bms:.4f} ({bby}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"K3 {label} {dname} rows={rows}")
     return rows_out, failures
@@ -591,11 +614,14 @@ def gamma_k(k: int) -> float:
     return k * U32 / (1 - k * U32)
 
 
-# K2's and K6's times with their previous design (a block a feature tile and
-# row chunk, the table read from L2 and the grad partials read and written
-# in device memory every chunk), from this script's run on an NVIDIA H100
-# 80GB HBM3 at 700.00 W (bf16 unless the key says otherwise): (kernel,
-# case, mode, dtype, rows) -> ms.  Logged beside this run's times.
+# Times of the previous design of each redesigned kernel, from this
+# script's runs on an NVIDIA H100 80GB HBM3 at 700.00 W (bf16 unless the key
+# says otherwise): (kernel, case, mode, dtype, rows) -> ms, logged beside
+# this run's times.  K2 and K6: a block a feature tile and row chunk, the
+# table read from L2 and the grad partials read and written in device
+# memory every chunk.  K1 and K5: one stage a pass over 8- or 16-row
+# blocks, the table read from L2 at every stage.  K3 has not changed: its
+# times show that the forward engine left it alone.
 PREV_MS = {
     ('K2', 'o', None, 'bfloat16', 4096): 0.702,
     ('K2', 'gate/up', None, 'bfloat16', 4096): 2.256,
@@ -650,12 +676,112 @@ PREV_MS = {
     ('K2 col_base int8', 'up shard 1', None, 'bfloat16', 8): 0.0366,
     ('K2 col_base int8', 'up shard 2', None, 'bfloat16', 8): 0.0347,
     ('K2 col_base int8', 'up shard 3', None, 'bfloat16', 8): 0.0346,
+    ('K1', 'o', None, 'bfloat16', 4096): 0.0978,
+    ('K1', 'o', None, 'bfloat16', 8): 0.0211,
+    ('K1', 'up', None, 'bfloat16', 4096): 0.3372,
+    ('K1', 'down', None, 'bfloat16', 4096): 0.3257,
+    ('K1', 'up', None, 'bfloat16', 8): 0.0508,
+    ('K1', 'down', None, 'bfloat16', 8): 0.0475,
+    ('K3', 'q', None, 'bfloat16', 4096): 0.1018,
+    ('K3', 'q', None, 'bfloat16', 8): 0.0232,
+    ('K3', 'kv', None, 'bfloat16', 4096): 0.0996,
+    ('K3', 'kv', None, 'bfloat16', 8): 0.0232,
+    ('K3', 'ffn-relu', None, 'bfloat16', 256): 0.038,
+    ('K3', 'ffn-silu', None, 'bfloat16', 256): 0.0386,
+    ('K3', 'ffn-gelu', None, 'bfloat16', 256): 0.0387,
+    ('K1', 'o', None, 'float32', 4096): 0.0931,
+    ('K1', 'o', None, 'float32', 8): 0.0208,
+    ('K1', 'up', None, 'float32', 4096): 0.3546,
+    ('K1', 'down', None, 'float32', 4096): 0.3414,
+    ('K1', 'up', None, 'float32', 8): 0.0508,
+    ('K1', 'down', None, 'float32', 8): 0.0472,
+    ('K3', 'q', None, 'float32', 4096): 0.1039,
+    ('K3', 'q', None, 'float32', 8): 0.0234,
+    ('K3', 'kv', None, 'float32', 4096): 0.1022,
+    ('K3', 'kv', None, 'float32', 8): 0.0231,
+    ('K3', 'ffn-relu', None, 'float32', 256): 0.0389,
+    ('K3', 'ffn-silu', None, 'float32', 256): 0.0393,
+    ('K3', 'ffn-gelu', None, 'float32', 256): 0.0389,
+    ('K1 int8', 'o', 'acts', 'int8', 4096): 0.1211,
+    ('K1 int8', 'o', 'coeffs', 'bfloat16', 4096): 0.093,
+    ('K1 int8', 'o', 'both', 'int8', 4096): 0.123,
+    ('K1 int8', 'kv', 'both', 'int8', 4096): 0.118,
+    ('K1 int8', 'up-decode', 'both', 'int8', 8): 0.0586,
+    ('K1 int8', 'o-4072', 'both', 'int8', 4072): 0.1232,
+    ('K1 int8', 'gate/up', 'coeffs', 'bfloat16', 4096): 0.3489,
+    ('K1 col_base', 'up shard 0', None, 'bfloat16', 4096): 0.0687,
+    ('K1 col_base', 'up shard 1', None, 'bfloat16', 4096): 0.061,
+    ('K1 col_base', 'up shard 2', None, 'bfloat16', 4096): 0.0585,
+    ('K1 col_base', 'up shard 3', None, 'bfloat16', 4096): 0.0586,
+    ('K1 col_base', 'up shard 0', None, 'bfloat16', 8): 0.0144,
+    ('K1 col_base', 'up shard 1', None, 'bfloat16', 8): 0.0142,
+    ('K1 col_base', 'up shard 2', None, 'bfloat16', 8): 0.0146,
+    ('K1 col_base', 'up shard 3', None, 'bfloat16', 8): 0.0142,
+    ('K1 col_base', 'up shard 0', None, 'float32', 4096): 0.0712,
+    ('K1 col_base', 'up shard 1', None, 'float32', 4096): 0.0596,
+    ('K1 col_base', 'up shard 2', None, 'float32', 4096): 0.0584,
+    ('K1 col_base', 'up shard 3', None, 'float32', 4096): 0.0582,
+    ('K1 col_base', 'up shard 0', None, 'float32', 8): 0.0142,
+    ('K1 col_base', 'up shard 1', None, 'float32', 8): 0.0141,
+    ('K1 col_base', 'up shard 2', None, 'float32', 8): 0.0144,
+    ('K1 col_base', 'up shard 3', None, 'float32', 8): 0.0141,
+    ('K1', 'o shard 0', None, 'bfloat16', 4096): 0.0264,
+    ('K1', 'o shard 0', None, 'bfloat16', 8): 0.0113,
+    ('K1', 'down shard 0', None, 'bfloat16', 4096): 0.0684,
+    ('K1', 'down shard 0', None, 'bfloat16', 8): 0.0141,
+    ('K5', 'qkvo', None, 'bfloat16', 4096): 0.0947,
+    ('K5', 'qkvo', None, 'bfloat16', 8): 0.0136,
+    ('K5', 'qkvo', None, 'float32', 4096): 0.1181,
+    ('K5', 'qkvo', None, 'float32', 8): 0.0133,
+    ('K5', 'S=2 end', None, 'bfloat16', 4096): 0.1022,
+    ('K5', 'S=2 end', None, 'bfloat16', 8): 0.0153,
+    ('K5', 'S=2 end', None, 'float32', 4096): 0.1562,
+    ('K5', 'S=2 end', None, 'float32', 8): 0.0152,
+    ('K5', 'window', None, 'bfloat16', 4096): 0.0939,
+    ('K5', 'window', None, 'bfloat16', 8): 0.0135,
+    ('K5', 'window', None, 'float32', 4096): 0.1166,
+    ('K5', 'window', None, 'float32', 8): 0.0133,
+    ('K5', 'int8 table', None, 'bfloat16', 4096): 0.0939,
+    ('K5', 'int8 table', None, 'bfloat16', 8): 0.0133,
+    ('K5', 'int8 table', None, 'float32', 4096): 0.1189,
+    ('K5', 'int8 table', None, 'float32', 8): 0.0134,
+    ('K1 col_base int8', 'up shard 0', None, 'bfloat16', 4096): 0.0695,
+    ('K1 col_base int8', 'up shard 1', None, 'bfloat16', 4096): 0.0617,
+    ('K1 col_base int8', 'up shard 2', None, 'bfloat16', 4096): 0.0598,
+    ('K1 col_base int8', 'up shard 3', None, 'bfloat16', 4096): 0.0599,
+    ('K1 col_base int8', 'up shard 0', None, 'bfloat16', 8): 0.015,
+    ('K1 col_base int8', 'up shard 1', None, 'bfloat16', 8): 0.0148,
+    ('K1 col_base int8', 'up shard 2', None, 'bfloat16', 8): 0.0148,
+    ('K1 col_base int8', 'up shard 3', None, 'bfloat16', 8): 0.0146,
+    ('K1 col_base int8', 'up shard 0', None, 'float32', 4096): 0.0719,
+    ('K1 col_base int8', 'up shard 1', None, 'float32', 4096): 0.0609,
+    ('K1 col_base int8', 'up shard 2', None, 'float32', 4096): 0.0595,
+    ('K1 col_base int8', 'up shard 3', None, 'float32', 4096): 0.0597,
+    ('K1 col_base int8', 'up shard 0', None, 'float32', 8): 0.0148,
+    ('K1 col_base int8', 'up shard 1', None, 'float32', 8): 0.0151,
+    ('K1 col_base int8', 'up shard 2', None, 'float32', 8): 0.0148,
+    ('K1 col_base int8', 'up shard 3', None, 'float32', 8): 0.0145,
 }
 
 
 def prev_ms(kernel, case, dtype, rows, mode=None):
-    """The previous design's time of a K2/K6 case (None where untimed)."""
+    """The previous design's time of a case (None where untimed)."""
     return PREV_MS.get((kernel, case, mode, dtype, rows))
+
+
+def fwd_plan_of(K, rows, n_tile, strides, tiles, io_bytes, scale_rows=None,
+                sides=1):
+    """The forward engine's launch shape of a K1 or K5 launch, as a dict."""
+    return K.fwd_plan(rows, n_tile, strides, tiles, io_bytes,
+                      scale_rows=scale_rows, sides=sides)._asdict()
+
+
+def plan_str(p) -> str:
+    """A launch shape in a few characters: lane blocks x row blocks, threads,
+    rows a chunk, row groups, passes, resident table."""
+    return (f"C{p['lane_blocks']}x{p['row_blocks']} T{p['threads']} "
+            f"R{p['chunk_rows']} G{p['groups']} P{p['passes']}"
+            f"{' res' if p['resident'] else ''}")
 
 
 def k2_cases():
@@ -1383,22 +1509,28 @@ def run_q8_kernel_phase(torch, K, ops, Q, timer):
             ok = (fwd_ok and fwd_det and gx_err == 0 and worst <= 1
                   and bwd_det and all(bool(torch.isfinite(t.float()).all())
                                       for a in gk for t in a))
-            cta = (K.int8_cta_rows(B, runs[0][1],
-                                   -(-out_w // runs[0][1]), sr)
-                   if q_acts else None)
+            fplan = (K.fwd_plan(B, runs[0][1], runs[0][0],
+                                -(-out_w // runs[0][1]), 1, scale_rows=sr)
+                     if q_acts else None)
             base = dict(case=label, mode=mode, dtype="int8" if q_acts
                         else "bfloat16", rows=rows, padded_rows=B, n=n,
                         in_width=in_w, out_width=out_w,
                         runs=[[list(rs), nt] for rs, nt in runs],
                         launches_per_call=len(runs), scale_rows=sr,
-                        block_rows=cta,
-                        cluster=(sr // cta) if q_acts else None)
+                        block_rows=fplan and fplan.chunk_rows,
+                        cluster=fplan and fplan.row_blocks)
+            k1_prev = prev_ms("K1 int8", label, base["dtype"], rows, mode)
+            plans = [fwd_plan_of(K, B, nt, rs, -(-(out_w if r == len(runs) - 1
+                                                  else n) // nt),
+                                 1 if q_acts else 2, sr if q_acts else None)
+                     for r, (rs, nt) in enumerate(runs)]
             rows_out.append(dict(
                 base, kernel="K1 int8", codes=n_codes, codes_differing=code_diff,
                 bitwise=fwd_ok, deterministic=fwd_det, max_abs_err=float(
                     max((u.float() - v.float()).abs().max().item()
                         for u, v in zip(outs[0], outs[2]))),
-                ms=ms, plain_ms=plain_ms, bound_ms=fbound, bound_by=fby,
+                ms=ms, prev_ms=k1_prev, fwd_plans=plans, plain_ms=plain_ms,
+                bound_ms=fbound, bound_by=fby,
                 library_ms=f_lib, ok=fwd_ok and fwd_det))
             b15 = prev_ms("K2 int8", label, base["dtype"], rows, mode)
             rows_out.append(dict(
@@ -1409,7 +1541,9 @@ def run_q8_kernel_phase(torch, K, ops, Q, timer):
                 library_ms=b_lib, ok=gx_err == 0 and worst <= 1 and bwd_det))
             log(f"int8 {label:9s} {mode:6s} rows={rows:5d} runs={len(runs)} "
                 f"scale_rows={sr} cluster={base['cluster']} | K1 bitwise="
-                f"{fwd_ok} det={fwd_det} ms={ms:.4f} plain_ms="
+                f"{fwd_ok} det={fwd_det} ms={ms:.4f} (before "
+                f"{fmt_ms(k1_prev)}) plans={[plan_str(q) for q in plans]} "
+                f"plain_ms="
                 f"{plain_ms:.4f} bound_ms={fbound:.4f} ({fby}) library_ms="
                 f"{f_lib:.4f} | K2 gx_err={gx_err:.3e} grad err/limit="
                 f"{worst:.3f} det={bwd_det} ms={bms_:.4f} plain_ms="
@@ -1842,6 +1976,9 @@ def run_window_kernel_phase(torch, K, timer, scfg):
                               rows=rows, n=nl, in_width=in_w, n_tile=nt,
                               col_base=base, live_columns=live,
                               deterministic=det, launches_per_call=1)
+                k1["prev_ms"] = prev_ms("K1 col_base", f"up shard {shard}",
+                                        dname, rows)
+                k1["fwd_plan"] = fwd_plan_of(K, rows, nt, rs, nl // nt, esz)
                 rows_out.append(dict(common, kernel="K1 col_base",
                                      max_abs_err=k1_err, dead_is_bias=dead_ok,
                                      ok=ok1 and det, **k1))
@@ -1857,7 +1994,9 @@ def run_window_kernel_phase(torch, K, timer, scfg):
                                      ok=ok2 and det, **k2))
                 log(f"col_base up s{shard} {dname:8s} rows={rows:5d} "
                     f"base={base} live={live:4d} | K1 err={k1_err:.1e} "
-                    f"dead=bias:{dead_ok} ms={k1['ms']:.4f} plain_ms="
+                    f"dead=bias:{dead_ok} ms={k1['ms']:.4f} (before "
+                    f"{fmt_ms(k1['prev_ms'])}) "
+                    f"plan={plan_str(k1['fwd_plan'])} plain_ms="
                     f"{k1['plain_ms']:.4f} bound_ms={k1['bound_ms']:.4f} "
                     f"({k1['bound_by']}) library_ms={k1['library_ms']:.4f} "
                     f"| K2 gx_err={gx_err:.1e} grad err/limit={worst:.3f} "
@@ -1940,8 +2079,9 @@ def run_window_kernel_phase(torch, K, timer, scfg):
                           rows=rows, n=nl, n_tile=nt, stages=len(rs),
                           folds_d_out=d_out is not None, deterministic=det,
                           launches_per_call=1)
+            k1_prev = prev_ms("K1", f"{name} shard 0", "bfloat16", rows)
             rows_out.append(dict(common, kernel="K1", max_abs_err=k1_err,
-                                 ms=k1_ms, ok=ok1 and det))
+                                 ms=k1_ms, prev_ms=k1_prev, ok=ok1 and det))
             s15 = prev_ms("K2", f"{name} shard 0", "bfloat16", rows)
             rows_out.append(dict(common, kernel="K2", gx_max_abs_err=gx_err,
                                  max_abs_err=max(gx_err, max(
@@ -1951,7 +2091,8 @@ def run_window_kernel_phase(torch, K, timer, scfg):
                                  prev_ms=s15, ok=ok2 and det))
             log(f"shard {name:4s} s0 bfloat16 rows={rows:5d} n_local={nl} "
                 f"tile={nt} L={len(rs)} | K1 err={k1_err:.1e} "
-                f"ms={k1_ms:.4f} | K2 gx_err={gx_err:.1e} grad err/limit="
+                f"ms={k1_ms:.4f} (before {fmt_ms(k1_prev)}) | K2 "
+                f"gx_err={gx_err:.1e} grad err/limit="
                 f"{worst:.3f} ms={k2_ms:.4f} (before {fmt_ms(s15)}) "
                 f"det={det} "
                 f"{'ok' if ok1 and ok2 and det else 'FAIL'}")
@@ -2291,12 +2432,14 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
     sum rounds as the plain version's eager ops do), K6's g_x bit for bit
     and its table grads and s, t and g_din sums within gamma_rows of the
     sum of their terms' magnitudes (as phase 5); second launches bitwise.
-    Times (in bf16; the f32 cases are checked, not timed), bounds, and as
+    Times (K5's in bf16 and f32, K6's in bf16: its f32 cases are checked,
+    not timed), bounds, and as
     yardstick the S/2 dense products of the pair step, ``(B, 2 n_local) @
     (2 n_local, 2 n_local)`` (K6: the two of their backward), one batched
     ``torch.matmul`` each.  Then K1's and K2's windowed mode with an int8
     table at the gate/up shard shapes (phase 12's cases, the table
-    quantized per stage of the shard), held as phase 12 holds them."""
+    quantized per stage of the shard), held as phase 12 holds them (K1
+    timed in bf16 and f32, K2 in bf16)."""
     rows_out, failures = [], []
     g = torch.Generator(device=DEVICE).manual_seed(97531)
 
@@ -2357,10 +2500,10 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                 live = min(in_w or n, n)
                 vec5 = 3 + (2 if fold else 0)
                 tm = timer if dt == torch.bfloat16 else untimed
-                k5 = dict(ms=tm(lambda: K.spm_overlap_kernel_call(
+                k5 = dict(ms=timer(lambda: K.spm_overlap_kernel_call(
                     *fwd, **kw)),
-                    plain_ms=tm(lambda: K.spm_overlap_plain(*fwd, **kw)),
-                    library_ms=tm(lambda: torch.matmul(xb, w)))
+                    plain_ms=timer(lambda: K.spm_overlap_plain(*fwd, **kw)),
+                    library_ms=timer(lambda: torch.matmul(xb, w)))
                 k6 = dict(ms=tm(lambda: K.spm_overlap_bwd_kernel_call(
                     *bwd, **kw)),
                     plain_ms=tm(lambda: K.spm_overlap_bwd_plain(
@@ -2386,6 +2529,12 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                               n_local=nl, stages=L, k=k, in_width=in_w,
                               folds_d_out=fold, int8_table=q8,
                               deterministic=det, launches_per_call=1)
+                k5["prev_ms"] = prev_ms("K5", label, dname, rows)
+                k5["fwd_plan"] = fwd_plan_of(K, rows, nl, strides, S // 2,
+                                             esz, sides=2)
+                k5["clusters_resident"] = K.fwd_clusters_resident(
+                    "K5", dt, strides, nl, K.FwdPlan(**k5["fwd_plan"]))
+                ok5 = ok5 and k5["clusters_resident"] >= 1
                 rows_out.append(dict(common, kernel="K5",
                                      max_abs_err=k5_err, ok=ok5 and det,
                                      **k5))
@@ -2399,7 +2548,10 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                                      ok=ok6 and det, **k6))
                 log(f"pair {label:10s} S={S} n_local={nl} L={L} {dname:8s} "
                     f"rows={rows:5d} | K5 err={k5_err:.1e} "
-                    f"ms={fmt_ms(k5['ms'])} "
+                    f"ms={fmt_ms(k5['ms'])} (before "
+                    f"{fmt_ms(k5['prev_ms'])}) "
+                    f"plan={plan_str(k5['fwd_plan'])} resident clusters="
+                    f"{k5['clusters_resident']} "
                     f"plain_ms={fmt_ms(k5['plain_ms'])} "
                     f"bound_ms={k5['bound_ms']:.4f} ({k5['bound_by']}) "
                     f"library_ms={fmt_ms(k5['library_ms'])} | K6 "
@@ -2456,11 +2608,11 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                 w = K.spm_stack_plain(torch.eye(in_w, device=DEVICE), q,
                                       d_in, d_out, None, **kw).to(dt)
                 tm = timer if dt == torch.bfloat16 else untimed
-                k1 = dict(ms=tm(lambda: K.spm_stack_kernel_call(
+                k1 = dict(ms=timer(lambda: K.spm_stack_kernel_call(
                     x, q, d_in, d_out, b, **kw)),
-                    plain_ms=tm(lambda: K.spm_stack_plain(
+                    plain_ms=timer(lambda: K.spm_stack_plain(
                         x, q, d_in, d_out, b, **kw)),
-                    library_ms=tm(lambda: torch.matmul(x, w)))
+                    library_ms=timer(lambda: torch.matmul(x, w)))
                 k2 = dict(ms=tm(lambda: K.spm_stack_bwd_kernel_call(
                     x, q, gy, d_in, d_out, **bw)),
                     plain_ms=tm(lambda: K.spm_stack_bwd_plain(
@@ -2483,6 +2635,8 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                               rows=rows, n=nl, in_width=in_w, n_tile=nt,
                               col_base=base, live_columns=live,
                               deterministic=det, launches_per_call=1)
+                k1["prev_ms"] = prev_ms("K1 col_base int8",
+                                        f"up shard {shard}", dname, rows)
                 rows_out.append(dict(common, kernel="K1 col_base int8",
                                      max_abs_err=k1_err, dead_is_bias=dead_ok,
                                      ok=ok1 and det, **k1))
@@ -2498,7 +2652,8 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                                      ok=ok2 and det, **k2))
                 log(f"col_base int8 up s{shard} {dname:8s} rows={rows:5d} "
                     f"live={live:4d} | K1 err={k1_err:.1e} dead=bias:"
-                    f"{dead_ok} ms={fmt_ms(k1['ms'])} "
+                    f"{dead_ok} ms={fmt_ms(k1['ms'])} (before "
+                    f"{fmt_ms(k1['prev_ms'])}) "
                     f"plain_ms={fmt_ms(k1['plain_ms'])} "
                     f"bound_ms={k1['bound_ms']:.4f} ({k1['bound_by']}) "
                     f"library_ms={fmt_ms(k1['library_ms'])} | K2 "
@@ -2512,6 +2667,141 @@ def run_pair_kernel_phase(torch, K, Q, timer, cfg):
                 if not (ok1 and ok2 and det):
                     failures.append(f"col_base int8 up shard {shard} "
                                     f"{dname} rows={rows}")
+    return rows_out, failures
+
+
+def run_fwd_ragged_phase(torch, K, ops, Q, cfg):
+    """K1 and K5 in every mode at a row count that fills no chunk or row
+    group evenly (4072) and at one row, in bf16 and f32, untimed: bit for
+    bit their plain versions (int8 codes and scales included) and a second
+    launch bitwise.  K1: the o run with an f32 and an int8 table, the
+    gate/up and down chains, the x window at the gate/up shard shapes
+    (shard 1 straddling in_width, shard 3 past it) with an f32 and an int8
+    table, int8 activations (a padded scale block at 4072); K5: every pair
+    case of ``pair_cases``.  (Phases 2, 8, 12 and 15 cover 4096 and 8
+    rows.)"""
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(2024)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    def mix(*lead):
+        th = (torch.rand(*lead, generator=g, device=DEVICE) * 2 - 1) \
+            * math.pi
+        c, s_ = torch.cos(th), torch.sin(th)
+        return (torch.stack([c, -s_, s_, c], dim=-1)
+                + rnd(*lead, 4, scale=0.05)).contiguous()
+
+    def flat(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def check(kernel, case, dtype, rows, call, plain):
+        a, b, p = flat(call()), flat(call()), flat(plain())
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(a, p))
+        det = all(torch.equal(u, v) for u, v in zip(a, b))
+        finite = all(bool(torch.isfinite(u.float()).all()) for u in a)
+        ok = same and det and finite
+        rows_out.append(dict(kernel=kernel, case=case, dtype=dtype,
+                             rows=rows, bitwise=same, deterministic=det,
+                             ok=ok))
+        log(f"ragged {kernel:16s} {case:16s} {dtype:8s} rows={rows:5d} "
+            f"bitwise={same} det={det} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"ragged {kernel} {case} {dtype} rows={rows}")
+
+    qkv = tuple(1 << i for i in range(11))
+    ffn = qkv + (3072,)
+    from repro_torch.configs import with_feature_sharding
+    lin = with_feature_sharding(cfg, SHARDS).ffn_cfg().up
+    for rows in (4072, 1):
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[-1]
+            # K1 run chains through the executor's run plan
+            for label, n, strides, in_w, out_w, q8 in (
+                    ("o", 2048, qkv, 2048, 2048, False),
+                    ("o int8 table", 2048, qkv, 2048, 2048, True),
+                    ("gate/up", 6144, ffn, 2048, 6144, False),
+                    ("down", 6144, ffn, 6144, 2048, False)):
+                cf = mix(len(strides), n // 2)
+                kcf, scf = Q.quantize_coeffs(cf) if q8 else (cf, None)
+                vec = (1 + 0.1 * rnd(n), 1 + 0.1 * rnd(n), 0.1 * rnd(n))
+                x = rnd(rows, in_w).to(dt)
+                runs = ops.plan_runs_for_rows(n, strides, rows)
+
+                def chain(fn, x=x, runs=runs, kcf=kcf, scf=scf, vec=vec,
+                          n=n, in_w=in_w, out_w=out_w):
+                    z, off = x, 0
+                    for r, (rs, nt) in enumerate(runs):
+                        last = r == len(runs) - 1
+                        z = fn(z, kcf[off:off + len(rs)],
+                               vec[0] if r == 0 else None,
+                               vec[1] if last else None,
+                               vec[2] if last else None, None,
+                               None if scf is None else
+                               scf[off:off + len(rs)],
+                               strides=rs, n_tile=nt,
+                               in_width=in_w if r == 0 and in_w != n
+                               else None,
+                               out_width=out_w if last and out_w != n
+                               else None)
+                        off += len(rs)
+                    return z
+                check("K1", label, dname, rows,
+                      lambda: chain(K.spm_stack_kernel_call),
+                      lambda: chain(K.spm_stack_plain))
+            # the x window at the gate/up shard shapes
+            nl, _, plans = shard_run(lin.spm_config(), rows)
+            (rs, nt), = plans[0]
+            for shard in (1, 3):
+                for q8 in (False, True):
+                    cf = mix(len(rs), nl // 2)
+                    kcf, scf = Q.quantize_coeffs(cf) if q8 else (cf, None)
+                    vec = (1 + 0.1 * rnd(nl), 1 + 0.1 * rnd(nl),
+                           0.1 * rnd(nl))
+                    x = rnd(rows, lin.d_in).to(dt)
+                    kw = dict(strides=rs, n_tile=nt, in_width=lin.d_in,
+                              col_base=shard * nl // nt)
+                    args = (x, kcf, *vec, None, scf)
+                    check("K1 col_base int8" if q8 else "K1 col_base",
+                          f"up shard {shard}", dname, rows,
+                          lambda: K.spm_stack_kernel_call(*args, **kw),
+                          lambda: K.spm_stack_plain(*args, **kw))
+            # K5's pair cases
+            for label, S, nl, strides, k, in_w, fold, q8 in pair_cases(cfg):
+                n, L = S * nl, len(strides)
+                cf, scale = mix(S, L, nl // 2), None
+                if q8:
+                    q, scale = Q.quantize_coeffs(cf.reshape(S * L, nl // 2,
+                                                            4))
+                    cf, scale = q.reshape(S, L, nl // 2, 4), \
+                        scale.reshape(S, L)
+                ma, mb, d_in = (1 + 0.1 * rnd(n) for _ in range(3))
+                d_out = 1 + 0.1 * rnd(n) if fold else None
+                bias = 0.1 * rnd(n) if fold else None
+                x = rnd(rows, in_w or n).to(dt)
+                kw = dict(strides=strides, n_tile=nl, k=k, in_width=in_w)
+                fwd = (x, cf, ma, mb, d_in, d_out, bias, scale)
+                check("K5", label, dname, rows,
+                      lambda: K.spm_overlap_kernel_call(*fwd, **kw),
+                      lambda: K.spm_overlap_plain(*fwd, **kw))
+        # int8 activations: the o run, rows padded to the scale block
+        ((rs, nt),) = ops.plan_runs_for_rows(2048, qkv, rows)
+        sr = Q.scale_block_rows([(rs, nt)], rows, 2)
+        for mode in ("acts", "both"):
+            cf = mix(len(rs), 1024)
+            kcf, scf = Q.quantize_coeffs(cf) if mode == "both" else \
+                (cf, None)
+            vec = (1 + 0.1 * rnd(2048), 1 + 0.1 * rnd(2048),
+                   0.1 * rnd(2048))
+            qx, xs = Q.quantize_blocks(ops._pad_rows(rnd(rows, 2048), sr),
+                                       sr, nt)
+            kw = dict(strides=rs, n_tile=nt, quant_out=True, scale_rows=sr)
+            args = (qx, kcf, *vec, xs, scf)
+            check("K1 int8", f"o {mode}", "int8", rows,
+                  lambda: K.spm_stack_kernel_call(*args, **kw),
+                  lambda: K.spm_stack_plain(*args, **kw))
     return rows_out, failures
 
 
@@ -2613,6 +2903,9 @@ def main() -> int:
                                      Q, timer, cfg)
     kernel_rows += pair_rows
     failures += pair_failures
+    fragged_rows, fragged_failures = phase("15 ragged", run_fwd_ragged_phase,
+                                           torch, K, ops, Q, cfg)
+    failures += fragged_failures
     overlap, overlap_ok = phase(
         "16", run_sharded_phase, torch, K, T, LM, train_mod, adamw,
         ServeEngine, launch_train, cfg,
@@ -2716,6 +3009,7 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     report = dict(gpu=smi, kernels=kernel_rows, ragged=ragged_rows,
+                  fwd_ragged=fragged_rows,
                   serve=serve, parity=parity,
                   train=train, train_parity=tparity, int8_nonfinite=nonfinite,
                   int8_train=q8_train,

@@ -2,8 +2,10 @@
 // spm_stack_bwd.cu, K3 spm_block.cu, K4 spm_block_bwd.cu, K5
 // spm_overlap.cu, K6 spm_overlap_bwd.cu): I/O conversions,
 // the coefficient tables (f32, or int8 with per-stage scales), the
-// in-place stage walk of the forwards, the out-of-place remat and the
-// reverse walk of the backwards, and the ordered sum of per-block partials.
+// in-place stage walk one stage a pass (spm_apply_stages: only K3 still
+// runs it; K1 and K5 walk on spm_fwd_engine.cuh), the out-of-place remat
+// and the reverse walk K4 runs (K2 and K6 walk on spm_bwd_engine.cuh), and
+// the ordered sum of per-block partials.
 //
 // Numerics: every product and sum of the stage walk and of the diagonal /
 // bias epilogues is rounded on its own (__fmul_rn / __fadd_rn), so nvcc

@@ -23,13 +23,17 @@ their launch counters.
   ``_overlap_bwd_kernel`` / ``spm_overlap_bwd_kernel_call`` (:1479 /
   :1590).
 
-All six are memory-bound on an H100 (a few flops per element and stage
-against 2-4 bytes of I/O per element): the bound is the bytes moved over
-3.35 TB/s.  The sources say what each design does about it.  K2 and K6 run
-on one backward engine (``csrc/spm_bwd_engine.cuh``) whose launch shape
-the pure-Python planner ``bwd_plan`` chooses (its mirrors of the engine's
-stage modes, passes and slot maps are checked on the CPU); K4 keeps
-``bwd_geometry``.
+Each does a few flops per element and stage against 2-4 bytes of I/O per
+element, so its bound on an H100 is mostly the bytes moved over 3.35 TB/s;
+what holds them above it is the stage walk on chip.  The sources say what
+each design does about it.  K2 and K6 run on one backward engine
+(``csrc/spm_bwd_engine.cuh``) whose launch shape the pure-Python planner
+``bwd_plan`` chooses (its mirrors of the engine's stage modes, passes and
+slot maps are checked on the CPU); K4 keeps ``bwd_geometry``.  K1 and K5
+run on one forward engine (``csrc/spm_fwd_engine.cuh``) whose launch shape
+``fwd_plan`` chooses (its mirrors of the engine's passes, groups and row
+chunks are checked on the CPU, with a float32 emulation of the walk); K3
+keeps ``pick_block_rows``.
 
 A wrapper runs its plain version (``spm_stack_plain``,
 ``spm_stack_bwd_plain``, ``spm_block_plain``, ``spm_block_bwd_plain``,
@@ -87,7 +91,9 @@ __all__ = ["spm_stack_kernel_call", "spm_stack_plain",
            "BwdPlan", "bwd_plan", "bwd_smem_bytes", "bwd_slot_pairs",
            "bwd_stage_modes", "bwd_passes", "bwd_quad_lanes",
            "bwd_row_slices",
-           "bwd_row_chunks", "bwd_clusters_resident", "int8_cta_rows",
+           "bwd_row_chunks", "bwd_clusters_resident", "FwdPlan",
+           "fwd_plan", "fwd_passes", "fwd_group_lanes", "fwd_smem_bytes",
+           "fwd_row_chunks", "fwd_clusters_resident",
            "reset_launch_counts", "SMEM_BYTES", "NUM_SMS", "ACTIVATIONS"]
 
 SMEM_BYTES = 232_448   # H100: dynamic shared memory one block may use
@@ -95,7 +101,6 @@ NUM_SMS = 132          # H100 SXM streaming multiprocessors
 MAX_STAGES = 32        # csrc/spm_common.cuh SPM_MAX_STAGES
 _IO = {torch.float32: 0, torch.bfloat16: 1}
 _IO_INT8 = 2           # csrc/spm_common.cuh SPM_IO_INT8
-_Q8_STATIC_SMEM = 1024  # the int8 kernel's static shared memory, at most
 ACTIVATIONS = {None: 0, "relu": 1, "silu": 2, "gelu": 3}
 
 _P = ctypes.c_void_p
@@ -112,7 +117,7 @@ def _fn(lib: str, name: str, argtypes: tuple):
 
 
 def pick_block_rows(n_rows: int, n_tile: int, n_tiles: int = 1) -> int:
-    """Rows per thread block: the most (up to 16, a power of two) whose f32
+    """K3's rows per thread block: the most (up to 16, a power of two) whose f32
     tile fits half the shared memory (two blocks per SM), then halved
     while the grid holds fewer than two blocks per SM — decode calls get
     one row per block, so their few rows spread over several SMs."""
@@ -302,21 +307,307 @@ def spm_stack_plain(x: torch.Tensor, coeffs: torch.Tensor,
     return z[:, :out_w].to(x.dtype)
 
 
-def int8_cta_rows(n_rows: int, n_tile: int, n_tiles: int,
-                   scale_rows: int) -> int:
-    """Rows a block takes in the int8 activation mode: ``pick_block_rows``,
-    within the scale block, and at least an eighth of it, so that a
-    cluster of at most 8 blocks (the portable size) holds one scale
-    block.  Raises when those rows' f32 tile exceeds shared memory."""
-    cta = min(pick_block_rows(n_rows, n_tile, n_tiles), scale_rows)
-    cta = max(cta, scale_rows // 8)
-    if cta * n_tile * 4 > SMEM_BYTES - _Q8_STATIC_SMEM:
-        raise ValueError(
-            f"a {scale_rows} x {n_tile} scale block needs {cta}-row blocks "
-            f"of {cta * n_tile * 4} B f32 in a cluster of "
-            f"{scale_rows // cta}: more than the {SMEM_BYTES} B of shared "
-            f"memory a block has")
-    return cta
+# ---------------------------------------------------------------------------
+# the forward engine's launch shape (K1, K5)
+# ---------------------------------------------------------------------------
+
+FWD_MAX_FUSE = 3        # csrc/spm_fwd_engine.cuh kMaxFuse: stages a pass fuses
+FWD_MAX_THREADS = 256   # its __launch_bounds__
+FWD_MAX_ROWS = 64       # rows a chunk, at most
+FWD_DECODE_ROWS = 16    # calls of at most this many rows: a row a group
+FWD_DECODE_BLOCKS = 8   # blocks a decode call spreads its rows and lanes over
+FWD_DECODE_LANES = 2048  # lanes a decode block holds, at most
+FWD_MIN_LANES = 128     # lanes a block keeps when a tile's lanes are split
+FWD_MIN_RES_ROWS = 12   # rows a chunk a resident table must leave room for
+_FWD_Q8_STATIC = 34 * 4  # the int8 kernel's static shared memory
+
+
+class FwdPlan(NamedTuple):
+    """The launch shape of a K1 or K5 forward (``fwd_plan``)."""
+    lane_blocks: int   # C: blocks splitting a tile's lanes (decode rows)
+    lanes: int         # w = n_tile / C, lanes a block owns
+    row_blocks: int    # Cr: blocks sharing an int8 scale block's rows
+    threads: int       # T
+    chunk_rows: int    # R: rows a block walks through the passes at once
+    groups: int        # G: row groups (clusters) a tile
+    cluster: int       # blocks a cluster: C * Cr * sides
+    resident: bool     # the tile's table kept in shared memory
+    passes: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_passes(n_tile: int, lane_blocks: int, strides: Tuple[int, ...]
+               ) -> Optional[Tuple[Tuple[int, int, bool], ...]]:
+    """The forward engine's passes (``csrc/spm_fwd_engine.cuh``
+    ``plan_passes``): ``(first stage, stages, across lane blocks)``.  The
+    stages local to the w = n_tile / C lanes of a block (w % 2s == 0) fuse
+    greedily, up to ``FWD_MAX_FUSE`` consecutive strides that ascend and
+    nest (each a multiple of twice the one before); the stages after the
+    first one that is not local must form one such group, the last pass,
+    run across the lane blocks.  None when the lanes cannot be split so."""
+    C, L = lane_blocks, len(strides)
+    w = n_tile // C
+    e = 0
+    while e < L and w % (2 * strides[e]) == 0:
+        e += 1
+    if e < L:
+        if C == 1 or e == 0 or L - e > FWD_MAX_FUSE \
+                or any(strides[k] % (2 * strides[k - 1])
+                       for k in range(e + 1, L)) \
+                or (n_tile >> (L - e)) % C:
+            return None
+    out, l = [], 0
+    while l < L:
+        end = e if l < e else L
+        n = 1
+        while n < FWD_MAX_FUSE and l + n < end \
+                and strides[l + n] % (2 * strides[l + n - 1]) == 0:
+            n += 1
+        out.append((l, n, l >= e))
+        l += n
+    return tuple(out)
+
+
+def fwd_group_lanes(n_tile: int, lane_blocks: int, strides: Sequence[int],
+                    first: int, count: int, cross: bool
+                    ) -> List[List[Tuple[int, ...]]]:
+    """The groups of a pass (``csrc/spm_fwd_engine.cuh`` ``group_base``):
+    ``[c][u]`` -> the 2^count tile lanes of block c's group u, lane j at
+    m0 + (sum of the strides of j's set bits), stage ``first + k`` pairing
+    lanes j and j + 2^k.  Group u's base m0 has u's digits in the radices
+    s_0, s_1 / 2 s_0, s_2 / 2 s_1, ... of the pass's strides.  A local
+    pass's groups are block c's lanes [c w, (c+1) w); a cross pass's are
+    the tile's, block c taking the c-th share."""
+    C = lane_blocks
+    w = n_tile // C
+    ss = strides[first:first + count]
+
+    def base(u):
+        q, m0 = u, 0
+        for k, s in enumerate(ss):
+            q, a = divmod(q, s if k == 0 else s // (2 * ss[k - 1]))
+            m0 += a if k == 0 else 2 * ss[k - 1] * a
+        return m0 + 2 * ss[-1] * q
+
+    offs = [sum(s for k, s in enumerate(ss) if j >> k & 1)
+            for j in range(1 << count)]
+    out = []
+    for c in range(C):
+        if cross:
+            per = (n_tile >> count) // C
+            us, lane0 = range(c * per, (c + 1) * per), 0
+        else:
+            us, lane0 = range(w >> count), c * w
+        out.append([tuple(lane0 + base(u) + o for o in offs) for u in us])
+    return out
+
+
+def fwd_smem_bytes(n_stages: int, lanes: int, rows: int,
+                   x_bytes: int, resident: bool, tile: bool,
+                   slot_bytes: int = 0, cf_bytes: int = 16) -> int:
+    """Shared memory of one block of the forward engine
+    (``csrc/spm_fwd_engine.cuh`` ``layout``): the resident table
+    (``n_stages`` x ``lanes``/2 entries of ``cf_bytes``: 16 f32, 4 int8),
+    the f32 tile of ``rows`` x ``lanes`` (``tile``: more than one pass, or
+    an int8 store), x staged once in its own type, and K5's two send
+    slots.  (The plan of stages and passes is a kernel parameter.)"""
+    L, w, R = n_stages, lanes, rows
+    b = 0
+    if resident:
+        b += _align16(L * (w // 2) * cf_bytes)
+    if tile:
+        b += _align16(R * w * 4)
+    b += _align16(R * w * x_bytes) + 2 * _align16(R * w * slot_bytes)
+    return b
+
+
+def _fwd_threads(n_tile: int, C: int, passes, R: int) -> int:
+    """Threads a block: enough for every group of the widest pass to walk
+    each of its rows at once, a whole number of warps, 32 to
+    ``FWD_MAX_THREADS``."""
+    most = max(((n_tile >> n) // C if cross else (n_tile // C) >> n)
+               for _, n, cross in passes)
+    return max(32, min(FWD_MAX_THREADS, -(-most * R // 32) * 32))
+
+
+def _fwd_clusters(T: int, smem: int, cluster: int) -> int:
+    """Clusters of ``cluster`` blocks the card holds at once, estimated:
+    blocks an SM by registers (128 a thread, or more: one block of
+    ``FWD_MAX_THREADS``), shared memory and threads,
+    times the clusters of one block an SM that the GPCs hold
+    (``CLUSTERS_RESIDENT``)."""
+    per_sm = max(1, min(65536 // (T * 128), 233472 // (smem + 1024),
+                        2048 // T))
+    return CLUSTERS_RESIDENT.get(cluster, NUM_SMS // cluster) * per_sm
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...], tiles: int,
+             io_bytes: int, x_bytes: Optional[int] = None,
+             scale_rows: Optional[int] = None, sides: int = 1,
+             cf_bytes: int = 16) -> FwdPlan:
+    """The forward engine's launch shape for ``n_rows`` rows of ``tiles``
+    independent ``n_tile``-wide feature tiles (K5: partner pairs times
+    shard tiles, ``sides`` = 2 for its two-block clusters and send slots)
+    of a run of ``strides``, I/O of ``io_bytes`` a value, x of ``x_bytes``
+    and a table of ``cf_bytes`` a pair (16 f32, 4 int8).
+
+    * Decode rows (at most ``FWD_DECODE_ROWS``): a row a group, and for f32
+      / bf16 K1 the fewest lane blocks C (1 to 8, ``FWD_MIN_LANES`` lanes a
+      block or more, a split ``fwd_passes`` allows) that give
+      ``FWD_DECODE_BLOCKS`` blocks of at most ``FWD_DECODE_LANES`` lanes,
+      else the most: a one-row call's table reads spread over C SMs.  Each
+      block copies its share of the local stages' table into shared
+      memory at once (one latency, not one a pass); a cross pass reads its
+      pairs from L2.
+    * Int8 activations (``scale_rows``): a chunk is one scale block, its
+      rows over Cr row blocks (1, 2, 4, 8), Cr the one whose estimated
+      rounds of resident clusters times (rows + 4) is least; the table
+      resident when it fits and a group walks two chunks or more, or at
+      decode rows.
+    * Otherwise one block a tile, its table resident in shared memory when
+      that leaves room for a chunk of ``FWD_MIN_RES_ROWS`` rows (or all
+      rows) and a group walks two chunks or more, else read from L2 once
+      a chunk (the o tile's 176 KiB table: splitting its lanes to keep it
+      resident cost more in the cross pass than it saved).  Rows R: the
+      most (up to ``FWD_MAX_ROWS``) that fit, then evened over the row
+      groups.
+    * Row groups G: one wave of resident clusters (``_fwd_clusters``) over
+      the tiles, at most one a row.
+
+    Raises when no shape holds a chunk in shared memory.  Pure and cached:
+    a launch's host overhead stays a dictionary lookup."""
+    x_bytes = io_bytes if x_bytes is None else x_bytes
+    L = len(strides)
+    q8 = scale_rows is not None
+    slot = io_bytes if sides == 2 else 0
+    budget = SMEM_BYTES - (_FWD_Q8_STATIC if q8 else 0)
+
+    def smem(C, R, res):
+        ps = fwd_passes(n_tile, C, strides)
+        return fwd_smem_bytes(L, n_tile // C, R, x_bytes, res,
+                              len(ps) > 1 or q8, slot, cf_bytes)
+
+    def most_rows(C, res, cap):
+        R = 0
+        while R < cap and smem(C, R + 1, res) <= budget:
+            R += 1
+        return R
+
+    def shape(C, Cr, R, G, res):
+        ps = fwd_passes(n_tile, C, strides)
+        return FwdPlan(C, n_tile // C, Cr, _fwd_threads(n_tile, C, ps, R), R,
+                       G, C * Cr * sides, res, len(ps), smem(C, R, res))
+
+    def too_big(what):
+        return ValueError(f"{what} of a {L}-stage run on a {n_tile}-wide "
+                          f"tile does not fit {budget} B of shared memory")
+
+    if q8:
+        chunks = n_rows // scale_rows
+        best = None
+        for Cr in (1, 2, 4, 8):
+            R = scale_rows // Cr
+            if scale_rows % Cr or smem(1, R, False) > budget:
+                continue
+            T = _fwd_threads(n_tile, 1, fwd_passes(n_tile, 1, strides), R)
+            G = min(chunks, max(1, _fwd_clusters(T, smem(1, R, False), Cr)
+                                // tiles))
+            cost = -(-chunks // G) * (R + 4)
+            if best is None or cost < best[0]:
+                best = (cost, Cr, R, G)
+        if best is None:
+            raise too_big(f"a {scale_rows}-row scale block")
+        _, Cr, R, G = best
+        res = (-(-chunks // G) >= 2 or n_rows <= FWD_DECODE_ROWS) \
+            and smem(1, R, True) <= budget
+        return shape(1, Cr, R, G, res)
+
+    cap = min(FWD_MAX_ROWS, n_rows)
+
+    def split_ok(C):
+        return n_tile % C == 0 and (C == 1 or n_tile // C >= FWD_MIN_LANES) \
+            and fwd_passes(n_tile, C, strides) is not None
+
+    if n_rows <= FWD_DECODE_ROWS:
+        # a row a group, each tile over the fewest lane blocks that make
+        # FWD_DECODE_BLOCKS blocks of at most FWD_DECODE_LANES lanes
+        ok = [c for c in ((1,) if sides > 1 else range(1, 9))
+              if split_ok(c) and smem(c, 1, False) <= budget]
+        if not ok:
+            raise too_big("one row")
+        C = next((c for c in ok if c * n_rows >= FWD_DECODE_BLOCKS
+                  and n_tile // c <= FWD_DECODE_LANES), ok[-1])
+        return shape(C, 1, 1, n_rows, smem(C, 1, True) <= budget)
+    C = 1
+    res = most_rows(C, True, cap) >= min(FWD_MIN_RES_ROWS, n_rows)
+    if fwd_passes(n_tile, C, strides) is None:
+        raise ValueError(f"strides {strides} cannot split a {n_tile}-wide "
+                         f"tile over {C} blocks")
+    R = most_rows(C, res, cap)
+    if R < 1:
+        raise too_big("one row")
+    T = _fwd_threads(n_tile, C, fwd_passes(n_tile, C, strides), R)
+    G = min(n_rows, max(1, _fwd_clusters(T, smem(C, R, res), C * sides)
+                        // tiles))
+    per_group = -(-n_rows // G)
+    R = -(-per_group // -(-per_group // R))
+    G = min(G, -(-n_rows // R))
+    if res and -(-n_rows // (R * G)) < 2:
+        res = False      # one chunk a group: copying the table gains nothing
+    return shape(C, 1, R, G, res)
+
+
+def fwd_row_chunks(n_rows: int, plan: FwdPlan,
+                   scale_rows: Optional[int] = None
+                   ) -> List[Tuple[int, int, int, int]]:
+    """``(group, first row, rows, row block)`` of every chunk a forward
+    launch walks, in each group's order: group g takes chunks g, g + G, ...
+    (the kernels' ``chunk``); with int8 activations a chunk is scale block
+    g + kG, row block r taking its rows [r R, (r+1) R)."""
+    out = []
+    R, G = plan.chunk_rows, plan.groups
+    for g in range(G):
+        k = g
+        while True:
+            if scale_rows is None:
+                r0 = k * R
+                if r0 >= n_rows:
+                    break
+                out.append((g, r0, min(R, n_rows - r0), 0))
+            else:
+                if k >= n_rows // scale_rows:
+                    break
+                out += [(g, k * scale_rows + r * R, R, r)
+                        for r in range(plan.row_blocks)]
+            k += G
+    return out
+
+
+def fwd_clusters_resident(kernel: str, dtype, strides: Sequence[int],
+                          n_tile: int, plan: FwdPlan) -> int:
+    """Clusters of ``plan``'s shape the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) for ``kernel`` "K1" (``dtype``
+    f32, bf16 or int8 activations) or "K5"; needs the card and the built
+    kernels."""
+    io = _IO_INT8 if dtype == torch.int8 else _IO[dtype]
+    if kernel == "K1":
+        fn = _fn("spm_stack", "spm_stack_fwd_clusters",
+                 (_I, ctypes.POINTER(ctypes.c_int)) + (_I,) * 7)
+        return int(fn(io, _strides_arg(strides), len(strides), n_tile,
+                      plan.lane_blocks, plan.row_blocks, plan.threads,
+                      plan.chunk_rows, int(plan.resident)))
+    fn = _fn("spm_overlap", "spm_overlap_fwd_clusters",
+             (_I, ctypes.POINTER(ctypes.c_int)) + (_I,) * 5)
+    return int(fn(io, _strides_arg(strides), len(strides), n_tile,
+                  plan.threads, plan.chunk_rows, int(plan.resident)))
+
+
+def _fwd_shape_args(plan: FwdPlan) -> tuple:
+    """A ``FwdPlan``'s launch shape as K1 takes it."""
+    return (plan.lane_blocks, plan.row_blocks, plan.threads,
+            plan.chunk_rows, plan.groups, int(plan.resident))
 
 
 def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
@@ -345,8 +636,9 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     each (``scale_rows``, ``n_tile``) block and goes with ``quant_out``:
     the result is requantized on the store and returned as ``(y int8,
     y_scale (B // scale_rows, ceil(out_width / n_tile)) f32)``.  B must be
-    a multiple of ``scale_rows``; each scale block is one thread-block
-    cluster.  A scale block no cluster can hold on chip raises."""
+    a multiple of ``scale_rows``; each scale block is one chunk of a
+    thread-block cluster.  A scale block no cluster can hold on chip
+    raises.  The launch shape is ``fwd_plan``'s."""
     n = 2 * coeffs.shape[1]
     strides = tuple(int(s) for s in strides)
     in_w = n if in_width is None else int(in_width)
@@ -388,22 +680,20 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
         ys = None
     if B == 0:
         return (y, ys) if quant_out else y
-    if quant_out:
-        block_rows = int8_cta_rows(B, n_tile, tiles, scale_rows)
-    else:
-        block_rows = pick_block_rows(B, n_tile, tiles)
-        if block_rows * n_tile * 4 > SMEM_BYTES:
-            raise ValueError(f"{block_rows} rows x {n_tile} f32 exceed "
-                             f"{SMEM_BYTES} B of shared memory")
-    fn = _fn("spm_stack", "spm_stack_fwd",
-             (_I,) + (_P,) * 9 + (_I,) * 8
-             + (ctypes.POINTER(ctypes.c_int), _I, _P))
     io = _IO_INT8 if quant_out else _IO[x.dtype]
+    plan = fwd_plan(B, n_tile, strides, tiles, 1 if quant_out else
+                    x.element_size(),
+                    scale_rows=scale_rows if quant_out else None,
+                    cf_bytes=16 if coeff_scale is None else 4)
+    fn = _fn("spm_stack", "spm_stack_fwd",
+             (_I,) + (_P,) * 9 + (_I,) * 13
+             + (ctypes.POINTER(ctypes.c_int), _I, _P))
     x_off = 0 if col_base is None else int(col_base) * n_tile
     rc = fn(io, _ptr(x), _ptr(x_scale), _ptr(y), _ptr(ys), _ptr(coeffs),
             _ptr(coeff_scale), _ptr(d_in), _ptr(d_out), _ptr(bias), B, n,
-            n_tile, in_w, out_w, x_off, block_rows, scale_rows or 0,
-            _strides_arg(strides), len(strides), _stream(x))
+            n_tile, in_w, out_w, x_off, scale_rows or 0,
+            *_fwd_shape_args(plan), _strides_arg(strides), len(strides),
+            _stream(x))
     if rc != 0:
         raise RuntimeError(f"spm_stack_fwd launch failed: cudaError {rc}")
     _count(spm_stack_kernel_call, x_scale, coeff_scale,
@@ -1425,20 +1715,17 @@ def spm_overlap_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     if B == 0:
         return y
     tiles = nl // n_tile
-    per_row = n_tile * (4 + x.element_size())     # f32 tile + send slot
-    block_rows = pick_block_rows(B, n_tile, S * tiles)
-    while block_rows > 1 and block_rows * per_row > SMEM_BYTES:
-        block_rows //= 2
-    if block_rows * per_row > SMEM_BYTES:
-        raise ValueError(f"a {n_tile}-wide tile and its send slot exceed "
-                         f"{SMEM_BYTES} B of shared memory")
+    # a cluster holds both partners of a pair (and their send slots)
+    plan = fwd_plan(B, n_tile, strides, S // 2 * tiles, x.element_size(),
+                    sides=2, cf_bytes=16 if coeff_scale is None else 4)
     fn = _fn("spm_overlap", "spm_overlap_fwd",
-             (_I,) + (_P,) * 9 + (_I,) * 7
+             (_I,) + (_P,) * 9 + (_I,) * 10
              + (ctypes.POINTER(ctypes.c_int), _I, _P))
     rc = fn(_IO[x.dtype], _ptr(x), _ptr(y), _ptr(coeffs), _ptr(coeff_scale),
             _ptr(mix_a), _ptr(mix_b), _ptr(d_in), _ptr(d_out), _ptr(bias),
-            B, S, nl, n_tile, in_w, _kbit(k), block_rows,
-            _strides_arg(strides), len(strides), _stream(x))
+            B, S, nl, n_tile, in_w, _kbit(k), plan.threads, plan.chunk_rows,
+            plan.groups, int(plan.resident), _strides_arg(strides),
+            len(strides), _stream(x))
     if rc != 0:
         raise RuntimeError(f"spm_overlap_fwd launch failed: cudaError {rc}")
     _count(spm_overlap_kernel_call, None, coeff_scale,

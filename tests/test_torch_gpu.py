@@ -53,8 +53,15 @@ def _rnd(gen, *shape, scale=1.0):
 @pytest.mark.parametrize("n, strides, rows, in_w, out_w", [
     (2048, QKV, 8, 2048, 2048), (2048, QKV, 300, 2048, 2048),
     (6144, FFN, 40, 2048, 6144), (6144, FFN, 40, 6144, 2048),
-    (6144, FFN, 5, 2048, 6144), (6144, FFN, 7, 6144, 2048)])
+    (6144, FFN, 5, 2048, 6144), (6144, FFN, 7, 6144, 2048),
+    (2048, QKV, 4072, 2048, 2048), (2048, QKV, 1000, 2048, 1024),
+    (2048, QKV, 1, 2048, 2048), (6144, FFN, 1, 2048, 6144),
+    (6144, FFN, 1000, 6144, 2048)])
 def test_k1_matches_plain(cuda, dtype, n, strides, rows, in_w, out_w):
+    """K1 through the fused operator against the CPU within the depth
+    bound, and each run's launch bit for bit its plain version on the card
+    and a second launch (ragged chunks, decode lane splits, the 3072 stage
+    on a 6144 tile)."""
     gen = torch.Generator(device="cuda").manual_seed(rows)
     cf = _rnd(gen, len(strides), n // 2, 4, scale=0.5)
     vec = [1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n),
@@ -65,6 +72,19 @@ def test_k1_matches_plain(cuda, dtype, n, strides, rows, in_w, out_w):
                               bias=vec[2], in_width=in_w, out_width=out_w)
     n_runs = len(ops.plan_runs_for_rows(n, strides, rows))
     assert K.spm_stack_kernel_call.launches - before == n_runs
+    z, off = x, 0
+    runs = ops.plan_runs_for_rows(n, strides, rows)
+    for r, (rs, nt) in enumerate(runs):
+        last = r == len(runs) - 1
+        kw = dict(strides=rs, n_tile=nt,
+                  in_width=in_w if r == 0 and in_w != n else None,
+                  out_width=out_w if last and out_w != n else None)
+        args = (z, cf[off:off + len(rs)], vec[0] if r == 0 else None,
+                vec[1] if last else None, vec[2] if last else None)
+        z = K.spm_stack_kernel_call(*args, **kw)
+        assert torch.equal(z, K.spm_stack_plain(*args, **kw))
+        assert torch.equal(z, K.spm_stack_kernel_call(*args, **kw))
+        off += len(rs)
     ref = ops.spm_stack_fused(x.cpu(), cf.cpu(), strides, d_in=vec[0].cpu(),
                               d_out=vec[1].cpu(), bias=vec[2].cpu(),
                               in_width=in_w, out_width=out_w)
@@ -73,6 +93,96 @@ def test_k1_matches_plain(cuda, dtype, n, strides, rows, in_w, out_w):
     np.testing.assert_allclose(
         got.float().cpu().numpy(), ref.float().numpy(), rtol=0,
         atol=_tol(dtype, 3 * len(strides) + 3, ref) * n_runs)
+
+
+def _forced_fwd_plan(monkeypatch, **fields):
+    """Make the forward kernels take the given launch-shape fields
+    (``FwdPlan``'s) whatever the planner would choose."""
+    plan = K.fwd_plan
+
+    def forced(*a, **kw):
+        p = plan(*a, **kw)
+        f = dict(fields)
+        C = f.get("lane_blocks", p.lane_blocks)
+        f.setdefault("threads", 256)
+        return p._replace(lanes=p.lanes * p.lane_blocks // C,
+                          cluster=p.cluster // p.lane_blocks * C, **f)
+    monkeypatch.setattr(K, "fwd_plan", forced)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, strides, C, resident", [
+    (2048, QKV, 1, False), (2048, QKV, 1, True), (2048, QKV, 2, False),
+    (2048, QKV, 4, False), (2048, QKV, 8, False), (6144, FFN, 3, False),
+    (768, (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64), 4, False),
+    (96, (1, 2, 3, 6, 24, 48, 4, 12), 1, False),
+    (96, (1, 2, 3, 6, 24, 48, 4, 12), 1, True)])
+def test_k1_every_lane_split_matches_plain(cuda, monkeypatch, dtype, n,
+                                           strides, C, resident):
+    """The forward engine forced to each lane split of a tile (a cross
+    pass over 1, 2 or 3 stages reading the peers' tiles, or none), to
+    chunks of 3 rows over 2 row groups, so the cluster barriers repeat a
+    chunk, and (one block a tile) to each table source, resident in shared
+    memory or read from L2: K1 bit for bit its plain version, a second
+    launch bitwise, x rows not 16-byte aligned where the width is 90."""
+    _forced_fwd_plan(monkeypatch, lane_blocks=C, chunk_rows=3, groups=2,
+                     resident=resident)
+    gen = torch.Generator(device="cuda").manual_seed(n + C)
+    cf = _rnd(gen, len(strides), n // 2, 4, scale=0.5)
+    d_in, d_out, b = (1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n),
+                      0.1 * _rnd(gen, n))
+    in_w = 90 if n == 96 else n
+    x = _rnd(gen, 11, in_w).to(dtype)
+    kw = dict(strides=strides, n_tile=n, in_width=in_w, out_width=n - 5)
+    got = K.spm_stack_kernel_call(x, cf, d_in, d_out, b, **kw)
+    again = K.spm_stack_kernel_call(x, cf, d_in, d_out, b, **kw)
+    want = K.spm_stack_plain(x, cf, d_in, d_out, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("q8", [False, True])
+def test_k1_table_in_shared_memory_or_not_matches_plain(cuda, monkeypatch,
+                                                        resident, q8):
+    """The gate/up shard run (tiles of 768, strides that do not nest) in
+    5-row chunks over 3 row groups, the table resident in shared memory
+    (an int8 table dequantized there once) or read from L2 each chunk:
+    bit for bit the plain version."""
+    from repro_torch.kernels import quant as Q
+    _forced_fwd_plan(monkeypatch, chunk_rows=5, groups=3, resident=resident)
+    strides = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cf = _rnd(gen, len(strides), 768, 4, scale=0.5)
+    cs = None
+    if q8:
+        cf, cs = Q.quantize_coeffs(cf)
+    d_in, d_out = 1 + 0.1 * _rnd(gen, 1536), 1 + 0.1 * _rnd(gen, 1536)
+    x = _rnd(gen, 77, 2048).to(torch.bfloat16)
+    kw = dict(strides=strides, n_tile=768, in_width=2048, col_base=2)
+    got = K.spm_stack_kernel_call(x, cf, d_in, d_out, None, None, cs, **kw)
+    want = K.spm_stack_plain(x, cf, d_in, d_out, None, None, cs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fwd_plans_can_be_scheduled(cuda):
+    """cudaOccupancyMaxActiveClusters holds at least one cluster of each
+    planned K1 and K5 shape at the serving and training shapes."""
+    shapes = [("K1", torch.bfloat16, 2048, QKV, 4096, 1, None),
+              ("K1", torch.float32, 2048, QKV, 4096, 1, None),
+              ("K1", torch.bfloat16, 2048, QKV, 8, 1, None),
+              ("K1", torch.bfloat16, 6144, FFN, 8, 1, None),
+              ("K1", torch.int8, 2048, QKV, 4096, 1, 64),
+              ("K1", torch.bfloat16, 768,
+               (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64), 4096, 2, None),
+              ("K5", torch.bfloat16, 512, QKV[:9], 4096, 2, None),
+              ("K5", torch.float32, 512, QKV[:9], 4096, 2, None)]
+    for kernel, dt, nt, strides, rows, tiles, sr in shapes:
+        esz = torch.tensor([], dtype=dt).element_size()
+        p = K.fwd_plan(rows, nt, strides, tiles, esz, scale_rows=sr,
+                       sides=2 if kernel == "K5" else 1)
+        assert K.fwd_clusters_resident(kernel, dt, strides, nt, p) >= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -351,14 +461,16 @@ def test_smoke_train_steps_on_card_match_cpu(cuda):
     (2048, QKV, 64, 2048, 2048, torch.bfloat16),   # 8-row blocks, cluster 8
     (2048, QKV, 40, 2048, 1024, torch.float32),    # edge tile, padded rows
     (6144, FFN, 8, 2048, 6144, torch.bfloat16),    # one 6144 run, cluster 8
-    (2048, QKV, 1000, 2048, 2048, torch.bfloat16)])  # ragged chunks
+    (2048, QKV, 1000, 2048, 2048, torch.bfloat16),   # ragged chunks
+    (2048, QKV, 4072, 2048, 2048, torch.bfloat16),   # a padded scale block
+    (2048, QKV, 1, 2048, 2048, torch.float32)])      # one row
 def test_int8_k1_k2_match_plain(cuda, mode, n, strides, rows, in_w, out_w,
                                 dtype):
     """K1's int8 codes and scales and K2's g_x bit for bit against the
-    plain versions, in each int8 mode, where a scale block spans a cluster
-    of several blocks; K2's parameter grads within gamma_rows times the sum
-    of magnitudes; second launches bitwise equal; the int8 launches
-    counted apart."""
+    plain versions, in each int8 mode, a chunk one scale block over a
+    cluster of row blocks (several where the block has 8 rows or more);
+    K2's parameter grads within gamma_rows times the sum of magnitudes;
+    second launches bitwise equal; the int8 launches counted apart."""
     from repro_torch.kernels import quant as Q
     q_acts, q_cf = mode in ("acts", "both"), mode in ("coeffs", "both")
     gen = torch.Generator(device="cuda").manual_seed(rows + n)
@@ -371,7 +483,9 @@ def test_int8_k1_k2_match_plain(cuda, mode, n, strides, rows, in_w, out_w,
     cf, cs = Q.quantize_coeffs(cf) if q_cf else (cf, None)
     x, xs = Q.quantize_blocks(x, sr, nt) if q_acts else (x.to(dtype), None)
     if q_acts:
-        assert K.int8_cta_rows(x.shape[0], nt, -(-out_w // nt), sr) < sr
+        p = K.fwd_plan(x.shape[0], nt, rs, -(-out_w // nt), 1, scale_rows=sr)
+        assert p.row_blocks * p.chunk_rows == sr
+        assert p.row_blocks > 1 or sr < 8
     kw = dict(strides=rs, n_tile=nt, in_width=None if in_w == n else in_w,
               out_width=None if out_w == n else out_w, quant_out=q_acts,
               scale_rows=sr)
@@ -395,6 +509,8 @@ def test_int8_k1_k2_match_plain(cuda, mode, n, strides, rows, in_w, out_w,
     assert all(torch.equal(a, b) for a, b in pairs)
     if q_acts:
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+    else:
+        assert torch.equal(got, again)
     assert torch.equal(g[0], gp[0]) and g[0].dtype == dtype
     _grads_within(g[1:], gp[1:], mags[1:], x.shape[0])
     assert all(torch.equal(a, b) for a, b in zip(g, g2))
@@ -422,20 +538,26 @@ def test_int8_scale_block_too_large_raises(cuda):
                             quant_acts=True)
 
 
-def test_int8_k1_nonfinite_store_matches_plain(cuda):
+@pytest.mark.parametrize("rows", [64, 1000, 4072, 1])
+def test_int8_k1_nonfinite_store_matches_plain(cuda, rows):
     """Scale blocks holding a NaN and an Inf (tile 0 of three, through
-    d_out) and an Inf alone (tile 1), each spanning a cluster of 8 blocks:
-    the cluster's absmax keeps them, so those scales are NaN and Inf and
-    every code 0, exactly the plain version's (NaN equal to NaN); tile 2
-    stays finite."""
+    d_out) and an Inf alone (tile 1), each a chunk over a cluster of row
+    blocks: the cluster's absmax keeps them, so those scales are NaN and
+    Inf and every code 0, exactly the plain version's (NaN equal to NaN);
+    tile 2 stays finite.  Ragged row counts are padded to the scale block,
+    as the fused entry pads them; a padded zero row times the Inf of d_out
+    makes its block's scale in tile 1 NaN, as in the plain version."""
     from repro_torch.kernels import quant as Q
     gen = torch.Generator(device="cuda").manual_seed(99)
-    n, rows = 6144, 64
-    ((rs, nt),) = ops.plan_runs_for_rows(n, QKV, rows)
+    n = 6144
+    ((rs, nt),) = ops.plan_runs_for_rows(n, QKV, max(rows, 64))
     assert n // nt == 3
     sr = Q.scale_block_rows([(rs, nt)], rows, 2)
-    assert K.int8_cta_rows(rows, nt, n // nt, sr) < sr
-    qx, xs = Q.quantize_blocks(_rnd(gen, rows, n), sr, nt)
+    x = ops._pad_rows(_rnd(gen, rows, n), sr)
+    p = K.fwd_plan(x.shape[0], nt, rs, n // nt, 1, scale_rows=sr)
+    assert p.row_blocks * p.chunk_rows == sr
+    assert p.row_blocks > 1 or sr < 8
+    qx, xs = Q.quantize_blocks(x, sr, nt)
     qc, sc = Q.quantize_coeffs(_rnd(gen, len(rs), n // 2, 4, scale=0.5))
     d_out = torch.ones(n, device="cuda")
     d_out[5], d_out[9], d_out[nt + 3] = math.nan, math.inf, math.inf
@@ -445,7 +567,9 @@ def test_int8_k1_nonfinite_store_matches_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(kq, pq)
     assert torch.allclose(ks, ps, rtol=0, atol=0, equal_nan=True)
-    assert ks[:, 0].isnan().all() and ks[:, 1].isinf().all()
+    full = rows // sr    # scale blocks holding no padded (zero) row
+    assert ks[:, 0].isnan().all() and ks[:full, 1].isinf().all()
+    assert ks[full:, 1].isnan().all()     # a padded row's 0 x Inf
     assert torch.isfinite(ks[:, 2]).all()
     assert not kq[:, :2 * nt].any() and kq[:, 2 * nt:].any()
 
@@ -485,7 +609,7 @@ SHARD_FFN = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)   # two_level n=6144
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [8, 300, 1000])
+@pytest.mark.parametrize("rows", [8, 300, 1000, 4072, 1])
 @pytest.mark.parametrize("shard", [0, 1, 2, 3])
 def test_window_k1_k2_match_plain(cuda, dtype, rows, shard):
     """The windowed (``col_base``) modes at the gate/up shard shapes: one
@@ -631,6 +755,10 @@ PAIR_CASES = [
     (4, 512, tuple(1 << i for i in range(9)), 512, 1, 1, None, False, False),
     (2, 1024, tuple(1 << i for i in range(10)), 1024, 1, 1000, None, True,
      False),                                     # 4 lane blocks a side
+    (4, 512, tuple(1 << i for i in range(9)), 512, 1, 1000, 1792, False,
+     True),                                      # windowed, int8, ragged
+    (4, 512, tuple(1 << i for i in range(9)), 512, 1, 4072, None, False,
+     True),
 ]
 
 
@@ -682,9 +810,39 @@ def test_k5_k6_match_plain(cuda, dtype, S, nl, strides, nt, k, rows, in_w,
         assert (fn.launches, fn.window_launches, fn.int8_launches) == (
             1, int(in_w is not None), int(q8))
     assert y.shape == (rows, S * nl) and torch.equal(y, want)
+    assert torch.equal(y, K.spm_overlap_kernel_call(x, cf, ma, mb, d_in,
+                                                    d_out, bias, scale, **kw))
     assert len(got) == len(ref) == 5 + (2 if fold else 0)
     assert got[0].dtype == dtype and torch.equal(got[0], ref[0])
     _grads_within(got[1:], ref[1:], mags[1:], rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("q8", [False, True])
+def test_k5_chunk_shapes_match_plain(cuda, monkeypatch, dtype, resident, q8):
+    """K5 forced to 5-row chunks over 3 row groups (a pair's slots
+    double-buffered over 6 chunks, the last one short), with the shard
+    tables resident in shared memory or read from L2 each chunk, f32 or
+    int8: bit for bit its plain version, a second launch bitwise."""
+    from repro_torch.kernels import quant as Q
+    _forced_fwd_plan(monkeypatch, chunk_rows=5, groups=3, resident=resident)
+    S, nl, strides = 4, 512, tuple(1 << i for i in range(9))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cf, (ma, mb, _, _), d_in, _, _, x, _ = _pair_operands(
+        gen, S, nl, strides, 77, None, False, dtype)
+    scale = None
+    if q8:
+        L = len(strides)
+        q, scale = Q.quantize_coeffs(cf.reshape(S * L, nl // 2, 4))
+        cf, scale = q.reshape(S, L, nl // 2, 4), scale.reshape(S, L)
+    kw = dict(strides=strides, n_tile=nl, k=2)
+    args = (x, cf, ma, mb, d_in, None, None, scale)
+    y = K.spm_overlap_kernel_call(*args, **kw)
+    y2 = K.spm_overlap_kernel_call(*args, **kw)
+    want = K.spm_overlap_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want) and torch.equal(y, y2)
 
 
 def _overlap_io(steps, pairs):
