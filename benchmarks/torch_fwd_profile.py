@@ -1,18 +1,20 @@
-"""Where a block of K1 (or K5) spends its time on the card.
+"""Where a block of K1, K3 or K5 spends its time on the card.
 
-    python benchmarks/torch_fwd_profile.py [--kernel K1|K5] [--root DIR]
+    python benchmarks/torch_fwd_profile.py [--kernel K1|K3|K5] [--root DIR]
         [--out FILE]
 
-Builds, beside the kernels' own build, a copy of ``csrc/spm_stack.cu`` (or
-``csrc/spm_overlap.cu``) and its headers whose kernel reads ``clock64()``
-at its phase boundaries (block 0, thread 0, summed in shared memory over
-the launch), runs K1 on the o projection's run (n 2048, strides 1..1024,
-bf16, 4096 rows, d_in, d_out and a bias) or K5 on the q/k/v/o pair (4
-shards of 512, 9 stages, bf16, 4096 rows, d_in), each in the wrapper's
-launch shape, and prints the microseconds that block spends in each phase
-a chunk of rows: the wait for its x, the stage passes (work and barrier
-apart), the stores (K5: the exchange and mix), and once a launch the
-set-up.  Microseconds are cycles over the SM clock read with
+Builds, beside the kernels' own build, a copy of ``csrc/spm_stack.cu``
+(``csrc/spm_block.cu``, ``csrc/spm_overlap.cu``) and its headers whose
+kernel reads ``clock64()`` at its phase boundaries (block 0, thread 0,
+summed in shared memory over the launch), runs K1 on the o projection's
+run (n 2048, strides 1..1024, bf16, 4096 rows, d_in, d_out and a bias), K3
+on the fused q projection (the same run after the RMS norm, gamma, 4096
+rows) or K5 on the q/k/v/o pair (4 shards of 512, 9 stages, bf16, 4096
+rows, d_in), each in the wrapper's launch shape, and prints the
+microseconds that block spends in each phase a chunk of rows: the wait for
+its x, K3's norm prologue (the rows' sums of squares and their barrier),
+the stage passes (work and barrier apart), the stores (K5: the exchange and
+mix), and once a launch the set-up.  Microseconds are cycles over the SM clock read with
 ``nvidia-smi`` after the run.  A mark costs a shared-memory
 read-modify-write, so the phases sum to a little more than the
 uninstrumented block, whose time (the kernel's CUDA-event time) is printed
@@ -22,8 +24,10 @@ beside them.
 so one command can profile a parent commit's K1 beside this one's: the
 engine's marks (``csrc/spm_fwd_engine.cuh``) where the checkout has it,
 else the marks of the first design (one block an 8-row tile, one stage a
-pass, ``spm_apply_stages``).  Needs a GPU and ``nvcc``; the instrumented
-copy is built into ``<root>/src/repro_torch/kernels/_build/profile_fwd/``.
+pass).  K3's and K5's marks are the engine's: a checkout whose K3 does not
+walk there stops at a missing anchor.  Needs a GPU and ``nvcc``; the
+instrumented copy is built into
+``<root>/src/repro_torch/kernels/_build/profile_fwd/``.
 """
 
 from __future__ import annotations
@@ -128,10 +132,12 @@ def build_profiled(build, design, kernel) -> ctypes.CDLL:
             if name == "spm_common.cuh":
                 text = _edit(text, COMMON_EDITS + design["common"], name)
             if name == "spm_fwd_engine.cuh":
-                text = _edit(text, design["engine"], name)
+                text = _edit(text, design["engine"]
+                             + (K3_ENGINE if kernel == "K3" else []), name)
             (out / name).write_text(text)
-    name, edits = (("spm_stack", design["kernel"]) if kernel == "K1"
-                   else ("spm_overlap", design["k5"]))
+    name, edits = {"K1": ("spm_stack", design["kernel"]),
+                   "K3": ("spm_block", design.get("k3", [])),
+                   "K5": ("spm_overlap", design.get("k5", []))}[kernel]
     src = out / f"{name}_profiled.cu"
     src.write_text(_edit((csrc / f"{name}.cu").read_text(), edits,
                          f"{name}.cu"))
@@ -146,7 +152,7 @@ def build_profiled(build, design, kernel) -> ctypes.CDLL:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", default="K1", choices=("K1", "K5"))
+    ap.add_argument("--kernel", default="K1", choices=("K1", "K3", "K5"))
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -163,8 +169,9 @@ def main() -> int:
 
     engine = (Path(build.CSRC) / "spm_fwd_engine.cuh").exists()
     design = ENGINE if engine else LEGACY
-    if args.kernel == "K5" and not engine:
-        raise SystemExit("torch_fwd_profile: K5's marks are the engine's")
+    if args.kernel != "K1" and not engine:
+        raise SystemExit(f"torch_fwd_profile: {args.kernel}'s marks are "
+                         f"the engine's")
     build.load_all()
     lib = build_profiled(build, design, args.kernel)
     rows = 4096
@@ -176,7 +183,7 @@ def main() -> int:
         return torch.stack([th.cos(), -th.sin(), th.sin(), th.cos()],
                            -1).contiguous()
 
-    if args.kernel == "K1":
+    if args.kernel in ("K1", "K3"):
         n = nt = 2048
         strides = tuple(1 << i for i in range(11))
         cf = rotations(len(strides), n // 2)
@@ -184,11 +191,19 @@ def main() -> int:
                 1 + 0.1 * torch.randn(n, generator=g, device="cuda"),
                 0.1 * torch.randn(n, generator=g, device="cuda")]
         x = torch.randn(rows, n, generator=g, device="cuda").bfloat16()
-        lib_name, shape_timed = "spm_stack", (
-            "K1 o run: n 2048, strides 1..1024, bf16, 4096 rows, d_in, "
-            "d_out, bias")
+        gamma = 1 + 0.1 * torch.randn(n, generator=g, device="cuda")
+        lib_name, shape_timed = {
+            "K1": ("spm_stack", "K1 o run: n 2048, strides 1..1024, bf16, "
+                                "4096 rows, d_in, d_out, bias"),
+            "K3": ("spm_block", "K3 q projection: RMS norm (gamma), then "
+                                "the o run's shape, bf16, 4096 rows")}[
+            args.kernel]
 
         def call():
+            if args.kernel == "K3":
+                return K.spm_block_kernel_call(
+                    x, cf, *vecs, gamma=gamma, strides1=strides, in_width=n,
+                    mid_width=n, out_width=n)[0]
             return K.spm_stack_kernel_call(x, cf, *vecs, strides=strides,
                                            n_tile=nt)
     else:
@@ -224,8 +239,11 @@ def main() -> int:
          "nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     if engine:
-        plan = (K.fwd_plan(rows, nt, strides, 1, 2) if args.kernel == "K1"
-                else K.fwd_plan(rows, nt, strides, S // 2, 2, sides=2))
+        plan = {"K1": lambda: K.fwd_plan(rows, nt, strides, 1, 2),
+                "K3": lambda: K.fwd_plan(rows, nt, strides, 1, 2,
+                                         block=True, norm=True),
+                "K5": lambda: K.fwd_plan(rows, nt, strides, S // 2, 2,
+                                         sides=2)}[args.kernel]()
         chunks = len([c for c in K.fwd_row_chunks(rows, plan)
                       if c[0] == 0])
         shape = dict(plan=plan._asdict(), passes=K.fwd_passes(
@@ -235,8 +253,11 @@ def main() -> int:
         chunks = 1
         shape = dict(block_rows=br, blocks=-(-rows // br), passes=[
             (i, 1) for i in range(len(strides))])
+    phases = dict(design["phases"])
+    if args.kernel == "K3":
+        phases[10] = "norm prologue: sums of squares, barrier"
     per_chunk = {name: prof[i] / (1 if i == 9 else chunks) / clock
-                 for i, name in design["phases"].items()}
+                 for i, name in phases.items()}
     total = sum(per_chunk.values())
     res = dict(gpu=cs.gpu_line(), sm_clock_mhz=clock, root=str(root),
                kernel=args.kernel,
@@ -310,6 +331,17 @@ ENGINE = dict(
 }
 
 // Int8 activation I/O""")],
+    k3=[("""  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = blockIdx.x, half = n >> 1;
+""", """  extern __shared__ __align__(16) unsigned char smem[];
+  PROF_INIT();
+  const int g = blockIdx.x, half = n >> 1;
+"""), ("""#undef K3_WALK
+}
+""", """#undef K3_WALK
+  PROF_FLUSH();
+}
+""")],
     k5=[("""  extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
 """, """  extern __shared__ __align__(16) unsigned char smem[];
@@ -318,6 +350,12 @@ ENGINE = dict(
 """), ("""  cluster.sync();  // the partner has read this block's last slot""",
        """  PROF_FLUSH();
   cluster.sync();  // the partner has read this block's last slot""")])
+
+# K3's norm prologue: the walk's `pre` hook, its own phase
+K3_ENGINE = [("""    pre(k, r0, rows);
+""", """    pre(k, r0, rows);
+    PROF_MARK(10);
+""")]
 
 if __name__ == "__main__":
     sys.exit(main())

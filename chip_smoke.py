@@ -15,15 +15,19 @@ Phases, each of which fails the run when it fails:
    same inputs, at the serving path's shapes, in bf16 and f32, with random
    near-orthogonal stages (each keeps its input's norm, so all stages carry
    the signal) and random diagonals and bias.  K1 must agree bit for bit;
-   K3 within two I/O ulps of each element plus a derived f32 term.  Also
-   the kernel's and the plain version's time, the bound (the function's
-   bytes over 3.35 TB/s or its f32 operations over 67 TFLOP/s, whichever
-   is larger) and, for K1, a dense ``torch.matmul`` of the same map as a
-   yardstick the port never calls.  Each K1 and K3 time (here and in
+   K3 within two I/O ulps of each element plus a derived f32 term, and,
+   given its own rstd, bit for bit a composition of plain pieces
+   (``k3_composition``) wherever no silu or gelu sits between its stacks.
+   Also the kernel's and the plain version's time, the bound (the
+   function's bytes over 3.35 TB/s or its f32 operations over 67 TFLOP/s,
+   whichever is larger) and a yardstick the port never calls: for K1 a
+   dense ``torch.matmul`` of the same map, for K3's one-stack forms
+   ``torch.matmul(F.rms_norm(x), W)``.  Each K1 and K3 time (here and in
    phases 8, 12 and 15, K5's too) is logged beside the previous design's
-   (``PREV_MS``), each K1 and K5 case with its launch shape
-   (``kernels.spm_stack.fwd_plan``) and the clusters of that shape the
-   card holds at once; second launches bitwise.
+   (``PREV_MS``), each case with its launch shape
+   (``kernels.spm_stack.fwd_plan``, K3 its block form) and, for K1 and
+   K5, the clusters of that shape the card holds at once; second launches
+   bitwise.
 3. **Serve**: full-width ``qwen3-1.7b`` with weights made from a seed,
    ``ServeEngine.generate`` for batch 8, prompt 512, 64 greedy tokens, bf16
    KV cache; each kernel's launch count must equal the count the port's own
@@ -42,14 +46,18 @@ Phases, each of which fails the run when it fails:
    run whose dead-tile skip fires; K4 in the q and k/v norm-prologue forms
    at 4096 rows and the two-stack forms at 256 rows.  K2's g_x bit for bit,
    K4's within 2 I/O ulps plus K3's f32 term; every parameter grad within
-   gamma_k times the sum of its terms' magnitudes (k rows); a second launch
-   bitwise equal to the first.  Times as in phase 2, each K2 and K6 time
-   (here and in phases 8, 12, 15) logged beside the previous design's
-   (``PREV_MS``); K2's yardstick is the two ``torch.matmul`` of a dense
-   linear's backward.
+   gamma_k times the sum of its terms' magnitudes (k rows; lanes past
+   out_width exactly 0); a second launch bitwise equal to the first.
+   Times as in phase 2, each K2, K4 and K6 time (here and in phases 8,
+   12, 15) logged beside the previous design's (``PREV_MS``), K4's with
+   its launch shape (``bwd_plan``'s block form); K2's and K4's yardstick
+   is the two ``torch.matmul`` of a dense linear's backward (for each
+   linear of K4's block).
    Then (``5 ragged``) K2 and K6 in every mode at 4072 rows (no chunk or
    row group of the backward engine comes out even) and 8, untimed, held
-   to the same criteria.
+   to the same criteria; and (``5 block ragged``) K3 and K4 in the q, k/v
+   and two-stack forms at 4072 rows and one row, bf16 and f32, held as
+   phases 2 and 5 hold them.
 6. **Train**: full-width ``qwen3-1.7b`` from a seed through
    ``launch.train.train``: batch 8, seq 512, 6 steps, the third poisoned.
    Every loss finite, only the poisoned step skipped and the state bitwise
@@ -260,11 +268,56 @@ def k3_f32_term(n: int, n_stages: int, scale: float) -> float:
     return 8 * (math.sqrt(n) + 4 + 3 * n_stages + 12) * eps * scale
 
 
+def k3_composition(torch, K, x, rstd, kw):
+    """K3's function given its rstd, composed of plain pieces: ((x rstd)
+    gamma) d_in1 rounded in that order, ``spm_stack_plain`` with d_out1 and
+    bias1, the mid_width mask and the activation, stack 2 through
+    ``spm_stack_plain``, the residual, the store.  Only the row's sum of
+    squares (rstd) is the kernel's own, so it holds the stage walk bit for
+    bit."""
+    n = 2 * kw["coeffs1"].shape[1]
+    lane = torch.arange(n, device=x.device)
+    xr = torch.nn.functional.pad(x.float(), (0, n - kw["in_width"]))
+    z = (xr * rstd * kw["gamma"]) * kw["d_in1"]
+    z = K.spm_stack_plain(z, kw["coeffs1"], None, kw["d_out1"],
+                          kw.get("bias1"), strides=kw["strides1"])
+    two = kw.get("strides2") is not None
+    if two or kw.get("activation") is not None:
+        z = K._act(torch.where(lane < kw["mid_width"], z, 0.0),
+                   kw.get("activation"))
+    if two:
+        z = K.spm_stack_plain(z, kw["coeffs2"], kw["d_in2"], kw["d_out2"],
+                              kw.get("bias2"), strides=kw["strides2"])
+    if kw.get("residual"):
+        z = z + xr
+    return z[:, :kw["out_width"]].to(x.dtype)
+
+
+def block_plans(K, rows, n, kw, io_bytes):
+    """K3's and K4's launch shapes (``fwd_plan``'s and ``bwd_plan``'s block
+    forms) of a case, as dicts."""
+    s2 = kw.get("strides2")
+    f = K.fwd_plan(rows, n, kw["strides1"], 1, io_bytes, block=True,
+                   strides2=s2, norm=kw.get("gamma") is not None)
+    b = K.bwd_plan(rows, n, kw["strides1"], 1, io_bytes, block=True,
+                   strides2=s2, norm=kw.get("gamma") is not None)
+    return f._asdict(), b._asdict()
+
+
+def bwd_plan_str(p) -> str:
+    """A backward launch shape in a few characters: lane blocks, threads,
+    rows a chunk, row groups, stacks streamed from device memory."""
+    return (f"C{p['lane_blocks']} T{p['threads']} R{p['chunk_rows']} "
+            f"G{p['groups']}{' streamed ' + str(p['streamed']) if p['streamed'] else ''}")
+
+
 def run_kernel_phase(torch, K, ops, timer):
     """K1 is held bit for bit: its kernel rounds every product and sum on
     its own (``__fmul_rn``/``__fadd_rn``), as the plain version's eager
     ops do, and sums nothing else.  K3 is held within two ulps of the I/O
-    type at each element plus ``k3_f32_term``."""
+    type at each element plus ``k3_f32_term``, and, given its own rstd,
+    bit for bit to ``k3_composition`` wherever no silu or gelu sits between
+    the stacks (CUDA's expf/tanhf are not PyTorch's)."""
     rows_out = []
     failures = []
     g = torch.Generator(device=DEVICE).manual_seed(1234)
@@ -388,8 +441,12 @@ def run_kernel_phase(torch, K, ops, timer):
                           mid_width=1536)
             x = rnd(rows, n).to(dt)
             kern, rstd_k = K.spm_block_kernel_call(x, **kw)
+            again, _ = K.spm_block_kernel_call(x, **kw)
             plain, rstd_p = K.spm_block_plain(x, **kw)
+            comp = k3_composition(torch, K, x, rstd_k, kw)
             torch.cuda.synchronize()
+            bitwise = torch.equal(kern, comp)
+            comp_err = (kern.float() - comp.float()).abs().max().item()
             diff = (kern.float() - plain.float()).abs()
             err = diff.max().item()
             scale = plain.float().abs().max().item()
@@ -408,23 +465,41 @@ def run_kernel_phase(torch, K, ops, timer):
                       + L_tot * n // 2 * 16 + 4 * n * (7 if two else 4))
             flops = rows * n * (3 * L_tot + (12 if two else 6))
             bms, bby = bound(nbytes, flops)
-            ok = (worst <= 1 and rerr <= rtol
+            # yardstick (one stack): the norm and one dense product with
+            # the same operator, torch.matmul(F.rms_norm(x), W)
+            lib_ms = None
+            if not two:
+                W = K.spm_stack_plain(torch.eye(n, device=DEVICE),
+                                      kw["coeffs1"], kw["d_in1"],
+                                      kw["d_out1"], strides=strides)
+                W = W[:, :out_w].to(dt).contiguous()
+                gam = kw["gamma"].to(dt)
+                lib_ms = timer(lambda: torch.matmul(
+                    torch.nn.functional.rms_norm(x, (n,), gam, eps=1e-6), W))
+            exact = act in (None, "relu")
+            ok = (worst <= 1 and rerr <= rtol and (bitwise or not exact)
+                  and torch.equal(kern, again)
                   and bool(torch.isfinite(kern.float()).all()))
             prev = prev_ms("K3", label, dname, rows)
+            fplan, _ = block_plans(K, rows, n, kw, x.element_size())
             rows_out.append(dict(
                 kernel="K3", case=label, dtype=dname, rows=rows, n=n,
-                prev_ms=prev,
+                prev_ms=prev, fwd_plan=fplan,
                 in_width=n, out_width=out_w, activation=act,
                 two_stacks=two, launches_per_call=1, max_abs_err=err,
                 err_over_limit=worst, tol_f32_term=t32, tol_ulps=2,
+                bitwise_given_rstd=bitwise, composition_max_abs_err=comp_err,
                 out_scale=scale, rstd_rel_err=rerr, rstd_rtol=rtol, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                library_ms=None, ok=ok))
+                library_ms=lib_ms, ok=ok))
             log(f"K3 {label:8s} {dname:8s} rows={rows:5d} err={err:.3e} "
                 f"err/limit={worst:.3f} (2 ulps + {t32:.2e}) max|y|="
                 f"{scale:.3f} rstd_rel={rerr:.2e} (tol {rtol:.2e}) "
+                f"given rstd: bitwise={bitwise} ({comp_err:.1e}"
+                f"{'' if exact else ', expf/tanhf'}) "
                 f"ms={ms:.4f} (before {fmt_ms(prev)}) plain_ms={plain_ms:.4f} "
-                f"bound_ms={bms:.4f} ({bby}) {'ok' if ok else 'FAIL'}")
+                f"bound_ms={bms:.4f} ({bby}) library_ms={fmt_ms(lib_ms)} "
+                f"plan={plan_str(fplan)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"K3 {label} {dname} rows={rows}")
     return rows_out, failures
@@ -620,8 +695,10 @@ def gamma_k(k: int) -> float:
 # this run's times.  K2 and K6: a block a feature tile and row chunk, the
 # table read from L2 and the grad partials read and written in device
 # memory every chunk.  K1 and K5: one stage a pass over 8- or 16-row
-# blocks, the table read from L2 at every stage.  K3 has not changed: its
-# times show that the forward engine left it alone.
+# blocks, the table read from L2 at every stage.  K3 and K4 (the first
+# design, as K1's and K2's; from this script's run of the tree before their
+# redesign): K3 one stage a pass over 16-row blocks, K4 a block a row
+# chunk with its grad partials in device memory.
 PREV_MS = {
     ('K2', 'o', None, 'bfloat16', 4096): 0.702,
     ('K2', 'gate/up', None, 'bfloat16', 4096): 2.256,
@@ -682,26 +759,42 @@ PREV_MS = {
     ('K1', 'down', None, 'bfloat16', 4096): 0.3257,
     ('K1', 'up', None, 'bfloat16', 8): 0.0508,
     ('K1', 'down', None, 'bfloat16', 8): 0.0475,
-    ('K3', 'q', None, 'bfloat16', 4096): 0.1018,
-    ('K3', 'q', None, 'bfloat16', 8): 0.0232,
-    ('K3', 'kv', None, 'bfloat16', 4096): 0.0996,
-    ('K3', 'kv', None, 'bfloat16', 8): 0.0232,
-    ('K3', 'ffn-relu', None, 'bfloat16', 256): 0.038,
-    ('K3', 'ffn-silu', None, 'bfloat16', 256): 0.0386,
-    ('K3', 'ffn-gelu', None, 'bfloat16', 256): 0.0387,
     ('K1', 'o', None, 'float32', 4096): 0.0931,
     ('K1', 'o', None, 'float32', 8): 0.0208,
     ('K1', 'up', None, 'float32', 4096): 0.3546,
     ('K1', 'down', None, 'float32', 4096): 0.3414,
     ('K1', 'up', None, 'float32', 8): 0.0508,
     ('K1', 'down', None, 'float32', 8): 0.0472,
-    ('K3', 'q', None, 'float32', 4096): 0.1039,
-    ('K3', 'q', None, 'float32', 8): 0.0234,
-    ('K3', 'kv', None, 'float32', 4096): 0.1022,
-    ('K3', 'kv', None, 'float32', 8): 0.0231,
-    ('K3', 'ffn-relu', None, 'float32', 256): 0.0389,
-    ('K3', 'ffn-silu', None, 'float32', 256): 0.0393,
-    ('K3', 'ffn-gelu', None, 'float32', 256): 0.0389,
+    ('K3', 'q', None, 'bfloat16', 4096): 0.1015,
+    ('K3', 'q', None, 'bfloat16', 8): 0.0227,
+    ('K3', 'kv', None, 'bfloat16', 4096): 0.0995,
+    ('K3', 'kv', None, 'bfloat16', 8): 0.023,
+    ('K3', 'ffn-relu', None, 'bfloat16', 256): 0.0378,
+    ('K3', 'ffn-silu', None, 'bfloat16', 256): 0.0379,
+    ('K3', 'ffn-gelu', None, 'bfloat16', 256): 0.0384,
+    ('K3', 'q', None, 'float32', 4096): 0.1038,
+    ('K3', 'q', None, 'float32', 8): 0.0232,
+    ('K3', 'kv', None, 'float32', 4096): 0.1025,
+    ('K3', 'kv', None, 'float32', 8): 0.0233,
+    ('K3', 'ffn-relu', None, 'float32', 256): 0.0386,
+    ('K3', 'ffn-silu', None, 'float32', 256): 0.0386,
+    ('K3', 'ffn-gelu', None, 'float32', 256): 0.0388,
+    ('K4', 'q', None, 'bfloat16', 4096): 0.7365,
+    ('K4', 'kv', None, 'bfloat16', 4096): 0.7365,
+    ('K4', 'ffn-relu-res', None, 'bfloat16', 256): 0.2139,
+    ('K4', 'ffn-relu', None, 'bfloat16', 256): 0.2091,
+    ('K4', 'ffn-silu-res', None, 'bfloat16', 256): 0.2143,
+    ('K4', 'ffn-silu', None, 'bfloat16', 256): 0.2093,
+    ('K4', 'ffn-gelu-res', None, 'bfloat16', 256): 0.2145,
+    ('K4', 'ffn-gelu', None, 'bfloat16', 256): 0.2114,
+    ('K4', 'q', None, 'float32', 4096): 0.8268,
+    ('K4', 'kv', None, 'float32', 4096): 0.7687,
+    ('K4', 'ffn-relu-res', None, 'float32', 256): 0.2155,
+    ('K4', 'ffn-relu', None, 'float32', 256): 0.2123,
+    ('K4', 'ffn-silu-res', None, 'float32', 256): 0.215,
+    ('K4', 'ffn-silu', None, 'float32', 256): 0.2125,
+    ('K4', 'ffn-gelu-res', None, 'float32', 256): 0.2155,
+    ('K4', 'ffn-gelu', None, 'float32', 256): 0.2134,
     ('K1 int8', 'o', 'acts', 'int8', 4096): 0.1211,
     ('K1 int8', 'o', 'coeffs', 'bfloat16', 4096): 0.093,
     ('K1 int8', 'o', 'both', 'int8', 4096): 0.123,
@@ -980,21 +1073,46 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
                       + 2 * L_tot * n // 2 * 16 + 2 * 4 * n * n_vec)
             flops = rows * n * (10 * L_tot + (30 if two else 12))
             bms, bby = bound(nbytes, flops)
-            ok = (gx_worst <= 1 and worst <= 1 and det
+            # yardstick: a dense backward's two products for each linear of
+            # the block, g_x = gy W^T and g_W = xh^T gy
+            # (xh stands in for the mid activation and its cotangent)
+            xh = (x.float() * rstd).to(dt)
+            w_out = rnd(n, out_w).to(dt)
+            if two:
+                w_mid = rnd(n, n).to(dt)
+                prods = (lambda: (torch.matmul(gy, w_out.T),
+                                  torch.matmul(xh.T, gy),
+                                  torch.matmul(xh, w_mid.T),
+                                  torch.matmul(xh.T, xh)))
+            else:
+                prods = (lambda: (torch.matmul(gy, w_out.T),
+                                  torch.matmul(xh.T, gy)))
+            lib_ms = timer(prods)
+            # g_dout and g_bias of the stack gy meets: exactly 0 on every
+            # lane past out_width (no cotangent reaches it)
+            tail = kern[8:10] if two else kern[4:6]
+            dead_zero = out_w == n or not any(bool(v[out_w:].any())
+                                              for v in tail)
+            ok = (gx_worst <= 1 and worst <= 1 and det and dead_zero
                   and all(bool(torch.isfinite(t.float()).all())
                           for t in kern))
+            prev = prev_ms("K4", label, dname, rows)
+            _, bplan = block_plans(K, rows, n, kw, x.element_size())
             rows_out.append(dict(
                 kernel="K4", case=label, dtype=dname, rows=rows, n=n,
                 out_width=out_w, activation=act, two_stacks=two,
                 residual=res, launches_per_call=1, max_abs_err=err,
                 gx_err_over_limit=gx_worst, tol_f32_term=t32, tol_ulps=2,
                 grad_err_over_limit=worst, grad_rel_term=rel,
-                deterministic=det, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=bby, library_ms=None, ok=ok))
+                dead_lanes_zero=dead_zero, bwd_plan=bplan,
+                deterministic=det, ms=ms, prev_ms=prev, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=bby, library_ms=lib_ms, ok=ok))
             log(f"K4 {label:13s} {dname:8s} rows={rows:5d} err={err:.3e} "
                 f"gx err/limit={gx_worst:.3f} grad err/limit={worst:.3f} "
-                f"det={det} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"bound_ms={bms:.4f} ({bby}) {'ok' if ok else 'FAIL'}")
+                f"det={det} dead lanes 0={dead_zero} ms={ms:.4f} "
+                f"(before {fmt_ms(prev)}) plain_ms={plain_ms:.4f} "
+                f"bound_ms={bms:.4f} ({bby}) library_ms={lib_ms:.4f} "
+                f"plan={bwd_plan_str(bplan)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"K4 {label} {dname} rows={rows}")
     return rows_out, failures
@@ -1150,6 +1268,91 @@ def run_bwd_ragged_phase(torch, K, ops, Q, cfg):
             lambda: K.spm_overlap_bwd_plain(*bwd, col_sum=abs_sum, **kw),
             4072)
         record("K6", label, "bfloat16", 4072, res)
+    return rows_out, failures
+
+
+def run_block_ragged_phase(torch, K):
+    """K3 and K4 at a row count that fills no chunk or row group evenly
+    (4072) and at one row, bf16 and f32, untimed: the q and k/v forms and
+    the two-stack form (relu, the residual, mid width 1536).  K3 within
+    phase 2's limit and bit for bit ``k3_composition`` given its rstd, K4
+    as phase 5 holds it (g_x within 2 I/O ulps plus K3's f32 term, grads
+    within gamma_rows, lanes past out_width exactly 0); second launches
+    bitwise."""
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(2468)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    def mix(L, n):
+        th = (torch.rand(L, n // 2, generator=g, device=DEVICE) * 2 - 1) \
+            * math.pi
+        c, s_ = torch.cos(th), torch.sin(th)
+        return torch.stack([c, -s_, s_, c], dim=-1) + rnd(L, n // 2, 4,
+                                                          scale=0.05)
+
+    abs_sum = (lambda t_: t_.abs().sum(0))
+    n = 2048
+    strides = tuple(1 << i for i in range(11))
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        for rows in (4072, 1):
+            for label, out_w, two in (("q", 2048, False), ("kv", 1024, False),
+                                      ("ffn-relu-res", 2048, True)):
+                kw = dict(coeffs1=mix(11, n), d_in1=1 + 0.1 * rnd(n),
+                          d_out1=1 + 0.1 * rnd(n), bias1=0.1 * rnd(n),
+                          gamma=1 + 0.1 * rnd(n), strides1=strides,
+                          in_width=n, out_width=out_w, mid_width=out_w)
+                if two:
+                    kw.update(coeffs2=mix(11, n), d_in2=1 + 0.1 * rnd(n),
+                              d_out2=1 + 0.1 * rnd(n), bias2=0.1 * rnd(n),
+                              strides2=strides, activation="relu",
+                              residual=True, mid_width=1536)
+                x = rnd(rows, n).to(dt)
+                gy = rnd(rows, out_w).to(dt)
+                y, rstd = K.spm_block_kernel_call(x, **kw)
+                y2, _ = K.spm_block_kernel_call(x, **kw)
+                yp, _ = K.spm_block_plain(x, **kw)
+                comp = k3_composition(torch, K, x, rstd, kw)
+                got = K.spm_block_bwd_kernel_call(x, gy, rstd=rstd, **kw)
+                again = K.spm_block_bwd_kernel_call(x, gy, rstd=rstd, **kw)
+                want = K.spm_block_bwd_plain(x, gy, rstd=rstd, **kw)
+                mags = K.spm_block_bwd_plain(x, gy, rstd=rstd,
+                                             col_sum=abs_sum, **kw)
+                torch.cuda.synchronize()
+                L_tot = 11 * (2 if two else 1)
+                lim = 2 * ulp(yp, dname) + k3_f32_term(
+                    n, L_tot, yp.float().abs().max().item())
+                k3_worst = ((y.float() - yp.float()).abs() / lim).max().item()
+                k3_ok = (k3_worst <= 1 and torch.equal(y, comp)
+                         and torch.equal(y, y2))
+                gx_lim = 2 * ulp(want[0], dname) + k3_f32_term(
+                    n, L_tot, want[0].float().abs().max().item())
+                gx_worst = ((got[0].float() - want[0].float()).abs()
+                            / gx_lim).max().item()
+                worst = grads_within(got[1:], want[1:], mags[1:], rows)
+                det = all(torch.equal(a, b) for a, b in zip(got, again))
+                tail = got[8:10] if two else got[4:6]
+                dead = out_w == n or not any(bool(v[out_w:].any())
+                                             for v in tail)
+                k4_ok = (gx_worst <= 1 and worst <= 1 and det and dead
+                         and all(bool(torch.isfinite(v.float()).all())
+                                 for v in got))
+                for kern, ok, msg in (
+                        ("K3", k3_ok, f"err/limit={k3_worst:.3f} bitwise "
+                                      f"given rstd={torch.equal(y, comp)}"),
+                        ("K4", k4_ok, f"gx err/limit={gx_worst:.3f} grad "
+                                      f"err/limit={worst:.3f} det={det} "
+                                      f"dead lanes 0={dead}")):
+                    rows_out.append(dict(kernel=kern, case=label,
+                                         dtype=dname, rows=rows, check=msg,
+                                         ok=ok))
+                    log(f"ragged {kern} {label:13s} {dname:8s} rows={rows:5d} "
+                        f"{msg} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"ragged {kern} {label} {dname} "
+                                        f"rows={rows}")
     return rows_out, failures
 
 
@@ -2869,6 +3072,10 @@ def main() -> int:
     ragged_rows, ragged_failures = phase("5 ragged", run_bwd_ragged_phase,
                                          torch, K, ops, Q, cfg)
     failures += ragged_failures
+    block_rows, block_failures = phase("5 block ragged",
+                                       run_block_ragged_phase, torch, K)
+    ragged_rows += block_rows
+    failures += block_failures
     train, train_ok = phase("6", run_train_phase, torch, K, ops,
                             launch_train, cfg)
     tparity, tparity_ok, _ = phase("7", run_train_parity_phase, torch, T,

@@ -1,4 +1,5 @@
-// The backward engine of K2 (spm_stack_bwd.cu) and K6 (spm_overlap_bwd.cu):
+// The backward engine of K2 (spm_stack_bwd.cu), K4 (spm_block_bwd.cu) and
+// K6 (spm_overlap_bwd.cu):
 // the remat of a run's stage inputs, the reverse walk with the eq. 14 pair
 // grads, and the loads and stores around them, for a thread-block cluster
 // that holds one feature tile of a row range on chip.
@@ -64,12 +65,13 @@
 // more blocks would add, so the planner takes the fewest lane blocks that
 // hold BWD_MIN_ROWS rows.
 //
-// Numerics.  The remat rounds exactly as spm_apply_stages (K1) does and
-// the cotangent walk as spm_walk_stages_bwd, every product and sum on its
-// own (__fmul_rn / __fadd_rn), so g_x stays bit for bit the plain
-// version's.  Only the order of the sums over rows is new: per thread in
-// row order, over row slices, chunks and groups in order; any order of k
-// terms stays within gamma_k of the sum of their magnitudes.
+// Numerics.  The remat rounds exactly as the forward engine's walk (K1)
+// does and the cotangent walk as the plain version's (kernels/ref.py
+// `stage_vjp`), every product and sum on its own (__fmul_rn / __fadd_rn),
+// so g_x stays bit for bit the plain version's.  Only the order of the
+// sums over rows is new: per thread in row order, over row slices, chunks
+// and groups in order; any order of k terms stays within gamma_k of the
+// sum of their magnitudes.
 //
 // Shared-memory budget (bytes, `layout`): table and accumulators 2 x L x
 // w/2 x 16; the later row slices' sums of two passes 4 (rs-1) w/2 x 16;
@@ -81,8 +83,9 @@
 // its coefficients (four float4 in a fused pass), its grad sums and one or
 // two rows; __launch_bounds__(512, 1) leaves 128 a thread, no spills.
 //
-// K4 (spm_block_bwd.cu) still walks through spm_remat_stages and
-// spm_walk_stages_bwd of spm_common.cuh.
+// K4 (spm_block_bwd.cu) walks here too: its remat prologue and the norm's
+// backward around the walk, a second stack's tables beside the first, and
+// the norm's row mean summed across the cluster's blocks.
 #pragma once
 
 #include <cooperative_groups.h>

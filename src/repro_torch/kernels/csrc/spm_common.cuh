@@ -1,11 +1,10 @@
 // Shared device code of the hand-written SPM kernels (K1 spm_stack.cu, K2
 // spm_stack_bwd.cu, K3 spm_block.cu, K4 spm_block_bwd.cu, K5
-// spm_overlap.cu, K6 spm_overlap_bwd.cu): I/O conversions,
-// the coefficient tables (f32, or int8 with per-stage scales), the
-// in-place stage walk one stage a pass (spm_apply_stages: only K3 still
-// runs it; K1 and K5 walk on spm_fwd_engine.cuh), the out-of-place remat
-// and the reverse walk K4 runs (K2 and K6 walk on spm_bwd_engine.cuh), and
-// the ordered sum of per-block partials.
+// spm_overlap.cu, K6 spm_overlap_bwd.cu): I/O conversions, the coefficient
+// tables (f32, or int8 with per-stage scales), the block kernels'
+// activation and its derivative, and the ordered sum of per-block
+// partials.  The stage walks themselves are the engines'
+// (spm_fwd_engine.cuh: K1, K3, K5; spm_bwd_engine.cuh: K2, K4, K6).
 //
 // Numerics: every product and sum of the stage walk and of the diagonal /
 // bias epilogues is rounded on its own (__fmul_rn / __fadd_rn), so nvcc
@@ -117,37 +116,6 @@ __device__ __forceinline__ float4 spm_cf(const SpmQCoeffs& cf, int l,
                      __fmul_rn((float)v.z, s), __fmul_rn((float)v.w, s));
 }
 
-// Apply the stages of `st` in place to the f32 tile `z` (rows x nt,
-// row-major, in shared memory).  `cf` (either table) points at this tile's
-// first pair in stage 0's coefficient slab; stage l's slab is `pair_stride`
-// pairs further.  Pair p of a stride-s stage mixes lanes i0 = (p/s)*2s + p%s and
-// i1 = i0 + s with (a, b, c, d) = cf[p]:  y0 = a x0 + b x1,  y1 = c x0 + d x1.
-// One thread owns a pair for every row of the tile, so each coefficient is
-// read once per block and reused across its rows.
-template <typename CF>
-__device__ __forceinline__ void spm_apply_stages(
-    float* z, int rows, int nt, const CF& cf, long pair_stride,
-    const SpmStrides& st) {
-  const int half = nt >> 1;
-  for (int l = 0; l < st.n; ++l) {
-    const int s = st.s[l];
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const float4 c = spm_cf(cf, l, (long)l * pair_stride + p);
-      const int g = p / s;
-      const int i0 = g * 2 * s + (p - g * s);
-      const int i1 = i0 + s;
-      for (int r = 0; r < rows; ++r) {
-        float* zr = z + (long)r * nt;
-        const float x0 = zr[i0];
-        const float x1 = zr[i1];
-        zr[i0] = __fadd_rn(__fmul_rn(c.x, x0), __fmul_rn(c.y, x1));
-        zr[i1] = __fadd_rn(__fmul_rn(c.z, x0), __fmul_rn(c.w, x1));
-      }
-    }
-    __syncthreads();
-  }
-}
-
 enum SpmAct { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
 
 // The block kernels' activation (K3's epilogue, K4's remat), with 0 -> 0,
@@ -178,92 +146,6 @@ __device__ __forceinline__ float spm_act_grad(float u, int act) {
            0.5f * u * (1.f - t * t) * k * (1.f + 3.f * 0.044715f * u * u);
   }
   return 1.f;
-}
-
-// Backward remat: apply stage l of `st` from tile l to tile l+1 of `buf`
-// (tiles `tile` floats apart, rows x nt each), for l = 0 .. L-1, so tile l
-// ends up holding stage l's input and tile L the stack's output.  Rounds
-// exactly as spm_apply_stages does, so the rematted tiles are bitwise the
-// forward's.  `buf` is a generic pointer: shared memory when the tiles fit
-// there, a global scratch slab otherwise.
-template <typename CF>
-__device__ __forceinline__ void spm_remat_stages(
-    float* buf, long tile, int rows, int nt, const CF& cf, long pair_stride,
-    const SpmStrides& st) {
-  const int half = nt >> 1;
-  for (int l = 0; l < st.n; ++l) {
-    const int s = st.s[l];
-    const float* in = buf + (long)l * tile;
-    float* out = buf + (long)(l + 1) * tile;
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const float4 c = spm_cf(cf, l, (long)l * pair_stride + p);
-      const int g = p / s;
-      const int i0 = g * 2 * s + (p - g * s);
-      const int i1 = i0 + s;
-      for (int r = 0; r < rows; ++r) {
-        const float x0 = in[(long)r * nt + i0];
-        const float x1 = in[(long)r * nt + i1];
-        out[(long)r * nt + i0] =
-            __fadd_rn(__fmul_rn(c.x, x0), __fmul_rn(c.y, x1));
-        out[(long)r * nt + i1] =
-            __fadd_rn(__fmul_rn(c.z, x0), __fmul_rn(c.w, x1));
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Backward reverse walk (paper eqs. 12-14) over the stages of `st`, from
-// the rematted stage inputs in tiles 0 .. L-1 of `buf`, with the cotangent
-// `delta` (rows x nt) updated in place: delta <- B_l^T delta.  The pair
-// grads of this block's rows, summed over its rows in row order, go to
-// `part` (stage l's slab `pair_stride` float4s further): written on the
-// block's first row chunk, added after.  One thread owns a pair, so every
-// partial has one writer and the sums are deterministic.
-template <typename CF>
-__device__ __forceinline__ void spm_walk_stages_bwd(
-    const float* buf, long tile, float* delta, int rows, int nt,
-    const CF& cf, long pair_stride, const SpmStrides& st, float4* part,
-    bool first) {
-  const int half = nt >> 1;
-  for (int l = st.n - 1; l >= 0; --l) {
-    const int s = st.s[l];
-    const float* in = buf + (long)l * tile;
-    float4* pl = part + (long)l * pair_stride;
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const float4 c = spm_cf(cf, l, (long)l * pair_stride + p);
-      const int g = p / s;
-      const int i0 = g * 2 * s + (p - g * s);
-      const int i1 = i0 + s;
-      float ga = 0.f, gb = 0.f, gc = 0.f, gd = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float x0 = in[(long)r * nt + i0];
-        const float x1 = in[(long)r * nt + i1];
-        float* dr = delta + (long)r * nt;
-        const float d0 = dr[i0];
-        const float d1 = dr[i1];
-        ga = __fadd_rn(ga, __fmul_rn(d0, x0));
-        gb = __fadd_rn(gb, __fmul_rn(d0, x1));
-        gc = __fadd_rn(gc, __fmul_rn(d1, x0));
-        gd = __fadd_rn(gd, __fmul_rn(d1, x1));
-        dr[i0] = __fadd_rn(__fmul_rn(c.x, d0), __fmul_rn(c.z, d1));
-        dr[i1] = __fadd_rn(__fmul_rn(c.y, d0), __fmul_rn(c.w, d1));
-      }
-      if (first) {
-        pl[p] = make_float4(ga, gb, gc, gd);
-      } else {
-        const float4 o = pl[p];
-        pl[p] = make_float4(__fadd_rn(o.x, ga), __fadd_rn(o.y, gb),
-                            __fadd_rn(o.z, gc), __fadd_rn(o.w, gd));
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// One column partial: written on the block's first row chunk, added after.
-__device__ __forceinline__ void spm_part_acc(float* p, float v, bool first) {
-  *p = first ? v : __fadd_rn(*p, v);
 }
 
 // The deterministic finish of a cross-block sum: out[o][e] = sum over
@@ -306,13 +188,6 @@ static inline cudaError_t spm_allow_smem(K kernel, size_t smem,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) *smem_set = smem;
   return e;
-}
-
-// Threads per block: one per pair up to 512, a whole number of warps.
-static inline int spm_threads(int nt) {
-  int t = ((nt / 2 + 31) / 32) * 32;
-  if (t < 32) t = 32;
-  return t > 512 ? 512 : t;
 }
 
 static inline bool spm_copy_strides(SpmStrides* st, const int* s, int L) {

@@ -1,6 +1,6 @@
-// The forward engine of K1 (spm_stack.cu) and K5 (spm_overlap.cu): the
-// stage walk of one planned run over a block's chunk of rows, the loads
-// that feed it and the stores that drain it.
+// The forward engine of K1 (spm_stack.cu), K3 (spm_block.cu) and K5
+// (spm_overlap.cu): the stage walk of one planned run over a block's chunk
+// of rows, the loads that feed it and the stores that drain it.
 //
 // Design.  A block holds one feature tile (w = nt lanes), or at decode rows
 // one lane block of it (w = nt / C, a cluster of C), for chunks of R rows:
@@ -69,8 +69,9 @@
 //
 // Shared-memory budget (bytes, `layout`; kernels/spm_stack.py
 // `fwd_smem_bytes` computes the same): the resident table L x w/2 x 16 (4
-// for int8 codes), the f32 tile R x w x 4 (when P > 1 or the store
-// requantizes), staging R x w x |x|, K5's two send slots 2 x R x w x |io|.
+// for int8 codes), the f32 tile R x w x 4 (when P > 1, the store
+// requantizes or K3 has a second stack), staging R x w x |x|, K5's two send
+// slots 2 x R x w x |io|, K3's row statistics R x 4.
 // o tile, bf16: 8 + 4 KiB a row; K5 at 512 lanes: 36 KiB of table and 5
 // KiB a row.  Registers: a pass holds 2^m values, m x 2^(m-1) float4
 // coefficients, 2^m addresses, and for its first or last pass the group's
@@ -84,7 +85,10 @@
 // bit for bit their plain versions; fusing stages only keeps values in
 // registers between them.
 //
-// K3 (spm_block.cu) still walks through spm_apply_stages of spm_common.cuh.
+// K3 (spm_block.cu) walks here too, one block a tile: its norm prologue
+// (walk's `pre` hook) sums each staged row's squares before pass 0, pass 0
+// reads its own source (`src0`: the norm and d_in1 applied to the staged
+// x), and its second stack runs in `finish` over the same tile.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -197,12 +201,13 @@ __host__ inline bool make_plan(const SpmStrides& st, int nt, int C, int T,
 
 // Byte offsets of a block's shared memory.
 struct Layout {
-  long tbl, tile, xst, slot, slot_stride, total;
+  long tbl, tile, xst, slot, slot_stride, stats, total;
 };
 
 __host__ __device__ inline Layout layout(int L, int w, int R, int x_bytes,
                                          int cf_bytes, bool resident,
-                                         bool tile, int slot_bytes) {
+                                         bool tile, int slot_bytes,
+                                         bool stats = false) {
   Layout o;
   long at = 0;
   o.tbl = at;
@@ -214,6 +219,8 @@ __host__ __device__ inline Layout layout(int L, int w, int R, int x_bytes,
   o.slot = at;
   o.slot_stride = align16((long)R * w * slot_bytes);
   at += 2 * o.slot_stride;
+  o.stats = at;  // K3: a row's rstd
+  if (stats) at += align16((long)R * 4);
   o.total = at;
   return o;
 }
@@ -829,23 +836,22 @@ __device__ __forceinline__ void run(const Pass& P, const Stage* stg,
 // The row-chunk loop of a block.  chunk(k, &r0, &rows, &scale) gives chunk
 // k of this block (false past its last): its rows are staged one chunk
 // ahead by cp.async (x rows r0 .., columns x_col .., zero from column x_lim
-// on, pitch x_ld; `scale` the x block's scale of an int8 x), walked through
-// the passes (pass 0 from the staging, d_in at column din_col + lane; the
-// last pass into sink(P, r0)), then finish(k, r0, rows) runs.  Lane block c
-// of a tile split over a cluster (`cluster`): a cross pass reads the peers'
-// tiles, so the barrier before it and each chunk's first are the
-// cluster's, and the block stays resident until its peers are done.  The
-// local passes read their coefficients from tab, a cross pass from xtab.
+// on, pitch x_ld; `scale` the x block's scale of an int8 x), pre(k, r0,
+// rows) runs once they have landed, the passes walk them (pass 0 from
+// src0(scale), a source over the staging; the last pass into sink(P, r0)),
+// then finish(k, r0, rows) runs.  Lane block c of a tile split over a
+// cluster (`cluster`): a cross pass reads the peers' tiles, so the barrier
+// before it and each chunk's first are the cluster's, and the block stays
+// resident until its peers are done.  The local passes read their
+// coefficients from tab, a cross pass from xtab.
 template <typename X, typename Tab, typename XTab, typename Chunk,
-          typename Sink, typename Finish>
-__device__ __forceinline__ void walk(const Stage* stg, const Pass* ps, int np,
-                                     const Tab& tab, const XTab& xtab,
-                                     X* xs, float* z, int w,
-                                     int lane0, int c, bool cluster,
-                                     const X* x, long x_ld, long x_col,
-                                     long x_lim, const float* d_in,
-                                     long din_col, const Chunk& chunk,
-                                     const Sink& sink, const Finish& finish) {
+          typename Pre, typename Src0, typename Sink, typename Finish>
+__device__ __forceinline__ void walk_hooked(
+    const Stage* stg, const Pass* ps, int np, const Tab& tab,
+    const XTab& xtab, X* xs, float* z, int w, int lane0, int c, bool cluster,
+    const X* x, long x_ld, long x_col, long x_lim, const Chunk& chunk,
+    const Pre& pre, const Src0& src0, const Sink& sink,
+    const Finish& finish) {
   int r0, rows;
   float scale;
   if (chunk(0, &r0, &rows, &scale))
@@ -853,7 +859,8 @@ __device__ __forceinline__ void walk(const Stage* stg, const Pass* ps, int np,
   for (int k = 0; chunk(k, &r0, &rows, &scale); ++k) {
     spm_bwd::cp_wait_all();
     spm_bwd::sync(cluster);  // x landed; the last chunk's tile read
-    const FromStage<X> src{xs, w, scale, d_in, din_col};
+    pre(k, r0, rows);
+    const auto src = src0(scale);
     const Tile tile(z, w);
     for (int p = 0; p < np; ++p) {
       const Pass P = ps[p];
@@ -883,6 +890,26 @@ __device__ __forceinline__ void walk(const Stage* stg, const Pass* ps, int np,
     finish(k, r0, rows);
   }
   if (cluster) cg::this_cluster().sync();  // peers done with this tile
+}
+
+// walk_hooked with no prologue and pass 0 reading the staged x (an int8
+// code times the block's scale) times d_in at column din_col + lane: K1's
+// and K5's walk.
+template <typename X, typename Tab, typename XTab, typename Chunk,
+          typename Sink, typename Finish>
+__device__ __forceinline__ void walk(const Stage* stg, const Pass* ps, int np,
+                                     const Tab& tab, const XTab& xtab,
+                                     X* xs, float* z, int w,
+                                     int lane0, int c, bool cluster,
+                                     const X* x, long x_ld, long x_col,
+                                     long x_lim, const float* d_in,
+                                     long din_col, const Chunk& chunk,
+                                     const Sink& sink, const Finish& finish) {
+  walk_hooked(
+      stg, ps, np, tab, xtab, xs, z, w, lane0, c, cluster, x, x_ld, x_col,
+      x_lim, chunk, [](int, int, int) {},
+      [&](float scale) { return FromStage<X>{xs, w, scale, d_in, din_col}; },
+      sink, finish);
 }
 
 // The cluster launch, the backward engine's.

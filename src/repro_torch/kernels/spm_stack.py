@@ -26,14 +26,15 @@ their launch counters.
 Each does a few flops per element and stage against 2-4 bytes of I/O per
 element, so its bound on an H100 is mostly the bytes moved over 3.35 TB/s;
 what holds them above it is the stage walk on chip.  The sources say what
-each design does about it.  K2 and K6 run on one backward engine
+each design does about it.  K2, K4 and K6 run on one backward engine
 (``csrc/spm_bwd_engine.cuh``) whose launch shape the pure-Python planner
 ``bwd_plan`` chooses (its mirrors of the engine's stage modes, passes and
-slot maps are checked on the CPU); K4 keeps ``bwd_geometry``.  K1 and K5
-run on one forward engine (``csrc/spm_fwd_engine.cuh``) whose launch shape
-``fwd_plan`` chooses (its mirrors of the engine's passes, groups and row
-chunks are checked on the CPU, with a float32 emulation of the walk); K3
-keeps ``pick_block_rows``.
+slot maps are checked on the CPU; K4 through its block form, with a second
+stack and the norm's row statistics).  K1, K3 and K5 run on one forward
+engine (``csrc/spm_fwd_engine.cuh``) whose launch shape ``fwd_plan``
+chooses (its mirrors of the engine's passes, groups and row chunks are
+checked on the CPU, with a float32 emulation of the walk; K3 through its
+block form).
 
 A wrapper runs its plain version (``spm_stack_plain``,
 ``spm_stack_bwd_plain``, ``spm_block_plain``, ``spm_block_bwd_plain``,
@@ -87,8 +88,8 @@ __all__ = ["spm_stack_kernel_call", "spm_stack_plain",
            "spm_block_bwd_kernel_call", "spm_block_bwd_plain",
            "spm_overlap_kernel_call", "spm_overlap_plain",
            "spm_overlap_bwd_kernel_call", "spm_overlap_bwd_plain",
-           "pick_block_rows", "bwd_geometry", "bwd_live_tiles",
-           "BwdPlan", "bwd_plan", "bwd_smem_bytes", "bwd_slot_pairs",
+           "bwd_live_tiles", "BwdPlan", "bwd_plan", "bwd_smem_bytes",
+           "bwd_block_smem_bytes", "bwd_slot_pairs",
            "bwd_stage_modes", "bwd_passes", "bwd_quad_lanes",
            "bwd_row_slices",
            "bwd_row_chunks", "bwd_clusters_resident", "FwdPlan",
@@ -114,19 +115,6 @@ def _fn(lib: str, name: str, argtypes: tuple):
     f.argtypes = list(argtypes)
     f.restype = ctypes.c_int
     return f
-
-
-def pick_block_rows(n_rows: int, n_tile: int, n_tiles: int = 1) -> int:
-    """K3's rows per thread block: the most (up to 16, a power of two) whose f32
-    tile fits half the shared memory (two blocks per SM), then halved
-    while the grid holds fewer than two blocks per SM — decode calls get
-    one row per block, so their few rows spread over several SMs."""
-    br = 16
-    while br > 1 and br * n_tile * 4 > SMEM_BYTES // 2:
-        br //= 2
-    while br > 1 and -(-n_rows // br) * n_tiles < 2 * NUM_SMS:
-        br //= 2
-    return br
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -405,13 +393,15 @@ def fwd_group_lanes(n_tile: int, lane_blocks: int, strides: Sequence[int],
 
 def fwd_smem_bytes(n_stages: int, lanes: int, rows: int,
                    x_bytes: int, resident: bool, tile: bool,
-                   slot_bytes: int = 0, cf_bytes: int = 16) -> int:
+                   slot_bytes: int = 0, cf_bytes: int = 16,
+                   stats: bool = False) -> int:
     """Shared memory of one block of the forward engine
     (``csrc/spm_fwd_engine.cuh`` ``layout``): the resident table
     (``n_stages`` x ``lanes``/2 entries of ``cf_bytes``: 16 f32, 4 int8),
-    the f32 tile of ``rows`` x ``lanes`` (``tile``: more than one pass, or
-    an int8 store), x staged once in its own type, and K5's two send
-    slots.  (The plan of stages and passes is a kernel parameter.)"""
+    the f32 tile of ``rows`` x ``lanes`` (``tile``: more than one pass, an
+    int8 store, or K3's second stack), x staged once in its own type, K5's
+    two send slots, and K3's rstd a row (``stats``).  (The plan of stages
+    and passes is a kernel parameter.)"""
     L, w, R = n_stages, lanes, rows
     b = 0
     if resident:
@@ -419,6 +409,8 @@ def fwd_smem_bytes(n_stages: int, lanes: int, rows: int,
     if tile:
         b += _align16(R * w * 4)
     b += _align16(R * w * x_bytes) + 2 * _align16(R * w * slot_bytes)
+    if stats:
+        b += _align16(R * 4)
     return b
 
 
@@ -446,7 +438,9 @@ def _fwd_clusters(T: int, smem: int, cluster: int) -> int:
 def fwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...], tiles: int,
              io_bytes: int, x_bytes: Optional[int] = None,
              scale_rows: Optional[int] = None, sides: int = 1,
-             cf_bytes: int = 16) -> FwdPlan:
+             cf_bytes: int = 16, block: bool = False,
+             strides2: Optional[Tuple[int, ...]] = None,
+             norm: bool = False) -> FwdPlan:
     """The forward engine's launch shape for ``n_rows`` rows of ``tiles``
     independent ``n_tile``-wide feature tiles (K5: partner pairs times
     shard tiles, ``sides`` = 2 for its two-block clusters and send slots)
@@ -475,6 +469,12 @@ def fwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...], tiles: int,
       groups.
     * Row groups G: one wave of resident clusters (``_fwd_clusters``) over
       the tiles, at most one a row.
+    * K3's block form (``block``; ``strides`` stack 1, ``strides2`` the
+      second stack or None, ``norm`` the RMS prologue): one block a tile at
+      every row count (no lane split: the norm's row sum stays in a block),
+      the f32 tile kept whenever there is a second stack, rstd a row beside
+      it, threads for the wider of the two stacks' passes; only stack 1's
+      table may be resident.  ``passes`` counts both stacks'.
 
     Raises when no shape holds a chunk in shared memory.  Pure and cached:
     a launch's host overhead stays a dictionary lookup."""
@@ -483,11 +483,16 @@ def fwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...], tiles: int,
     q8 = scale_rows is not None
     slot = io_bytes if sides == 2 else 0
     budget = SMEM_BYTES - (_FWD_Q8_STATIC if q8 else 0)
+    two = strides2 is not None
+    if (two or norm) and not block:
+        raise ValueError("strides2 and norm are K3's block form")
+    extra = fwd_passes(n_tile, 1, tuple(strides2)) if two else ()
 
     def smem(C, R, res):
         ps = fwd_passes(n_tile, C, strides)
         return fwd_smem_bytes(L, n_tile // C, R, x_bytes, res,
-                              len(ps) > 1 or q8, slot, cf_bytes)
+                              len(ps) > 1 or q8 or two, slot, cf_bytes,
+                              stats=norm)
 
     def most_rows(C, res, cap):
         R = 0
@@ -496,7 +501,7 @@ def fwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...], tiles: int,
         return R
 
     def shape(C, Cr, R, G, res):
-        ps = fwd_passes(n_tile, C, strides)
+        ps = fwd_passes(n_tile, C, strides) + extra
         return FwdPlan(C, n_tile // C, Cr, _fwd_threads(n_tile, C, ps, R), R,
                        G, C * Cr * sides, res, len(ps), smem(C, R, res))
 
@@ -533,7 +538,7 @@ def fwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...], tiles: int,
     if n_rows <= FWD_DECODE_ROWS:
         # a row a group, each tile over the fewest lane blocks that make
         # FWD_DECODE_BLOCKS blocks of at most FWD_DECODE_LANES lanes
-        ok = [c for c in ((1,) if sides > 1 else range(1, 9))
+        ok = [c for c in ((1,) if sides > 1 or block else range(1, 9))
               if split_ok(c) and smem(c, 1, False) <= budget]
         if not ok:
             raise too_big("one row")
@@ -548,7 +553,7 @@ def fwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...], tiles: int,
     R = most_rows(C, res, cap)
     if R < 1:
         raise too_big("one row")
-    T = _fwd_threads(n_tile, C, fwd_passes(n_tile, C, strides), R)
+    T = _fwd_threads(n_tile, C, fwd_passes(n_tile, C, strides) + extra, R)
     G = min(n_rows, max(1, _fwd_clusters(T, smem(C, R, res), C * sides)
                         // tiles))
     per_group = -(-n_rows // G)
@@ -715,27 +720,6 @@ def _col_sum(t: torch.Tensor) -> torch.Tensor:
     return t.sum(0)
 
 
-def bwd_geometry(n_rows: int, width: int, n_tiles: int, n_live: int,
-                 extra: int = 0) -> Tuple[int, int, bool]:
-    """``(chunk_rows, n_groups, in_shared)`` of a backward launch whose
-    blocks keep ``n_tiles`` f32 tiles of (chunk_rows, width) plus ``extra``
-    floats per row.  Chunk rows: the most (up to 16, a power of two) that
-    fit a block's shared memory; 1 from a global scratch slab when one row
-    does not fit.  Row groups (blocks per feature tile): enough for about
-    one wave over the SMs across ``n_live`` tiles, at most one per chunk."""
-    def smem(cr):
-        return (-(-cr * extra // 4) * 4 + n_tiles * cr * width) * 4
-
-    cr = 16
-    while cr > 1 and smem(cr) > SMEM_BYTES:
-        cr //= 2
-    in_shared = smem(cr) <= SMEM_BYTES
-    per_sm = min(4, SMEM_BYTES // smem(cr)) if in_shared else 2
-    chunks = -(-n_rows // cr)
-    groups = min(chunks, max(1, -(-NUM_SMS * per_sm // n_live)))
-    return cr, groups, in_shared
-
-
 # Clusters of C blocks, one block an SM, that an H100's GPCs hold at once
 # (cudaOccupancyMaxActiveClusters at the plans' shared memory, measured on
 # an H100 80GB HBM3 by chip_smoke.py): the row groups of a backward launch
@@ -787,11 +771,66 @@ class BwdPlan(NamedTuple):
     groups: int        # G: row groups, one cluster each, per tile
     cluster: int       # blocks a cluster: lane_blocks * sides
     smem_bytes: int
+    streamed: int = 0  # K4: stacks whose table and grad sums stream from L2
+
+
+def bwd_block_smem_bytes(n_tile: int, lane_blocks: int, chunk_rows: int,
+                         strides1: Sequence[int],
+                         strides2: Optional[Sequence[int]], io_bytes: int,
+                         norm: bool, streamed: int = 0) -> int:
+    """Shared memory of one block of K4 on the backward engine
+    (``csrc/spm_block_bwd.cu`` ``block_layout``): for each stack its table
+    and grad sums (``n_stages`` x ``lanes``/2 float4 each; none for the
+    first ``streamed`` stacks, whose tables stream from a device-memory
+    slab), its stages' and passes' set-up, and its tiles (passes + 1, + 1
+    with layout B); then two passes' grad sums of row slices 1 ..
+    ``row_slices`` - 1, the per-lane sums (g_gamma, g_din1, g_dout1,
+    g_bias1 [, g_din2, g_dout2, g_bias2]), x staged twice, gy once (its
+    4-byte word when the z_L it meets is in layout B) and, with the norm,
+    36 floats a row of row statistics.  Stack 1's z_L is kept in layout A
+    when a second stack follows."""
+    C = lane_blocks
+    w, R = n_tile // C, chunk_rows
+    stacks = [tuple(int(s) for s in strides1)]
+    if strides2 is not None:
+        stacks.append(tuple(int(s) for s in strides2))
+    b = 0
+    for i, ss in enumerate(stacks):
+        L, P = len(ss), len(bwd_passes(n_tile, C, ss))
+        if i >= streamed:
+            b += 2 * _align16(L * (w // 2) * 16)
+        b += _align16(L * 24) + _align16(P * 28)
+        b += _align16((P + 1 + ("B" in bwd_stage_modes(n_tile, C, ss)))
+                      * R * w * 4)
+    rs = bwd_row_slices(w // 2)
+    nvec = 7 if len(stacks) == 2 else 4
+    tail_b = bwd_stage_modes(n_tile, C, stacks[-1])[-1] == "B"
+    b += _align16(4 * (rs - 1) * (w // 2) * 16) + _align16(nvec * w * 4)
+    b += 2 * _align16(R * w * io_bytes)
+    b += _align16(R * w * (4 if tail_b else io_bytes))
+    if norm:
+        b += _align16(36 * R * 4)
+    return b
 
 
 def bwd_plan(n_rows: int, n_tile: int, strides: Sequence[int], tiles: int,
              io_bytes: int, x_bytes: Optional[int] = None, nvec: int = 3,
-             package: bool = False, sides: int = 1) -> BwdPlan:
+             package: bool = False, sides: int = 1, block: bool = False,
+             strides2: Optional[Sequence[int]] = None,
+             norm: bool = False) -> BwdPlan:
+    """The backward engine's launch shape (``_bwd_plan``), cached: a
+    launch's host overhead stays a dictionary lookup."""
+    return _bwd_plan(n_rows, n_tile, tuple(int(s) for s in strides), tiles,
+                     io_bytes, x_bytes, nvec, package, sides, block,
+                     None if strides2 is None
+                     else tuple(int(s) for s in strides2), norm)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...],
+              tiles: int, io_bytes: int, x_bytes: Optional[int], nvec: int,
+              package: bool, sides: int, block: bool,
+              strides2: Optional[Tuple[int, ...]], norm: bool) -> BwdPlan:
     """The backward engine's launch shape for ``n_rows`` rows of ``tiles``
     independent ``n_tile``-wide feature tiles (K6: partner pairs times
     shard tiles) of a run of ``strides``, I/O of ``io_bytes`` a value
@@ -802,13 +841,31 @@ def bwd_plan(n_rows: int, n_tile: int, strides: Sequence[int], tiles: int,
     more blocks would add.  Row groups G: one wave of resident clusters
     over the tiles, at most one a chunk, the rows then spread evenly over
     the groups' chunks.  Row slices: ``bwd_row_slices``.  Raises when no
-    split holds one row's remat and the table on chip."""
-    x_bytes = io_bytes if x_bytes is None else x_bytes
-    strides = tuple(int(st) for st in strides)
-    L = len(strides)
+    split holds one row's remat and the table on chip.
 
-    def smem(w, R):
+    K4's block form (``block``; ``strides`` stack 1, ``strides2`` the
+    second stack or None, ``norm`` the norm's row statistics; one tile,
+    ``bwd_block_smem_bytes``): the same choice over lane blocks and
+    ``streamed``, the stacks whose tables and grad sums stream from a
+    device-memory slab (stack 1's, then both): at up to 4 blocks, the
+    tables on chip, then stack 1's streamed, then both; only then 8
+    blocks.  Streaming both tables over 4 blocks was measured faster than
+    holding them on chip over 8 (``benchmarks/torch_block_plans.py``: the
+    11 + 11-stage block on 2048 lanes), whose cross-block passes and
+    8-block barriers cost more than the L2 reads.  Raises when no split
+    leaves a row, or none has at most ``BWD_MAX_THREADS`` pair slots a
+    block."""
+    x_bytes = io_bytes if x_bytes is None else x_bytes
+    L = len(strides)
+    two = strides2 is not None
+    if (two or norm) and not block:
+        raise ValueError("strides2 and norm are K4's block form")
+
+    def smem(w, R, streamed):
         C = n_tile // w
+        if block:
+            return bwd_block_smem_bytes(n_tile, C, R, strides, strides2,
+                                        io_bytes, norm, streamed)
         modes = bwd_stage_modes(n_tile, C, strides)
         # K2 keeps z_L in its last pass's layout, K6 (the package) in A
         tail_b = bool(modes) and modes[-1] == "B" and not package
@@ -819,25 +876,31 @@ def bwd_plan(n_rows: int, n_tile: int, strides: Sequence[int], tiles: int,
 
     best = None
     want = min(BWD_MIN_ROWS, n_rows)
-    for C in (1, 2, 4, 8):
-        if C * sides > 8 or n_tile % (2 * C) or n_tile // C // 2 > \
-                BWD_MAX_THREADS:
-            continue
+    splits = [C for C in (1, 2, 4, 8)
+              if C * sides <= 8 and n_tile % (2 * C) == 0
+              and n_tile // C // 2 <= BWD_MAX_THREADS]
+    levels = range(2 + two if block else 1)
+    order = [(C, s) for s in levels for C in splits if C <= 4] + \
+        [(C, s) for C in splits if C > 4 for s in levels]
+    for C, s in order:
         w = n_tile // C
         R = 0
-        while R < n_rows and smem(w, R + 1) <= SMEM_BYTES:
+        while R < n_rows and smem(w, R + 1, s) <= SMEM_BYTES:
             R += 1
         if R >= want:
-            best = (C, w, R)
+            best = (C, w, R, s)
             break
         if R >= 1 and (best is None or R > best[2]):
-            best = (C, w, R)
+            best = (C, w, R, s)
     if best is None:
+        what = (f"K4's block of {L}" + (f" + {len(strides2)}" if two
+                                        else "") + " stages"
+                if block else f"the backward of a {L}-stage run")
         raise ValueError(
-            f"the backward of a {L}-stage run on a {n_tile}-wide tile does "
-            f"not fit {SMEM_BYTES} B of shared memory in any split of its "
-            f"lanes over up to {8 // sides} blocks")
-    C, w, R = best
+            f"{what} on a {n_tile}-wide tile does not fit {SMEM_BYTES} B "
+            f"of shared memory in any split of its lanes over up to "
+            f"{8 // sides} blocks of at most {BWD_MAX_THREADS} pair slots")
+    C, w, R, streamed = best
     chunks = -(-n_rows // R)
     G = min(chunks, max(1, CLUSTERS_RESIDENT[C * sides] // max(1, tiles)))
     per_group = -(-n_rows // G)
@@ -845,18 +908,21 @@ def bwd_plan(n_rows: int, n_tile: int, strides: Sequence[int], tiles: int,
     G = min(G, -(-n_rows // R))
     pb = w // 2
     rs = bwd_row_slices(pb)
-    return BwdPlan(C, w, pb, rs, pb * rs, R, G, C * sides, smem(w, R))
+    return BwdPlan(C, w, pb, rs, pb * rs, R, G, C * sides,
+                   smem(w, R, streamed), streamed)
 
 
 def bwd_row_slices(pair_slots: int) -> int:
     """Row slices for a block of ``pair_slots`` slots (threads = slots x
     slices, a warp on consecutive slots of one slice): the fewest, a power
-    of two up to 32, giving 128 threads, within ``BWD_MAX_THREADS``."""
+    of two up to 32, giving 128 threads, within ``BWD_MAX_THREADS``; one
+    where that many would not make whole warps (the engine's
+    ``valid_shape``)."""
     rs = 1
     while rs < 32 and pair_slots * rs < 128 and \
             pair_slots * rs * 2 <= BWD_MAX_THREADS:
         rs *= 2
-    return rs
+    return rs if pair_slots * rs % 32 == 0 else 1
 
 
 def bwd_stage_modes(n_tile: int, lane_blocks: int, strides: Sequence[int]
@@ -1277,7 +1343,8 @@ def spm_block_kernel_call(x: torch.Tensor, coeffs1: torch.Tensor,
     """K3: x (B, in_width) -> ``(y (B, out_width), rstd (B, 1) f32 or
     None)``.  gamma is (n,) f32, zero past ``in_width``; ``strides2=None``
     is the norm-prologue-only form.  Every stride must keep its pairs
-    inside the full width n (one tile)."""
+    inside the full width n (one tile), and each stack has at least one
+    stage on the card.  The launch shape is ``fwd_plan``'s block form."""
     n = 2 * coeffs1.shape[1]
     strides1 = tuple(int(s) for s in strides1)
     strides2 = None if strides2 is None else tuple(int(s) for s in strides2)
@@ -1311,27 +1378,27 @@ def spm_block_kernel_call(x: torch.Tensor, coeffs1: torch.Tensor,
          (bias2, "bias2")], n)
     if strides2 is not None and (d_in2 is None or d_out2 is None):
         raise ValueError("a second stack needs d_in2 and d_out2")
+    if not strides1 or strides2 == ():
+        raise ValueError("each stack of the block kernel needs a stage")
     B = x.shape[0]
     y = torch.empty((B, out_width), dtype=x.dtype, device=x.device)
     rstd = (torch.empty((B, 1), dtype=torch.float32, device=x.device)
             if gamma is not None else None)
     if B == 0:
         return y, rstd
-    block_rows = pick_block_rows(B, n)
-    if (-(-block_rows // 4) * 4 + block_rows * n) * 4 > SMEM_BYTES:
-        raise ValueError(f"{block_rows} rows x {n} f32 exceed "
-                         f"{SMEM_BYTES} B of shared memory")
+    plan = fwd_plan(B, n, strides1, 1, x.element_size(), block=True,
+                    strides2=strides2, norm=gamma is not None)
     s2 = strides2 or ()
     fn = _fn("spm_block", "spm_block_fwd",
-             (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-              _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-              ctypes.POINTER(ctypes.c_int), _I,
-              ctypes.POINTER(ctypes.c_int), _I, _P))
+             (_I,) + (_P,) * 12 + (_I,) * 7 + (ctypes.c_float,) + (_I,) * 4
+             + (ctypes.POINTER(ctypes.c_int), _I,
+                ctypes.POINTER(ctypes.c_int), _I, _P))
     rc = fn(_IO[x.dtype], _ptr(x), _ptr(y), _ptr(rstd), _ptr(gamma),
             _ptr(coeffs1), _ptr(d_in1), _ptr(d_out1), _ptr(bias1),
             _ptr(coeffs2), _ptr(d_in2), _ptr(d_out2), _ptr(bias2),
-            B, n, in_width, mid_width, out_width, block_rows,
+            B, n, in_width, mid_width, out_width,
             ACTIVATIONS[activation], int(residual), float(eps),
+            plan.threads, plan.chunk_rows, plan.groups, int(plan.resident),
             _strides_arg(strides1), len(strides1), _strides_arg(s2),
             len(s2), _stream(x))
     if rc != 0:
@@ -1463,7 +1530,9 @@ def spm_block_bwd_kernel_call(x: torch.Tensor, gy: torch.Tensor,
     x's dtype, [g_gamma], g_coeffs1, g_din1, g_dout1, [g_bias1],
     [g_coeffs2, g_din2, g_dout2, [g_bias2]])``, bracketed entries present
     when their operand is; every parameter grad f32 and exactly zero on
-    padded lanes."""
+    padded lanes.  On the card each stack has at least one stage; the
+    launch shape is ``bwd_plan``'s block form (a plan whose tables stream
+    from device memory, ``streamed``, included)."""
     n = 2 * coeffs1.shape[1]
     strides1 = tuple(int(s) for s in strides1)
     strides2 = None if strides2 is None else tuple(int(s) for s in strides2)
@@ -1510,6 +1579,8 @@ def spm_block_bwd_kernel_call(x: torch.Tensor, gy: torch.Tensor,
     if rstd is not None and (rstd.shape != (B, 1) or rstd.dtype !=
                              torch.float32 or not rstd.is_contiguous()):
         raise ValueError(f"rstd: need a contiguous f32 ({B}, 1) tensor")
+    if not strides1 or strides2 == ():
+        raise ValueError("each stack of the block kernel needs a stage")
     dev = x.device
     L1 = len(strides1)
     L2 = 0 if strides2 is None else len(strides2)
@@ -1523,18 +1594,22 @@ def spm_block_bwd_kernel_call(x: torch.Tensor, gy: torch.Tensor,
             if t is not None:
                 t.zero_()
     else:
-        tiles = L1 + 1 + (L2 + 1 if strides2 is not None else 0)
-        cr, G, in_shared = bwd_geometry(B, n, tiles, 1, extra=1)
+        plan = bwd_plan(B, n, strides1, 1, x.element_size(), block=True,
+                        strides2=strides2, norm=gamma is not None)
+        G, C = plan.groups, plan.lane_blocks
         part_cf1 = torch.empty((G, L1, n // 2, 4), dtype=torch.float32,
                                device=dev)
         part_cf2 = (None if strides2 is None else torch.empty(
             (G, L2, n // 2, 4), dtype=torch.float32, device=dev))
-        part_vec = torch.empty((G, 7, n), dtype=torch.float32, device=dev)
-        scratch = None if in_shared else torch.empty(
-            (G * tiles * cr * n,), dtype=torch.float32, device=dev)
+        nvec = 4 if strides2 is None else 7
+        part_vec = torch.empty((G, nvec, n), dtype=torch.float32, device=dev)
+        slab = L1 + (L2 if plan.streamed > 1 else 0)
+        slabs = None if not plan.streamed else torch.empty(
+            (G * C, 2 * slab, plan.pair_slots, 4), dtype=torch.float32,
+            device=dev)
         s2 = strides2 or ()
         fn = _fn("spm_block_bwd", "spm_block_bwd",
-                 (_I,) + (_P,) * 20 + (_I,) * 9
+                 (_I,) + (_P,) * 20 + (_I,) * 14
                  + (ctypes.POINTER(ctypes.c_int), _I,
                     ctypes.POINTER(ctypes.c_int), _I, _P))
         rc = fn(_IO[x.dtype], _ptr(x), _ptr(gy), _ptr(gx), _ptr(rstd),
@@ -1542,10 +1617,10 @@ def spm_block_bwd_kernel_call(x: torch.Tensor, gy: torch.Tensor,
                 _ptr(bias1), _ptr(coeffs2), _ptr(d_in2), _ptr(d_out2),
                 _ptr(bias2), _ptr(g_cf1), _ptr(g_cf2), _ptr(g_vec),
                 _ptr(part_cf1), _ptr(part_cf2), _ptr(part_vec),
-                _ptr(scratch), B, n, in_width, mid_width, out_width, cr, G,
-                ACTIVATIONS[activation], int(residual),
-                _strides_arg(strides1), L1, _strides_arg(s2), len(s2),
-                _stream(x))
+                _ptr(slabs), B, n, in_width, mid_width, out_width,
+                ACTIVATIONS[activation], int(residual), *_shape_args(plan),
+                plan.streamed, _strides_arg(strides1), L1, _strides_arg(s2),
+                len(s2), _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_block_bwd launch failed: cudaError {rc}")
         spm_block_bwd_kernel_call.launches += 1

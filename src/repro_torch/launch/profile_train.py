@@ -13,8 +13,10 @@ kernel intervals over the traced window), its idle share against the
 untraced step, and the device time by kernel, grouped into the port's SPM
 kernels (K1-K4, K1's int8 activation mode apart) and the rest, as one JSON
 object; ``--out`` also writes it with the 40 costliest kernels.
-``--quantize`` profiles the int8 step (``launch.train --quantize``).  Needs
-a GPU.
+``--quantize`` profiles the int8 step (``launch.train --quantize``).  A
+kernel group the step launches (K1-K4; K1, its int8 mode and K2 under
+``--quantize``) that reads no device time means a kernel's name no longer
+matches ``GROUPS``: the run prints it and exits 1.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -134,6 +136,11 @@ def main() -> int:
                           sorted(groups.items(), key=lambda kv: -kv[1][1])},
                group_launches_per_step={g: n // S for g, (n, _) in
                                         groups.items()})
+    want = ("K1 spm_stack_fwd", "K2 spm_stack_bwd") + (
+        ("K1 int8 spm_stack_fwd",) if args.quantize
+        else ("K3 spm_block_fwd", "K4 spm_block_bwd"))
+    out["groups_without_time"] = [g for g in want
+                                  if out["groups_ms"].get(g, 0.0) <= 0.0]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:40]
     if args.out:
         with open(args.out, "w") as f:
@@ -145,6 +152,11 @@ def main() -> int:
         print(f"{per_step(us):9.3f} ms/step {n // S:6d}x  {k[:100]}")
     print(smi)
     print(json.dumps(out))
+    if out["groups_without_time"]:
+        print(f"profile_train: no device time in "
+              f"{out['groups_without_time']}: GROUPS does not match their "
+              f"kernels' names", file=sys.stderr)
+        return 1
     return 0
 
 

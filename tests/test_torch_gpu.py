@@ -416,6 +416,184 @@ def test_k4_matches_plain(cuda, dtype, rows, out_w, act, two, res):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+MIXED = (1, 2, 3, 6, 24, 48, 4, 12)
+
+
+def _block_kw(gen, n, s1, s2, act, res, in_w, mid_w, out_w, bias=True):
+    """A block's operands on the card: near-rotation tables, diagonals near
+    1, gamma zero past in_w."""
+    gamma = 1 + 0.1 * _rnd(gen, n)
+    gamma[in_w:] = 0.0
+    kw = dict(coeffs1=_rnd(gen, len(s1), n // 2, 4, scale=0.5),
+              d_in1=1 + 0.1 * _rnd(gen, n), d_out1=1 + 0.1 * _rnd(gen, n),
+              bias1=0.1 * _rnd(gen, n) if bias else None, gamma=gamma,
+              strides1=s1, in_width=in_w, out_width=out_w, mid_width=mid_w,
+              activation=act, residual=res)
+    if s2 is not None:
+        kw.update(coeffs2=_rnd(gen, len(s2), n // 2, 4, scale=0.5),
+                  d_in2=1 + 0.1 * _rnd(gen, n), d_out2=1 + 0.1 * _rnd(gen, n),
+                  bias2=0.1 * _rnd(gen, n) if bias else None, strides2=s2)
+    return kw
+
+
+def _k3_composition(x, rstd, kw):
+    """K3's function given its rstd, composed of plain pieces: ((x rstd)
+    gamma) d_in1 rounded in that order, spm_stack_plain with d_out1 and
+    bias1, the mid_width mask and the activation, stack 2 through
+    spm_stack_plain, the residual, the store."""
+    n = 2 * kw["coeffs1"].shape[1]
+    lane = torch.arange(n, device=x.device)
+    xr = torch.nn.functional.pad(x.float(), (0, n - kw["in_width"]))
+    z = (xr * rstd * kw["gamma"]) * kw["d_in1"]
+    z = K.spm_stack_plain(z, kw["coeffs1"], None, kw["d_out1"], kw["bias1"],
+                          strides=kw["strides1"])
+    two = kw.get("strides2") is not None
+    if two or kw["activation"] is not None:
+        z = K._act(torch.where(lane < kw["mid_width"], z, 0.0),
+                   kw["activation"])
+    if two:
+        z = K.spm_stack_plain(z, kw["coeffs2"], kw["d_in2"], kw["d_out2"],
+                              kw["bias2"], strides=kw["strides2"])
+    if kw["residual"]:
+        z = z + xr
+    return z[:, :kw["out_width"]].to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, s1, s2, rows, act, res, in_w, mid_w, out_w", [
+    (2048, QKV, None, 4072, None, False, 2048, 2048, 2048),   # q, ragged
+    (2048, QKV, None, 1, None, False, 2048, 1024, 1024),      # k/v, one row
+    (2048, QKV, None, 8, None, False, 2048, 1024, 1024),      # k/v, decode
+    (2048, QKV, QKV, 67, "relu", True, 2048, 1536, 2048),
+    (96, MIXED, MIXED[::-1], 45, "relu", True, 90, 80, 90),
+    (96, MIXED, None, 45, None, True, 90, 96, 90)])
+def test_k3_is_the_plain_composition_given_its_rstd(cuda, dtype, n, s1, s2,
+                                                    rows, act, res, in_w,
+                                                    mid_w, out_w):
+    """With the kernel's own rstd, y is bit for bit the plain composition
+    (only the row's sum of squares is summed in another order), rstd within
+    the sum's reordering of the plain version's; a second launch bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + n)
+    kw = _block_kw(gen, n, s1, s2, act, res, in_w, mid_w, out_w)
+    x = _rnd(gen, rows, in_w).to(dtype)
+    y, rstd = K.spm_block_kernel_call(x, **kw)
+    y2, rstd2 = K.spm_block_kernel_call(x, **kw)
+    _, rstd_p = K.spm_block_plain(x, **kw)
+    want = _k3_composition(x, rstd, kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+    assert torch.equal(y, y2) and torch.equal(rstd, rstd2)
+    np.testing.assert_allclose(rstd.cpu().numpy(), rstd_p.cpu().numpy(),
+                               rtol=8 * (math.sqrt(n) + 4) * 2.0 ** -23)
+
+
+def _k4_check(x, gy, kw, dtype, rows):
+    """K4 against its plain version from K3's rstd: g_x within the K3
+    test's bound, every grad within gamma_rows of its terms' magnitudes
+    (exact zeros on dead lanes), a second launch bitwise."""
+    n = 2 * kw["coeffs1"].shape[1]
+    _, rstd = K.spm_block_kernel_call(x, **kw)
+    got = K.spm_block_bwd_kernel_call(x, gy, rstd=rstd, **kw)
+    again = K.spm_block_bwd_kernel_call(x, gy, rstd=rstd, **kw)
+    want = K.spm_block_bwd_plain(x, gy, rstd=rstd, **kw)
+    mags = K.spm_block_bwd_plain(x, gy, rstd=rstd, col_sum=_abs_sum, **kw)
+    torch.cuda.synchronize()
+    two = kw.get("strides2") is not None
+    L = len(kw["strides1"]) + (len(kw["strides2"]) if two else 0)
+    np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                               want[0].float().cpu().numpy(), rtol=0,
+                               atol=_tol(dtype, n + 3 * L + 12, want[0]))
+    rel = 8 * (4 + 3 * L + 12) * 2.0 ** -23 if kw["activation"] else 0.0
+    _grads_within(got[1:], want[1:], mags[1:], rows, rel)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    in_w = kw["in_width"]
+    assert not got[1][in_w:].any() and not got[3][in_w:].any()
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, out_w", [(4072, 2048), (4072, 1024),
+                                         (1, 2048), (1, 1024)])
+def test_k4_ragged_and_one_row_match_plain(cuda, dtype, rows, out_w):
+    """The q and k/v forms at 4072 rows (no chunk or row group even) and
+    one row."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + out_w)
+    kw = _block_kw(gen, 2048, QKV, None, None, False, 2048, out_w, out_w)
+    x = _rnd(gen, rows, 2048).to(dtype)
+    gy = _rnd(gen, rows, out_w).to(dtype)
+    _k4_check(x, gy, kw, dtype, rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("form", ["norm", "two", "one act"])
+def test_k4_every_lane_split_matches_plain(cuda, monkeypatch, dtype, C,
+                                           form):
+    """K4 forced to each lane split of a 96-wide tile whose strides take
+    every mode of the engine (layouts A and B, a stride reaching across
+    blocks, a pair of blocks lane for lane), 5-row chunks over 3 row groups
+    (the row mean crosses the cluster every chunk): the q form with a
+    padded width, the two-stack form with the residual, one stack with an
+    activation and no bias; g_x and grads as ``_k4_check``, dead lanes
+    exactly zero."""
+    _forced_plan(monkeypatch, C, 5, 3)
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    s2, act, res = {"norm": (None, None, False),
+                    "two": (MIXED[::-1], "gelu", True),
+                    "one act": (None, "silu", False)}[form]
+    out_w = 90 if res else 84
+    kw = _block_kw(gen, 96, MIXED, s2, act, res, 90, 80, out_w,
+                   bias=form != "one act")
+    x = _rnd(gen, 77, 90).to(dtype)
+    gy = _rnd(gen, 77, out_w).to(dtype)
+    _k4_check(x, gy, kw, dtype, 77)
+
+
+@pytest.mark.parametrize("streamed", [1, 2])
+def test_k4_streamed_tables_match_plain(cuda, monkeypatch, streamed):
+    """The named mode for blocks whose tables stay off chip: stack 1's (and
+    stack 2's) table and grad sums stream from a device-memory slab,
+    forced on a small two-stack block; and the 32 + 32-stage block on 2048
+    lanes, whose tables the planner streams itself."""
+    plan = K.bwd_plan
+
+    def forced(*a, **kw):
+        return plan(*a, **kw)._replace(streamed=streamed)
+    monkeypatch.setattr(K, "bwd_plan", forced)
+    gen = torch.Generator(device="cuda").manual_seed(streamed)
+    kw = _block_kw(gen, 96, MIXED, MIXED[::-1], "relu", True, 90, 80, 90)
+    x = _rnd(gen, 77, 90)
+    _k4_check(x, _rnd(gen, 77, 90), kw, torch.float32, 77)
+    monkeypatch.setattr(K, "bwd_plan", plan)
+    big = tuple(1 << (i % 11) for i in range(32))
+    assert K.bwd_plan(64, 2048, big, 1, 4, block=True, strides2=big,
+                      norm=True).streamed >= 1
+    kw = _block_kw(gen, 2048, big, big[::-1], "silu", True, 2048, 1536, 2048)
+    x = _rnd(gen, 64, 2048)
+    _k4_check(x, _rnd(gen, 64, 2048), kw, torch.float32, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R, G, resident", [(3, 2, False), (3, 2, True),
+                                            (1, 5, True)])
+def test_k3_chunk_shapes_match_plain(cuda, monkeypatch, dtype, R, G,
+                                     resident):
+    """K3 forced to 3-row chunks over 2 row groups (and one-row chunks over
+    5), stack 1's table resident in shared memory or read from L2: the q
+    form and the two-stack form with the residual bit for bit the plain
+    composition given the kernel's rstd."""
+    _forced_fwd_plan(monkeypatch, chunk_rows=R, groups=G, resident=resident)
+    gen = torch.Generator(device="cuda").manual_seed(R * G)
+    for s2, act, res in ((None, None, False), (QKV[::-1], "relu", True)):
+        kw = _block_kw(gen, 2048, QKV, s2, act, res, 2048, 1536,
+                       2048 if res else 1024)
+        x = _rnd(gen, 23, 2048).to(dtype)
+        y, rstd = K.spm_block_kernel_call(x, **kw)
+        want = _k3_composition(x, rstd, kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+
+
 def test_smoke_train_steps_on_card_match_cpu(cuda):
     """Two steps of the f32 smoke model: the losses and the params after
     each step on the card within the CPU tests' depth bound of the CPU's;
