@@ -130,6 +130,24 @@ Phases, each of which fails the run when it fails:
 18. **Overlap train parity**: phase 14 with the overlap schedule: the
    card's pairs through K5/K6 against phase 14's CPU step (the same f32
    function, the grads summed in other groups), reused.
+19. **The paper's own models** (``configs/paper.py``, ``models/mlp.py``,
+   ``models/gru_lm.py``, the char-LM of
+   ``benchmarks/torch_table34_charlm.py``), f32.  K1 and K2 against their
+   plain versions at every run those models give them
+   (``paper_kernel_cases``: tiles of 256-2048 at 256 rows, 12 stages on
+   2048, the 4096 split into 11 stages on 2048 then stride 2048 on 4096 at
+   256 and 4096 rows, one 12-stage run on a 4096 tile at 8 rows), held as
+   phases 2 and 5, timed beside ``torch.matmul`` with the same map.  One
+   training step of the Table 1 student (w=256), the Table 2 student
+   (w=4096), the char-LM (d=4096, B=4, T=32) and the GRU-LM
+   (``spm_rotation``, d=4096, B=4, T=16) on the card against the CPU
+   within phase 7's f32 bound, K1/K2 launches as planned; the teacher's
+   labels equal wherever the top-two gap exceeds the bound.  Then timed
+   steps (``benchmarks/torch_common.time_step``) of every model, dense and
+   SPM, at the paper's sizes (Table 1 w=256-2048 and Table 2 w=2048, 4096
+   at batch 256; the char-LM d=4096, B=32, T=128; the GRU-LM SPM only, 3
+   steps): ms a step, rows or tokens a second, dense/SPM, peak memory,
+   K1/K2 launches equal to ``plan_runs_for_rows``'s runs a step.
 
 The line before the last lists the kernels as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or run away from
@@ -2427,9 +2445,7 @@ def run_sharded_phase(torch, K, T, LM, train_mod, adamw, ServeEngine,
                                      with_overlap_executor,
                                      with_quantized_io)
     from repro_torch.data import DeterministicLoader, build_corpus
-    from repro_torch.launch.profile_train import busy_us, group_of
     from repro_torch.parallel import activation_sharding, make_feature_mesh
-    from torch.profiler import ProfilerActivity, profile
     scfg = with_feature_sharding(cfg, SHARDS)
     if overlap:
         scfg = with_overlap_executor(scfg, True)
@@ -2490,18 +2506,9 @@ def run_sharded_phase(torch, K, T, LM, train_mod, adamw, ServeEngine,
             # measure): its busy time against the untraced median step
             batch_s = {k: v.to(DEVICE) for k, v in
                        loader.batch_at(steps).items()}
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                state, metrics = step_fn(state, batch_s, 0.0)
-                LM.train_metrics(metrics)
-            intervals = []
-            for ev in prof.events():
-                if ev.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                intervals.append((ev.time_range.start, ev.time_range.end))
-                gr = groups.setdefault(group_of(ev.name), [0, 0.0])
-                gr[0] += 1
-                gr[1] += ev.time_range.elapsed_us() / 1e3
-            busy_ms = busy_us(intervals) / 1e3
+            busy_ms, groups = traced_device_ms(
+                torch, lambda: LM.train_metrics(step_fn(state, batch_s,
+                                                        0.0)[1]))
         del state, params
         torch.cuda.empty_cache()
         if not serve:
@@ -3008,6 +3015,486 @@ def run_fwd_ragged_phase(torch, K, ops, Q, cfg):
     return rows_out, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the paper's own models
+# ---------------------------------------------------------------------------
+
+PAPER_BATCH = 256       # Tables 1-2 (``configs/paper.T1_BATCH``)
+PAPER_BUDGET_S = 120    # phase 19's seconds, at most
+PAPER_VOCAB = 256       # the char-LMs' byte vocabulary
+
+
+def paper_modules():
+    """The modules phase 19 drives: the port's paper configs, data, MLP and
+    GRU-LM, and the runners' char-LM and ``time_step``."""
+    import types
+    from benchmarks import torch_common as TC
+    from benchmarks import torch_table34_charlm as CL
+    from repro_torch import data as D
+    from repro_torch import train as train_mod
+    from repro_torch.configs import paper as P
+    from repro_torch.core import pairings
+    from repro_torch.kernels import ops
+    from repro_torch.models import gru_lm as GLM
+    from repro_torch.models import mlp as MLP
+    from repro_torch.optim import adamw
+    return types.SimpleNamespace(TC=TC, CL=CL, D=D, train_mod=train_mod,
+                                 P=P, pairings=pairings, ops=ops, GLM=GLM,
+                                 MLP=MLP, adamw=adamw)
+
+
+def paper_kernel_cases(pairings):
+    """(label, n, strides, rows): the f32 runs the paper's models give K1
+    and K2: the Table 1 students at 256 rows on tiles of 256, 512, 1024 and
+    2048 (L = 8-11), Table 2's 12 stages on 2048 (stride 1 again), the
+    4096-wide linears split into 11 stages on a 2048 tile and the lone
+    stride-2048 stage on 4096 (256 rows: Table 2; 4096: the char-LM), and
+    the GRU-LM's 8 rows, one 12-stage run on a 4096 tile."""
+    def bf(n, L):
+        return pairings.make_schedule("butterfly", n, L).strides()
+    return [("t1 w256", 256, bf(256, 8), PAPER_BATCH),
+            ("t1 w512", 512, bf(512, 9), PAPER_BATCH),
+            ("t1 w1024", 1024, bf(1024, 10), PAPER_BATCH),
+            ("t1 w2048", 2048, bf(2048, 11), PAPER_BATCH),
+            ("t2 w2048", 2048, bf(2048, 12), PAPER_BATCH),
+            ("t2 w4096", 4096, bf(4096, 12), PAPER_BATCH),
+            ("charlm d4096", 4096, bf(4096, 12), 4096),
+            ("gru d4096 B8", 4096, bf(4096, 12), 8)]
+
+
+def run_paper_kernel_phase(torch, K, ops, pairings, timer):
+    """K1 and K2 in f32 over each run chain ``plan_runs_for_rows`` gives
+    the paper's shapes, held as phases 2 and 5 hold them: K1 bit for bit
+    its plain version and a second launch bitwise; K2's g_x bit for bit,
+    its grads within gamma_rows of the sums of their terms' magnitudes, a
+    second launch bitwise.  Logged with each run's launch shapes
+    (``fwd_plan``, ``bwd_plan``), the chain's ms, its bound, the plain
+    chain's ms and, as yardstick, ``torch.matmul`` with the same dense map
+    (TF32 off) and a dense backward's two products."""
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(1919)
+    abs_sum = (lambda t: t.abs().sum(0))
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    def mix(L, n):
+        th = (torch.rand(L, n // 2, generator=g, device=DEVICE) * 2 - 1) \
+            * math.pi
+        c, s = torch.cos(th), torch.sin(th)
+        return torch.stack([c, -s, s, c], dim=-1) + rnd(L, n // 2, 4,
+                                                        scale=0.05)
+
+    for label, n, strides, rows in paper_kernel_cases(pairings):
+        L = len(strides)
+        cf = mix(L, n)
+        d_in, d_out, b = 1 + 0.1 * rnd(n), 1 + 0.1 * rnd(n), 0.1 * rnd(n)
+        x, gy = rnd(rows, n), rnd(rows, n)
+        runs = ops.plan_runs_for_rows(n, strides, rows)
+
+        def chain(call, x=x, runs=runs):
+            z, off = x, 0
+            for r, (rs, nt) in enumerate(runs):
+                last = r == len(runs) - 1
+                kw = dict(strides=rs) if call is K.spm_stack_plain else \
+                    dict(strides=rs, n_tile=nt)
+                z = call(z, cf[off: off + len(rs)],
+                         d_in if r == 0 else None, d_out if last else None,
+                         b if last else None, **kw)
+                off += len(rs)
+            return z
+
+        kern = chain(K.spm_stack_kernel_call)
+        again = chain(K.spm_stack_kernel_call)
+        plain = chain(K.spm_stack_plain)
+        _, saved = ops.forward_runs(x, cf, runs, d_in, d_out, b, None, None)
+        args = (saved, cf, gy, runs, d_in, d_out, True, None, None)
+        bwd_ok, gx_err, worst, det = check_bwd(
+            torch, lambda: ops.backward_runs(K.spm_stack_bwd_kernel_call,
+                                             *args),
+            lambda: ops.backward_runs(K.spm_stack_bwd_plain, *args),
+            lambda: ops.backward_runs(functools.partial(
+                K.spm_stack_bwd_plain, col_sum=abs_sum), *args), rows)
+        torch.cuda.synchronize()
+        err = (kern - plain).abs().max().item()
+        fwd_ok = (err == 0 and torch.equal(kern, again)
+                  and bool(torch.isfinite(kern).all()))
+        # times: the chain as the model runs it, its plain version, and the
+        # dense yardsticks (the same linear map as one f32 product)
+        ms1 = timer(lambda: chain(K.spm_stack_kernel_call))
+        plain1 = timer(lambda: chain(K.spm_stack_plain))
+        dense = chain(K.spm_stack_plain, x=torch.eye(n, device=DEVICE)) - b
+        lib1 = timer(lambda: torch.matmul(x, dense))
+        ms2 = timer(lambda: ops.backward_runs(K.spm_stack_bwd_kernel_call,
+                                              *args))
+        plain2 = timer(lambda: ops.backward_runs(K.spm_stack_bwd_plain,
+                                                 *args))
+        lib2 = timer(lambda: (torch.matmul(gy, dense.T),
+                              torch.matmul(x.T, gy)))
+        # bounds as phases 2 and 5 count them (f32 I/O)
+        nb1 = rows * 2 * n * 4 + L * n // 2 * 16 + 3 * 4 * n
+        fl1 = rows * n * (3 * L + 2 * len(runs))
+        nb2 = rows * 3 * n * 4 + 2 * L * n // 2 * 16 + 2 * 3 * 4 * n
+        fl2 = rows * n * (10 * L + 6 * len(runs))
+        b1, by1 = bound(nb1, fl1)
+        b2, by2 = bound(nb2, fl2)
+        fplans = [fwd_plan_of(K, rows, nt, rs, n // nt, 4) for rs, nt in runs]
+        bplans = [K.bwd_plan(rows, nt, rs, n // nt, 4, 4)._asdict()
+                  for rs, nt in runs]
+        runs_l = [[list(rs), nt] for rs, nt in runs]
+        rows_out.append(dict(
+            kernel="K1", case=label, dtype="float32", rows=rows, n=n,
+            runs=runs_l, fwd_plans=fplans, launches_per_call=len(runs),
+            max_abs_err=err, tol=0.0, ms=ms1, plain_ms=plain1, bound_ms=b1,
+            bound_by=by1, library_ms=lib1, ok=fwd_ok))
+        rows_out.append(dict(
+            kernel="K2", case=label, dtype="float32", rows=rows, n=n,
+            runs=runs_l, bwd_plans=bplans, launches_per_call=len(runs),
+            gx_max_abs_err=gx_err, max_abs_err=gx_err,
+            grad_err_over_limit=worst, deterministic=det, ms=ms2,
+            plain_ms=plain2, bound_ms=b2, bound_by=by2, library_ms=lib2,
+            ok=bwd_ok))
+        log(f"paper K1 {label:13s} rows={rows:5d} runs="
+            f"{[(len(rs), nt) for rs, nt in runs]} err={err:.1e} (tol 0) "
+            f"ms={ms1:.4f} plain_ms={plain1:.4f} bound_ms={b1:.4f} ({by1}) "
+            f"matmul_ms={lib1:.4f} plans={[plan_str(p) for p in fplans]} "
+            f"{'ok' if fwd_ok else 'FAIL'}")
+        log(f"paper K2 {label:13s} rows={rows:5d} gx_err={gx_err:.1e} (tol 0)"
+            f" grad err/limit={worst:.3f} det={det} ms={ms2:.4f} plain_ms="
+            f"{plain2:.4f} bound_ms={b2:.4f} ({by2}) matmul_ms={lib2:.4f} "
+            f"plans={[bwd_plan_str(p) for p in bplans]} "
+            f"{'ok' if bwd_ok else 'FAIL'}")
+        if not fwd_ok:
+            failures.append(f"paper K1 {label}")
+        if not bwd_ok:
+            failures.append(f"paper K2 {label}")
+    return rows_out, failures
+
+
+@dataclasses.dataclass
+class PaperModel:
+    """One of the paper's models at one size, its weights made on the CPU
+    from a seed and its batch from numpy."""
+    label: str
+    init: object            # () -> params on the CPU
+    loss: object            # (params, batch) -> (loss, metrics)
+    batch: dict             # CPU tensors
+    launches: int           # K1 (and K2) launches a forward (backward)
+    depth: int              # dependent f32 roundings of a grad
+    tokens: int             # rows (Tables 1-2) or tokens a step
+
+
+def paper_model(torch, M, kind, impl, width, B, T=None, seed=0):
+    """``kind`` "t1" (Table 1 student, teacher labels), "t2" (Table 2
+    student, hashed text), "charlm" (Tables 3-4) or "gru" (the §6 GRU-LM,
+    one layer, the closed-form backward)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    gen = (lambda: torch.Generator().manual_seed(seed))
+
+    def runs(lin, rows):
+        if not lin.is_spm:
+            return 0
+        scfg = lin.spm_config()
+        return len(M.ops.plan_runs_for_rows(scfg.n, scfg.pairing.strides(),
+                                            rows))
+
+    def stages(lin):
+        return lin.spm_config().n_stages if lin.is_spm else 0
+
+    if kind in ("t1", "t2"):
+        t1 = kind == "t1"
+        n_cls = M.P.T1_CLASSES if t1 else M.P.AGNEWS_CLASSES
+        cfg = M.P.student_cfg(width, n_cls, impl,
+                              n_stages=None if t1 else M.P.AGNEWS_L)
+        if t1:
+            tc = M.D.TeacherConfig(width=width, n_classes=n_cls)
+            batch = M.D.teacher_batch(M.D.make_teacher(tc, device="cpu"),
+                                      tc, rng, B)
+        else:
+            batch = M.D.hashed_text_batch(M.D.HashedTextConfig(
+                width=width, n_classes=n_cls), rng, B, device="cpu")
+        fwd = 3 * stages(cfg.mix) + 4 + width + n_cls
+        return PaperModel(
+            f"{'Table 1' if t1 else 'Table 2'} w={width} {impl}",
+            lambda: M.MLP.init_mlp(gen(), cfg, "cpu"),
+            lambda p, b: M.MLP.mlp_loss(p, b, cfg), batch,
+            runs(cfg.mix, B), 2 * fwd + B, B)
+    ch = torch.from_numpy(rng.integers(0, PAPER_VOCAB, (B, T + 1)))
+    batch = {"tokens": ch[:, :-1], "labels": ch[:, 1:]}
+    if kind == "charlm":
+        cfg = M.CL.CharLMCfg(d=width, impl=impl)
+        fwd = 3 * stages(cfg.proj) + 4 + width + PAPER_VOCAB
+        return PaperModel(
+            f"char-LM d={width} {impl}", lambda: M.CL.init_charlm(cfg, "cpu"),
+            lambda p, b: M.CL.charlm_loss(p, b, cfg), batch,
+            runs(cfg.proj, B * T), 2 * fwd + B * T, B * T)
+    cfg = M.GLM.GRULMConfig(vocab_size=PAPER_VOCAB, d_model=width,
+                            linear_impl=impl, spm_backward="custom")
+    u = cfg.gru_cfg().u
+    fwd = T * (2 * (3 * stages(u) + 4) + 12) + width + PAPER_VOCAB
+    return PaperModel(
+        f"GRU-LM d={width} {impl}",
+        lambda: M.GLM.init_gru_lm(gen(), cfg, "cpu"),
+        lambda p, b: M.GLM.gru_lm_loss(p, b, cfg), batch,
+        6 * T * runs(u, B), 2 * fwd + B * T, B * T)
+
+
+def paper_step(M, model):
+    """The runners' step for ``model``: AdamW at the paper's rates (Tables
+    1-2 lr 3e-3; the LMs 1e-3, no warm-up)."""
+    lr = 3e-3 if model.label.startswith("Table") else 1e-3
+    return M.train_mod.make_train_step(
+        model.loss, M.adamw.OptimizerConfig(lr=lr, warmup_steps=0))
+
+
+def paper_parity_cases(torch, M):
+    return [paper_model(torch, M, "t1", "spm_general", 256, PAPER_BATCH),
+            paper_model(torch, M, "t2", "spm_general", 4096, PAPER_BATCH),
+            paper_model(torch, M, "charlm", "spm_general", 4096, 4, 32),
+            paper_model(torch, M, "gru", "spm_rotation", 4096, 4, 16)]
+
+
+def run_paper_parity_phase(torch, K, M):
+    """Each model's training step on the card (K1/K2) against the CPU
+    (their plain versions) with the same weights and batch, as phase 7
+    holds the transformer: the loss, every grad as a relative norm and the
+    params after AdamW, within 8 sqrt(depth) eps32 relative, depth the
+    model's dependent roundings (the stage walks forward and back, the
+    head's and the softmax's sums, the GRU's steps, the grads' row sums).
+    The card's K1 and K2 launches equal the plan (two forwards and two
+    backwards: the grads, then the step).  Then the Table 1 teacher's
+    labels on the card against the CPU's, equal wherever the CPU's top-two
+    gap exceeds twice 8 gamma_k of its logits (k = 3L + 3 + width); the
+    other rows are counted."""
+    results, ok_all = [], True
+    for model in paper_parity_cases(torch, M):
+        t0 = time.perf_counter()
+        rel = 8 * math.sqrt(model.depth) * EPS["float32"]
+        params = model.init()
+        out = {}
+        for side, p in (("cpu", params), ("card", copy.deepcopy(params).to(
+                DEVICE))):
+            dev = "cpu" if side == "cpu" else DEVICE
+            b = {k: v.to(dev) for k, v in model.batch.items()}
+            K.reset_launch_counts()
+            state = M.train_mod.make_train_state(p)
+            loss, _ = model.loss(p, b)
+            loss.backward()
+            grads = {k: q.grad.detach().cpu() for k, q in
+                     p.named_parameters()}
+            p0 = {k: q.detach().cpu().clone()
+                  for k, q in p.named_parameters()}
+            state, m = paper_step(M, model)(state, b)
+            out[side] = dict(
+                loss=loss.item(), grads=grads, p0=p0,
+                p1={k: q.detach().cpu() for k, q in p.named_parameters()},
+                launches=(K.spm_stack_kernel_call.launches,
+                          K.spm_stack_bwd_kernel_call.launches),
+                skipped=float(m["skipped"]))
+        a, c = out["card"], out["cpu"]
+        loss_err = abs(a["loss"] - c["loss"]) / abs(c["loss"])
+        worst_name, worst = None, 0.0
+        for k, gc in c["grads"].items():
+            num = (a["grads"][k] - gc).norm().item()
+            den = gc.norm().item()
+            r = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+            if r >= worst:
+                worst_name, worst = k, r
+        diff = math.sqrt(sum(float(((a["p1"][k] - c["p1"][k]) ** 2).sum())
+                             for k in c["p1"]))
+        moved = math.sqrt(sum(float(((c["p1"][k] - c["p0"][k]) ** 2).sum())
+                              for k in c["p1"]))
+        want = (2 * model.launches, 2 * model.launches)
+        ok = (loss_err <= rel and worst <= rel and diff <= rel * moved
+              and a["skipped"] == 0.0 == c["skipped"]
+              and a["launches"] == want and c["launches"] == (0, 0))
+        secs = time.perf_counter() - t0
+        results.append(dict(
+            model=model.label, loss_card=a["loss"], loss_cpu=c["loss"],
+            loss_rel_err=loss_err, worst_grad_rel_err=worst,
+            worst_grad=worst_name, params_diff_norm=diff, update_norm=moved,
+            rel_tol=rel, card_launches=a["launches"], planned=want,
+            seconds=secs, ok=ok))
+        log(f"paper parity {model.label}: loss card {a['loss']:.6f} cpu "
+            f"{c['loss']:.6f} (rel {loss_err:.1e}), worst grad rel err "
+            f"{worst:.1e} ({worst_name}), params diff {diff:.2e} vs update "
+            f"{moved:.2e}; tol {rel:.1e}; K1/K2 launches {a['launches']} "
+            f"(planned {want}) {secs:.1f} s {'ok' if ok else 'FAIL'}")
+        ok_all = ok_all and ok
+    # the Table 1 teacher's labels
+    tc = M.D.TeacherConfig(width=256)
+    L = tc.spm_cfg().n_stages
+    import numpy as np
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (PAPER_BATCH, 256), dtype=np.float32))
+    K.reset_launch_counts()
+    lc = M.D.teacher_logits(M.D.make_teacher(tc, device="cpu"), x, tc)
+    la = M.D.teacher_logits(M.D.make_teacher(tc, device=DEVICE),
+                            x.to(DEVICE), tc).cpu()
+    launched = K.spm_stack_kernel_call.launches
+    bound_ = 8 * (3 * L + 3 + 256) * EPS["float32"] * lc.abs().max().item()
+    top2 = lc.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * bound_
+    same = bool((la.argmax(-1) == lc.argmax(-1))[decided].all())
+    n_undecided = int((~decided).sum())
+    t_ok = same and launched == 1
+    log(f"paper teacher labels (w=256, {PAPER_BATCH} rows): equal on the "
+        f"{int(decided.sum())} decided rows={same}, {n_undecided} within "
+        f"2 x {bound_:.1e} of a tie, K1 launches {launched} (planned 1) "
+        f"{'ok' if t_ok else 'FAIL'}")
+    results.append(dict(model="Table 1 teacher labels", decided=int(
+        decided.sum()), undecided=n_undecided, equal=same, launches=launched,
+        ok=t_ok))
+    return results, ok_all and t_ok
+
+
+def paper_timed_cases(torch, M):
+    """(model, steps timed after warm-up): every paper width, dense and
+    SPM; the GRU-LM SPM only, one warm-up and 3 timed steps."""
+    P = M.P
+    out = []
+    for w in P.TEACHER_WIDTHS:
+        for impl in ("dense", "spm_general"):
+            out.append((lambda w=w, impl=impl: paper_model(
+                torch, M, "t1", impl, w, P.T1_BATCH), 2, 5))
+    for w in P.AGNEWS_WIDTHS:
+        for impl in ("dense", "spm_general"):
+            out.append((lambda w=w, impl=impl: paper_model(
+                torch, M, "t2", impl, w, PAPER_BATCH), 2, 5))
+    for impl in ("dense", "spm_general"):
+        out.append((lambda impl=impl: paper_model(
+            torch, M, "charlm", impl, P.CHARLM_D, P.CHARLM_B, P.CHARLM_T),
+            2, 5))
+    out.append((lambda: paper_model(torch, M, "gru", "spm_rotation",
+                                    P.CHARLM_D, P.CHARLM_B, P.CHARLM_T),
+                1, 3))
+    return out
+
+
+def traced_device_ms(torch, fn):
+    """A call of ``fn`` under ``torch.profiler`` tracing the device alone
+    (``launch.profile_train``'s measure), after one warm-up call under the
+    profiler (the first kernels of a trace started cold can go
+    unrecorded): the device's busy ms (the union of kernel intervals) and
+    ``{kernel group: [launches, ms]}``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.launch.profile_train import busy_us, group_of
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    intervals, groups = [], {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        intervals.append((ev.time_range.start, ev.time_range.end))
+        gr = groups.setdefault(group_of(ev.name), [0, 0.0])
+        gr[0] += 1
+        gr[1] += ev.time_range.elapsed_us() / 1e3
+    return busy_us(intervals) / 1e3, groups
+
+
+def run_paper_timed_phase(torch, K, M):
+    """A training step of each model on the card, timed by the runners'
+    ``torch_common.time_step`` (the median wall-clock step, synchronized;
+    f32, TF32 off for the dense products): ms a step, rows or tokens a
+    second, peak memory, and K1/K2 launches equal to the plan over the
+    warm-up and timed steps; then a step traced on the device
+    (``traced_device_ms``): its busy ms, idle share against the median
+    step, and device ms by kernel group.  For Table 1 the teacher labels one batch on
+    the card first: one K1 launch, no K2."""
+    results, ok_all = [], True
+    dense_ms = {}
+    for make, warmup, iters in paper_timed_cases(torch, M):
+        model = make()
+        params = model.init().to(DEVICE)
+        state = M.train_mod.make_train_state(params)
+        step = paper_step(M, model)
+        batch = {k: v.to(DEVICE) for k, v in model.batch.items()}
+        label_launches = None
+        if model.label.startswith("Table 1"):
+            import numpy as np
+            width = batch["x"].shape[1]
+            tc = M.D.TeacherConfig(width=width)
+            teacher = M.D.make_teacher(tc, device=DEVICE)
+            K.reset_launch_counts()
+            batch = M.D.teacher_batch(teacher, tc,
+                                      np.random.default_rng(0), PAPER_BATCH)
+            torch.cuda.synchronize()
+            label_launches = (K.spm_stack_kernel_call.launches,
+                              K.spm_stack_bwd_kernel_call.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        ms = M.TC.time_step(step, state, batch, warmup=warmup,
+                            iters=iters) * 1e3
+        got = (K.spm_stack_kernel_call.launches,
+               K.spm_stack_bwd_kernel_call.launches)
+        want = ((warmup + iters) * model.launches,) * 2
+        peak = torch.cuda.max_memory_allocated()
+        # a traced step: its device busy ms against the median step
+        busy, groups = traced_device_ms(torch, lambda: step(state, batch))
+        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:4]
+        ok = got == want and label_launches in (None, (1, 0))
+        impl = model.label.rsplit(" ", 1)[1]
+        key = model.label.rsplit(" ", 1)[0]
+        if impl == "dense":
+            dense_ms[key] = ms
+        speedup = (dense_ms[key] / ms if impl != "dense" and key in dense_ms
+                   else None)
+        rate = model.tokens / ms * 1e3
+        results.append(dict(
+            model=model.label, ms_per_step=ms, per_s=rate,
+            unit="rows" if model.label.startswith("Table") else "tokens",
+            dense_over_spm=speedup, peak_mem_bytes=peak,
+            device_busy_ms=busy, device_idle_share=1 - busy / ms,
+            device_ms_by_group={g: v[1] for g, v in groups.items()},
+            launches_by_group={g: v[0] for g, v in groups.items()},
+            launches=got,
+            planned=want, label_launches=label_launches, warmup=warmup,
+            iters=iters, ok=ok))
+        log(f"paper step {model.label}: {ms:.3f} ms (median of {iters} "
+            f"after {warmup}), {rate:,.0f} "
+            f"{'rows' if model.label.startswith('Table') else 'tokens'}/s, "
+            f"peak {peak / 2**30:.2f} GiB"
+            f"{'' if speedup is None else f', dense/SPM {speedup:.2f}x'}; "
+            f"a traced step busy {busy:.3f} ms ({1 - busy / ms:.0%} idle), "
+            f"{', '.join(f'{g} {v[1]:.3f} ({v[0]})' for g, v in top)}; "
+            f"K1/K2 launches {got} (planned {want})"
+            f"{'' if label_launches is None else f', labels {label_launches} (planned (1, 0))'}"
+            f" {'ok' if ok else 'FAIL'}")
+        ok_all = ok_all and ok
+        del params, state, batch
+    return results, ok_all
+
+
+def run_paper_phase(torch, K, timer):
+    """Phase 19: the kernels at the paper's shapes, the four models' steps
+    against the CPU, then the timed steps.  Returns (report, failures)."""
+    M = paper_modules()
+    out, secs = {}, {}
+    t = time.perf_counter()
+    out["kernels"], failures = run_paper_kernel_phase(torch, K, M.ops,
+                                                      M.pairings, timer)
+    secs["kernels"] = time.perf_counter() - t
+    out["parity"], parity_ok = run_paper_parity_phase(torch, K, M)
+    secs["parity"] = time.perf_counter() - t - secs["kernels"]
+    out["steps"], steps_ok = run_paper_timed_phase(torch, K, M)
+    secs["steps"] = time.perf_counter() - t - secs["kernels"] \
+        - secs["parity"]
+    log("phase 19 parts: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in secs.items()))
+    out["seconds"] = secs
+    failures += [] if parity_ok else ["paper parity"]
+    failures += [] if steps_ok else ["paper steps"]
+    return out, failures
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3019,6 +3506,7 @@ def main() -> int:
               "missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    sys.path.insert(0, HERE)
     from repro_torch.configs import get_config
     from repro_torch.configs import with_feature_sharding, with_quantized_io
     from repro_torch.kernels import build, ops
@@ -3127,6 +3615,12 @@ def main() -> int:
         "18", run_train_parity_phase, torch, T, LM, train_mod, adamw, cfg,
         shards=SHARDS, overlap=True, cpu_side=sharded_cpu)
     del sharded_cpu
+    paper, paper_failures = phase("19 paper", run_paper_phase, torch, K,
+                                  timer)
+    failures += paper_failures
+    if phase_s["19 paper"] > PAPER_BUDGET_S:
+        failures.append(f"phase 19 took {phase_s['19 paper']:.1f} s of "
+                        f"its {PAPER_BUDGET_S} s")
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -3224,6 +3718,7 @@ def main() -> int:
                   sharded=sharded, sharded_train_parity=sparity,
                   overlap=overlap, int8_overlap=q8_overlap,
                   overlap_train_parity=oparity,
+                  paper=paper,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",

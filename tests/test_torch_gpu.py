@@ -7,6 +7,7 @@ where no Hopper GPU is present; run them on the card with
 Tolerances are derived as in ``tests/test_torch_spm.py``.
 """
 
+import copy
 import math
 
 import numpy as np
@@ -1148,3 +1149,129 @@ def test_overlap_raises_without_the_pair_kernel(cuda, monkeypatch):
     finally:
         K._fn.cache_clear()
     assert not mixes
+
+
+# ---------------------------------------------------------------------------
+# the paper's own models: K1/K2 at their f32 shapes, a training step each
+# ---------------------------------------------------------------------------
+
+def _butterfly(n, L):
+    from repro_torch.core.pairings import make_schedule
+    return make_schedule("butterfly", n, L).strides()
+
+
+@pytest.mark.parametrize("n, L, rows", [
+    (256, 8, 256), (512, 9, 256), (1024, 10, 256),    # Table 1 tiles
+    (2048, 12, 256),                                  # stride 1 again
+    (4096, 12, 256), (4096, 12, 4096),                # 11 on 2048, then 2048
+    (4096, 12, 8)])                                   # one run on 4096
+def test_k1_k2_paper_shapes_match_plain(cuda, n, L, rows):
+    """f32 over each run chain ``plan_runs_for_rows`` gives the paper's
+    models: every K1 run bit for bit its plain version and a second launch;
+    K2's g_x bit for bit, its grads within gamma_rows of their terms'
+    magnitudes, a second launch bitwise."""
+    strides = _butterfly(n, L)
+    runs = ops.plan_runs_for_rows(n, strides, rows)
+    gen = torch.Generator(device="cuda").manual_seed(n + rows)
+    cf = _rnd(gen, L, n // 2, 4, scale=0.5)
+    d_in, d_out, b = (1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n),
+                      0.1 * _rnd(gen, n))
+    x, gy = _rnd(gen, rows, n), _rnd(gen, rows, n)
+    z, off = x, 0
+    for r, (rs, nt) in enumerate(runs):
+        last = r == len(runs) - 1
+        args = (z, cf[off:off + len(rs)], d_in if r == 0 else None,
+                d_out if last else None, b if last else None)
+        z = K.spm_stack_kernel_call(*args, strides=rs, n_tile=nt)
+        assert torch.equal(z, K.spm_stack_plain(*args, strides=rs))
+        assert torch.equal(z, K.spm_stack_kernel_call(*args, strides=rs,
+                                                      n_tile=nt))
+        off += len(rs)
+    _, saved = ops.forward_runs(x, cf, runs, d_in, d_out, b, None, None)
+    args = (saved, cf, gy, runs, d_in, d_out, True, None, None)
+    got = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args)
+    again = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args)
+    want = ops.backward_runs(K.spm_stack_bwd_plain, *args)
+    mags = ops.backward_runs(
+        lambda *a, **kw: K.spm_stack_bwd_plain(*a, col_sum=_abs_sum, **kw),
+        *args)
+    torch.cuda.synchronize()
+    for g, a, w, m in zip(got, again, want, mags):
+        assert torch.equal(g[0], w[0])
+        _grads_within(g[1:], w[1:], m[1:], rows)
+        assert all(torch.equal(u, v) for u, v in zip(g, a))
+
+
+def _step_on_both(init, loss_fn, batch, lr):
+    """One training step of a model on the CPU and on the card from the same
+    weights and batch: (loss, grads, params before, params after) each."""
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train import make_train_state, make_train_step
+    out = {}
+    params = init()
+    sides = {"cuda": copy.deepcopy(params).to("cuda"), "cpu": params}
+    for dev, p in sides.items():
+        b = {k: v.to(dev) for k, v in batch.items()}
+        state = make_train_state(p)
+        loss, _ = loss_fn(p, b)
+        loss.backward()
+        grads = {k: q.grad.cpu() for k, q in p.named_parameters()}
+        p0 = {k: q.detach().cpu().clone() for k, q in p.named_parameters()}
+        make_train_step(loss_fn, OptimizerConfig(lr=lr, warmup_steps=0))(
+            state, b)
+        out[dev] = (loss.item(), grads, p0,
+                    {k: q.detach().cpu() for k, q in p.named_parameters()})
+    return out
+
+
+def _hold_step(out, depth):
+    """Phase 7's criterion: the loss, each grad as a relative norm and the
+    params after AdamW within 8 sqrt(depth) eps32 relative."""
+    rel = 8 * math.sqrt(depth) * 2.0 ** -23
+    (lc, gc, p0, pc), (la, ga, _, pa) = out["cpu"], out["cuda"]
+    assert abs(la - lc) <= rel * abs(lc)
+    for k in gc:
+        assert (ga[k] - gc[k]).norm() <= rel * gc[k].norm(), k
+    diff = sum(float(((pa[k] - pc[k]) ** 2).sum()) for k in pc) ** 0.5
+    moved = sum(float(((pc[k] - p0[k]) ** 2).sum()) for k in pc) ** 0.5
+    assert diff <= rel * moved
+
+
+def test_paper_mlp_step_on_card_matches_cpu(cuda):
+    """One step of the Table 2 student (w=4096, L=12: two K1 and two K2
+    runs) on hashed text, the card against the CPU."""
+    from repro_torch.configs.paper import AGNEWS_L, student_cfg
+    from repro_torch.data import HashedTextConfig, hashed_text_batch
+    from repro_torch.models import init_mlp, mlp_loss
+    w, rows = 4096, 64
+    cfg = student_cfg(w, 4, "spm_general", n_stages=AGNEWS_L)
+    batch = hashed_text_batch(HashedTextConfig(width=w),
+                              np.random.default_rng(0), rows, device="cpu")
+    K.reset_launch_counts()
+    out = _step_on_both(
+        lambda: init_mlp(torch.Generator().manual_seed(0), cfg, "cpu"),
+        lambda p, b: mlp_loss(p, b, cfg), batch, 3e-3)
+    assert K.spm_stack_kernel_call.launches == 4
+    assert K.spm_stack_bwd_kernel_call.launches == 4
+    _hold_step(out, 2 * (3 * AGNEWS_L + 4 + w + 4) + rows)
+
+
+def test_paper_gru_lm_step_on_card_matches_cpu(cuda):
+    """One step of the §6 GRU-LM (rotation variant, closed-form backward,
+    d=512, B=4, T=8: six K1 runs a time step forward, six K2 back), the
+    card against the CPU."""
+    from repro_torch.models import GRULMConfig, gru_lm_loss, init_gru_lm
+    d, B, T, V = 512, 4, 8, 256
+    cfg = GRULMConfig(vocab_size=V, d_model=d, linear_impl="spm_rotation",
+                      spm_backward="custom")
+    ch = torch.from_numpy(np.random.default_rng(1).integers(0, V,
+                                                           (B, T + 1)))
+    K.reset_launch_counts()
+    out = _step_on_both(
+        lambda: init_gru_lm(torch.Generator().manual_seed(0), cfg, "cpu"),
+        lambda p, b: gru_lm_loss(p, b, cfg),
+        {"tokens": ch[:, :-1], "labels": ch[:, 1:]}, 1e-3)
+    assert K.spm_stack_kernel_call.launches == 2 * 6 * T
+    assert K.spm_stack_bwd_kernel_call.launches == 2 * 6 * T
+    L = cfg.gru_cfg().u.spm_config().n_stages
+    _hold_step(out, 2 * (T * (2 * (3 * L + 4) + 12) + d + V) + B * T)
