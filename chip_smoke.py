@@ -148,6 +148,24 @@ Phases, each of which fails the run when it fails:
    at batch 256; the char-LM d=4096, B=32, T=128; the GRU-LM SPM only, 3
    steps): ms a step, rows or tokens a second, dense/SPM, peak memory,
    K1/K2 launches equal to ``plan_runs_for_rows``'s runs a step.
+20. **Continuous serve**: ``ContinuousBatchingEngine`` on full-width,
+   full-depth ``qwen3-1.7b`` (8 slots, ``max_len`` 576, bf16 KV cache): 24
+   requests (prompts 9-512, so buckets 16-512; 16, 32 or 64 tokens;
+   greedy, top-k, top-p, both) at Poisson arrivals of 0.25 and 2.0
+   requests a tick after a warm-up request.  Every request its tokens, in
+   range, unflagged; admits after arrivals; K1/K3 launches equal to the
+   plan (one prefill row of each bucket, each tick at 8 rows).  Churn
+   parity bit for bit (each request at both loads, and three served alone
+   through an 8-slot engine); greedy requests against batch 1 on the card,
+   teacher-forced: equal tokens wherever the top-2 gap exceeds phase 4's
+   bound; K1/K3 against their plain
+   versions at every row count the serve gave them (8, and each bucket's
+   16-512) as in phase 2.  Tokens/s, ms a tick,
+   occupancy, p50/p99 latency in ticks, admit ms per bucket, peak memory,
+   a traced tick's busy ms and idle share.  Then 8 requests each on
+   ``with_quantized_io`` (K1's int8 modes) and on the 4-shard overlap
+   executor (K5) at full width and 8 layers: tokens in range, launches as
+   planned.
 
 The line before the last lists the kernels as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or run away from
@@ -329,10 +347,12 @@ def bwd_plan_str(p) -> str:
             f"G{p['groups']}{' streamed ' + str(p['streamed']) if p['streamed'] else ''}")
 
 
-def run_kernel_phase(torch, K, ops, timer):
-    """K1 is held bit for bit: its kernel rounds every product and sum on
-    its own (``__fmul_rn``/``__fadd_rn``), as the plain version's eager
-    ops do, and sums nothing else.  K3 is held within two ulps of the I/O
+def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
+    """Phase 2 over ``k1_cases()`` and ``k3_cases()`` in bf16 and f32, or
+    over the given cases and dtypes (phase 20).  K1 is held bit for bit:
+    its kernel rounds every product and sum on its own
+    (``__fmul_rn``/``__fadd_rn``), as the plain version's eager ops do, and
+    sums nothing else.  K3 is held within two ulps of the I/O
     type at each element plus ``k3_f32_term``, and, given its own rstd,
     bit for bit to ``k3_composition`` wherever no silu or gelu sits between
     the stacks (CUDA's expf/tanhf are not PyTorch's)."""
@@ -355,9 +375,10 @@ def run_kernel_phase(torch, K, ops, timer):
     def vec(n):
         return 1 + 0.1 * rnd(n)
 
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in dtypes or (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
-        for label, n, strides, rows, in_w, out_w in k1_cases():
+        for label, n, strides, rows, in_w, out_w in (k1_cases() if k1 is None
+                                                     else k1):
             cf = mix(len(strides), n)
             d_in, d_out, b = vec(n), vec(n), 0.1 * rnd(n)
             x = rnd(rows, in_w).to(dt)
@@ -447,7 +468,8 @@ def run_kernel_phase(torch, K, ops, timer):
 
         n = 2048
         strides = tuple(1 << i for i in range(11))
-        for label, rows, out_w, act, two in k3_cases():
+        for label, rows, out_w, act, two in (k3_cases() if k3 is None
+                                             else k3):
             kw = dict(coeffs1=mix(11, n), d_in1=vec(n),
                       d_out1=vec(n), bias1=0.1 * rnd(n), gamma=vec(n),
                       strides1=strides, in_width=n, out_width=out_w,
@@ -3495,6 +3517,367 @@ def run_paper_phase(torch, K, timer):
     return out, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 20: continuous batching
+# ---------------------------------------------------------------------------
+
+CB_SLOTS = 8
+CB_MAX_LEN = 576
+CB_PROMPTS = (9, 37, 120, 250, 512, 64)      # cycled: buckets 16 to 512
+CB_NEW = (16, 32, 64)                         # cycled max_new_tokens
+# cycled (temperature, top_k, top_p): greedy, top-k, top-p, both
+CB_SAMPLING = ((0.0, 0, 1.0), (0.8, 50, 1.0), (1.0, 0, 0.9),
+               (0.7, 20, 0.95))
+CB_REQUESTS = 24
+CB_LOADS = (0.25, 2.0)                        # Poisson requests a tick
+CB_SIDE_REQUESTS = 8                          # the int8 and overlap runs
+CB_SIDE_LAYERS = 8                            # their depth, of 28
+
+
+def cb_requests(torch, Request, vocab, n=CB_REQUESTS):
+    """The phase's requests: prompts from a seeded generator, lengths,
+    budgets and sampling cycled."""
+    gen = torch.Generator().manual_seed(20)
+    out = []
+    for i in range(n):
+        t, k, p = CB_SAMPLING[i % len(CB_SAMPLING)]
+        plen = CB_PROMPTS[i % len(CB_PROMPTS)]
+        out.append(Request(
+            prompt=torch.randint(0, vocab, (plen,), generator=gen),
+            max_new_tokens=CB_NEW[i % len(CB_NEW)], temperature=t,
+            top_k=k, top_p=p, rid=i))
+    return out
+
+
+@contextlib.contextmanager
+def tick_clock(torch, eng):
+    """Times each of ``eng``'s ticks, from its call until the device has
+    finished it (the engine reads the new tokens right after, so the
+    synchronize adds no wait of its own); yields the list of ms."""
+    inner, ms = eng._tick, []
+
+    def tick():
+        t = time.perf_counter()
+        bad = inner()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        return bad
+
+    eng._tick = tick
+    try:
+        yield ms
+    finally:
+        eng._tick = inner
+
+
+def cb_plan(planner, eng, reqs, ticks: int) -> dict:
+    """Launches the plan gives a serve: ``planner(rows)`` (a dict of one
+    forward's launches) for each request's prefill of one row of its
+    bucket, plus ``ticks`` ticks at ``slots`` rows."""
+    total = {}
+    for rows, times in [(eng._bucket(len(r.prompt)), 1) for r in reqs] \
+            + [(eng.slots, ticks)]:
+        for k, v in planner(rows).items():
+            total[k] = total.get(k, 0) + times * v
+    return total
+
+
+def cb_serve(torch, K, eng, reqs, arrivals, planner, counts, vocab):
+    """One serve with the launch counts set to 0 just before and read just
+    after: every request exactly its ``max_new_tokens`` tokens, in range,
+    unflagged; arrival <= admitted <= finished; occupancy within the pool;
+    launches equal to ``cb_plan``.  Tokens/s, ms a tick, occupancy, tick
+    latencies (finished - arrival; nearest rank, as
+    ``benchmarks/torch_serve_bench.py``) and peak memory."""
+    from repro_torch.serve.schedule import percentile_ticks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with tick_clock(torch, eng) as ms:
+        t0 = time.perf_counter()
+        results, stats = eng.serve(reqs, arrival_ticks=arrivals)
+        wall = time.perf_counter() - t0
+    got = counts()
+    plan = cb_plan(planner, eng, reqs, len(ms))
+    bad = []
+    for i, r in enumerate(reqs):
+        res = results[r.rid]
+        toks = res["tokens"]
+        if (len(toks) != r.max_new_tokens or res["flagged"]
+                or not all(0 <= t < vocab for t in toks)
+                or not arrivals[i] <= res["admitted_tick"]
+                <= res["finished_tick"]):
+            bad.append(r.rid)
+    lat = [results[r.rid]["finished_tick"] - arrivals[i]
+           for i, r in enumerate(reqs)]
+    ms_sorted = sorted(ms)
+    res = dict(requests=len(reqs), ticks=stats["ticks"],
+               ticks_run=len(ms), tokens=stats["tokens"], wall_s=wall,
+               tokens_per_s=stats["tokens"] / wall,
+               tick_ms_median=ms_sorted[len(ms) // 2] if ms else None,
+               tick_ms_p90=ms_sorted[int(0.9 * (len(ms) - 1))] if ms
+               else None,
+               occupancy=stats["occupied_slot_ticks"]
+               / max(stats["ticks"] * eng.slots, 1),
+               p50_latency_ticks=percentile_ticks(lat, 0.50),
+               p99_latency_ticks=percentile_ticks(lat, 0.99),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=got, planned=plan, bad_requests=bad)
+    ok = (not bad and got == plan
+          and stats["occupied_slot_ticks"] <= stats["ticks"] * eng.slots)
+    return res, results, ok
+
+
+def cb_teacher_forced(torch, LM, cfg, params, reqs, results, tol):
+    """Each greedy request at batch 1 through ``LM.prefill`` (no padding)
+    and ``LM.decode_step``, fed the pool's tokens: wherever the top-2 gap
+    exceeds ``tol`` the card's argmax must be the pool's token.  Teacher
+    forcing keeps both sides on the same inputs, so every decided token is
+    compared, past the first undecided one too.  Returns (decided,
+    mismatches, the index of each request's first undecided token)."""
+    decided = mism = 0
+    first_tie = []
+    with torch.inference_mode():
+        for r in reqs:
+            if r.temperature > 0:
+                continue
+            toks = results[r.rid]["tokens"]
+            prompt = r.prompt.to(DEVICE)[None]
+            n = prompt.shape[1]
+            lg, cache = LM.prefill(params, cfg, max_len=n + len(toks),
+                                   tokens=prompt)
+            tie = len(toks)
+            for j, t in enumerate(toks):
+                top2, arg = torch.topk(lg.float()[0], 2)
+                if (top2[0] - top2[1]).item() > tol:
+                    decided += 1
+                    mism += int(arg[0].item() != t)
+                else:
+                    tie = min(tie, j)
+                if j + 1 < len(toks):
+                    lg, cache = LM.decode_step(
+                        params, cfg, torch.tensor([t], device=DEVICE), cache,
+                        n + j)
+            first_tie.append(tie)
+    return decided, mism, first_tie
+
+
+def cb_side_run(torch, K, T, ContinuousBatchingEngine, Request, cfg,
+                planner, counts, label, ctx):
+    """``CB_SIDE_REQUESTS`` of the phase's requests (arriving as at 2.0
+    requests a tick) through the continuous engine on another executor,
+    cut to ``CB_SIDE_LAYERS`` layers: tokens in range, unflagged, launches
+    as planned.  No parity is claimed."""
+    from repro_torch.serve.schedule import poisson_arrivals
+    side = dataclasses.replace(cfg, n_layers=CB_SIDE_LAYERS,
+                               layers=cfg.layers[:CB_SIDE_LAYERS])
+    params = T.init_model(side, seed=0, device=DEVICE)
+    eng = ContinuousBatchingEngine(side, params, slots=CB_SLOTS,
+                                   max_len=CB_MAX_LEN,
+                                   cache_dtype=torch.bfloat16, seed=0,
+                                   device=DEVICE)
+    reqs = cb_requests(torch, Request, cfg.vocab_size, CB_SIDE_REQUESTS)
+    arrivals = poisson_arrivals(len(reqs), 2.0, 0)
+    with ctx:
+        eng.serve([Request(prompt=torch.zeros(8, dtype=torch.long),
+                           max_new_tokens=2, rid=10**6)])
+        res, _, ok = cb_serve(torch, K, eng, reqs, arrivals,
+                              lambda rows: planner(side, rows), counts,
+                              cfg.vocab_size)
+    del eng, params
+    torch.cuda.empty_cache()
+    res.update(label=label, layers=CB_SIDE_LAYERS)
+    log(f"continuous {label} ({CB_SIDE_LAYERS} of {cfg.n_layers} layers, "
+        f"full width) on {gpu_line()}: {len(reqs)} requests, {res['tokens']} tokens in "
+        f"{res['ticks']} ticks, {res['tokens_per_s']:.1f} tok/s, median "
+        f"tick {res['tick_ms_median']:.1f} ms, launches {res['launches']} "
+        f"(planned {res['planned']}), bad requests {res['bad_requests']} "
+        f"{'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
+def run_continuous_phase(torch, K, ops, T, LM, cfg, timer):
+    """``ContinuousBatchingEngine`` on full-width, full-depth ``cfg``
+    (seed-0 weights, bf16 KV cache, ``CB_SLOTS`` slots, ``CB_MAX_LEN``):
+    after a warm-up request, ``CB_REQUESTS`` requests at each load of
+    ``CB_LOADS`` (Poisson arrivals from seed 0), each serve checked by
+    ``cb_serve`` (launches: K1 and K3 as ``planned_launches`` gives one
+    prefill row of each request's bucket and each tick at ``CB_SLOTS``
+    rows).  Then churn parity: every request gives the same tokens bit for
+    bit at both loads, and three (greedy, top-k, top-p) served alone
+    through the same 8-slot engine give them too; each greedy request
+    against the card at batch 1, teacher-forced (``cb_teacher_forced``,
+    phase 4's bf16 tolerance), at least ``MIN_DECIDED`` tokens decided in
+    all; K1 and K3 against their plain versions at the tick's rows and
+    every bucket's prefill rows, as phase 2 holds them.  Measured: admit (prefill and
+    first sample) ms per bucket, and one traced tick's device busy ms and
+    idle share.  Last, ``cb_side_run`` on ``with_quantized_io`` (K1's int8
+    modes) and on the 4-shard overlap executor (K5) under the mesh."""
+    from repro_torch.serve.schedule import poisson_arrivals
+    from repro_torch.configs import (with_feature_sharding,
+                                     with_overlap_executor,
+                                     with_quantized_io)
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+    failures = []
+    gpu = gpu_line()
+    params = T.init_model(cfg, seed=0, device=DEVICE)
+    eng = ContinuousBatchingEngine(cfg, params, slots=CB_SLOTS,
+                                   max_len=CB_MAX_LEN,
+                                   cache_dtype=torch.bfloat16, seed=0,
+                                   device=DEVICE)
+    V = cfg.vocab_size
+    eng.serve([Request(prompt=torch.zeros(16, dtype=torch.long),
+                       max_new_tokens=4, rid=10**6)])    # warm-up
+
+    def planner(rows):
+        return dict(zip(("K1", "K3"), planned_launches(cfg, ops, rows)))
+
+    def counts():
+        return {"K1": K.spm_stack_kernel_call.launches,
+                "K3": K.spm_block_kernel_call.launches}
+
+    loads, served = {}, {}
+    for load in CB_LOADS:
+        reqs = cb_requests(torch, Request, V)
+        arrivals = poisson_arrivals(len(reqs), load, 0)
+        res, results, ok = cb_serve(torch, K, eng, reqs, arrivals, planner,
+                                    counts, V)
+        res["arrivals"] = arrivals
+        loads[load], served[load] = res, results
+        log(f"continuous serve at {load} requests/tick on {gpu}: "
+            f"{res['requests']} "
+            f"requests, {res['tokens']} tokens in {res['ticks']} ticks "
+            f"({res['ticks_run']} run), {res['wall_s']:.2f} s, "
+            f"{res['tokens_per_s']:.1f} tok/s, median tick "
+            f"{res['tick_ms_median']:.2f} ms (p90 {res['tick_ms_p90']:.2f}), "
+            f"occupancy {res['occupancy']:.3f}, latency p50 "
+            f"{res['p50_latency_ticks']} p99 {res['p99_latency_ticks']} "
+            f"ticks, peak {res['peak_mem_bytes'] / 2**30:.2f} GiB, launches "
+            f"{res['launches']} (planned {res['planned']}), bad requests "
+            f"{res['bad_requests']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"continuous serve at {load}")
+
+    # churn parity at equal slot count
+    busy_load = max(CB_LOADS)
+    base = served[busy_load]
+    across = [rid for rid in base
+              if base[rid]["tokens"] != served[min(CB_LOADS)][rid]["tokens"]]
+    alone = {}
+    picks = [next(r for r in cb_requests(torch, Request, V)
+                  if (r.temperature > 0, r.top_k > 0, r.top_p < 1) == kind)
+             for kind in ((False, False, False), (True, True, False),
+                          (True, False, True))]
+    for r in picks:
+        solo, _ = eng.serve([r])
+        alone[r.rid] = solo[r.rid]["tokens"] == base[r.rid]["tokens"]
+    parity_ok = not across and all(alone.values())
+    log(f"continuous churn parity ({CB_SLOTS} slots): requests differing "
+        f"between the loads {across}; alone == pool {alone} "
+        f"{'ok' if parity_ok else 'FAIL'}")
+    if not parity_ok:
+        failures.append("continuous churn parity")
+
+    # greedy requests at batch 1, teacher-forced, within phase 4's bound
+    emb = params["embed"]
+    w = emb["table"] if cfg.tie_embeddings else emb["out"].T
+    h_norm = (cfg.d_model ** 0.5
+              * params["final_norm"]["scale"].abs().max().item())
+    tol = 2 * 2.0 ** -8 * h_norm * w.float().norm(dim=-1).max().item()
+    t0 = time.perf_counter()
+    decided, mism, first_tie = cb_teacher_forced(
+        torch, LM, cfg, params, cb_requests(torch, Request, V), base, tol)
+    tf_ok = mism == 0 and decided >= MIN_DECIDED
+    log(f"continuous greedy against batch 1 (teacher-forced, tol "
+        f"{tol:.3e}): {decided} tokens decided (at least {MIN_DECIDED}), "
+        f"{mism} differ; first undecided token of each {first_tie} "
+        f"({time.perf_counter() - t0:.1f} s) {'ok' if tf_ok else 'FAIL'}")
+    if not tf_ok:
+        failures.append("continuous greedy against batch 1")
+
+    # admit (prefill of one bucket row and the first sample) ms per bucket
+    admit_ms = {}
+    gen = torch.Generator().manual_seed(21)
+    with torch.inference_mode():
+        eng._reset()
+        for plen in sorted(set(CB_PROMPTS)):
+            req = Request(prompt=torch.randint(0, V, (plen,), generator=gen),
+                          max_new_tokens=1, rid=10**6 + plen)
+            times = []
+            for _ in range(4):
+                res = {req.rid: {"tokens": [], "flagged": False,
+                                 "admitted_tick": None,
+                                 "finished_tick": None}}
+                t = time.perf_counter()
+                eng._admit([(0, req)], 0, res)
+                times.append((time.perf_counter() - t) * 1e3)
+            admit_ms[eng._bucket(plen)] = sorted(times[1:])[1]
+        busy, groups = traced_device_ms(torch, eng._tick)
+    med = loads[busy_load]["tick_ms_median"]
+    log(f"continuous admit ms by bucket on {gpu} (prefill + first sample, "
+        "median of 3): " + ", ".join(f"{b}: {v:.2f}" for b, v in admit_ms.items())
+        + f"; a traced tick at {CB_SLOTS} rows: device busy {busy:.3f} ms "
+        f"(idle {1 - busy / med:.1%} of the median tick {med:.2f} ms), by "
+        "group " + ", ".join(f"{g} {ms:.3f} ms/{n}" for g, (n, ms) in
+                             sorted(groups.items(), key=lambda kv: -kv[1][1])))
+    served_rows = sorted({CB_SLOTS} | {eng._bucket(len(r.prompt)) for r in
+                                       cb_requests(torch, Request, V)})
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # K1 and K3 at every row count the serve gave them: the tick's and each
+    # bucket's prefill (the forward planner picks its walk by row count)
+    qkv = tuple(1 << i for i in range(11))
+    ffn = qkv + (3072,)
+    k1 = [(lab, n, st, rows, iw, ow) for rows in served_rows
+          for lab, n, st, iw, ow in (("o", 2048, qkv, 2048, 2048),
+                                     ("up", 6144, ffn, 2048, 6144),
+                                     ("down", 6144, ffn, 6144, 2048))]
+    k3 = [(lab, rows, ow, None, False) for rows in served_rows
+          for lab, ow in (("q", 2048), ("kv", 1024))]
+    kernel_rows, kfail = run_kernel_phase(torch, K, ops, timer, k1=k1, k3=k3,
+                                          dtypes=(torch.bfloat16,))
+    failures += kfail
+
+    # the other executors, full width, depth cut
+    int8, int8_ok = cb_side_run(
+        torch, K, T, ContinuousBatchingEngine, Request,
+        with_quantized_io(cfg), lambda c, rows: dict(
+            planned_q8_launches(c, ops, rows), K2=0, K4=0,
+            **{"K2 int8": 0, "K2 int8 io": 0}), lambda: q8_counts(K),
+        "int8 (with_quantized_io)", contextlib.nullcontext())
+    scfg = with_overlap_executor(with_feature_sharding(cfg, SHARDS), True)
+
+    def sharded_plan(c, rows):
+        f = planned_sharded_launches(c, rows)
+        return with_int8({"K1": f["K1"], "K1 col_base": f["K1 col_base"],
+                          "K2": 0, "K2 col_base": 0, "K3": 0, "K4": 0,
+                          "K5": f["K5"], "K5 col_base": f["K5 col_base"],
+                          "K6": 0, "K6 col_base": 0}, False)
+
+    overlap, overlap_ok = cb_side_run(
+        torch, K, T, ContinuousBatchingEngine, Request, scfg, sharded_plan,
+        lambda: sharded_counts(K), f"overlap ({SHARDS} shards)",
+        activation_sharding(make_feature_mesh(SHARDS, device=DEVICE),
+                            shard_feature=True))
+    if not int8_ok:
+        failures.append("continuous int8")
+    if not overlap_ok:
+        failures.append("continuous overlap")
+    out = dict(gpu=gpu, slots=CB_SLOTS, max_len=CB_MAX_LEN, loads=loads,
+               parity=dict(differing_between_loads=across, alone=alone),
+               teacher_forced=dict(decided=decided, mismatches=mism,
+                                   first_undecided=first_tie, tol=tol,
+                                   min_decided=MIN_DECIDED),
+               admit_ms_by_bucket=admit_ms, traced_tick_busy_ms=busy,
+               traced_tick_idle_share=1 - busy / med,
+               traced_tick_groups={g: {"launches": n, "ms": ms}
+                                   for g, (n, ms) in groups.items()},
+               kernels=kernel_rows, int8=int8, overlap=overlap)
+    return out, failures
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3621,6 +4004,10 @@ def main() -> int:
     if phase_s["19 paper"] > PAPER_BUDGET_S:
         failures.append(f"phase 19 took {phase_s['19 paper']:.1f} s of "
                         f"its {PAPER_BUDGET_S} s")
+    cont, cont_failures = phase("20", run_continuous_phase, torch, K, ops,
+                                T, LM, cfg, timer)
+    kernel_rows += cont["kernels"]
+    failures += cont_failures
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -3709,6 +4096,16 @@ def main() -> int:
                             if x["kernel"] == key),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # the continuous engine's launches (phase 20, the serve at the busiest
+    # load; the int8 and overlap runs at their cut depth)
+    busiest = cont["loads"][max(CB_LOADS)]["launches"]
+    for e in entries:
+        key = e["name"].rsplit(" ", 1)[0]
+        if key in ("K1", "K3"):
+            e["continuous_launches"] = busiest[key]
+        elif key in ("K1 int8", "K5"):
+            side = cont["int8" if key == "K1 int8" else "overlap"]
+            e["continuous_launches"] = side["launches"][key]
     report = dict(gpu=smi, kernels=kernel_rows, ragged=ragged_rows,
                   fwd_ragged=fragged_rows,
                   serve=serve, parity=parity,
@@ -3718,7 +4115,7 @@ def main() -> int:
                   sharded=sharded, sharded_train_parity=sparity,
                   overlap=overlap, int8_overlap=q8_overlap,
                   overlap_train_parity=oparity,
-                  paper=paper,
+                  paper=paper, continuous=cont,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",

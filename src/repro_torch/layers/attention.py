@@ -9,8 +9,10 @@ the reference leaves it to XLA, not to a TPU kernel.
 
 The KV cache is updated in place (the reference returns a new cache; here
 that would copy every layer's cache on every token).  Decode takes a scalar
-``cache_index`` (the fixed-batch engine); per-row indices, sliding-window
-ring caches and ``fill_len`` belong to continuous batching, a later slice.
+``cache_index`` (the fixed-batch engine) or a per-row ``(B,)`` tensor
+(continuous batching: each row scatter-written at its own slot, its own
+valid mask, no read back to the host).  Sliding-window ring caches wait for
+the other archs (``ROADMAP.md`` §1 item 4).
 """
 
 from __future__ import annotations
@@ -175,13 +177,20 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     return out[:, :Tq]
 
 
-def _decode_attention(q, ck, cv, cache_index: int, H: int, Hkv: int,
+def _decode_attention(q, ck, cv, cache_index, H: int, Hkv: int,
                       dh: int) -> torch.Tensor:
+    """One query a row over the cache: ``cache_index`` an int (the whole
+    batch at one position) or a (B,) tensor (each row at its own, the
+    valid mask ``arange(S)[None] <= ci[:, None]``)."""
     B = q.shape[0]
     S = ck.shape[1]
     qg = (q.float() * dh ** -0.5).reshape(B, 1, Hkv, H // Hkv, dh)
     s = torch.einsum("bthgd,bshd->bhgts", qg, ck.float())   # (B,Hkv,G,1,S)
-    valid = torch.arange(S, device=q.device) <= cache_index
+    pos = torch.arange(S, device=q.device)
+    if isinstance(cache_index, torch.Tensor):
+        valid = (pos[None, :] <= cache_index[:, None])[:, None, None, None]
+    else:
+        valid = pos <= cache_index
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgts,bshd->bthgd", p,
@@ -191,15 +200,23 @@ def _decode_attention(q, ck, cv, cache_index: int, H: int, Hkv: int,
 def attention_apply(params, x: torch.Tensor, cfg: AttentionConfig, *,
                     cos: torch.Tensor, sin: torch.Tensor,
                     cache: Optional[dict] = None,
-                    cache_index: Optional[int] = None,
+                    cache_index=None,
                     norm_params=None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: (B, T, d).  Three modes, as in the reference: training
-    (``cache=None``), prefill-into-cache (cache with T > 1, written from
-    ``cache_index``, default 0) and decode (cache with T == 1, scalar
-    ``cache_index``).  ``norm_params`` moves the pre-attention RMS norm
-    inside: into the q/k/v kernels' prologue when fused, else one explicit
-    ``rms_norm``."""
+    """x: (B, T, d).  Three modes, as in the reference:
+
+    * training, ``cache=None``;
+    * prefill-into-cache, cache with T > 1: the chunked causal attention,
+      then K/V block-written from the scalar ``cache_index`` (default 0).
+      A right-padded row writes its whole padded block: the decode valid
+      mask hides the padded slots until decode overwrites them;
+    * decode, cache with T == 1: ``cache_index`` an int (the whole batch at
+      one position, the fixed-batch engine) or a (B,) integer tensor (each
+      row scatter-written at its own slot and masked at its own length,
+      with no read back to the host: continuous batching).
+
+    ``norm_params`` moves the pre-attention RMS norm inside: into the q/k/v
+    kernels' prologue when fused, else one explicit ``rms_norm``."""
     B, T, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bundles = None
@@ -253,9 +270,15 @@ def attention_apply(params, x: torch.Tensor, cfg: AttentionConfig, *,
             raise NotImplementedError(
                 "sliding-window ring caches come with the other archs "
                 "(ROADMAP.md §1)")
-        ci = int(cache_index)
-        cache["k"][:, ci] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, ci] = v[:, 0].to(cache["v"].dtype)
+        if isinstance(cache_index, torch.Tensor):
+            ci = cache_index
+            rows = torch.arange(B, device=ci.device)
+            cache["k"][rows, ci] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, ci] = v[:, 0].to(cache["v"].dtype)
+        else:
+            ci = int(cache_index)
+            cache["k"][:, ci] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, ci] = v[:, 0].to(cache["v"].dtype)
         out = _decode_attention(q, cache["k"], cache["v"], ci, H, Hkv, dh)
 
     out = out.to(x.dtype).reshape(B, T, H * dh)

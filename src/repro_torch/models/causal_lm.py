@@ -45,21 +45,31 @@ def train_metrics(metrics: dict) -> dict:
 
 
 def prefill(params, cfg: T.ModelConfig, *, max_len: int,
-            tokens: torch.Tensor, cache_dtype: torch.dtype = torch.bfloat16):
+            tokens: torch.Tensor, cache_dtype: torch.dtype = torch.bfloat16,
+            length=None, cache=None):
     """Run the prompt (B, T) through one chunked-attention forward that
-    also writes K/V into a fresh cache.  Returns ``(last-position logits
+    also writes K/V into a cache: a fresh one, or ``cache`` (per layer
+    ``{"mixer": {"k", "v"}}`` of B rows, views of a larger pool allowed),
+    whose first T positions it overwrites.  ``length`` (an int or (B,),
+    default T) is the true prompt length of a right-padded batch: the
+    logits are those of position ``length - 1`` of each row, the hidden row
+    gathered before the final norm and the unembed.  Returns ``(logits
     (B, V), cache)``."""
     B = tokens.shape[0]
-    cache = T.init_cache(B, max_len, cfg, device=tokens.device,
-                         dtype=cache_dtype)
+    if cache is None:
+        cache = T.init_cache(B, max_len, cfg, device=tokens.device,
+                             dtype=cache_dtype)
+    last = torch.as_tensor(tokens.shape[1] if length is None else length,
+                           device=tokens.device).long().expand(B) - 1
     logits, cache = T.forward(params, cfg, tokens=tokens, cache=cache,
-                              cache_index=0, last_only=True)
+                              cache_index=0, last_index=last)
     return logits[:, -1], cache
 
 
 def decode_step(params, cfg: T.ModelConfig, token: torch.Tensor, cache,
-                cache_index: int):
-    """One-token decode: token (B,) -> (logits (B, V), cache)."""
+                cache_index):
+    """One-token decode: token (B,) -> (logits (B, V), cache);
+    ``cache_index`` an int or a (B,) tensor, one position a row."""
     logits, cache = T.forward(params, cfg, tokens=token[:, None],
                               cache=cache, cache_index=cache_index)
     return logits[:, 0], cache

@@ -201,19 +201,24 @@ def _recompute_safe_layer(sharding, lp, spec, cfg, h, cos, sin):
 
 def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, cache=None,
-            cache_index: Optional[int] = None, last_only: bool = False):
+            cache_index=None, last_index: Optional[torch.Tensor] = None):
     """Returns ``(logits, cache)``.  ``cache=None`` is the plain causal
-    forward; with a cache, T > 1 prefills from ``cache_index`` and T == 1
-    decodes at the scalar ``cache_index``.  ``last_only`` computes the
-    logits of the last position only, (B, 1, V), which is all a prefill
-    returns."""
+    forward; with a cache, T > 1 prefills from the scalar ``cache_index``
+    and T == 1 decodes at ``cache_index``: an int for the whole batch or a
+    (B,) tensor, one position a row (``ci[:, None] + arange(T)``).
+    ``last_index`` (B,) computes the logits of position ``last_index[b]``
+    of each row only, (B, 1, V), which is all a prefill returns: the hidden
+    row is gathered before the final norm and the unembed."""
     _supported(cfg)
     B, T = tokens.shape
     h = embed(params["embed"], tokens, cfg.embed_cfg(), dtype_of(cfg.dtype))
     if positions is None:
-        start = 0 if cache_index is None else int(cache_index)
-        positions = (start + torch.arange(T, device=tokens.device)
-                     ).expand(B, T)
+        ar = torch.arange(T, device=tokens.device)
+        if isinstance(cache_index, torch.Tensor):
+            positions = cache_index[:, None] + ar
+        else:
+            start = 0 if cache_index is None else int(cache_index)
+            positions = (start + ar).expand(B, T)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     sharding = par_ctx.current_context()
     for i, spec in enumerate(cfg.layers):
@@ -225,8 +230,9 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
         else:
             lc = None if cache is None else cache[i]["mixer"]
             h = _apply_layer(lp, spec, cfg, h, cos, sin, lc, cache_index)
-    if last_only:
-        h = h[:, -1:]
+    if last_index is not None:
+        h = torch.gather(h, 1, last_index.reshape(B, 1, 1).expand(
+            B, 1, h.shape[-1]))
     h = rms_norm(params["final_norm"], h)
     logits = unembed(params["embed"], h.to(dtype_of(cfg.logits_dtype)),
                      cfg.embed_cfg())

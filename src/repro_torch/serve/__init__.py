@@ -1,3 +1,4 @@
-"""Serving: the fixed-batch greedy/temperature engine."""
+"""Serving: the fixed-batch engine and continuous batching."""
 
-from repro_torch.serve.engine import ServeEngine, serve_step  # noqa: F401
+from repro_torch.serve.engine import (ContinuousBatchingEngine,  # noqa: F401
+                                      Request, ServeEngine, serve_step)

@@ -1275,3 +1275,54 @@ def test_paper_gru_lm_step_on_card_matches_cpu(cuda):
     assert K.spm_stack_bwd_kernel_call.launches == 2 * 6 * T
     L = cfg.gru_cfg().u.spm_config().n_stages
     _hold_step(out, 2 * (T * (2 * (3 * L + 4) + 12) + d + V) + B * T)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_continuous_churn_parity_on_card(cuda, cache_dtype):
+    """Continuous batching on the card at smoke size, through K1 and K3:
+    the reference's churn mix (every bucket, greedy and sampled, top-k and
+    top-p) under staggered arrivals gives each request bit for bit the
+    tokens it gives served alone through an engine with the same two
+    slots; the tick runs at two rows whatever the churn, every prefill at
+    one row of its bucket, and the launches follow that plan."""
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+    cfg = get_smoke("qwen3-1.7b")
+    params = T.init_model(cfg, seed=0, device="cuda")
+    mix = [(8, 5, 0.0, 0, 1.0), (5, 6, 0.8, 0, 1.0), (12, 4, 1.2, 5, 1.0),
+           (24, 6, 0.7, 0, 0.9), (7, 3, 1.0, 50, 0.95), (16, 2, 0.0, 0, 1.0)]
+
+    def requests():
+        rng = np.random.default_rng(3)
+        return [Request(prompt=rng.integers(0, cfg.vocab_size, plen),
+                        max_new_tokens=mnew, temperature=t, top_k=k,
+                        top_p=p, rid=i)
+                for i, (plen, mnew, t, k, p) in enumerate(mix)]
+
+    eng = ContinuousBatchingEngine(cfg, params, slots=2, max_len=48,
+                                   cache_dtype=cache_dtype, seed=7)
+    eng.serve([Request(prompt=np.zeros(4, np.int64), max_new_tokens=2,
+                       rid=999)])
+    inner, ticks = eng._tick, []
+    eng._tick = lambda: ticks.append(1) or inner()
+    K.reset_launch_counts()
+    results, _ = eng.serve(requests(), arrival_ticks=[0, 0, 1, 3, 3, 6])
+    eng._tick = inner
+    per = {}
+    for rows in {eng._bucket(len(r.prompt)) for r in requests()} | {2}:
+        k1 = k3 = 0
+        spec = cfg.layers[0]
+        for lin in (cfg.attn_cfg(spec).o_proj, cfg.ffn_cfg().gate,
+                    cfg.ffn_cfg().up, cfg.ffn_cfg().down):
+            sc = lin.spm_config()
+            k1 += len(ops.plan_runs_for_rows(sc.n, sc.pairing.strides(),
+                                             rows))
+        per[rows] = (cfg.n_layers * k1, cfg.n_layers * 3)
+    want = [sum(per[eng._bucket(len(r.prompt))][i] for r in requests())
+            + len(ticks) * per[2][i] for i in (0, 1)]
+    assert [K.spm_stack_kernel_call.launches,
+            K.spm_block_kernel_call.launches] == want
+    for r in requests():
+        solo, _ = eng.serve([r])
+        assert solo[r.rid]["tokens"] == results[r.rid]["tokens"], r.rid
+        assert not results[r.rid]["flagged"]
+        assert all(0 <= t < cfg.vocab_size for t in solo[r.rid]["tokens"])
