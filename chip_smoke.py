@@ -35,8 +35,8 @@ Phases, each of which fails the run when it fails:
 4. **Model parity**: the same weights through the port on the card
    (kernels) and on the CPU (plain versions), batch 4, prompt 16, 24
    teacher-forced steps; logits within a bf16-derived tolerance, tokens
-   equal wherever the top-2 gap exceeds it.  Then two rows of the served
-   batch are replayed on the CPU (prompt 512, the served tokens fed back):
+   equal wherever the top-2 gap exceeds it.  Then one row of the served
+   batch is replayed on the CPU (prompt 512, the served tokens fed back):
    every served token whose CPU top-2 gap exceeds the tolerance must be
    the CPU's argmax.
 
@@ -80,7 +80,8 @@ Phases, each of which fails the run when it fails:
 9. **int8 train**: phase 6 with ``--quantize``: int8 activations on q, k,
    v, o (one-run plans), int8 tables everywhere; launches equal to the
    plan with the int8 modes counted apart, no K3/K4.
-10. **int8 train parity**: phase 7 on the quantized model, the CPU
+10. **int8 train parity**: phase 7 on the quantized model cut to its first
+   ``PARITY_LAYERS`` (8) layers at full width, the CPU
    replaying the card's int8 codes chain by chain
    (``kernels.codes.CodeTape``), so that one flipped code does not carry
    quantization noise through the later layers: within phase 7's f32
@@ -89,8 +90,9 @@ Phases, each of which fails the run when it fails:
    no more often than ``flip_budget``.
 11. **int8 serve**: ``ServeEngine.generate`` of the quantized model (batch
    8, prompt 512, 64 tokens): launches equal to the plan, prefill ms and
-   decode tokens/s; then teacher-forced logits against the CPU at batch 4,
-   prompt 16, 32 steps, the codes replayed as in phase 10, within phase
+   decode tokens/s; then teacher-forced logits of its first 8 layers
+   against the CPU at batch 4, prompt 16, 32 steps, the codes replayed as
+   in phase 10, within phase
    4's bf16 bound, with at least ``MIN_DECIDED`` tokens decided.
 12. **Windowed kernels**: K1's and K2's ``col_base`` modes at the gate/up
    shard shapes of ``with_feature_sharding(qwen3-1.7b, 4)`` (n_local 1536
@@ -106,8 +108,8 @@ Phases, each of which fails the run when it fails:
    16 tokens; K1/K2 launches (windowed counted apart) equal to the plan
    from ``plan_steps`` and ``plan_runs_for_rows``, K3 = K4 = 0.  Step ms,
    tokens/s and peak memory beside phase 6's.
-14. **Sharded train parity**: phase 7 on the sharded model, each side
-   under a 4-shard mesh on its own device.
+14. **Sharded train parity**: phase 7 on the sharded model cut to its
+   first 8 layers, each side under a 4-shard mesh on its own device.
 15. **Pair kernels**: K5 and K6 against their plain versions
    (``pair_cases``: the q/k/v/o pair over 4 shards, the 2-shard pair that
    ends its schedule with d_out and bias folded, a windowed first run, an
@@ -166,6 +168,40 @@ Phases, each of which fails the run when it fails:
    ``with_quantized_io`` (K1's int8 modes) and on the 4-shard overlap
    executor (K5) at full width and 8 layers: tokens in range, launches as
    planned.
+21. **Chaos train**: the training substrate through ``launch.train.train``
+   on full-width, full-depth ``qwen3-1.7b`` from seed 0 (batch 8, seq 512,
+   12 steps, ``--ckpt-every 6``, ``--backoff-base 0``).  Two clean lives
+   must agree bit for bit (every param, moment, count and step).  A third,
+   with a checkpoint dir under ``nan@6+5;corrupt@11:delmeta;preempt@11;
+   slow@11:2.0``, saves step_6, skips 6-10 and rolls back, replays 6-11
+   (sleeping 2 s before 11) and saves step_12, loses its meta.json and is
+   preempted; the restart quarantines step_12, walks back to step_6 and
+   replays.  It must end bit for bit the clean lives' state, with exactly
+   5 ``skip``, ``rollback``, ``slow_step`` at 11, ``chaos_corrupt``,
+   ``chaos_preempt``, ``restart`` and ``quarantine``, a ``corrupt.12.*``
+   dir and a final step_12 that verifies; K1-K4 launches equal to the
+   plan times the steps each life ran; the restart's allocation no larger
+   than before it.  Reported beside the card's name and power limit:
+   checkpoint bytes, each save (device-to-host, write, hashing, publish),
+   verify and restore in ms, the chaos life's extra wall time and replayed
+   steps, step ms, each life's peak memory.  The directory is under
+   ``tempfile.mkdtemp()`` (20 GB free needed, else the phase fails) and is
+   removed.  Then the elastic restart at n = 2048 (11 stages), 4096 rows
+   of f32, schedule pinned to 4 shards: a run trained 4-way that rolls
+   back, has step_9 truncated and is preempted, then resumed 2-way, must
+   equal bit for bit a fault-free run trained 4-way for steps 0-5 and
+   2-way for 6-11; one step's grads of the same state on 4 and on 2
+   shards within gamma_rows of their terms' magnitudes; K1 and K2 at each
+   width's local runs (512 and 1024 lanes) against their plain versions
+   as phase 12 holds them.
+
+Depths: phases 10, 11 (its teacher-forced part), 14 and 18 hold the card
+to the CPU on the first ``PARITY_LAYERS`` = 8 of the 28 layers at full
+width, and phase 4 replays one served row (two before): they were the
+script's slowest CPU sides.  On an NVIDIA H100 80GB HBM3 at 700 W the
+whole script took 766.1 s with the build 227.0 s and phase 21 116.2 s,
+phases 4, 10, 11 and 14 41.9, 20.0, 41.6 and 23.3 s (56.0, 39.7, 81.0 and
+46.0 at full depth and two replayed rows, on another host).
 
 The line before the last lists the kernels as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or run away from
@@ -620,9 +656,23 @@ def run_serve_phase(torch, K, ops, T, ServeEngine, cfg, batch=8,
 # phase 4: the same weights on the card and on the CPU
 # ---------------------------------------------------------------------------
 
-REPLAY_ROWS = 2         # served rows replayed on the CPU
+REPLAY_ROWS = 1         # served rows replayed on the CPU
 REPLAY_STEPS = 16       # served tokens checked per replayed row
 MIN_DECIDED = 16        # tokens the parity phase must decide, at least
+PARITY_LAYERS = 8       # depth of the card-vs-CPU models of phases 10, 11,
+                        # 14 and 18 (full width, the first of 28 layers)
+
+
+def cut_depth(cfg, params=None, n=PARITY_LAYERS):
+    """``cfg`` cut to its first ``n`` layers at full width, and, when
+    ``params`` is given, a tree sharing those layers' tensors with it."""
+    cut = dataclasses.replace(cfg, n_layers=n, layers=cfg.layers[:n])
+    if params is None:
+        return cut
+    from repro_torch.params import Params
+    tree = Params({k: params[k] for k in params.keys() if k != "layers"})
+    tree["layers"] = list(params["layers"][:n])
+    return cut, tree
 
 
 def run_parity_phase(torch, LM, cfg, params, served_prompts, served_tokens):
@@ -1418,6 +1468,7 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
     poisoned; with ``quantize`` its ``--quantize`` flag, whose launches are
     held to ``planned_q8_train_launches`` (int8 modes counted apart, no
     K3/K4)."""
+    from repro_torch.train.chaos import ChaosSchedule
     args = launch_train.build_parser().parse_args(
         ["--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
          "--seq", str(seq), "--log-every", "1"]
@@ -1450,7 +1501,7 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    launch_train.train(args, poison=lambda s: float(s == poisoned),
+    launch_train.train(args, chaos=ChaosSchedule.parse(f"nan@{poisoned}"),
                        on_step=on_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1990,8 +2041,9 @@ def run_q8_serve_phase(torch, K, ops, T, LM, ServeEngine, cfg, batch=8,
                        tf_steps=32):
     """Greedy serving of the quantized model (bf16 KV cache): launches
     equal to the plan, prefill ms and decode tokens/s; then the same
-    weights teacher-forced on the card and on the CPU (batch 4, prompt 16,
-    32 steps), the CPU replaying the card's int8 codes as in phase 10, so
+    weights, cut to their first ``PARITY_LAYERS`` layers, teacher-forced
+    on the card and on the CPU (batch 4, prompt 16, 32 steps), the CPU
+    replaying the card's int8 codes as in phase 10, so
     the logits are held to phase 4's bf16 bound alone: within it, tokens
     equal wherever the top-2 gap exceeds it, at least ``MIN_DECIDED``
     tokens decided.  Per chain the CPU's output from the card's entry must
@@ -2032,6 +2084,8 @@ def run_q8_serve_phase(torch, K, ops, T, LM, ServeEngine, cfg, batch=8,
     ok_tokens = (tuple(tokens.shape) == (batch, new) and not bool(flags.any())
                  and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()))
 
+    del eng
+    cfg, params = cut_depth(cfg, params)
     cpu_params = copy.deepcopy(params).to("cpu")
     tp = torch.randint(0, cfg.vocab_size, (tf_batch, tf_prompt),
                        generator=gen)
@@ -3878,6 +3932,398 @@ def run_continuous_phase(torch, K, ops, T, LM, cfg, timer):
     return out, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the training substrate (checkpoints, recovery, chaos) on the card
+# ---------------------------------------------------------------------------
+
+CHAOS_STEPS = 12
+CHAOS_EVERY = 6
+CHAOS_SPEC = "nan@6+5;corrupt@11:delmeta;preempt@11;slow@11:2.0"
+CHAOS_EVENTS = ["skip"] * 5 + ["rollback", "slow_step", "chaos_corrupt",
+                               "chaos_preempt", "restart", "quarantine"]
+# three published steps, one quarantined and one in staging, of ~3.96 GB
+CHAOS_FREE_BYTES = 20 * 10 ** 9
+RESIDENT_SLACK = 64 << 20       # allocator slack between two lives' states
+ELASTIC_ROWS, ELASTIC_STEPS, ELASTIC_EVERY = 4096, 12, 3
+ELASTIC_SPEC = "nan@4+2;corrupt@8:truncate;preempt@9"
+ELASTIC_EVENTS = ["rollback", "chaos_corrupt", "chaos_preempt",
+                  "restart_budget_exhausted", "quarantine"]
+
+
+def state_diff(torch, a, b):
+    """The first leaf (as a dotted path) where two train states differ
+    bit for bit, ``"structure"`` when their trees differ, else None."""
+    from repro_torch.train.state import tree_leaves_with_path
+    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return "structure"
+    for (p, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            return ".".join(map(str, p))
+    return None
+
+
+def train_life(torch, K, launch_train, args, chaos=None, timings=None):
+    """One ``launch.train.train`` call.  Returns its final state and a
+    record: wall seconds, each executed step's index and seconds, the
+    kernels' launches, the peak memory, and per segment (a new one starts
+    where the step index goes back: a rollback or a restart) its peak and
+    the bytes allocated after its last step (one state's worth plus what
+    lives beside it: a dead attempt's state left behind would show)."""
+    steps, secs, peaks, resident = [], [], [], []
+
+    def on_step(s, state, metrics, dt):
+        steps.append(s)
+        secs.append(dt)
+        peaks.append(torch.cuda.max_memory_allocated())
+        resident.append(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = launch_train.train(args, chaos=chaos, on_step=on_step,
+                               timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cut = [0] + [i for i in range(1, len(steps)) if steps[i] <= steps[i - 1]]
+    segments = [dict(first_step=steps[a], steps=b - a,
+                     peak_bytes=max(peaks[a:b]),
+                     resident_bytes=resident[b - 1])
+                for a, b in zip(cut, cut[1:] + [len(steps)])]
+    return state, dict(wall_s=wall, steps=steps, step_s=secs,
+                       peak_bytes=max(peaks), segments=segments,
+                       launches={k: v for k, v in q8_counts(K).items()
+                                 if " " not in k})
+
+
+def median(xs):
+    s = sorted(xs)
+    return s[len(s) // 2] if len(s) % 2 else 0.5 * (s[len(s) // 2 - 1]
+                                                     + s[len(s) // 2])
+
+
+def run_elastic_case(torch, K, cfg, root):
+    """Part (a) and (b) of the elastic contract at ``cfg``'s 2048-wide SPM
+    linear (n = d_model, its stage count), ``ELASTIC_ROWS`` rows of f32,
+    schedule pinned to 4 shards (``schedule_shards``), all shards on the
+    card: an SPM regression with the driver's wiring
+    (``tests/test_torch_substrate.py``'s job at full width).
+    (a) Life 1 trains 4-way under ``ELASTIC_SPEC`` with no restart budget:
+    a 2-step NaN burst rolls back to step_3, step_9 is truncated, a
+    preemption kills it.  Life 2 resumes 2-way: step_9 quarantined, walked
+    back to step_6.  It must end bit for bit equal to a fault-free run that
+    trains 4-way for steps 0-5 and 2-way for 6-11.  (b) step_6 restored
+    and differentiated on 4 shards and on 2: every grad within gamma_rows
+    of the sum of its terms' magnitudes (the grads of the operator on
+    absolute values of every input); whether the grads are bitwise is
+    reported.  Then K1 and K2 at every local run of both widths against
+    their plain versions, untimed, held as phase 12 holds them."""
+    from repro_torch.core.spm import SPMConfig, init_spm, spm_apply
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    from repro_torch.params import Params
+    from repro_torch import train as TR
+    from repro_torch.train.chaos import ChaosPreemption, ChaosSchedule
+    o = cfg.attn_cfg(cfg.layers[0]).o_proj.spm_config()
+    n, L, rows = o.n, o.n_stages, ELASTIC_ROWS
+    meshes = {m: make_feature_mesh(m, device=DEVICE) for m in (4, 2)}
+
+    def scfg(m):
+        return SPMConfig(n=n, n_stages=L, schedule="two_level", n_shards=m,
+                         schedule_shards=4, backward="custom")
+
+    def batch(step):
+        g = torch.Generator(device=DEVICE).manual_seed(9000 + step)
+        return {k: torch.randn(rows, n, generator=g, device=DEVICE)
+                for k in ("x", "y")}
+
+    def forward(p, x, m):
+        with activation_sharding(meshes[m], shard_feature=True):
+            return spm_apply(p, x, scfg(m))
+
+    def loss_fn(p, b, m):
+        loss = torch.mean((forward(p, b["x"], m) - b["y"]) ** 2)
+        return loss, {"loss": loss}
+
+    def fresh():
+        return TR.make_train_state(init_spm(
+            scfg(4), torch.Generator(device=DEVICE).manual_seed(0),
+            torch.device(DEVICE)))
+
+    def run(d, m, chaos=None, event_log=None, until=ELASTIC_STEPS):
+        event_log = event_log or TR.FaultEventLog()
+        step_fn = TR.make_train_step(
+            lambda p, b: loss_fn(p, b, m),
+            OptimizerConfig(lr=1e-2, total_steps=ELASTIC_STEPS),
+            chaos_guard=True)
+
+        def try_restore():
+            state = fresh()
+            step = TR.latest_valid_step(d, event_log=event_log)
+            if step is None:
+                return state, 0
+            state, extra = TR.restore_checkpoint(d, state, step=step,
+                                                 event_log=event_log)
+            return state, int(extra["cursor"]["step"])
+
+        def loop(resume):
+            state, s = try_restore()
+            policy = TR.FaultPolicy(max_consecutive_skips=2)
+            while s < until:
+                poison = chaos.poison(s) if chaos else 0.0
+                state, metrics = step_fn(state, batch(s), poison)
+                if policy.on_metrics({"skipped": float(metrics["skipped"])}):
+                    event_log.emit("rollback", step=s)
+                    state, s = try_restore()
+                    policy.reset()
+                    continue
+                s += 1
+                if s % ELASTIC_EVERY == 0:
+                    TR.save_checkpoint(d, s, state, extra={
+                        "cursor": {"seed": 0, "step": s}})
+                if chaos:
+                    chaos.post_step(s - 1, d, event_log=event_log)
+            return state
+
+        return TR.run_with_recovery(loop, max_restarts=0,
+                                    event_log=event_log,
+                                    sleep=lambda _: None)
+
+    t0 = time.perf_counter()
+    clean, chaos_dir = (os.path.join(root, k) for k in ("clean", "chaos"))
+    K.reset_launch_counts()
+    run(clean, 4, until=6)
+    ref = run(clean, 2)
+    launches = {"K1": K.spm_stack_kernel_call.launches,
+                "K2": K.spm_stack_bwd_kernel_call.launches}
+    elog = TR.FaultEventLog(os.path.join(chaos_dir, "events.jsonl"))
+    chaos = ChaosSchedule.parse(ELASTIC_SPEC)
+    died = False
+    try:
+        run(chaos_dir, 4, chaos, elog)
+    except ChaosPreemption:
+        died = True
+    resumed = run(chaos_dir, 2, event_log=elog)
+    diff_a = state_diff(torch, ref, resumed)
+    quarantined = [k for k in os.listdir(chaos_dir)
+                   if k.startswith("corrupt.9.")]
+    final = TR.verify_checkpoint(chaos_dir, ELASTIC_STEPS)
+    del ref, resumed
+    ok_a = (died and diff_a is None and not chaos.remaining()
+            and len(quarantined) == 1 and final == []
+            and elog.kinds() == ELASTIC_EVENTS and min(launches.values()) > 0)
+
+    # (b): one step's grads of step_6 at each width
+    b6 = batch(6)
+    grads = {}
+    for m in (4, 2):
+        st, _ = TR.restore_checkpoint(clean, fresh(), step=6)
+        loss, _ = loss_fn(st["params"], b6, m)
+        grads[m] = torch.autograd.grad(loss, list(st["params"].parameters()))
+    p = st["params"]
+    with torch.no_grad():
+        y = forward(p, b6["x"], 4)
+        gy = 2 * (y - b6["y"]) / y.numel()
+    absp = Params({k: v.detach().abs() for k, v in p.named_parameters()})
+    absp.trainable()
+    mags = torch.autograd.grad(forward(absp, b6["x"].abs(), 4),
+                               list(absp.parameters()), gy.abs())
+    worst_b = grads_within(grads[4], grads[2], mags, rows)
+    bitwise_b = all(torch.equal(u, v) for u, v in zip(grads[4], grads[2]))
+    names = [k for k, _ in p.named_parameters()]
+    differing = [k for k, u, v in zip(names, grads[4], grads[2])
+                 if not torch.equal(u, v)]
+    ok_b = worst_b <= 1 and all(bool(torch.isfinite(g).all())
+                                for g in grads[4])
+    del grads, mags, absp, st, p
+
+    # K1 and K2 at each width's local runs, as phase 12 holds them
+    g = torch.Generator(device=DEVICE).manual_seed(1357)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=DEVICE)
+
+    abs_sum = (lambda t: t.abs().sum(0))
+    runs = []
+    for m in (4, 2):
+        nl, steps, plans = shard_run(scfg(m), rows)
+        for plan in plans:
+            for rs, nt in plan:
+                th = (torch.rand(len(rs), nt // 2, generator=g,
+                                 device=DEVICE) * 2 - 1) * math.pi
+                c, s = torch.cos(th), torch.sin(th)
+                cf = torch.stack([c, -s, s, c], dim=-1) + rnd(
+                    len(rs), nt // 2, 4, scale=0.05)
+                d_in, d_out, bias = 1 + 0.1 * rnd(nt), 1 + 0.1 * rnd(nt), \
+                    0.1 * rnd(nt)
+                x, gyr = rnd(rows, nt), rnd(rows, nt)
+                kw = dict(strides=rs, n_tile=nt)
+                bw = dict(kw, has_bias=True)
+                y1 = K.spm_stack_kernel_call(x, cf, d_in, d_out, bias, **kw)
+                y2 = K.spm_stack_kernel_call(x, cf, d_in, d_out, bias, **kw)
+                yp = K.spm_stack_plain(x, cf, d_in, d_out, bias, **kw)
+                ok, gx_err, worst, det = check_bwd(
+                    torch,
+                    lambda: K.spm_stack_bwd_kernel_call(x, cf, gyr, d_in,
+                                                        d_out, **bw),
+                    lambda: K.spm_stack_bwd_plain(x, cf, gyr, d_in, d_out,
+                                                  **bw),
+                    lambda: K.spm_stack_bwd_plain(x, cf, gyr, d_in, d_out,
+                                                  col_sum=abs_sum, **bw),
+                    rows)
+                k1_err = (y1 - yp).abs().max().item()
+                runs.append(dict(shards=m, n_local=nl, strides=list(rs),
+                                 n_tile=nt, k1_max_abs_err=k1_err,
+                                 k1_deterministic=torch.equal(y1, y2),
+                                 k2_gx_max_abs_err=gx_err,
+                                 k2_grad_over_limit=worst,
+                                 k2_deterministic=det,
+                                 ok=ok and k1_err == 0 and torch.equal(y1,
+                                                                       y2)))
+    ok_runs = all(r["ok"] for r in runs)
+    res = dict(n=n, n_stages=L, rows=rows, shards=[4, 2],
+               strides=list(scfg(4).pairing.strides()),
+               launches=launches, died=died, state_diff=diff_a,
+               events=elog.kinds(), quarantined=quarantined,
+               final_verify=final, step_grad_over_limit=worst_b,
+               step_grads_bitwise=bitwise_b,
+               step_grads_differing=differing, runs=runs,
+               seconds=time.perf_counter() - t0)
+    resumed_msg = ("bit for bit the fault-free run" if diff_a is None
+                   else "differs at " + diff_a)
+    log(f"chaos train elastic: n={n} L={L} {rows} rows f32, 4 -> 2 shards "
+        f"(schedule_shards=4): resumed state {resumed_msg}"
+        f", events {elog.kinds()}, quarantined {quarantined}, launches "
+        f"{launches} {'ok' if ok_a else 'FAIL'}; one step's grads 4-way vs "
+        f"2-way worst {worst_b:.3f} of gamma_{rows} "
+        f"({'bitwise' if bitwise_b else 'differing: ' + ', '.join(differing)}"
+        f") {'ok' if ok_b else 'FAIL'}; K1/K2 at {len(runs)} local runs "
+        f"{'ok' if ok_runs else 'FAIL'} ({res['seconds']:.1f} s)")
+    failures = [] if ok_a else ["elastic resume"]
+    failures += [] if ok_b else ["elastic step across widths"]
+    failures += [] if ok_runs else ["elastic K1/K2 runs"]
+    return res, failures
+
+
+def run_chaos_phase(torch, K, ops, launch_train, cfg, smi):
+    """``launch.train.train`` on full-width, full-depth ``cfg`` from seed 0,
+    batch 8 x seq 512, ``CHAOS_STEPS`` steps, ``--ckpt-every CHAOS_EVERY``,
+    ``--backoff-base 0``: two clean lives A and A' (bit for bit equal:
+    every param, moment, count and step), then life B with a checkpoint
+    dir under ``CHAOS_SPEC``: it saves step_6, skips 6-10 and rolls back
+    to step_6 on the fifth skip, replays 6-11 (sleeping 2 s before 11),
+    saves step_12, loses its meta.json, is preempted; the restart
+    quarantines step_12, walks back to step_6, replays 6-11 and saves
+    step_12 again.  B must equal A bit for bit, every chaos event fire,
+    a ``corrupt.12.*`` dir remain and step_12 verify, and the events be
+    exactly ``CHAOS_EVENTS`` (``slow_step`` at 11: the step clock starts
+    before the sleep).  Launches equal the plan times the steps each life
+    ran; B's allocation after its restart is no larger than before it (the
+    dead attempt's state is gone).  Reported: checkpoint bytes, each save
+    (device-to-host, write, hashing, publish), verify and restore, B's
+    wall minus A's and the steps it replayed, step ms, each life's peak
+    memory.  The checkpoint dir is under ``tempfile.mkdtemp()``, which
+    must have ``CHAOS_FREE_BYTES`` free, and is removed at the end.  Then
+    the elastic case (``run_elastic_case``)."""
+    import shutil
+    import tempfile
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train.chaos import ChaosSchedule
+    root = tempfile.mkdtemp(prefix="spm_chaos_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < CHAOS_FREE_BYTES:
+            log(f"chaos train: {free / 1e9:.1f} GB free under {root}, "
+                f"{CHAOS_FREE_BYTES / 1e9:.0f} GB needed FAIL")
+            return dict(free_bytes=free), ["chaos disk space"]
+        base = ["--arch", cfg.name, "--steps", str(CHAOS_STEPS), "--batch",
+                "8", "--seq", "512", "--ckpt-every", str(CHAOS_EVERY),
+                "--backoff-base", "0", "--log-every", str(CHAOS_EVERY)]
+        parse = launch_train.build_parser().parse_args
+        per_step = planned_train_launches(cfg, ops, 8 * 512)
+        state_a, a = train_life(torch, K, launch_train, parse(base))
+        state_a2, a2 = train_life(torch, K, launch_train, parse(base))
+        diff_a = state_diff(torch, state_a, state_a2)
+        del state_a2
+        ck = os.path.join(root, "ckpt")
+        chaos = ChaosSchedule.parse(CHAOS_SPEC)
+        timings = []
+        state_b, b = train_life(torch, K, launch_train,
+                                parse(base + ["--ckpt-dir", ck]), chaos=chaos,
+                                timings=timings)
+        diff_b = state_diff(torch, state_a, state_b)
+        del state_a, state_b
+        final = CK.verify_checkpoint(ck, CHAOS_STEPS)
+        with open(os.path.join(ck, "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        kinds = [e["kind"] for e in events]
+        slow_at = [e["step"] for e in events if e["kind"] == "slow_step"]
+        quarantined = sorted(k for k in os.listdir(ck)
+                             if k.startswith("corrupt."))
+        elastic, failures = run_elastic_case(torch, K, cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    saves = [t for t in timings if t["op"] == "save"]
+    verifies = [t for t in timings if t["op"] == "verify"]
+    restores = [t for t in timings if t["op"] == "restore"]
+    launches_ok = all(
+        life["launches"] == {k: len(life["steps"]) * v
+                             for k, v in per_step.items()}
+        for life in (a, a2, b))
+    seg = b["segments"]
+    released = seg[-1]["resident_bytes"] <= seg[0]["resident_bytes"] \
+        + RESIDENT_SLACK
+    replayed = len(b["steps"]) - CHAOS_STEPS
+    ok = (diff_a is None and diff_b is None and not chaos.remaining()
+          and final == [] and kinds == CHAOS_EVENTS and slow_at == [11]
+          and kinds.index("rollback") < kinds.index("restart")
+          and len(quarantined) == 1
+          and quarantined[0].startswith(f"corrupt.{CHAOS_STEPS}.")
+          and launches_ok and released and len(saves) == 3)
+    step_ms = 1e3 * median(a["step_s"][1:])
+    res = dict(gpu=smi, steps=CHAOS_STEPS, ckpt_every=CHAOS_EVERY,
+               spec=CHAOS_SPEC, free_bytes=free, clean_bitwise=diff_a is None,
+               clean_first_diff=diff_a, chaos_bitwise=diff_b is None,
+               chaos_first_diff=diff_b, events=kinds, slow_step_at=slow_at,
+               quarantined=quarantined, final_verify=final,
+               checkpoint_bytes=saves[0]["bytes"] if saves else None,
+               saves=saves, verifies=verifies, restores=restores,
+               lives={"A": a, "A'": a2, "B": b},
+               wall_b_minus_a_s=b["wall_s"] - a["wall_s"],
+               steps_replayed=replayed, step_ms_median=step_ms,
+               planned_per_step=per_step, launches_ok=launches_ok,
+               dead_attempt_released=released, elastic=elastic)
+
+    def ms(xs, key="s"):
+        return "/".join(f"{1e3 * x[key]:.0f}" for x in xs)
+
+    log(f"chaos train ({smi}): A and A' "
+        f"{'bit for bit' if diff_a is None else 'differ at ' + diff_a}, "
+        f"B {'bit for bit A' if diff_b is None else 'differs at ' + diff_b}; "
+        f"events {kinds}, slow_step at {slow_at}, quarantined {quarantined},"
+        f" final verify {final or 'clean'}; launches as planned "
+        f"{launches_ok}; dead attempt released {released} (resident "
+        f"{seg[0]['resident_bytes'] / 2**30:.2f} -> "
+        f"{seg[-1]['resident_bytes'] / 2**30:.2f} GiB) "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"chaos train ({smi}): checkpoint {res['checkpoint_bytes']} bytes; "
+        f"save ms {ms(saves)} (device-to-host {ms(saves, 'd2h_s')}, write "
+        f"{ms(saves, 'write_s')}, hashing {ms(saves, 'hash_s')}, publish "
+        f"{ms(saves, 'publish_s')}); verify ms {ms(verifies)}; restore ms "
+        f"{ms(restores)} (of it verify {ms(restores, 'verify_s')}); B wall "
+        f"{b['wall_s']:.1f} s - A {a['wall_s']:.1f} s = "
+        f"{res['wall_b_minus_a_s']:.1f} s, {replayed} steps replayed; step "
+        f"{step_ms:.1f} ms (median of A's steps 2-{CHAOS_STEPS}); peak "
+        f"A {a['peak_bytes'] / 2**30:.2f} A' {a2['peak_bytes'] / 2**30:.2f} "
+        f"B {b['peak_bytes'] / 2**30:.2f} GiB (B by segment "
+        f"{[round(s['peak_bytes'] / 2**30, 2) for s in seg]})")
+    if not ok:
+        failures = ["chaos train"] + failures
+    return res, failures
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3964,7 +4410,7 @@ def main() -> int:
                                   launch_train, cfg, quantize=True)
     q8_tparity, q8_tparity_ok = phase(
         "10", run_q8_train_parity_phase, torch, T, LM, train_mod, adamw,
-        qcfg)
+        cut_depth(qcfg))
     q8_serve, q8_serve_ok = phase("11", run_q8_serve_phase, torch, K, ops,
                                   T, LM, ServeEngine, qcfg)
     win_rows, win_failures = phase("12", run_window_kernel_phase, torch, K,
@@ -3975,8 +4421,8 @@ def main() -> int:
         "13", run_sharded_phase, torch, K, T, LM, train_mod, adamw,
         ServeEngine, launch_train, cfg, dict(train, label="unsharded"))
     sparity, sparity_ok, sharded_cpu = phase(
-        "14", run_train_parity_phase, torch, T, LM, train_mod, adamw, cfg,
-        shards=SHARDS)
+        "14", run_train_parity_phase, torch, T, LM, train_mod, adamw,
+        cut_depth(cfg), shards=SHARDS)
     pair_rows, pair_failures = phase("15", run_pair_kernel_phase, torch, K,
                                      Q, timer, cfg)
     kernel_rows += pair_rows
@@ -3995,8 +4441,8 @@ def main() -> int:
         steps=3, poisoned=None, overlap=True, quant=True, serve=False,
         trace=False, label="int8 overlap")
     oparity, oparity_ok, _ = phase(
-        "18", run_train_parity_phase, torch, T, LM, train_mod, adamw, cfg,
-        shards=SHARDS, overlap=True, cpu_side=sharded_cpu)
+        "18", run_train_parity_phase, torch, T, LM, train_mod, adamw,
+        cut_depth(cfg), shards=SHARDS, overlap=True, cpu_side=sharded_cpu)
     del sharded_cpu
     paper, paper_failures = phase("19 paper", run_paper_phase, torch, K,
                                   timer)
@@ -4008,6 +4454,9 @@ def main() -> int:
                                 T, LM, cfg, timer)
     kernel_rows += cont["kernels"]
     failures += cont_failures
+    chaos, chaos_failures = phase("21", run_chaos_phase, torch, K, ops,
+                                  launch_train, cfg, smi)
+    failures += chaos_failures
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -4115,7 +4564,7 @@ def main() -> int:
                   sharded=sharded, sharded_train_parity=sparity,
                   overlap=overlap, int8_overlap=q8_overlap,
                   overlap_train_parity=oparity,
-                  paper=paper, continuous=cont,
+                  paper=paper, continuous=cont, chaos=chaos,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",

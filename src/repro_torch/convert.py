@@ -6,7 +6,9 @@ and returns the port's ``Params`` tree with the same keys.
 ``params_from_jax`` does so for a transformer: scanned configs store their
 layers stacked, ``{"l0": leaf (n_groups, ...), ...}``
 (``transformer.py:276-279`` of the reference); those are unstacked into one
-tree per layer.
+tree per layer.  ``state_from_jax`` carries a whole train state, as a
+checkpoint holds it: the params, the AdamW moments (unstacked the same
+way), the count and the step.
 
 A feature-sharded config (``configs.with_feature_sharding``) needs no leaf
 of its own: the sharded executor reads the same (L, n/2, 4) coefficient
@@ -28,7 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.params import Params
 
-__all__ = ["tree_from_jax", "params_from_jax"]
+__all__ = ["tree_from_jax", "params_from_jax", "state_from_jax"]
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -75,3 +77,32 @@ def params_from_jax(tree: dict, cfg, device=None) -> Params:
     out = {k: v for k, v in tree.items() if k != "layers"}
     out["layers"] = list(layers)
     return tree_from_jax(out, device)
+
+
+def state_from_jax(state: dict, cfg=None, device=None) -> dict:
+    """The port's train state (``train.state.make_train_state``'s layout)
+    from the reference's, with numpy leaves: ``{"params", "opt": {"mu",
+    "nu", "count"}, "step"}``.  With a transformer ``cfg`` the params and
+    moments go through ``params_from_jax`` (unstacked when stacked), else
+    through ``tree_from_jax``; on ``device`` (``cuda`` unless the caller
+    asks for the CPU)."""
+    from repro_torch.train.state import make_train_state
+    dev = resolve_device(device)
+
+    def tree(t):
+        return (tree_from_jax(t, dev) if cfg is None
+                else params_from_jax(t, cfg, dev))
+
+    out = make_train_state(tree(state["params"]))
+    opt = state["opt"]
+    for name in ("mu", "nu"):
+        moments = dict(tree(opt[name]).named_parameters())
+        if moments.keys() != out["opt"][name].keys():
+            raise ValueError(f"opt[{name!r}] does not match the params' "
+                             f"tree")
+        out["opt"][name] = {k: v.detach() for k, v in moments.items()}
+    out["opt"]["count"] = torch.as_tensor(np.array(opt["count"]),
+                                          dtype=torch.int32, device=dev)
+    out["step"] = torch.as_tensor(np.array(state["step"]),
+                                  dtype=torch.int32, device=dev)
+    return out

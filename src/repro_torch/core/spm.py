@@ -58,9 +58,17 @@ class SPMConfig:
     backward: str = "autodiff"        # "autodiff" | "custom" | "custom_inverse"
     init_mode: str = "orthogonal"     # "orthogonal" | "identity"
     init_scale: float = 0.05
-    # Shards of the feature axis for schedule="two_level": the schedule's
-    # block split, and the mesh size the sharded executor needs.
+    # Shards of the feature axis for schedule="two_level": the mesh size
+    # the sharded executor runs on, and the schedule's block split unless
+    # ``schedule_shards`` pins it.
     n_shards: int = 1
+    # The two_level schedule's block split, apart from the shards that
+    # execute it (default: ``n_shards``).  A schedule built for S blocks
+    # runs on any power-of-two divisor m of S (strides below n/m become
+    # shard-local runs, the rest partner exchanges), so a restart onto
+    # fewer shards keeps the same operator:
+    # ``dataclasses.replace(cfg, n_shards=m, schedule_shards=S)``.
+    schedule_shards: Optional[int] = None
     seed: int = 0
     param_dtype: torch.dtype = torch.float32
     # Fused kernel path, tri-state: None (auto) and True take the kernel
@@ -91,9 +99,11 @@ class SPMConfig:
 
     @functools.cached_property
     def pairing(self) -> Schedule:
-        """The operator's pairing schedule (built once)."""
-        return pairings.make_schedule(self.schedule, self.n, self.n_stages,
-                                      n_shards=self.n_shards, seed=self.seed)
+        """The operator's pairing schedule (built once; two_level splits
+        into ``schedule_shards or n_shards`` blocks)."""
+        return pairings.make_schedule(
+            self.schedule, self.n, self.n_stages,
+            n_shards=self.schedule_shards or self.n_shards, seed=self.seed)
 
     @property
     def n_pairs(self) -> int:

@@ -10,4 +10,5 @@ from repro_torch.data.hashed_text import (HashedTextConfig,  # noqa: F401
                                           hashed_text_draws)
 from repro_torch.data.char_corpus import (VOCAB, build_corpus,  # noqa: F401
                                           corpus_batches)
-from repro_torch.data.loader import DeterministicLoader  # noqa: F401
+from repro_torch.data.loader import (DataCursor,  # noqa: F401
+                                    DeterministicLoader)

@@ -1,20 +1,35 @@
-"""The training entry point on the card (port of ``repro/launch/train.py``).
+"""The training entry point on the card, with recovery orchestration (port
+of ``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --steps 6 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --steps 24 --batch 8 --seq 512 --ckpt-dir /tmp/run1 --ckpt-every 6 \
+      --chaos-spec 'nan@13+5;corrupt@17:bitflip;preempt@18'
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 2 [--quantize]
 
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--smoke`` takes the
 smoke-size config.  Weights are random, made from ``--seed``; batches are
-windows of the synthetic char corpus (``data/char_corpus.py``).  Each step
-is the forward, the closed-form backward through the SPM kernels and
-AdamW, with the non-finite guard and the chaos port always on, as in the
-reference.  ``--quantize`` trains through the int8 modes of K1 and K2
-(``configs.with_quantized_io``: int8 activation I/O where a linear's runs
-share one tile, int8 coefficient tables everywhere), as the reference's
-flag does.  Checkpoints, the fault policy, chaos plans and pods are later
-slices: their flags raise ``NotImplementedError``.
+windows of the synthetic char corpus (``data/char_corpus.py``), a pure
+function of (seed, step).  Each step is the forward, the closed-form
+backward through the SPM kernels and AdamW, with the non-finite guard and
+the chaos port always on, as in the reference.  ``--quantize`` trains
+through the int8 modes of K1 and K2 (``configs.with_quantized_io``).
+
+Around the step, as in the reference: atomic keep-N checkpoints every
+``--ckpt-every`` steps into ``--ckpt-dir`` with the data cursor in their
+extra (``train/checkpoint.py``); a rollback to the newest valid checkpoint
+after ``FaultPolicy``'s run of skipped steps, which rewinds the state, the
+loop counter and the cursor together (the LR schedule follows the restored
+``opt["count"]``); ``run_with_recovery`` restarts around the whole loop
+(``--max-restarts``, ``--backoff-base``); the fault events go to
+``--event-log`` (default ``<ckpt-dir>/events.jsonl``) with the schema of
+``docs/fault.md``; ``--chaos-spec`` arms ``train/chaos.py``.  A step's
+clock starts before the chaos plan's ``pre_step``, so a ``slow@`` event is
+flagged by the straggler watchdog as ``docs/fault.md`` says (the
+reference's clock starts after the sleep).  Data-parallel pods are a later
+slice: their flags raise ``NotImplementedError``.
 
 Tests and ``chip_smoke.py`` call ``train(args)``, which returns the final
 state.
@@ -23,6 +38,8 @@ state.
 from __future__ import annotations
 
 import argparse
+import functools
+import os
 import time
 from typing import Callable, Optional
 
@@ -37,20 +54,28 @@ from repro_torch.device import resolve_device
 from repro_torch.models import causal_lm as LM
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import OptimizerConfig
-from repro_torch.train import make_train_state, make_train_step
+from repro_torch.train import (RESUME_LATEST, FaultEventLog, FaultPolicy,
+                               StragglerDetector, latest_valid_step,
+                               make_train_state, make_train_step,
+                               restore_checkpoint, run_with_recovery,
+                               save_checkpoint)
+from repro_torch.train.chaos import ChaosSchedule
 
 __all__ = ["make_batch_fn", "build_parser", "train", "main"]
 
 _LATER = {
-    "ckpt_dir": "checkpoints come with the substrate (ROADMAP.md §1, "
-                "item 7)",
-    "chaos_spec": "chaos plans come with the substrate (ROADMAP.md §1, "
-                  "item 7)",
     "pod_dp": "data-parallel pods are the multi-device slice (ROADMAP.md "
               "§1, item 6)",
     "compress_pod_grads": "compressed pod grads are the multi-device slice "
                           "(ROADMAP.md §1, item 6)",
 }
+
+
+@functools.lru_cache(maxsize=4)
+def _corpus(seed: int) -> np.ndarray:
+    """The synthetic char corpus of ``seed`` (pure, so built once; never
+    written to)."""
+    return build_corpus(200_000, seed=seed)
 
 
 def make_batch_fn(cfg: T.ModelConfig, seq_len: int, corpus: np.ndarray):
@@ -69,8 +94,7 @@ def make_batch_fn(cfg: T.ModelConfig, seq_len: int, corpus: np.ndarray):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference's flags that this slice reads or refuses, plus
-    ``--device``; the recovery loop's flags come with the substrate."""
+    """The reference's flags, plus ``--device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true",
@@ -82,6 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quantize", action="store_true",
@@ -90,7 +115,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "(configs.with_quantized_io)")
     ap.add_argument("--pod-dp", type=int, default=0)
     ap.add_argument("--compress-pod-grads", action="store_true")
-    ap.add_argument("--chaos-spec", default="")
+    ap.add_argument("--chaos-spec", default="",
+                    help="deterministic fault-injection plan, e.g. "
+                         "'nan@13+5;corrupt@18:bitflip;preempt@19' "
+                         "(see train/chaos.py)")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--event-log", default="",
+                    help="fault-event JSONL path (default: "
+                         "<ckpt-dir>/events.jsonl when --ckpt-dir is set)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="restart budget for run_with_recovery")
+    ap.add_argument("--backoff-base", type=float, default=0.5)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -98,13 +133,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def train(args: argparse.Namespace,
-          poison: Optional[Callable[[int], float]] = None,
-          on_step: Optional[Callable] = None) -> dict:
-    """Train as ``args`` says and return the final state.  ``poison(s)``
-    is the chaos port's value at step s (nonzero poisons that step's
-    grads; the reference takes it from a chaos plan).  ``on_step(s, state,
-    metrics, seconds)`` sees every step after it ran, with float metrics
-    and the step's wall seconds (synchronized)."""
+          event_log: Optional[FaultEventLog] = None,
+          chaos: Optional[ChaosSchedule] = None,
+          on_step: Optional[Callable] = None,
+          timings: Optional[list] = None) -> dict:
+    """Train as ``args`` says and return the final state.  The inner
+    ``loop(resume)`` holds the steps, saves and rollbacks;
+    ``run_with_recovery`` restarts it on failure.
+
+    ``event_log`` and ``chaos`` replace the ones built from ``args`` (a
+    test passes one schedule to two ``train`` calls, so that what fired
+    stays fired across a simulated process death).  ``on_step(s, state,
+    metrics, seconds)`` sees every step after it ran, replays included,
+    with float metrics and the step's wall seconds (synchronized, from
+    after the batch reached the device and before the chaos plan's
+    ``pre_step``).  ``timings``, when given, receives each checkpoint
+    save, verify and restore's wall times (``train/checkpoint.py``)."""
     for flag, why in _LATER.items():
         value = getattr(args, flag)
         if value > 1 if flag == "pod_dp" else bool(value):
@@ -120,34 +164,109 @@ def train(args: argparse.Namespace,
     print(f"arch={cfg.name} impl={cfg.linear_impl} quantize={args.quantize} "
           f"steps={args.steps} "
           f"B={args.batch} T={args.seq} device={device}")
-    corpus = build_corpus(200_000, seed=args.seed)
-    loader = DeterministicLoader(make_batch_fn(cfg, args.seq, corpus),
-                                 args.batch, seed=args.seed)
+
+    if event_log is None:
+        path = args.event_log or (os.path.join(args.ckpt_dir,
+                                               "events.jsonl")
+                                  if args.ckpt_dir else None)
+        event_log = FaultEventLog(path)
+    if chaos is None and args.chaos_spec:
+        chaos = ChaosSchedule.parse(args.chaos_spec, seed=args.chaos_seed)
+
+    corpus = _corpus(args.seed)
+
+    def fresh_loader() -> DeterministicLoader:
+        return DeterministicLoader(make_batch_fn(cfg, args.seq, corpus),
+                                   args.batch, seed=args.seed)
+
     opt_cfg = OptimizerConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 1))
     step_fn = make_train_step(lambda p, b: LM.lm_loss(p, b, cfg), opt_cfg,
                               accum_steps=args.accum, chaos_guard=True)
-    params = T.init_model(cfg, seed=args.seed, device=device)
-    state = make_train_state(params)
-    print(f"params: {sum(p.numel() for p in params.parameters()):,}")
-    t0 = time.perf_counter()
-    skips = 0
-    for s in range(args.steps):
-        batch = {k: v.to(device) for k, v in loader.batch_at(s).items()}
-        t_step = time.perf_counter()
-        state, metrics = step_fn(state, batch,
-                                 poison(s) if poison is not None else 0.0)
-        metrics = LM.train_metrics(metrics)       # syncs the device
-        dt = time.perf_counter() - t_step
-        skips += int(metrics["skipped"])
-        if on_step is not None:
-            on_step(s, state, metrics, dt)
-        if (s + 1) % args.log_every == 0:
-            print(f"step {s + 1:5d} loss={metrics['loss']:.4f} "
-                  f"gnorm={metrics['grad_norm']:.3f} "
-                  f"lr={metrics['lr']:.2e} {dt * 1e3:.0f} ms/step")
-    print(f"done in {time.perf_counter() - t0:.1f}s (skips={skips})")
-    return state
+
+    def init_state() -> dict:
+        params = T.init_model(cfg, seed=args.seed, device=device)
+        print(f"params: {sum(p.numel() for p in params.parameters()):,}")
+        return make_train_state(params)
+
+    def try_restore(state: dict, loader: DeterministicLoader,
+                    required: bool):
+        """Restore the newest valid checkpoint into ``state`` (a fresh
+        one), or start fresh.  Returns (state, start step, loader).
+        ``required`` marks a rollback or restart, where finding nothing is
+        an event."""
+        step = (latest_valid_step(args.ckpt_dir, event_log=event_log,
+                                  timings=timings)
+                if args.ckpt_dir else None)
+        if step is None:
+            if required:
+                print("!! no valid checkpoint to resume from; "
+                      "restarting from scratch")
+                event_log.emit("resume_fallback_fresh")
+            return state, 0, loader
+        state, extra = restore_checkpoint(
+            args.ckpt_dir, state, step=step, event_log=event_log,
+            timings=timings)
+        # the LR schedule follows the restored opt["count"]; the loop
+        # counter and the data cursor rewind here
+        if not loader.resume(extra.get("cursor")):
+            event_log.emit("cursor_missing", step=step)
+        start = int(extra.get("cursor", {}).get("step", step))
+        print(f"resumed from step {start}")
+        return state, start, loader
+
+    def loop(resume: Optional[int]) -> dict:
+        """One attempt: ``None`` cold-starts (resuming when checkpoints
+        exist), ``RESUME_LATEST`` restores after a failure."""
+        state, s, loader = try_restore(init_state(), fresh_loader(),
+                                       required=resume == RESUME_LATEST)
+        start = s
+        policy = FaultPolicy()
+        straggler = StragglerDetector(event_log=event_log)
+        t0 = time.perf_counter()
+        while s < args.steps:
+            batch = {k: v.to(device) for k, v in loader.batch_at(s).items()}
+            t_step = time.perf_counter()
+            if chaos is not None:
+                chaos.pre_step(s)
+            poison = chaos.poison(s) if chaos is not None else 0.0
+            state, metrics = step_fn(state, batch, poison)
+            metrics = LM.train_metrics(metrics)       # syncs the device
+            dt = time.perf_counter() - t_step
+            straggler.observe(s, dt)
+            if on_step is not None:
+                on_step(s, state, metrics, dt)
+            if metrics["skipped"]:
+                event_log.emit("skip", step=s, cause="non-finite grads")
+            if policy.on_metrics(metrics):
+                print("!! rollback: too many consecutive skipped steps")
+                event_log.emit("rollback", step=s,
+                               cause=f"{policy.consecutive_skips} "
+                                     "consecutive skips")
+                state, s, loader = try_restore(init_state(), fresh_loader(),
+                                               required=True)
+                policy.reset()
+                continue
+            s += 1
+            if s % args.log_every == 0:
+                print(f"step {s:5d} loss={metrics['loss']:.4f} "
+                      f"gnorm={metrics['grad_norm']:.3f} "
+                      f"lr={metrics['lr']:.2e} {dt * 1e3:.0f} ms/step")
+            if args.ckpt_dir and s % args.ckpt_every == 0:
+                save_checkpoint(args.ckpt_dir, s, state,
+                                extra={"cursor": {"seed": args.seed,
+                                                  "step": s}},
+                                timings=timings)
+            if chaos is not None:
+                chaos.post_step(s - 1, args.ckpt_dir or None,
+                                event_log=event_log)
+        print(f"done in {time.perf_counter() - t0:.1f}s from step {start} "
+              f"(skips={policy.total_skips})")
+        return state
+
+    return run_with_recovery(loop, max_restarts=args.max_restarts,
+                             backoff_base=args.backoff_base,
+                             event_log=event_log)
 
 
 def main() -> None:

@@ -3,6 +3,13 @@
 Both stay dense whatever ``linear_impl`` says.  ``unembed`` is one plain
 matrix product, which the reference leaves to XLA; logits are f32 when h is
 f32, and the entry points keep TF32 off so an f32 product stays f32.
+
+``embed`` looks rows up with ``F.embedding``, whose backward sums a
+repeated token's rows in one fixed order on the CPU and on the card.
+Indexing the table (``table[tokens]``) would take ``index_put_`` with
+accumulation, which on the CPU adds in parallel with atomics once the grad
+is large (a batch of 8 x 512 tokens), so two identical training runs
+would not agree bit for bit.
 """
 
 from __future__ import annotations
@@ -10,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["EmbeddingConfig", "init_embedding", "embed", "unembed"]
 
@@ -37,8 +45,9 @@ def init_embedding(cfg: EmbeddingConfig, generator: torch.Generator,
 
 def embed(params, tokens: torch.Tensor, cfg: EmbeddingConfig,
           dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Token lookup, cast to ``dtype``."""
-    return params["table"][tokens].to(dtype)
+    """Token lookup, cast to ``dtype`` (deterministic backward: module
+    docstring)."""
+    return F.embedding(tokens, params["table"]).to(dtype)
 
 
 def unembed(params, h: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:

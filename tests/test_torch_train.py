@@ -40,6 +40,7 @@ from repro_torch.models import causal_lm as LM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.optim import adamw as T_opt  # noqa: E402
 from repro_torch.train import make_train_state, make_train_step  # noqa: E402
+from repro_torch.train.chaos import ChaosSchedule  # noqa: E402
 
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -330,7 +331,7 @@ def test_launch_train_two_smoke_steps_on_cpu(capsys):
          "--seq", "8", "--log-every", "1"])
     seen = []
     state = launch_train.train(
-        args, poison=lambda s: float(s == 1),
+        args, chaos=ChaosSchedule.parse("nan@1"),
         on_step=lambda s, st, m, dt: seen.append((s, m["skipped"],
                                                   m["loss"])))
     assert [s for s, _, _ in seen] == [0, 1]
@@ -340,8 +341,7 @@ def test_launch_train_two_smoke_steps_on_cpu(capsys):
     assert "step     2" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-dir", "x"], ["--chaos-spec", "n"],
-                                  ["--pod-dp", "2"],
+@pytest.mark.parametrize("flag", [["--pod-dp", "2"],
                                   ["--compress-pod-grads"]])
 def test_launch_train_refuses_later_slices(flag):
     args = launch_train.build_parser().parse_args(
