@@ -64,9 +64,10 @@ Phases, each of which fails the run when it fails:
    unchanged by it, each kernel's launches equal to the plan (remat runs
    each forward twice).  Step ms (median of steps 2-6), tokens/s, peak
    memory.
-7. **Train parity**: the same full-width weights with f32 activations, one
-   step on the card and on the CPU: the loss, every parameter's grad (as a
-   relative norm) and the updated params within a derived f32 bound.
+7. **Train parity**: the same full-width weights with f32 activations, cut
+   to their first ``PARITY_LAYERS`` (8) layers, one step on the card and
+   on the CPU: the loss, every parameter's grad (as a relative norm) and
+   the updated params within a derived f32 bound.
 8. **int8 kernels**: the int8 modes of K1 and K2 against their plain
    versions on the card (``q8_cases``): the o projection at 4096 rows in
    each mode, k/v with out_width 1024 inside the scale tile, an 8-row
@@ -195,10 +196,38 @@ Phases, each of which fails the run when it fails:
    width's local runs (512 and 1024 lanes) against their plain versions
    as phase 12 holds them.
 
-Depths: phases 10, 11 (its teacher-forced part), 14 and 18 hold the card
-to the CPU on the first ``PARITY_LAYERS`` = 8 of the 28 layers at full
-width, and phase 4 replays one served row (two before): they were the
-script's slowest CPU sides.  On an NVIDIA H100 80GB HBM3 at 700 W the
+22. **The other dense-attention archs** (``run_archs_phase``):
+   gemma3-12b (5:1 local:global, 1024-slot rings), qwen2-vl-7b (M-RoPE,
+   embedding inputs), musicgen-medium (embedding inputs, fused q/k/v),
+   minitron-4b and qwen3-32b, each at full width and depth from seed 0:
+   ``ServeEngine.generate`` of 4 rows, 16 tokens (gemma3-12b's prompt 1280,
+   so every ring wraps in prefill and decode; the others 256), K1/K3
+   launches equal to the plan (q/k/v as K1 runs where they do not fuse);
+   two training steps of 4 x 512 through ``launch.train.train``
+   (qwen2-vl-7b with a 16 x 16 patch grid's M-RoPE ids), K1-K4 launches
+   and K2's split-mode launches equal to the plan, losses and grad norms
+   finite and non-zero.  Init s, prefill ms, decode tokens/s, step ms,
+   peak memory.  Then gemma3-12b at one 6-layer pattern group against the
+   CPU (an 1100-token prompt, 16 tokens teacher-forced, phase 4's bound);
+   qwen2-vl-7b at 2 layers, one f32 step against the CPU with distinct
+   M-RoPE ids (phase 7's bound); gemma3-12b's 6 layers through the
+   continuous engine (4 slots, 8 requests of 9-1100 tokens): churn parity
+   bit for bit against each request alone, and unchanged tokens with NaN
+   planted in each reused slot's rows before its admit.  Last, K2's split
+   mode against its plain version at every lone wide tile (9216, 9472,
+   12800, 15360, 18944, 25600) at 8 and 2048 rows, held as phase 5 holds
+   K2, timed beside the dense backward's two products, and at 2048 rows
+   with an int8 x; then K1-K4 at every distinct shape the five archs'
+   main path gives them (``arch_kernel_cases``: each linear's widths and
+   run plan at the training step's 2048 rows, the prefills' 1024 and 5120
+   and decode's 4), held as phases 2 and 5 hold them, the FFN's and
+   musicgen-medium's q/k/v also timed.  The phase has 200 s
+   (``ARCH_BUDGET_S``).
+
+Depths: phases 7, 10, 11 (its teacher-forced part), 14 and 18 hold the
+card to the CPU on the first ``PARITY_LAYERS`` = 8 of the 28 layers at
+full width, and phase 4 replays one served row (two before): they were
+the script's slowest CPU sides.  On an NVIDIA H100 80GB HBM3 at 700 W the
 whole script took 766.1 s with the build 227.0 s and phase 21 116.2 s,
 phases 4, 10, 11 and 14 41.9, 20.0, 41.6 and 23.3 s (56.0, 39.7, 81.0 and
 46.0 at full depth and two replayed rows, on another host).
@@ -383,9 +412,12 @@ def bwd_plan_str(p) -> str:
             f"G{p['groups']}{' streamed ' + str(p['streamed']) if p['streamed'] else ''}")
 
 
-def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
+def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None,
+                     k3_shape=None):
     """Phase 2 over ``k1_cases()`` and ``k3_cases()`` in bf16 and f32, or
-    over the given cases and dtypes (phase 20).  K1 is held bit for bit:
+    over the given cases and dtypes (phases 20, 22), K3 on ``k3_shape`` =
+    (n, strides), default the 2048-wide 11-stage q/k/v; ``timer`` None
+    holds the cases without timing them.  K1 is held bit for bit:
     its kernel rounds every product and sum on its own
     (``__fmul_rn``/``__fadd_rn``), as the plain version's eager ops do, and
     sums nothing else.  K3 is held within two ulps of the I/O
@@ -445,8 +477,18 @@ def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
             torch.cuda.synchronize()
             err = (kern.float() - plain.float()).abs().max().item()
             scale = plain.float().abs().max().item()
-            ms = timer(lambda: chain(K.spm_stack_kernel_call))
-            plain_ms = timer(lambda: chain(K.spm_stack_plain))
+            ms = plain_ms = lib_ms = None
+            if timer is not None:
+                ms = timer(lambda: chain(K.spm_stack_kernel_call))
+                plain_ms = timer(lambda: chain(K.spm_stack_plain))
+                # yardstick: one dense product computing the same linear map
+                eye = torch.eye(in_w, device=DEVICE)
+                dense = chain(K.spm_stack_plain, x=eye,
+                              launches=[dict(kw, bias=None)
+                                        for kw in launches]).to(dt)
+                del eye
+                lib_ms = timer(lambda: torch.matmul(x, dense))
+                del dense
             # the function reads x and writes y once; the plan also reads
             # each run's coefficients and vectors for the tiles it computes
             # and, between two runs, writes and reads the intermediate
@@ -465,12 +507,6 @@ def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
             between = 2 * rows * n * esz * (len(launches) - 1)
             bms, bby = bound(io + table, flops)
             plan_bms, _ = bound(io + table + between, flops)
-            # yardstick: one dense product computing the same linear map
-            eye = torch.eye(in_w, device=DEVICE)
-            dense = chain(K.spm_stack_plain, x=eye,
-                          launches=[dict(kw, bias=None) for kw in launches])
-            dense = dense.to(dt)
-            lib_ms = timer(lambda: torch.matmul(x, dense))
             again = chain(K.spm_stack_kernel_call)
             ok = (err == 0 and torch.equal(kern, again)
                   and bool(torch.isfinite(kern.float()).all()))
@@ -493,25 +529,26 @@ def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
                 bound_ms=bms, bound_by=bby, plan_bound_ms=plan_bms,
                 library_ms=lib_ms, ok=ok))
             log(f"K1 {label:5s} {dname:8s} rows={rows:5d} runs={len(runs)} "
-                f"err={err:.3e} tol=0 max|y|={scale:.3f} ms={ms:.4f} "
+                f"err={err:.3e} tol=0 max|y|={scale:.3f} ms={fmt_ms(ms)} "
                 f"(before {fmt_ms(prev)}) "
-                f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({bby}) "
-                f"plan_bound_ms={plan_bms:.4f} library_ms={lib_ms:.4f} "
+                f"plain_ms={fmt_ms(plain_ms)} bound_ms={bms:.4f} ({bby}) "
+                f"plan_bound_ms={plan_bms:.4f} "
+                f"library_ms={fmt_ms(lib_ms)} "
                 f"plans={[plan_str(q) for q in plans]} resident clusters="
                 f"{held} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"K1 {label} {dname} rows={rows}")
 
-        n = 2048
-        strides = tuple(1 << i for i in range(11))
+        n, strides = k3_shape or (2048, tuple(1 << i for i in range(11)))
+        L1 = len(strides)
         for label, rows, out_w, act, two in (k3_cases() if k3 is None
                                              else k3):
-            kw = dict(coeffs1=mix(11, n), d_in1=vec(n),
+            kw = dict(coeffs1=mix(L1, n), d_in1=vec(n),
                       d_out1=vec(n), bias1=0.1 * rnd(n), gamma=vec(n),
                       strides1=strides, in_width=n, out_width=out_w,
                       mid_width=out_w)
             if two:
-                kw.update(coeffs2=mix(11, n),
+                kw.update(coeffs2=mix(L1, n),
                           d_in2=vec(n), d_out2=vec(n), bias2=0.1 * rnd(n),
                           strides2=strides, activation=act, residual=True,
                           mid_width=1536)
@@ -526,14 +563,16 @@ def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
             diff = (kern.float() - plain.float()).abs()
             err = diff.max().item()
             scale = plain.float().abs().max().item()
-            L_tot = 11 * (2 if two else 1)
+            L_tot = L1 * (2 if two else 1)
             t32 = k3_f32_term(n, L_tot, scale)
             limit = 2 * ulp(plain, dname) + t32
             worst = (diff / limit).max().item()
             rerr = ((rstd_k - rstd_p).abs() / rstd_p).max().item()
             rtol = 8 * (math.sqrt(n) + 4) * EPS["float32"]
-            ms = timer(lambda: K.spm_block_kernel_call(x, **kw))
-            plain_ms = timer(lambda: K.spm_block_plain(x, **kw))
+            ms = plain_ms = lib_ms = None
+            if timer is not None:
+                ms = timer(lambda: K.spm_block_kernel_call(x, **kw))
+                plain_ms = timer(lambda: K.spm_block_plain(x, **kw))
             # the function reads x once (the kernel's second read for the
             # residual is its own cost), writes y and rstd once, and reads
             # both coefficient slabs and every vector
@@ -543,8 +582,7 @@ def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
             bms, bby = bound(nbytes, flops)
             # yardstick (one stack): the norm and one dense product with
             # the same operator, torch.matmul(F.rms_norm(x), W)
-            lib_ms = None
-            if not two:
+            if not two and timer is not None:
                 W = K.spm_stack_plain(torch.eye(n, device=DEVICE),
                                       kw["coeffs1"], kw["d_in1"],
                                       kw["d_out1"], strides=strides)
@@ -573,7 +611,8 @@ def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
                 f"{scale:.3f} rstd_rel={rerr:.2e} (tol {rtol:.2e}) "
                 f"given rstd: bitwise={bitwise} ({comp_err:.1e}"
                 f"{'' if exact else ', expf/tanhf'}) "
-                f"ms={ms:.4f} (before {fmt_ms(prev)}) plain_ms={plain_ms:.4f} "
+                f"ms={fmt_ms(ms)} (before {fmt_ms(prev)}) "
+                f"plain_ms={fmt_ms(plain_ms)} "
                 f"bound_ms={bms:.4f} ({bby}) library_ms={fmt_ms(lib_ms)} "
                 f"plan={plan_str(fplan)} {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -585,18 +624,49 @@ def run_kernel_phase(torch, K, ops, timer, k1=None, k3=None, dtypes=None):
 # phase 3: serving full-width qwen3-1.7b through the kernels
 # ---------------------------------------------------------------------------
 
+def qkv_fused(cfg) -> bool:
+    """Whether a layer's q/k/v run as fused K3 launches, as
+    ``layers/attention.attention_apply`` decides it."""
+    from repro_torch.layers.attention import qkv_block_fused
+    return qkv_block_fused(cfg.attn_cfg(cfg.layers[0]))
+
+
+def k1_linears(cfg):
+    """(name, LinearConfig) of a layer's linears that run on K1: o, gate,
+    up and down, and q, k and v where they do not fuse (``qkv_fused``)."""
+    acfg, fcfg = cfg.attn_cfg(cfg.layers[0]), cfg.ffn_cfg()
+    lins = [("o", acfg.o_proj), ("gate", fcfg.gate), ("up", fcfg.up),
+            ("down", fcfg.down)]
+    if not qkv_fused(cfg):
+        lins += [("q", acfg.q_proj), ("k", acfg.kv_proj),
+                 ("v", acfg.kv_proj)]
+    return lins
+
+
 def planned_launches(cfg, ops, rows: int):
     """(K1, K3) launches of one forward over ``rows`` flattened rows, from
-    the port's own run plan: per layer three fused q/k/v (K3), the o
-    projection's runs and the runs of gate, up and down (K1)."""
-    spec = cfg.layers[0]
-    acfg, fcfg = cfg.attn_cfg(spec), cfg.ffn_cfg()
+    the port's own run plan: per layer three fused q/k/v (K3), and the runs
+    of every ``k1_linears`` (K1)."""
     k1 = 0
-    for lin in (acfg.o_proj, fcfg.gate, fcfg.up, fcfg.down):
+    for _, lin in k1_linears(cfg):
         scfg = lin.spm_config()
         k1 += len(ops.plan_runs_for_rows(scfg.n, scfg.pairing.strides(),
                                          rows))
-    return cfg.n_layers * k1, cfg.n_layers * 3
+    return cfg.n_layers * k1, cfg.n_layers * (3 if qkv_fused(cfg) else 0)
+
+
+def planned_split_launches(cfg, ops, K, rows: int) -> int:
+    """K2 launches of one training step over ``rows`` rows in its split
+    mode (a lone stage wider than one cluster, ``bwd_plan``'s ``split``):
+    one per such run of every linear of every layer."""
+    n_split = 0
+    for _, lin in k1_linears(cfg):
+        scfg = lin.spm_config()
+        n = scfg.n
+        for rs, nt in ops.plan_runs_for_rows(n, scfg.pairing.strides(),
+                                             rows):
+            n_split += bool(K.bwd_plan(rows, nt, rs, n // nt, 2).split)
+    return cfg.n_layers * n_split
 
 
 def run_serve_phase(torch, K, ops, T, ServeEngine, cfg, batch=8,
@@ -1009,7 +1079,8 @@ def grads_within(got, want, mags, k, rel=0.0):
     return worst
 
 
-def run_bwd_kernel_phase(torch, K, ops, timer):
+def run_bwd_kernel_phase(torch, K, ops, timer, k2=None, k4=None,
+                         dtypes=None, k4_shape=None):
     """K2's g_x is held bit for bit (every per-row value rounds as the
     plain version rounds); each parameter grad within gamma_k times the sum
     of its terms' magnitudes (k the row count: the two sum the same terms
@@ -1019,7 +1090,10 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
     the activation's exp/tanh may differ by a few ulps); its parameter
     grads as K2's, plus, where an activation sits between the stacks, the
     same f32 term relative to the sum of magnitudes.  A second launch must
-    give bitwise equal outputs."""
+    give bitwise equal outputs.  ``k2``, ``k4``, ``dtypes`` and
+    ``k4_shape`` = (n, strides) replace the cases, the dtypes and K4's
+    2048-wide 11-stage shape (phase 22); ``timer`` None holds the cases
+    without timing them."""
     rows_out, failures = [], []
     g = torch.Generator(device=DEVICE).manual_seed(4321)
 
@@ -1040,7 +1114,7 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
     # the backward engine's launch shapes for the main runs, and how many of
     # their clusters the card holds at once (the planner's CLUSTERS_RESIDENT)
     qkv = tuple(1 << i for i in range(11))
-    for kern, args, kw in (
+    for kern, args, kw in () if k2 is not None else (
             ("K2", (4096, 2048, qkv, 1, 2, 2), {}),
             ("K2", (4096, 2048, qkv, 3, 2, 2), {}),
             ("K2", (4096, 6144, (3072,), 1, 2, 2), {}),
@@ -1054,10 +1128,11 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
             f"{plan.threads}, {plan.smem_bytes} B shared; clusters of "
             f"{plan.cluster} resident {held} (planned "
             f"{K.CLUSTERS_RESIDENT[plan.cluster]})")
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in dtypes or (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
         esz = torch.tensor([], dtype=dt).element_size()
-        for label, n, strides, rows, in_w, out_w in k2_cases():
+        for label, n, strides, rows, in_w, out_w in (k2_cases() if k2 is None
+                                                     else k2):
             L = len(strides)
             cf = mix(L, n)
             d_in, d_out, b = vec(n), vec(n), 0.1 * rnd(n)
@@ -1084,10 +1159,18 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
             err = max(gx_err, max((u - v).abs().max().item()
                                   for a, p in zip(kern, plain)
                                   for u, v in zip(a[1:], p[1:])))
-            ms = timer(lambda: ops.backward_runs(
-                K.spm_stack_bwd_kernel_call, *args))
-            plain_ms = timer(lambda: ops.backward_runs(
-                K.spm_stack_bwd_plain, *args))
+            ms = plain_ms = lib_ms = None
+            if timer is not None:
+                ms = timer(lambda: ops.backward_runs(
+                    K.spm_stack_bwd_kernel_call, *args))
+                plain_ms = timer(lambda: ops.backward_runs(
+                    K.spm_stack_bwd_plain, *args))
+                # yardstick: a dense linear's backward, g_x = gy W^T and
+                # g_W = x^T gy, which the port never calls
+                w = rnd(in_w, out_w).to(dt)
+                lib_ms = timer(lambda: (torch.matmul(gy, w.T),
+                                        torch.matmul(x.T, gy)))
+                del w
             # the function reads x and gy and writes g_x once, reads the
             # coefficient slabs and vectors and writes their grads; it
             # remats 3 flops per element and stage, walks back 7 (eq. 14's
@@ -1099,11 +1182,6 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
                 flops += rows * n * (10 * len(rs) + 6)
             nbytes += 2 * 3 * 4 * n
             bms, bby = bound(nbytes, flops)
-            # yardstick: a dense linear's backward, g_x = gy W^T and
-            # g_W = x^T gy, which the port never calls
-            w = rnd(in_w, out_w).to(dt)
-            lib_ms = timer(lambda: (torch.matmul(gy, w.T),
-                                    torch.matmul(x.T, gy)))
             ok = gx_err == 0 and worst <= 1 and det and all(
                 bool(torch.isfinite(t.float()).all()) for a in kern
                 for t in a)
@@ -1118,21 +1196,22 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
                 bound_ms=bms, bound_by=bby, library_ms=lib_ms, ok=ok))
             log(f"K2 {label:9s} {dname:8s} rows={rows:5d} runs={len(runs)} "
                 f"gx_err={gx_err:.3e} (tol 0) grad err/limit={worst:.3f} "
-                f"det={det} ms={ms:.4f} (before {fmt_ms(p15)}) "
-                f"plain_ms={plain_ms:.4f} "
-                f"bound_ms={bms:.4f} ({bby}) library_ms={lib_ms:.4f} "
+                f"det={det} ms={fmt_ms(ms)} (before {fmt_ms(p15)}) "
+                f"plain_ms={fmt_ms(plain_ms)} "
+                f"bound_ms={bms:.4f} ({bby}) library_ms={fmt_ms(lib_ms)} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"K2 {label} {dname} rows={rows}")
 
-        n = 2048
-        strides = tuple(1 << i for i in range(11))
-        for label, rows, out_w, act, two, res in k4_cases():
-            kw = dict(coeffs1=mix(11, n), d_in1=vec(n), d_out1=vec(n),
+        n, strides = k4_shape or (2048, tuple(1 << i for i in range(11)))
+        L1 = len(strides)
+        for label, rows, out_w, act, two, res in (k4_cases() if k4 is None
+                                                  else k4):
+            kw = dict(coeffs1=mix(L1, n), d_in1=vec(n), d_out1=vec(n),
                       bias1=0.1 * rnd(n), gamma=vec(n), strides1=strides,
                       in_width=n, out_width=out_w, mid_width=out_w)
             if two:
-                kw.update(coeffs2=mix(11, n), d_in2=vec(n), d_out2=vec(n),
+                kw.update(coeffs2=mix(L1, n), d_in2=vec(n), d_out2=vec(n),
                           bias2=0.1 * rnd(n), strides2=strides,
                           activation=act, residual=res, mid_width=1536)
             x = rnd(rows, n).to(dt)
@@ -1144,7 +1223,7 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
             mags = K.spm_block_bwd_plain(x, gy, rstd=rstd, col_sum=abs_sum,
                                          **kw)
             torch.cuda.synchronize()
-            L_tot = 11 * (2 if two else 1)
+            L_tot = L1 * (2 if two else 1)
             diff = (kern[0].float() - plain[0].float()).abs()
             t32 = k3_f32_term(n, L_tot, plain[0].float().abs().max().item())
             gx_worst = (diff / (2 * ulp(plain[0], dname) + t32)).max().item()
@@ -1154,10 +1233,12 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
             det = all(torch.equal(u, v) for u, v in zip(kern, again))
             err = max((u.float() - v.float()).abs().max().item()
                       for u, v in zip(kern, plain))
-            ms = timer(lambda: K.spm_block_bwd_kernel_call(x, gy, rstd=rstd,
-                                                           **kw))
-            plain_ms = timer(lambda: K.spm_block_bwd_plain(x, gy, rstd=rstd,
-                                                           **kw))
+            ms = plain_ms = lib_ms = None
+            if timer is not None:
+                ms = timer(lambda: K.spm_block_bwd_kernel_call(
+                    x, gy, rstd=rstd, **kw))
+                plain_ms = timer(lambda: K.spm_block_bwd_plain(
+                    x, gy, rstd=rstd, **kw))
             n_vec = 4 + (4 if two else 0)
             nbytes = (rows * (2 * n + out_w) * x.element_size() + rows * 4
                       + 2 * L_tot * n // 2 * 16 + 2 * 4 * n * n_vec)
@@ -1166,18 +1247,19 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
             # yardstick: a dense backward's two products for each linear of
             # the block, g_x = gy W^T and g_W = xh^T gy
             # (xh stands in for the mid activation and its cotangent)
-            xh = (x.float() * rstd).to(dt)
-            w_out = rnd(n, out_w).to(dt)
-            if two:
-                w_mid = rnd(n, n).to(dt)
-                prods = (lambda: (torch.matmul(gy, w_out.T),
-                                  torch.matmul(xh.T, gy),
-                                  torch.matmul(xh, w_mid.T),
-                                  torch.matmul(xh.T, xh)))
-            else:
-                prods = (lambda: (torch.matmul(gy, w_out.T),
-                                  torch.matmul(xh.T, gy)))
-            lib_ms = timer(prods)
+            if timer is not None:
+                xh = (x.float() * rstd).to(dt)
+                w_out = rnd(n, out_w).to(dt)
+                if two:
+                    w_mid = rnd(n, n).to(dt)
+                    prods = (lambda: (torch.matmul(gy, w_out.T),
+                                      torch.matmul(xh.T, gy),
+                                      torch.matmul(xh, w_mid.T),
+                                      torch.matmul(xh.T, xh)))
+                else:
+                    prods = (lambda: (torch.matmul(gy, w_out.T),
+                                      torch.matmul(xh.T, gy)))
+                lib_ms = timer(prods)
             # g_dout and g_bias of the stack gy meets: exactly 0 on every
             # lane past out_width (no cotangent reaches it)
             tail = kern[8:10] if two else kern[4:6]
@@ -1199,9 +1281,9 @@ def run_bwd_kernel_phase(torch, K, ops, timer):
                 bound_ms=bms, bound_by=bby, library_ms=lib_ms, ok=ok))
             log(f"K4 {label:13s} {dname:8s} rows={rows:5d} err={err:.3e} "
                 f"gx err/limit={gx_worst:.3f} grad err/limit={worst:.3f} "
-                f"det={det} dead lanes 0={dead_zero} ms={ms:.4f} "
-                f"(before {fmt_ms(prev)}) plain_ms={plain_ms:.4f} "
-                f"bound_ms={bms:.4f} ({bby}) library_ms={lib_ms:.4f} "
+                f"det={det} dead lanes 0={dead_zero} ms={fmt_ms(ms)} "
+                f"(before {fmt_ms(prev)}) plain_ms={fmt_ms(plain_ms)} "
+                f"bound_ms={bms:.4f} ({bby}) library_ms={fmt_ms(lib_ms)} "
                 f"plan={bwd_plan_str(bplan)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"K4 {label} {dname} rows={rows}")
@@ -1539,6 +1621,24 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
 # phase 7: one training step on the card against the CPU
 # ---------------------------------------------------------------------------
 
+def parity_batch(torch, cfg, batch: int, seq: int) -> dict:
+    """A training batch from seed 5: tokens and labels, or for an
+    embeddings-input config unit-normal embeddings, with the M-RoPE ids of
+    a synthetic 4 x 4 patch grid under ``mrope`` (three distinct rows)."""
+    from repro_torch.launch.train import patch_grid_positions
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen)
+    b = {"labels": toks[:, 1:]}
+    if cfg.input_kind == "tokens":
+        b["tokens"] = toks[:, :-1]
+        return b
+    b["embeds"] = torch.randn(batch, seq, cfg.d_model, generator=gen)
+    if cfg.rope_kind == "mrope":
+        b["positions"] = patch_grid_positions(seq, 4)[:, None, :].expand(
+            3, batch, seq).contiguous()
+    return b
+
+
 def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
                            seq=16, shards=0, overlap=False, cpu_side=None):
     """The same full-width weights, f32 activations, one step on the card
@@ -1576,10 +1676,9 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
         cfg = with_overlap_executor(cfg, True)
     params = T.init_model(cfg, seed=0, device="cpu")
     card = copy.deepcopy(params).to(DEVICE)
-    gen = torch.Generator().manual_seed(5)
-    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen)
-    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    L_attn, L_ffn = 11, 12
+    b = parity_batch(torch, cfg, batch, seq)
+    L_attn = cfg.attn_cfg(cfg.layers[0]).q_proj.spm_config().n_stages
+    L_ffn = cfg.ffn_cfg().gate.spm_config().n_stages
     per_layer = (cfg.d_model + 3 * L_attn + 8 + cfg.head_dim + seq
                  + 3 * L_attn + 3 * (3 * L_ffn + 4) + cfg.d_model)
     depth = 2 * (cfg.n_layers * per_layer + 2 * cfg.d_model)
@@ -1965,10 +2064,9 @@ def run_q8_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
     cfg = dataclasses.replace(cfg, dtype="float32")
     params = T.init_model(cfg, seed=0, device="cpu")
     card = copy.deepcopy(params).to(DEVICE)
-    gen = torch.Generator().manual_seed(5)
-    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen)
-    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    L_attn, L_ffn = 11, 12
+    b = parity_batch(torch, cfg, batch, seq)
+    L_attn = cfg.attn_cfg(cfg.layers[0]).q_proj.spm_config().n_stages
+    L_ffn = cfg.ffn_cfg().gate.spm_config().n_stages
     per_layer = (cfg.d_model + 3 * L_attn + 8 + cfg.head_dim + seq
                  + 3 * L_attn + 3 * (3 * L_ffn + 4) + cfg.d_model)
     depth = 2 * (cfg.n_layers * per_layer + 2 * cfg.d_model)
@@ -4324,6 +4422,475 @@ def run_chaos_phase(torch, K, ops, launch_train, cfg, smi):
     return res, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the other dense-attention archs at full width
+# ---------------------------------------------------------------------------
+
+ARCHS = ("gemma3-12b", "qwen2-vl-7b", "musicgen-medium", "minitron-4b",
+         "qwen3-32b")
+ARCH_ROWS = 4           # served rows
+ARCH_NEW = 16           # served tokens a row
+ARCH_PROMPT = {"gemma3-12b": 1280}   # past the 1024-slot rings
+ARCH_PROMPT_DEFAULT = 256
+ARCH_TRAIN = (4, 512, 2)             # batch, seq, steps
+ARCH_PATCH_GRID = 16    # qwen2-vl-7b's training M-RoPE ids: 16 x 16 patches
+ARCH_BUDGET_S = 200
+GEMMA_GROUP = 6         # one 5:1 local:global pattern group
+GEMMA_PROMPT = 1100     # the card-vs-CPU and continuous runs' longest
+CONT_SLOTS = 4
+CONT_PROMPTS = (9, 1100, 300, 37, 1024, 700, 120, 1030)
+CONT_ARRIVALS = (0, 0, 1, 1, 3, 4, 6, 8)
+# (label, tile, tiles, dense d_in, d_out): each lone stage wider than one
+# cluster that the archs' FFNs give K2, with the linear it belongs to
+LONE_CASES = (("minitron-4b gate", 9216, 1, 3072, 9216),
+              ("qwen2-vl-7b gate, 4736 on 9472", 9472, 2, 3584, 18944),
+              ("qwen3-32b gate, 6400 on 12800", 12800, 2, 5120, 25600),
+              ("gemma3-12b gate", 15360, 1, 3840, 15360),
+              ("qwen2-vl-7b gate, 9472 on 18944", 18944, 1, 3584, 18944),
+              ("qwen3-32b gate, 12800 on 25600", 25600, 1, 5120, 25600))
+
+
+def run_lone_k2_phase(torch, K, timer):
+    """K2's split mode against its plain version at every lone wide tile
+    (``LONE_CASES``), 8 and 2048 rows, bf16, the middle-run form (no
+    vectors): g_x bit for bit, the table grads within gamma_rows, a second
+    launch bitwise (``check_bwd``), the plan in split mode.  Timed as
+    phase 5 (L2 flushed, CUDA events, mean of ``TIMED``); bound: x, gy
+    and g_x moved once and the table and its grads, 16 f32 operations an
+    element; yardstick: the dense backward's two products of the whole
+    linear, which the port never calls.  At 2048 rows also held, untimed,
+    with an int8 x (``--quantize``'s saved input, a scale each tile)."""
+    from repro_torch.kernels import quant as Q
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(2222)
+    abs_sum = (lambda t: t.abs().sum(0))
+    for label, nt, tiles, d_in, d_out in LONE_CASES:
+        n = nt * tiles
+        kw = dict(strides=(nt // 2,), n_tile=nt)
+        for rows in (8, 2048):
+            th = (torch.rand(1, n // 2, generator=g, device=DEVICE) * 2
+                  - 1) * math.pi
+            cf = torch.stack([torch.cos(th), -torch.sin(th), torch.sin(th),
+                              torch.cos(th)], dim=-1)
+            x = torch.randn(rows, n, generator=g, device=DEVICE).bfloat16()
+            gy = torch.randn(rows, n, generator=g, device=DEVICE).bfloat16()
+            plan = K.bwd_plan(rows, nt, kw["strides"], tiles, 2)
+            ok, gx_err, worst, det = check_bwd(
+                torch, lambda: K.spm_stack_bwd_kernel_call(x, cf, gy, **kw),
+                lambda: K.spm_stack_bwd_plain(x, cf, gy, **kw),
+                lambda: K.spm_stack_bwd_plain(x, cf, gy, col_sum=abs_sum,
+                                              **kw), rows)
+            ok = ok and plan.split > 0
+            ms = timer(lambda: K.spm_stack_bwd_kernel_call(x, cf, gy, **kw))
+            plain_ms = timer(lambda: K.spm_stack_bwd_plain(x, cf, gy, **kw))
+            bms, bby = bound(3 * rows * n * 2 + 2 * n // 2 * 16,
+                             16 * rows * n)
+            w = torch.randn(d_in, d_out, generator=g,
+                            device=DEVICE).bfloat16()
+            xl = torch.randn(rows, d_in, generator=g,
+                             device=DEVICE).bfloat16()
+            gl = torch.randn(rows, d_out, generator=g,
+                             device=DEVICE).bfloat16()
+            lib_ms = timer(lambda: (torch.matmul(gl, w.T),
+                                    torch.matmul(xl.T, gl)))
+            rows_out.append(dict(
+                kernel="K2 split", case=label, dtype="bfloat16", rows=rows,
+                n=n, n_tile=nt, bwd_plan=plan._asdict(),
+                gx_max_abs_err=gx_err, max_abs_err=gx_err,
+                grad_err_over_limit=worst, deterministic=det, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=lib_ms, ok=ok))
+            log(f"K2 split {label:32s} rows={rows:5d} blocks "
+                f"{plan.split}x{tiles} of {plan.lanes} lanes, R "
+                f"{plan.chunk_rows}, G {plan.groups}: gx_err={gx_err:.3e} "
+                f"(tol 0) grad err/limit={worst:.3f} det={det} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
+                f"({bby}) library_ms={lib_ms:.4f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"K2 split {label} rows={rows}")
+            del xl, gl, w
+            if rows == 2048:
+                sr = Q.scale_block_rows([(kw["strides"], nt)], rows, 2)
+                xq, xs = Q.quantize_blocks(x.float(), sr, nt)
+                qkw = dict(kw, scale_rows=sr)
+                ok, gx_err, worst, det = check_bwd(
+                    torch,
+                    lambda: K.spm_stack_bwd_kernel_call(xq, cf, gy, None,
+                                                        None, xs, **qkw),
+                    lambda: K.spm_stack_bwd_plain(xq, cf, gy, None, None,
+                                                  xs, **qkw),
+                    lambda: K.spm_stack_bwd_plain(xq, cf, gy, None, None,
+                                                  xs, col_sum=abs_sum,
+                                                  **qkw), rows)
+                rows_out.append(dict(
+                    kernel="K2 split", case=label, dtype="bfloat16",
+                    mode="int8 x", rows=rows, n=n, n_tile=nt, scale_rows=sr,
+                    gx_max_abs_err=gx_err, max_abs_err=gx_err,
+                    grad_err_over_limit=worst, deterministic=det, ok=ok))
+                log(f"K2 split {label:32s} rows={rows:5d} int8 x ({sr} rows "
+                    f"a scale): gx_err={gx_err:.3e} (tol 0) grad err/limit="
+                    f"{worst:.3f} det={det} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"K2 split int8 {label} rows={rows}")
+                del xq, xs
+            del x, gy
+    return rows_out, failures
+
+
+def run_arch_train(torch, K, ops, launch_train, arch, cfg):
+    """``ARCH_TRAIN`` steps of ``cfg`` at full width and depth through
+    ``launch.train.train`` (bf16; qwen2-vl-7b's embeddings with the M-RoPE
+    ids of a ``ARCH_PATCH_GRID`` patch grid): every loss finite, no step
+    skipped, grad norms finite and non-zero, K1-K4 launches equal to the
+    plan and K2's split-mode launches to ``planned_split_launches``."""
+    batch, seq, steps = ARCH_TRAIN
+    argv = ["--arch", arch, "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--log-every", "1"]
+    if cfg.rope_kind == "mrope":
+        argv += ["--patch-grid", str(ARCH_PATCH_GRID)]
+    args = launch_train.build_parser().parse_args(argv)
+    mets, secs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    launch_train.train(args, on_step=lambda s, st, m, dt: (mets.append(m),
+                                                          secs.append(dt)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: v for k, v in q8_counts(K).items() if " " not in k}
+    got["K2 split"] = K.spm_stack_bwd_kernel_call.split_launches
+    per = dict(planned_train_launches(cfg, ops, batch * seq))
+    per["K2 split"] = planned_split_launches(cfg, ops, K, batch * seq)
+    want = {k: steps * v for k, v in per.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in mets]
+    gnorms = [m["grad_norm"] for m in mets]
+    ok = (len(mets) == steps and got == want
+          and all(math.isfinite(v) for v in losses + gnorms)
+          and all(v > 0 for v in gnorms)
+          and not any(m["skipped"] for m in mets))
+    res = dict(batch=batch, seq=seq, steps=steps, losses=losses,
+               grad_norms=gnorms, step_s=secs, step_ms_last=secs[-1] * 1e3,
+               tokens_per_s=batch * seq / secs[-1], wall_s=wall,
+               peak_mem_bytes=peak, launches=got, planned=want,
+               planned_per_step=per)
+    log(f"{cfg.name} train: {steps} steps of {batch} x {seq} bf16, losses "
+        f"{[round(v, 4) for v in losses]}, grad norms "
+        f"{[round(v, 4) for v in gnorms]}, step ms "
+        f"{[round(v * 1e3, 1) for v in secs]}, peak "
+        f"{peak / 2**30:.2f} GiB, launches {got} (planned {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
+def run_gemma_parity(torch, T, LM, cfg):
+    """gemma3-12b at one ``GEMMA_GROUP``-layer pattern group, full width:
+    one row with a ``GEMMA_PROMPT``-token prompt (every ring wraps) and
+    ``ARCH_NEW`` greedy tokens on the card, replayed teacher-forced on the
+    CPU from the same weights: the logits of each step within phase 4's
+    bf16 bound, the card's token the CPU's argmax wherever the CPU's top-2
+    gap exceeds it."""
+    cut = cut_depth(cfg, n=GEMMA_GROUP)
+    params = T.init_model(cut, seed=0, device=DEVICE)
+    cpu = copy.deepcopy(params).to("cpu")
+    gen = torch.Generator().manual_seed(23)
+    prompt = torch.randint(0, cfg.vocab_size, (1, GEMMA_PROMPT),
+                           generator=gen)
+    emb = cpu["embed"]
+    w = emb["table"] if cfg.tie_embeddings else emb["out"].T
+    tol = (2 * 2.0 ** -8 * cfg.d_model ** 0.5
+           * cpu["final_norm"]["scale"].abs().max().item()
+           * w.float().norm(dim=-1).max().item())
+    max_len = GEMMA_PROMPT + ARCH_NEW
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lg, cg = LM.prefill(params, cut, max_len=max_len,
+                            tokens=prompt.to(DEVICE))
+        card, toks = [], []
+        for step in range(ARCH_NEW):
+            card.append(lg.float().cpu())
+            tok = lg.argmax(-1)
+            toks.append(tok.cpu())
+            if step + 1 < ARCH_NEW:
+                lg, cg = LM.decode_step(params, cut, tok, cg,
+                                        GEMMA_PROMPT + step)
+        del cg
+        worst, decided, mism = 0.0, 0, 0
+        lc, cc = LM.prefill(cpu, cut, max_len=max_len, tokens=prompt)
+        for step in range(ARCH_NEW):
+            b = lc.float()
+            worst = max(worst, (card[step] - b).abs().max().item())
+            top2 = b.topk(2, dim=-1).values
+            if (top2[0, 0] - top2[0, 1]).item() > tol:
+                decided += 1
+                mism += int(b.argmax(-1).item() != toks[step].item())
+            if step + 1 < ARCH_NEW:
+                lc, cc = LM.decode_step(cpu, cut, toks[step], cc,
+                                        GEMMA_PROMPT + step)
+    secs = time.perf_counter() - t0
+    ok = worst <= tol and mism == 0 and decided >= ARCH_NEW // 2
+    ring = cut.attn_cfg(cut.layers[0]).window
+    res = dict(layers=GEMMA_GROUP, prompt_len=GEMMA_PROMPT, steps=ARCH_NEW,
+               ring_slots=ring, max_abs_err=worst, tol=tol,
+               decided_tokens=decided, token_mismatches=mism, seconds=secs)
+    log(f"gemma3-12b card vs CPU ({GEMMA_GROUP} layers, full width, prompt "
+        f"{GEMMA_PROMPT} over {ring}-slot rings, {ARCH_NEW} tokens "
+        f"teacher-forced): logits max err {worst:.3e} (tol {tol:.3e}), "
+        f"{decided} tokens decided, {mism} differ ({secs:.1f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+    del params, cpu
+    torch.cuda.empty_cache()
+    return res, ok
+
+
+def run_arch_continuous(torch, T, cfg):
+    """gemma3-12b at ``GEMMA_GROUP`` layers, full width, through
+    ``ContinuousBatchingEngine`` (``CONT_SLOTS`` slots, bf16 rings): the
+    ``CONT_PROMPTS`` requests (9-1100 tokens, greedy and sampled) at
+    ``CONT_ARRIVALS``; churn parity bit for bit against each request served
+    alone at the same slot count; then NaN planted in every row of each
+    slot that had a tenant, just before its next admit: every request's
+    tokens unchanged and unflagged."""
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+    cut = cut_depth(cfg, n=GEMMA_GROUP)
+    params = T.init_model(cut, seed=0, device=DEVICE)
+    max_len = max(CONT_PROMPTS) + ARCH_NEW
+    eng = ContinuousBatchingEngine(cut, params, slots=CONT_SLOTS,
+                                   max_len=max_len,
+                                   cache_dtype=torch.bfloat16, seed=0,
+                                   device=DEVICE)
+
+    def reqs():
+        gen = torch.Generator().manual_seed(24)
+        out = []
+        for i, plen in enumerate(CONT_PROMPTS):
+            t, k, p = CB_SAMPLING[i % len(CB_SAMPLING)]
+            out.append(Request(prompt=torch.randint(0, cfg.vocab_size,
+                                                    (plen,), generator=gen),
+                               max_new_tokens=ARCH_NEW - 8 * (i % 2),
+                               temperature=t, top_k=k, top_p=p, rid=i))
+        return out
+
+    eng.serve([Request(prompt=torch.zeros(8, dtype=torch.long),
+                       max_new_tokens=2, rid=10**6)])     # warm-up
+    t0 = time.perf_counter()
+    pool, stats = eng.serve(reqs(), arrival_ticks=list(CONT_ARRIVALS))
+    pool_s = time.perf_counter() - t0
+    alone = {r.rid: eng.serve([r])[0][r.rid]["tokens"]
+             == pool[r.rid]["tokens"] for r in reqs()}
+    inner, used, planted = eng._admit, set(), []
+
+    def admit(batch, tick, results):
+        for slot, req in batch:
+            if slot in used:
+                for c in eng._cache:
+                    c["mixer"]["k"][slot].fill_(float("nan"))
+                    c["mixer"]["v"][slot].fill_(float("nan"))
+                planted.append((slot, req.rid))
+            used.add(slot)
+        return inner(batch, tick, results)
+
+    eng._admit = admit
+    try:
+        poisoned, _ = eng.serve(reqs(), arrival_ticks=list(CONT_ARRIVALS))
+    finally:
+        eng._admit = inner
+    same = {r: poisoned[r]["tokens"] == pool[r]["tokens"] for r in pool}
+    flagged = [r for r in pool if pool[r]["flagged"]
+               or poisoned[r]["flagged"]]
+    counts_ok = all(len(pool[r.rid]["tokens"]) == r.max_new_tokens
+                    for r in reqs())
+    ok = (all(alone.values()) and all(same.values()) and not flagged
+          and counts_ok and len(planted) > 0)
+    res = dict(layers=GEMMA_GROUP, slots=CONT_SLOTS, max_len=max_len,
+               prompts=list(CONT_PROMPTS), ticks=stats["ticks"],
+               tokens=stats["tokens"], pool_s=pool_s,
+               alone_equal=alone, planted_nan_before=planted,
+               planted_equal=same, flagged=flagged)
+    log(f"gemma3-12b continuous ({GEMMA_GROUP} layers, {CONT_SLOTS} slots, "
+        f"prompts {list(CONT_PROMPTS)}): {stats['tokens']} tokens in "
+        f"{stats['ticks']} ticks ({pool_s:.2f} s); alone == pool "
+        f"{all(alone.values())}; NaN planted before admits {planted}: "
+        f"tokens unchanged {all(same.values())}, flagged {flagged} "
+        f"{'ok' if ok else 'FAIL'}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return res, ok
+
+
+def arch_kernel_cases():
+    """Every distinct shape at which phase 22's main path launches K1-K4,
+    from ``k1_linears`` and the row counts it gives them: K1 at the
+    training step's rows (``ARCH_TRAIN``), each arch's prefill rows
+    (``ARCH_ROWS`` times its prompt) and its decode rows (``ARCH_ROWS``),
+    K2 at the training rows, and for fused q/k/v K3 at those three and K4
+    at the training rows.  Returns {kernel: [(timed, shape, case)]}: the
+    case as ``run_kernel_phase``/``run_bwd_kernel_phase`` take it, labelled
+    with every arch and linear of its shape; the shape (n, strides) for K3
+    and K4, else None.  Timed: the FFN's up and down at the training rows
+    (K2: gate/up only) and up at the decode rows, K3 and K4's q."""
+    from repro_torch.configs import get_config
+    batch, seq, _ = ARCH_TRAIN
+    train = batch * seq
+    seen = {"K1": {}, "K2": {}, "K3": {}, "K4": {}}
+
+    def note(kernel, key, arch, name, timed):
+        entry = seen[kernel].setdefault(key, [{}, False])
+        names = entry[0].setdefault(arch, [])
+        if name not in names:
+            names.append(name)
+        entry[1] = entry[1] or timed
+
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        decode = ARCH_ROWS
+        rows_of = (train,
+                   ARCH_ROWS * ARCH_PROMPT.get(arch, ARCH_PROMPT_DEFAULT),
+                   decode)
+        for name, lin in k1_linears(cfg):
+            sc = lin.spm_config()
+            key = (None, sc.n, sc.pairing.strides(), lin.d_in, lin.d_out)
+            ffn = name in ("up", "down")
+            for rows in rows_of:
+                note("K1", key + (rows,), arch, name,
+                     ffn and (rows == train or name == "up"
+                              and rows == decode))
+            note("K2", key + (train,), arch, name, name == "up")
+        if qkv_fused(cfg):
+            acfg = cfg.attn_cfg(cfg.layers[0])
+            for name, lin in (("q", acfg.q_proj), ("k", acfg.kv_proj),
+                              ("v", acfg.kv_proj)):
+                sc = lin.spm_config()
+                shape = (sc.n, sc.pairing.strides())
+                for rows in rows_of:
+                    note("K3", (shape, rows, lin.d_out), arch, name,
+                         name == "q" and rows in (train, decode))
+                note("K4", (shape, train, lin.d_out), arch, name,
+                     name == "q")
+    out = {}
+    for kernel, keys in seen.items():
+        out[kernel] = []
+        for key, (archs, timed) in keys.items():
+            label = "; ".join(f"{a} {'/'.join(ns)}" for a, ns in
+                              archs.items())
+            if kernel in ("K1", "K2"):
+                _, n, strides, d_in, d_out, rows = key
+                case = (label, n, strides, rows, d_in, d_out)
+                out[kernel].append((timed, None, case))
+            else:
+                shape, rows, d_out = key
+                case = (label, rows, d_out, None, False) + (
+                    (False,) if kernel == "K4" else ())
+                out[kernel].append((timed, shape, case))
+    return out
+
+
+def run_arch_kernel_cases(torch, K, ops, timer):
+    """K1-K4 against their plain versions at every ``arch_kernel_cases``
+    shape, bf16, held as phases 2 and 5 hold them (K1 and K2's g_x bit for
+    bit, K2's grads within gamma_rows, K3 and K4 within their limits); the
+    timed ones also timed as there."""
+    cases = arch_kernel_cases()
+    bf = (torch.bfloat16,)
+    rows, failures = [], []
+    for t in (timer, None):
+        def pick(kernel, shape=None):
+            return [c for timed, sh, c in cases[kernel]
+                    if timed == (t is not None) and sh == shape]
+        for kernel in ("K1", "K2", "K3", "K4"):
+            shapes = {sh for _, sh, _ in cases[kernel]}
+            for shape in shapes:
+                got = pick(kernel, shape)
+                if not got:
+                    continue
+                if kernel in ("K1", "K3"):
+                    more, fails = run_kernel_phase(
+                        torch, K, ops, t, k1=got if kernel == "K1" else [],
+                        k3=got if kernel == "K3" else [], dtypes=bf,
+                        k3_shape=shape)
+                else:
+                    more, fails = run_bwd_kernel_phase(
+                        torch, K, ops, t, k2=got if kernel == "K2" else [],
+                        k4=got if kernel == "K4" else [], dtypes=bf,
+                        k4_shape=shape)
+                rows += more
+                failures += fails
+    return rows, failures
+
+
+def run_archs_phase(torch, K, ops, T, LM, ServeEngine, launch_train,
+                    train_mod, adamw, timer):
+    """Phase 22: each of ``ARCHS`` at full width and depth from seed 0,
+    served (``run_serve_phase``: ``ARCH_ROWS`` rows, ``ARCH_NEW`` tokens,
+    gemma3-12b's prompt past its rings) and trained (``run_arch_train``);
+    gemma3-12b against the CPU and through the continuous engine at one
+    pattern group; qwen2-vl-7b's training step against the CPU at 2 layers
+    with distinct M-RoPE ids (phase 7's bound); K2's split mode at every
+    lone wide tile (``run_lone_k2_phase``); K1-K4 at every shape of the
+    main path (``run_arch_kernel_cases``).  Returns (results, kernel rows,
+    failures)."""
+    from repro_torch.configs import get_config
+    out, failures = {"serve": {}, "train": {}}, []
+    times = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        plen = ARCH_PROMPT.get(arch, ARCH_PROMPT_DEFAULT)
+        windows = {s.window for s in cfg.layers if s.window}
+        if any(plen <= w for w in windows):
+            failures.append(f"{arch}: prompt {plen} within a ring")
+        log(f"-- {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
+            f"d_ff={cfg.d_ff}, q/k/v "
+            f"{'fused (K3)' if qkv_fused(cfg) else 'K1 runs'}, windows "
+            f"{sorted(windows)}, input {cfg.input_kind}, rope "
+            f"{cfg.rope_kind}")
+        t = time.perf_counter()
+        params, serve, ok, _ = run_serve_phase(
+            torch, K, ops, T, ServeEngine, cfg, batch=ARCH_ROWS,
+            prompt_len=plen, new=ARCH_NEW)
+        del params
+        torch.cuda.empty_cache()
+        out["serve"][arch] = serve
+        if not ok:
+            failures.append(f"{arch} serve")
+        train, ok = run_arch_train(torch, K, ops, launch_train, arch, cfg)
+        torch.cuda.empty_cache()
+        out["train"][arch] = train
+        if not ok:
+            failures.append(f"{arch} train")
+        times[arch] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["gemma_parity"], ok = run_gemma_parity(torch, T, LM,
+                                               get_config("gemma3-12b"))
+    if not ok:
+        failures.append("gemma3-12b card vs CPU")
+    out["qwen2_vl_train_parity"], ok, _ = run_train_parity_phase(
+        torch, T, LM, train_mod, adamw,
+        cut_depth(get_config("qwen2-vl-7b"), n=2))
+    if not ok:
+        failures.append("qwen2-vl-7b train parity")
+    times["parity"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["continuous"], ok = run_arch_continuous(torch, T,
+                                                get_config("gemma3-12b"))
+    if not ok:
+        failures.append("gemma3-12b continuous")
+    times["continuous"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rows, kfail = run_lone_k2_phase(torch, K, timer)
+    failures += kfail
+    times["K2 split"] = time.perf_counter() - t
+    t = time.perf_counter()
+    more, kfail = run_arch_kernel_cases(torch, K, ops, timer)
+    rows += more
+    failures += kfail
+    times["K1 K3 K4"] = time.perf_counter() - t
+    out["seconds"] = times
+    log("phase 22 parts: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in times.items()))
+    return out, rows, failures
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4396,7 +4963,7 @@ def main() -> int:
     train, train_ok = phase("6", run_train_phase, torch, K, ops,
                             launch_train, cfg)
     tparity, tparity_ok, _ = phase("7", run_train_parity_phase, torch, T,
-                                   LM, train_mod, adamw, cfg)
+                                   LM, train_mod, adamw, cut_depth(cfg))
     q8_rows, q8_failures = phase("8", run_q8_kernel_phase, torch, K, ops, Q,
                                  timer)
     kernel_rows += q8_rows
@@ -4457,6 +5024,14 @@ def main() -> int:
     chaos, chaos_failures = phase("21", run_chaos_phase, torch, K, ops,
                                   launch_train, cfg, smi)
     failures += chaos_failures
+    archs, split_rows, arch_failures = phase(
+        "22", run_archs_phase, torch, K, ops, T, LM, ServeEngine,
+        launch_train, train_mod, adamw, timer)
+    kernel_rows += split_rows
+    failures += arch_failures
+    if phase_s["22"] > ARCH_BUDGET_S:
+        failures.append(f"phase 22 took {phase_s['22']:.1f} s of its "
+                        f"{ARCH_BUDGET_S} s")
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -4545,6 +5120,19 @@ def main() -> int:
                             if x["kernel"] == key),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # K2's split mode: launches from phase 22's training steps (all five
+    # archs), times at gemma3-12b's 15360 tile at 2048 rows
+    k2s = head("K2 split", "gemma3-12b gate", "bfloat16", 2048)
+    entries.append(dict(
+        name="K2 split spm_stack_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/spm_stack_bwd.cu",
+        replaces="src/repro/kernels/spm_stack.py:523",
+        launches=sum(t["launches"]["K2 split"]
+                     for t in archs["train"].values()),
+        max_abs_err=max(x["max_abs_err"] for x in kernel_rows
+                        if x["kernel"] == "K2 split"),
+        ms=k2s["ms"], plain_ms=k2s["plain_ms"], bound_ms=k2s["bound_ms"],
+        bound_by=k2s["bound_by"], library_ms=k2s["library_ms"]))
     # the continuous engine's launches (phase 20, the serve at the busiest
     # load; the int8 and overlap runs at their cut depth)
     busiest = cont["loads"][max(CB_LOADS)]["launches"]
@@ -4564,7 +5152,7 @@ def main() -> int:
                   sharded=sharded, sharded_train_parity=sparity,
                   overlap=overlap, int8_overlap=q8_overlap,
                   overlap_train_parity=oparity,
-                  paper=paper, continuous=cont, chaos=chaos,
+                  paper=paper, continuous=cont, chaos=chaos, archs=archs,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",
@@ -4587,7 +5175,10 @@ def main() -> int:
                                    "K1 col_base int8": "gate/up shard 0 "
                                                        "with an int8 table, "
                                                        "bf16, 4096 rows",
-                                   "K2 col_base int8": "the same"})
+                                   "K2 col_base int8": "the same",
+                                   "K2 split": "gemma3-12b's lone stage "
+                                               "7680 on a 15360 tile, bf16, "
+                                               "2048 rows"})
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

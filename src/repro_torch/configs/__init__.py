@@ -1,6 +1,8 @@
-"""Architecture configs: ``qwen3-1.7b`` (full and smoke) and the registry."""
+"""Architecture configs: the dense-attention archs (full and smoke) and
+the registry."""
 
 from repro_torch.configs.base import (dense_layers,  # noqa: F401
+                                      local_global_layers,
                                       with_feature_sharding,
                                       with_overlap_executor,
                                       with_fused_linears, with_overrides,

@@ -8,7 +8,7 @@ from typing import Optional, Tuple
 
 from repro_torch.models.transformer import LayerSpec, ModelConfig
 
-__all__ = ["dense_layers", "with_overrides", "with_fused_linears",
+__all__ = ["dense_layers", "local_global_layers", "with_overrides", "with_fused_linears",
            "with_feature_sharding", "with_overlap_executor",
            "with_quantized_io"]
 
@@ -16,6 +16,19 @@ __all__ = ["dense_layers", "with_overrides", "with_fused_linears",
 def dense_layers(n: int) -> Tuple[LayerSpec, ...]:
     """``n`` identical full-attention + dense-FFN layers."""
     return tuple([LayerSpec()] * n)
+
+
+def local_global_layers(n: int, local_per_global: int,
+                        window: int) -> Tuple[LayerSpec, ...]:
+    """Gemma3's pattern: ``local_per_global`` sliding-window layers with
+    the local RoPE table, then one global layer, repeated."""
+    group = ([LayerSpec(window=window, rope="local")] * local_per_global
+             + [LayerSpec()])
+    reps = n // len(group)
+    if reps * len(group) != n:
+        raise ValueError(f"{n} layers are not whole groups of "
+                         f"{len(group)}")
+    return tuple(group * reps)
 
 
 def with_overrides(cfg: ModelConfig, **kw) -> ModelConfig:

@@ -1,5 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution.  This slice ports one
-arch, ``qwen3-1.7b``; the others wait (ROADMAP.md §1)."""
+"""Architecture registry: ``--arch <id>`` resolution.  The port holds the
+dense-attention archs; the MoE, Mamba2 and hybrid ones wait (ROADMAP.md
+§1 item 5)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,14 @@ from repro_torch.models.transformer import ModelConfig
 
 __all__ = ["ARCH_IDS", "get_config", "get_smoke"]
 
-_MODULES = {"qwen3-1.7b": "repro_torch.configs.qwen3_1_7b"}
+_MODULES = {
+    "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+}
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
 

@@ -30,7 +30,7 @@ from repro_torch.core.spm import SPMConfig
 from repro_torch.params import Params
 
 __all__ = ["LinearConfig", "init_linear", "linear_apply",
-           "linear_param_count", "spm_block_operands"]
+           "linear_param_count", "spm_block_eligible", "spm_block_operands"]
 
 SPM_IMPLS = ("spm_general", "spm_rotation")
 LINEAR_IMPLS = ("dense",) + SPM_IMPLS
@@ -126,23 +126,28 @@ def linear_apply(params, x: torch.Tensor, cfg: LinearConfig) -> torch.Tensor:
                              in_width=cfg.d_in, out_width=cfg.d_out)
 
 
+def spm_block_eligible(cfg: LinearConfig) -> bool:
+    """Whether this linear can be a stack of a fused block: SPM, not
+    sharded (its feature axis split over a mesh), not quantized (the block
+    kernel moves f32 tiles), kernel-eligible, and a single full-width
+    run."""
+    if not cfg.is_spm or cfg.n_shards > 1:
+        return False
+    if cfg.quant_acts or cfg.quant_coeffs:
+        return False
+    scfg = cfg.spm_config()
+    return (kernel_eligible(scfg, scfg.pairing)
+            and block_fusion_eligible(scfg.n, scfg.pairing.strides()))
+
+
 def spm_block_operands(params, cfg: LinearConfig) -> Optional[dict]:
     """One stack's operands for the block kernel (``coeffs``, ``d_in``,
     ``d_out``, ``bias`` or None, ``strides``, ``n``), or None when this
-    linear cannot be a stack of a fused block: dense, sharded (its feature
-    axis is split over a mesh), quantized (the block kernel moves f32
-    tiles), kernel-ineligible, or not a single full-width run."""
-    if not cfg.is_spm or cfg.n_shards > 1:
-        return None
-    if cfg.quant_acts or cfg.quant_coeffs:
+    linear cannot be one (``spm_block_eligible``)."""
+    if not spm_block_eligible(cfg):
         return None
     scfg = cfg.spm_config()
-    sched = scfg.pairing
-    if not kernel_eligible(scfg, sched):
-        return None
-    strides = sched.strides()
-    if not block_fusion_eligible(scfg.n, strides):
-        return None
+    strides = scfg.pairing.strides()
     return {
         "coeffs": spm_mod.stage_coeffs(params, scfg),
         "d_in": params["d_in"],

@@ -357,17 +357,22 @@ __device__ __forceinline__ void cp_wait_all() {
 }
 
 // Rows [row0, row0 + rows) of the global (., ld) operand `src`, columns
-// [col0, col0 + w), zero from column `lim` on, into dst (rows x w): 16-byte
-// cp.async when every row's segment is 16-byte aligned, else plain loads.
-// The copies are one commit group.
+// [col0, col0 + w), zero from column `lim` on, into dst (rows x w, rows
+// `dld` apart, default w): 16-byte cp.async when every row's segment is
+// 16-byte aligned on both sides, else plain loads.  The copies are one
+// commit group.
 template <typename U>
 __device__ __forceinline__ void stage_rows(U* dst, const U* src, long ld,
                                            long row0, int rows, int w,
-                                           long col0, long lim) {
+                                           long col0, long lim,
+                                           int dld = 0) {
   constexpr int per = 16 / (int)sizeof(U);
+  if (!dld) dld = w;
   const bool vec = ((uintptr_t)src % 16 == 0) &&
                    (ld * (long)sizeof(U)) % 16 == 0 &&
-                   (col0 * (long)sizeof(U)) % 16 == 0 && w % per == 0;
+                   (col0 * (long)sizeof(U)) % 16 == 0 && w % per == 0 &&
+                   ((uintptr_t)dst % 16 == 0) &&
+                   ((long)dld * (long)sizeof(U)) % 16 == 0;
   if (vec) {
     const int groups = w / per;
     for (int gi = threadIdx.x % groups, r = threadIdx.x / groups; r < rows;
@@ -381,14 +386,14 @@ __device__ __forceinline__ void stage_rows(U* dst, const U* src, long ld,
       long valid = lim - col;
       valid = valid < 0 ? 0 : (valid > per ? per : valid);
       const U* s = src + (row0 + r) * ld + (valid > 0 ? col : 0);
-      cp16(dst + (long)r * w + gi * per, s, (int)(valid * sizeof(U)));
+      cp16(dst + (long)r * dld + gi * per, s, (int)(valid * sizeof(U)));
     }
   } else {
     for (int e = threadIdx.x; e < rows * w; e += blockDim.x) {
       const int r = e / w;
       const int i = e - r * w;
       const long col = col0 + i;
-      dst[e] = col < lim ? src[(row0 + r) * ld + col] : U{};
+      dst[(long)r * dld + i] = col < lim ? src[(row0 + r) * ld + col] : U{};
     }
   }
   cp_commit();
@@ -485,17 +490,21 @@ __device__ __forceinline__ float2 add2(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
 }
 
-// The f32 rows `src` (rows x w) into columns [col0, col0 + w) of rows
-// [row0, row0 + rows) of the global (., ld) `dst`, in its type, columns
-// from `lim` on dropped: 16-byte stores where aligned, else plain ones.
+// The f32 rows `src` (rows x w, rows `sld` apart, default w) into columns
+// [col0, col0 + w) of rows [row0, row0 + rows) of the global (., ld)
+// `dst`, in its type, columns from `lim` on dropped: 16-byte stores where
+// aligned, else plain ones.
 template <typename T>
 __device__ __forceinline__ void store_rows(T* dst, long ld, long row0,
                                            int rows, int w, long col0,
-                                           long lim, const float* src) {
+                                           long lim, const float* src,
+                                           int sld = 0) {
   constexpr int per = 16 / (int)sizeof(T);
+  if (!sld) sld = w;
   const bool vec = ((uintptr_t)dst % 16 == 0) &&
                    (ld * (long)sizeof(T)) % 16 == 0 &&
-                   (col0 * (long)sizeof(T)) % 16 == 0 && w % per == 0;
+                   (col0 * (long)sizeof(T)) % 16 == 0 && w % per == 0 &&
+                   ((uintptr_t)src % 16 == 0) && sld % 4 == 0;
   if (vec) {
     const int groups = w / per;
     for (int gi = threadIdx.x % groups, r = threadIdx.x / groups; r < rows;
@@ -506,7 +515,7 @@ __device__ __forceinline__ void store_rows(T* dst, long ld, long row0,
         if (r >= rows) break;
       }
       const long col = col0 + (long)gi * per;
-      const float* v = src + (long)r * w + gi * per;
+      const float* v = src + (long)r * sld + gi * per;
       T* d = dst + (row0 + r) * ld + col;
       if (col + per <= lim) {
         store16(d, v);
@@ -519,7 +528,8 @@ __device__ __forceinline__ void store_rows(T* dst, long ld, long row0,
     for (int e = threadIdx.x; e < rows * w; e += blockDim.x) {
       const int r = e / w;
       const int i = e - r * w;
-      if (col0 + i < lim) spm_st(dst + (row0 + r) * ld + col0 + i, src[e]);
+      if (col0 + i < lim)
+        spm_st(dst + (row0 + r) * ld + col0 + i, src[(long)r * sld + i]);
     }
   }
 }

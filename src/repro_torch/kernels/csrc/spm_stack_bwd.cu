@@ -39,6 +39,20 @@
 // plan K1 runs fits: the one-run 6144-wide tiny-row plan (12 stages) takes
 // 8 lane blocks of 768 lanes, a row at a time.
 //
+// Split mode (seg > 0), a plan mode for a lone stage on a tile too wide
+// for one cluster (a tile of 2 seg lanes, stride seg, wider than 8 blocks
+// of 512 pair slots: the FFN's super-strides at n = 9216 ... 25600).  The
+// stage's pairs (p, p + seg) are independent of one another and no stage
+// follows inside the run, so the tile's pairs split into blocks of P =
+// nt / 2 pairs that need no cluster: block j (tile t = j / (seg / P),
+// piece ci) runs the engine on a tile of 2P lanes with stride P whose lane
+// m < P is tile column ci P + m and lane P + m is column seg + ci P + m.
+// Pair q of block j is pair t seg + ci P + q of the table, which is j P +
+// q, so the table, its grads and the dead-tile bound keep their indexing
+// at tile width 2P; only the columns of x, gy, g_x and the (n,) vectors
+// jump by seg - P at lane P, and an int8 x's scale is that of tile t.
+// C = 1, layout A; no window.
+//
 // Int8 modes (the reference's `x_scale` and `coeff_scale`): a saved int8 x
 // is staged as codes and dequantized with the scale of its (scale_rows,
 // n_tile) block by the block that stages it, in the remat and in g_din
@@ -85,6 +99,38 @@ __device__ __forceinline__ float2 x_lanes(const TX* p, const float* xs,
 
 constexpr int kVecs = 3;  // g_din, g_dout, g_bias
 
+// Rows of `src` into dst (rows x w) from the block's lanes: columns [col0,
+// col0 + w), or in split mode (gap > 0) the two segments [col0, col0 +
+// w/2) and [col0 + w/2 + gap, ...).
+template <typename U>
+__device__ __forceinline__ void stage_seg(U* dst, const U* src, long ld,
+                                          long row0, int rows, int w,
+                                          long col0, long lim, int gap) {
+  if (!gap) {
+    eng::stage_rows(dst, src, ld, row0, rows, w, col0, lim);
+    return;
+  }
+  const int h = w / 2;
+  eng::stage_rows(dst, src, ld, row0, rows, h, col0, lim, w);
+  eng::stage_rows(dst + h, src, ld, row0, rows, h, col0 + h + gap, lim, w);
+}
+
+// The f32 rows `src` (rows x w) out to the block's lanes, as stage_seg
+// reads them.
+template <typename T>
+__device__ __forceinline__ void store_seg(T* dst, long ld, long row0,
+                                          int rows, int w, long col0,
+                                          long lim, const float* src,
+                                          int gap) {
+  if (!gap) {
+    eng::store_rows(dst, ld, row0, rows, w, col0, lim, src);
+    return;
+  }
+  const int h = w / 2;
+  eng::store_rows(dst, ld, row0, rows, h, col0, lim, src, w);
+  eng::store_rows(dst, ld, row0, rows, h, col0 + h + gap, lim, src + h, w);
+}
+
 template <typename T, typename TX, typename CF>
 __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
     const TX* __restrict__ x, const float* __restrict__ xs,
@@ -92,25 +138,40 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
     const float* __restrict__ d_in, const float* __restrict__ d_out,
     float4* __restrict__ part_cf, float* __restrict__ part_vec, int B, int n,
     int nt, int in_w, int gy_w, int gx_w, int x_off, int gy_off, int vis,
-    int has_bias, int scale_rows, eng::Shape sh, SpmStrides st) {
+    int has_bias, int scale_rows, int seg, eng::Shape sh, SpmStrides st) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = (int)cooperative_groups::this_cluster().block_rank();
   const int g = blockIdx.x / sh.C;
   const int j = blockIdx.y;
-  const int c0 = j * nt;
+  // the tile's first column (split mode: the block's), and the jump of
+  // the block's columns at lane pb (split mode only)
+  int c0 = j * nt, gap = 0;
+  // the tile of the int8 x scale: its index, width and first column
+  int xj = j, xnt = nt, xc0 = c0;
+  if (seg) {
+    const int per = seg / sh.pb;
+    const int t = j / per;
+    c0 = t * 2 * seg + (j - t * per) * sh.pb;
+    gap = seg - sh.pb;
+    xj = t;
+    xnt = 2 * seg;
+    xc0 = t * xnt;
+  }
   const int lane0 = c0 + c * sh.w;  // the block's first column
   const int L = st.n;
   const int w = sh.w;
   const long step = (long)sh.G * sh.R;
+  // the column of the block's lane i (lanes i, i + 1 of an even i share
+  // a segment)
+  auto col = [&](int i) { return lane0 + i + (i >= sh.pb ? gap : 0); };
 
   if (j >= vis) {  // dead tile: exact zeros where g_x has columns
     for (long r0 = (long)g * sh.R; r0 < B; r0 += step) {
       const int rows = (int)min((long)sh.R, B - r0);
       for (int e = threadIdx.x; e < rows * w; e += blockDim.x) {
         const int r = e / w;
-        const int i = e - r * w;
-        if (lane0 + i < gx_w)
-          spm_st(gx + (r0 + r) * gx_w + lane0 + i, 0.f);
+        const int gc = col(e - r * w);
+        if (gc < gx_w) spm_st(gx + (r0 + r) * gx_w + gc, 0.f);
       }
     }
     return;
@@ -144,13 +205,13 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
   long r0 = (long)g * sh.R;
   if (r0 < B) {
     const int rows = (int)min((long)sh.R, B - r0);
-    eng::stage_rows(reinterpret_cast<TX*>(smem + lay.xst), x, in_w, r0, rows,
-                    w, (long)x_off + lane0, in_w);
+    stage_seg(reinterpret_cast<TX*>(smem + lay.xst), x, in_w, r0, rows, w,
+              (long)x_off + lane0, in_w, gap);
     if (tail_b)
       eng::stage_rows_b(gsw, gy, gy_w, gy_total, r0, rows, w, sh.C, c,
                         (long)gy_off + c0, gy_w);
     else
-      eng::stage_rows(gst, gy, gy_w, r0, rows, w, (long)gy_off + lane0, gy_w);
+      stage_seg(gst, gy, gy_w, r0, rows, w, (long)gy_off + lane0, gy_w, gap);
   }
   for (int k = 0; r0 < B; r0 += step, ++k) {
     const int rows = (int)min((long)sh.R, B - r0);
@@ -162,8 +223,8 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
     if (r1 < B) {
       TX* xnext = reinterpret_cast<TX*>(smem + lay.xst +
                                         ((k + 1) & 1) * lay.xst_stride);
-      eng::stage_rows(xnext, x, in_w, r1, (int)min((long)sh.R, B - r1), w,
-                      (long)x_off + lane0, in_w);
+      stage_seg(xnext, x, in_w, r1, (int)min((long)sh.R, B - r1), w,
+                (long)x_off + lane0, in_w, gap);
     }
 
     // remat: z_0 = [D_in] x, masked to in_w, in pass 0's layout.  The
@@ -171,7 +232,7 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
     // loads first.
     if (threadIdx.x < sh.pb) {
       const int i = 2 * threadIdx.x;
-      const int gc = lane0 + i;
+      const int gc = col(i);
       const bool l0 = x_off + gc < in_w, l1 = x_off + gc + 1 < in_w;
       const float2 din = eng::vec2(d_in, gc);
       for (int r = 0; r < rows; r += 4) {
@@ -180,7 +241,7 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
 #pragma unroll
         for (int k = 0; k < 4; ++k)
           if (k < nr) v[k] = x_lanes(xcur + (long)(r + k) * w + i, xs,
-                                     (int)(r0 + r + k), j, c0, in_w, nt,
+                                     (int)(r0 + r + k), xj, xc0, in_w, xnt,
                                      scale_rows, l0, l1);
 #pragma unroll
         for (int k = 0; k < 4; ++k)
@@ -233,7 +294,7 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
       }
     } else if (threadIdx.x < sh.pb) {
       const int i = 2 * threadIdx.x;
-      const int gc = lane0 + i;
+      const int gc = col(i);
       const bool l0 = gy_off + gc < gy_w, l1 = gy_off + gc + 1 < gy_w;
       const float2 dout = eng::vec2(d_out, gc);
       float2 sb = make_float2(0.f, 0.f), sd = sb;
@@ -266,8 +327,8 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
                         (int)min((long)sh.R, B - r1), w, sh.C, c,
                         (long)gy_off + c0, gy_w);
     else if (r1 < B)
-      eng::stage_rows(gst, gy, gy_w, r1, (int)min((long)sh.R, B - r1), w,
-                      (long)gy_off + lane0, gy_w);
+      stage_seg(gst, gy, gy_w, r1, (int)min((long)sh.R, B - r1), w,
+                (long)gy_off + lane0, gy_w, gap);
 
     float* dl0 =
         eng::walk_back(geo, stg, ps, np, rows, tbl, acc, part, tiles, zL);
@@ -275,7 +336,7 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
     // g_din, and g_x in place of delta
     if (d_in && threadIdx.x < sh.pb) {
       const int i = 2 * threadIdx.x;
-      const int gc = lane0 + i;
+      const int gc = col(i);
       const bool l0 = x_off + gc < in_w, l1 = x_off + gc + 1 < in_w;
       const float2 din = eng::vec2(d_in, gc);
       float2 si = make_float2(0.f, 0.f);
@@ -286,8 +347,8 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
         for (int k = 0; k < 4; ++k)
           if (k < nr) {
             xv[k] = x_lanes(xcur + (long)(r + k) * w + i, xs,
-                            (int)(r0 + r + k), j, c0, in_w, nt, scale_rows,
-                            l0, l1);
+                            (int)(r0 + r + k), xj, xc0, in_w, xnt,
+                            scale_rows, l0, l1);
             d[k] = eng::ld2(dl0 + (long)(r + k) * w + i);
           }
 #pragma unroll
@@ -300,18 +361,18 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
       eng::st2(vacc + i, eng::add2(eng::ld2(vacc + i), si));
     }
     __syncthreads();
-    eng::store_rows(gx, gx_w, r0, rows, w, lane0, gx_w, dl0);
+    store_seg(gx, gx_w, r0, rows, w, lane0, gx_w, dl0, gap);
   }
 
   eng::store_table_grads(geo, stg, acc,
                          part_cf + (long)g * L * half_n + (long)j * (nt >> 1),
                          half_n);
   // g_din by layout A offsets, g_dout and g_bias by z_L's
-  float* pv = part_vec + (long)g * kVecs * n + c0;
+  float* pv = part_vec + (long)g * kVecs * n;
   for (int e = threadIdx.x; e < kVecs * w; e += blockDim.x) {
     const int v = e / w;
     const int m = e - v * w;
-    const int lane = v > 0 && tail_b ? m * sh.C + c : c * w + m;
+    const int lane = v > 0 && tail_b ? c0 + m * sh.C + c : col(m);
     pv[(long)v * n + lane] = vacc[e];
   }
   cooperative_groups::this_cluster().sync();
@@ -323,7 +384,8 @@ static cudaError_t launch_stack_bwd(
     const void* d_in, const void* d_out, void* g_cf, void* g_vec,
     void* part_cf, void* part_vec, int B, int n, int nt, int in_w, int gy_w,
     int gx_w, int x_off, int gy_off, int vis, int has_bias, int scale_rows,
-    const eng::Shape& sh, const SpmStrides& st, cudaStream_t stream) {
+    int split, const eng::Shape& sh, const SpmStrides& st,
+    cudaStream_t stream) {
   static size_t smem_set = 0;
   const size_t smem =
       eng::layout_of(st.n, sh, kVecs, sizeof(TX), sizeof(T), false).total;
@@ -332,12 +394,16 @@ static cudaError_t launch_stack_bwd(
   cudaError_t e = spm_allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const int gx_tiles = (gx_w + nt - 1) / nt;
-  e = eng::launch(kernel, dim3(sh.G * sh.C, gx_tiles > vis ? gx_tiles : vis),
+  // split mode: `split` blocks of nt / split lanes a tile, stride nt / 2
+  const int per = split ? split : 1;
+  const int seg = split ? nt / 2 : 0;
+  e = eng::launch(kernel,
+                  dim3(sh.G * sh.C, per * (gx_tiles > vis ? gx_tiles : vis)),
                   sh.pb * sh.rs, smem, sh.C, stream, (const TX*)x,
                   (const float*)xs, (const T*)gy, (T*)gx, cf,
                   (const float*)d_in, (const float*)d_out, (float4*)part_cf,
-                  (float*)part_vec, B, n, nt, in_w, gy_w, gx_w, x_off, gy_off,
-                  vis, has_bias, scale_rows, sh, st);
+                  (float*)part_vec, B, n, nt / per, in_w, gy_w, gx_w, x_off,
+                  gy_off, vis * per, has_bias, scale_rows, seg, sh, st);
   if (e != cudaSuccess) return e;
   const long live = (long)vis * nt;
   e = spm_launch_sum((const float*)part_cf, (float*)g_cf, sh.G, st.n,
@@ -355,19 +421,20 @@ static cudaError_t dispatch_x(const void* x, const void* xs, const void* gy,
                               void* part_cf, void* part_vec, int B, int n,
                               int nt, int in_w, int gy_w, int gx_w, int x_off,
                               int gy_off, int vis, int has_bias,
-                              int scale_rows, const eng::Shape& sh,
+                              int scale_rows, int split, const eng::Shape& sh,
                               const SpmStrides& st, cudaStream_t s) {
   if (xs) {
     if (scale_rows <= 0 || B % scale_rows || x_off || gy_off)
       return cudaErrorInvalidValue;
     return launch_stack_bwd<T, int8_t>(
         x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B,
-        n, nt, in_w, gy_w, gx_w, 0, 0, vis, has_bias, scale_rows, sh, st, s);
+        n, nt, in_w, gy_w, gx_w, 0, 0, vis, has_bias, scale_rows, split, sh,
+        st, s);
   }
   return launch_stack_bwd<T, T>(x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec,
                                 part_cf, part_vec, B, n, nt, in_w, gy_w, gx_w,
-                                x_off, gy_off, vis, has_bias, scale_rows, sh,
-                                st, s);
+                                x_off, gy_off, vis, has_bias, scale_rows,
+                                split, sh, st, s);
 }
 
 template <typename CF>
@@ -377,18 +444,18 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
                             void* g_vec, void* part_cf, void* part_vec, int B,
                             int n, int nt, int in_w, int gy_w, int gx_w,
                             int x_off, int gy_off, int vis, int has_bias,
-                            int scale_rows, const eng::Shape& sh,
+                            int scale_rows, int split, const eng::Shape& sh,
                             const SpmStrides& st, cudaStream_t s) {
   if (io_type == SPM_IO_F32)
     return dispatch_x<float>(x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec,
                              part_cf, part_vec, B, n, nt, in_w, gy_w, gx_w,
-                             x_off, gy_off, vis, has_bias, scale_rows, sh, st,
-                             s);
+                             x_off, gy_off, vis, has_bias, scale_rows, split,
+                             sh, st, s);
   if (io_type == SPM_IO_BF16)
     return dispatch_x<__nv_bfloat16>(
         x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B, n,
-        nt, in_w, gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows, sh,
-        st, s);
+        nt, in_w, gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows, split,
+        sh, st, s);
   return cudaErrorInvalidValue;
 }
 
@@ -400,8 +467,10 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
 // g_bias (rows of absent operands are left meaningless).  part_cf
 // (G, L, n/2, 4) and part_vec (G, 3, n) are the partial buffers.  x_off /
 // gy_off > 0 are the windowed reads of x / gy (f32 / bf16 x only).  The
-// launch shape (C, w, pb, rs, R, G) is the planner's (`bwd_plan`).
-// Returns the cudaError_t of the launches (0 on success).
+// launch shape (C, w, pb, rs, R, G, split) is the planner's (`bwd_plan`):
+// split > 0 is split mode, one stage of stride nt / 2 over `split` blocks
+// of w = nt / split lanes a tile (C = 1; no window).  Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
                              const void* gy, void* gx, const void* cf,
                              const void* cf_scale, const void* d_in,
@@ -410,14 +479,23 @@ extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
                              int nt, int in_w, int gy_w, int gx_w, int x_off,
                              int gy_off, int vis, int has_bias,
                              int scale_rows, int C, int w, int pb, int rs,
-                             int R, int G, const int* strides, int L,
-                             void* stream) {
+                             int R, int G, int split, const int* strides,
+                             int L, void* stream) {
   SpmStrides st;
   eng::Shape sh{C, w, pb, rs, R, G, 0, 0, 0};
+  const int ntb = split ? (split > 0 && nt % split == 0 ? nt / split : 0)
+                        : nt;
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || nt <= 0 || n % nt ||
-      vis <= 0 || vis * nt > n || x_off < 0 || gy_off < 0 ||
-      !eng::valid_shape(sh, nt))
+      vis <= 0 || vis * nt > n || x_off < 0 || gy_off < 0 || ntb <= 0 ||
+      !eng::valid_shape(sh, ntb))
     return (int)cudaErrorInvalidValue;
+  if (split) {
+    // one stage of stride nt / 2, run as stride pb on the block's 2 pb
+    // lanes, pb >= 4 so that a lane pair never straddles the jump
+    if (L != 1 || st.s[0] * 2 != nt || C != 1 || pb < 4 || x_off || gy_off)
+      return (int)cudaErrorInvalidValue;
+    st.s[0] = pb;
+  }
   eng::set_passes(st, -1, &sh);
   cudaStream_t s = (cudaStream_t)stream;
   if (cf_scale)
@@ -425,11 +503,11 @@ extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
         io_type, x, xs, gy, gx,
         SpmQCoeffs{(const char4*)cf, (const float*)cf_scale}, d_in, d_out,
         g_cf, g_vec, part_cf, part_vec, B, n, nt, in_w, gy_w, gx_w, x_off,
-        gy_off, vis, has_bias, scale_rows, sh, st, s);
+        gy_off, vis, has_bias, scale_rows, split, sh, st, s);
   return (int)dispatch(io_type, x, xs, gy, gx, (const float4*)cf, d_in,
                        d_out, g_cf, g_vec, part_cf, part_vec, B, n, nt, in_w,
                        gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows,
-                       sh, st, s);
+                       split, sh, st, s);
 }
 
 // How many clusters of a launch shape the card holds at once

@@ -51,7 +51,8 @@ window of it, column ``(col_base + j) * n_tile + c`` against the global
 K2 can read gy the same way against the global ``out_width``.  Their
 ``window_launches`` count the launches in this mode; K5's and K6's count
 those reading a rectangular input (``in_width``), their
-``int8_launches`` those with an int8 table.
+``int8_launches`` those with an int8 table.  K2's ``split_launches``
+count those in its split mode (a lone stage wider than one cluster).
 
 K1 and K2 have int8 modes (the reference's ``x_scale``, ``coeff_scale``
 and ``quant_out``; scale conventions in ``kernels/quant.py``): int8
@@ -89,7 +90,7 @@ __all__ = ["spm_stack_kernel_call", "spm_stack_plain",
            "spm_overlap_kernel_call", "spm_overlap_plain",
            "spm_overlap_bwd_kernel_call", "spm_overlap_bwd_plain",
            "bwd_live_tiles", "BwdPlan", "bwd_plan", "bwd_smem_bytes",
-           "bwd_block_smem_bytes", "bwd_slot_pairs",
+           "bwd_block_smem_bytes", "bwd_slot_pairs", "bwd_split_pairs",
            "bwd_stage_modes", "bwd_passes", "bwd_quad_lanes",
            "bwd_row_slices",
            "bwd_row_chunks", "bwd_clusters_resident", "FwdPlan",
@@ -772,6 +773,9 @@ class BwdPlan(NamedTuple):
     cluster: int       # blocks a cluster: lane_blocks * sides
     smem_bytes: int
     streamed: int = 0  # K4: stacks whose table and grad sums stream from L2
+    split: int = 0     # K2's split mode: blocks a lone stage's tile splits
+                       # into (``bwd_split_pairs``), each w = 2 pair_slots
+                       # lanes, no cluster; 0 otherwise
 
 
 def bwd_block_smem_bytes(n_tile: int, lane_blocks: int, chunk_rows: int,
@@ -843,6 +847,14 @@ def _bwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...],
     the groups' chunks.  Row slices: ``bwd_row_slices``.  Raises when no
     split holds one row's remat and the table on chip.
 
+    K2's split mode, where no split of the lanes fits (a lone stage of
+    stride s on a tile wider than 8 blocks of ``BWD_MAX_THREADS`` pair
+    slots: the FFN's super-strides at n = 9216 to 25600): the tile's s
+    pairs go to s / P blocks of P pairs, P the largest power of two
+    dividing s up to ``BWD_MAX_THREADS``, each an independent one-block
+    "cluster" walking a tile of 2P lanes (``bwd_split_pairs``); row groups
+    as above over ``tiles`` times s / P of them.
+
     K4's block form (``block``; ``strides`` stack 1, ``strides2`` the
     second stack or None, ``norm`` the norm's row statistics; one tile,
     ``bwd_block_smem_bytes``): the same choice over lane blocks and
@@ -892,6 +904,9 @@ def _bwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...],
             break
         if R >= 1 and (best is None or R > best[2]):
             best = (C, w, R, s)
+    if best is None and L == 1 and not (block or package) and sides == 1:
+        return _split_plan(n_rows, n_tile, strides[0], tiles, io_bytes,
+                           x_bytes, nvec)
     if best is None:
         what = (f"K4's block of {L}" + (f" + {len(strides2)}" if two
                                         else "") + " stages"
@@ -901,15 +916,59 @@ def _bwd_plan(n_rows: int, n_tile: int, strides: Tuple[int, ...],
             f"of shared memory in any split of its lanes over up to "
             f"{8 // sides} blocks of at most {BWD_MAX_THREADS} pair slots")
     C, w, R, streamed = best
-    chunks = -(-n_rows // R)
-    G = min(chunks, max(1, CLUSTERS_RESIDENT[C * sides] // max(1, tiles)))
-    per_group = -(-n_rows // G)
-    R = -(-per_group // -(-per_group // R))
-    G = min(G, -(-n_rows // R))
+    G, R = _groups(n_rows, R, tiles, C * sides)
     pb = w // 2
     rs = bwd_row_slices(pb)
     return BwdPlan(C, w, pb, rs, pb * rs, R, G, C * sides,
                    smem(w, R, streamed), streamed)
+
+
+def _groups(n_rows: int, R: int, tiles: int, cluster: int
+            ) -> Tuple[int, int]:
+    """Row groups G (one wave of resident clusters of ``cluster`` blocks
+    over ``tiles`` tiles, at most one a chunk) and the rows a chunk R,
+    spread evenly over them."""
+    chunks = -(-n_rows // R)
+    G = min(chunks, max(1, CLUSTERS_RESIDENT[cluster] // max(1, tiles)))
+    per_group = -(-n_rows // G)
+    R = -(-per_group // -(-per_group // R))
+    return min(G, -(-n_rows // R)), R
+
+
+def _split_plan(n_rows: int, n_tile: int, s: int, tiles: int,
+                io_bytes: int, x_bytes: int, nvec: int) -> BwdPlan:
+    """K2's split mode for one stage of stride ``s`` on an ``n_tile`` =
+    2s tile (``_bwd_plan``)."""
+    P = 1
+    while s % (2 * P) == 0 and 2 * P <= BWD_MAX_THREADS:
+        P *= 2
+    if n_tile != 2 * s or P < 4:
+        raise ValueError(f"a lone stage of stride {s} on a {n_tile}-wide "
+                         f"tile has no split into blocks of 4 or more pairs")
+    w, pieces = 2 * P, s // P
+
+    def smem(R):
+        return bwd_smem_bytes(1, w, R, nvec, x_bytes, io_bytes, False,
+                              bwd_row_slices(P), False, 1, io_bytes)
+
+    R = 0
+    while R < n_rows and smem(R + 1) <= SMEM_BYTES:
+        R += 1
+    if R == 0:
+        raise ValueError(f"K2's split of a {n_tile}-wide tile into blocks "
+                         f"of {w} lanes does not fit {SMEM_BYTES} B")
+    G, R = _groups(n_rows, R, tiles * pieces, 1)
+    rs = bwd_row_slices(P)
+    return BwdPlan(1, w, P, rs, P * rs, R, G, 1, smem(R), 0, pieces)
+
+
+def bwd_split_pairs(n_tile: int, plan: BwdPlan) -> List[List[int]]:
+    """Split mode's pairs (``csrc/spm_stack_bwd.cu``): ``[j][q]`` -> the
+    pair of one tile that slot q of its block j processes, ``j P + q`` (P =
+    ``plan.pair_slots``), whose lanes are tile columns ``j P + q`` and that
+    plus s = n_tile / 2."""
+    P = plan.pair_slots
+    return [[j * P + q for q in range(P)] for j in range(plan.split)]
 
 
 def bwd_row_slices(pair_slots: int) -> int:
@@ -1236,23 +1295,27 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     else:
         plan = bwd_plan(B, n_tile, strides, vis, gy.element_size(),
                         x.element_size())
+        if plan.split and col_base is not None:
+            raise ValueError("K2's split mode (a lone stage wider than a "
+                             "cluster) takes no window")
         G = plan.groups
         part_cf = torch.empty((G, L, n // 2, 4), dtype=torch.float32,
                               device=dev)
         part_vec = torch.empty((G, 3, n), dtype=torch.float32, device=dev)
         fn = _fn("spm_stack_bwd", "spm_stack_bwd",
-                 (_I,) + (_P,) * 12 + (_I,) * 17
+                 (_I,) + (_P,) * 12 + (_I,) * 18
                  + (ctypes.POINTER(ctypes.c_int), _I, _P))
         rc = fn(_IO[io_dt], _ptr(x), _ptr(x_scale), _ptr(gy), _ptr(gx),
                 _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in), _ptr(d_out),
                 _ptr(g_cf), _ptr(g_vec), _ptr(part_cf), _ptr(part_vec), B,
                 n, n_tile, in_w, gy_w, gx_w, x_off, gy_off, vis,
                 int(has_bias), scale_rows or 0, *_shape_args(plan),
-                _strides_arg(strides), L, _stream(x))
+                plan.split, _strides_arg(strides), L, _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_stack_bwd launch failed: cudaError {rc}")
         _count(spm_stack_bwd_kernel_call, x_scale, coeff_scale,
                col_base is not None)
+        spm_stack_bwd_kernel_call.split_launches += bool(plan.split)
     out = (gx, g_cf)
     for present, row in ((d_in is not None, 0), (d_out is not None, 1),
                          (has_bias, 2)):
@@ -1265,6 +1328,7 @@ spm_stack_bwd_kernel_call.launches = 0
 spm_stack_bwd_kernel_call.int8_launches = 0
 spm_stack_bwd_kernel_call.int8_io_launches = 0
 spm_stack_bwd_kernel_call.window_launches = 0
+spm_stack_bwd_kernel_call.split_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1964,6 +2028,6 @@ def reset_launch_counts() -> None:
                spm_block_kernel_call, spm_block_bwd_kernel_call,
                spm_overlap_kernel_call, spm_overlap_bwd_kernel_call):
         for name in ("launches", "int8_launches", "int8_io_launches",
-                     "window_launches"):
+                     "window_launches", "split_launches"):
             if hasattr(fn, name):
                 setattr(fn, name, 0)

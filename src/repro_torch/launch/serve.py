@@ -8,7 +8,9 @@ requests run through an admit/evict pool of ``--slots`` batch rows, one
 arriving every ``--arrival-every`` ticks, and the run prints tokens/s, slot
 occupancy and per-request latency in ticks.  Runs on ``cuda`` unless
 ``--device cpu`` is given; ``--smoke`` takes the smoke-size config.
-Weights and prompts are random, made from ``--seed``.
+Weights and prompts are random, made from ``--seed``.  An
+embeddings-input arch (``qwen2-vl-7b``, ``musicgen-medium``) serves from a
+token prompt and decodes its own codebook, as the reference does.
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ def main() -> None:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.linear_impl:
         cfg = with_overrides(cfg, linear_impl=args.linear_impl)
+    if cfg.input_kind != "tokens":
+        print(f"note: {cfg.name} is embeddings-input; serving decodes its "
+              f"token codebook after a token prompt")
     params = T.init_model(cfg, seed=args.seed, device=device)
     gen = torch.Generator().manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size,

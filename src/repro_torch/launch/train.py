@@ -12,9 +12,11 @@ of ``repro/launch/train.py``).
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--smoke`` takes the
 smoke-size config.  Weights are random, made from ``--seed``; batches are
 windows of the synthetic char corpus (``data/char_corpus.py``), a pure
-function of (seed, step).  Each step is the forward, the closed-form
-backward through the SPM kernels and AdamW, with the non-finite guard and
-the chaos port always on, as in the reference.  ``--quantize`` trains
+function of (seed, step); an embeddings-input arch gets them hashed into
+embeddings by a fixed table, with (3, B, T) M-RoPE ids under ``mrope``
+(``--patch-grid``: a synthetic patch grid's).  Each step is the forward,
+the closed-form backward through the SPM kernels and AdamW, with the
+non-finite guard and the chaos port always on, as in the reference.  ``--quantize`` trains
 through the int8 modes of K1 and K2 (``configs.with_quantized_io``).
 
 Around the step, as in the reference: atomic keep-N checkpoints every
@@ -61,7 +63,8 @@ from repro_torch.train import (RESUME_LATEST, FaultEventLog, FaultPolicy,
                                save_checkpoint)
 from repro_torch.train.chaos import ChaosSchedule
 
-__all__ = ["make_batch_fn", "build_parser", "train", "main"]
+__all__ = ["make_batch_fn", "patch_grid_positions", "build_parser", "train",
+           "main"]
 
 _LATER = {
     "pod_dp": "data-parallel pods are the multi-device slice (ROADMAP.md "
@@ -78,17 +81,50 @@ def _corpus(seed: int) -> np.ndarray:
     return build_corpus(200_000, seed=seed)
 
 
-def make_batch_fn(cfg: T.ModelConfig, seq_len: int, corpus: np.ndarray):
+@functools.lru_cache(maxsize=2)
+def _frontend_table(vocab: int, d_model: int) -> torch.Tensor:
+    """The modality-frontend stub's fixed (vocab, d_model) f32 table, unit
+    normal from a seeded generator (the reference draws its own from
+    ``jax.random.PRNGKey(1)``); built once, never written to."""
+    gen = torch.Generator().manual_seed(1)
+    return torch.randn(vocab, d_model, generator=gen)
+
+
+def patch_grid_positions(seq_len: int, grid: int) -> torch.Tensor:
+    """(3, seq_len) M-RoPE ids of a synthetic video of ``grid`` x ``grid``
+    patches a frame, in raster order: temporal ``i // grid^2``, height
+    ``(i // grid) % grid``, width ``i % grid``."""
+    i = torch.arange(seq_len)
+    return torch.stack([i // (grid * grid), (i // grid) % grid, i % grid])
+
+
+def make_batch_fn(cfg: T.ModelConfig, seq_len: int, corpus: np.ndarray,
+                  patch_grid: int = 0):
     """``batch_fn(rng, global_batch)``: random corpus windows as
-    ``{"tokens", "labels"}`` int64 tensors, tokens modulo the vocab."""
+    ``{"tokens", "labels"}`` int64 tensors, tokens modulo the vocab.  An
+    ``input_kind == "embeddings"`` config gets ``"embeds"`` in place of
+    ``"tokens"``: the frontend stub hashes tokens into embeddings through
+    ``_frontend_table``; under ``mrope`` it adds (3, B, T) ``"positions"``:
+    the three ids equal to the token index, as the reference's, or with
+    ``patch_grid`` > 0 those of ``patch_grid_positions``."""
     n = len(corpus) - seq_len - 1
 
     def batch_fn(rng: np.random.Generator, global_batch: int) -> dict:
         starts = rng.integers(0, n, size=global_batch)
         idx = starts[:, None] + np.arange(seq_len + 1)[None, :]
         chunk = corpus[idx].astype(np.int64) % cfg.vocab_size
-        return {"tokens": torch.from_numpy(chunk[:, :-1].copy()),
-                "labels": torch.from_numpy(chunk[:, 1:].copy())}
+        toks = torch.from_numpy(chunk[:, :-1].copy())
+        batch = {"labels": torch.from_numpy(chunk[:, 1:].copy())}
+        if cfg.input_kind == "tokens":
+            batch["tokens"] = toks
+            return batch
+        batch["embeds"] = _frontend_table(cfg.vocab_size, cfg.d_model)[toks]
+        if cfg.rope_kind == "mrope":
+            ids = (patch_grid_positions(seq_len, patch_grid) if patch_grid
+                   else torch.arange(seq_len).expand(3, seq_len))
+            batch["positions"] = ids[:, None, :].expand(
+                3, global_batch, seq_len).contiguous()
+        return batch
 
     return batch_fn
 
@@ -129,6 +165,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--patch-grid", type=int, default=0,
+                    help="M-RoPE archs: position ids of a synthetic video "
+                         "of this many patches a side (0: the three ids "
+                         "equal, as the reference's)")
     return ap
 
 
@@ -176,8 +216,9 @@ def train(args: argparse.Namespace,
     corpus = _corpus(args.seed)
 
     def fresh_loader() -> DeterministicLoader:
-        return DeterministicLoader(make_batch_fn(cfg, args.seq, corpus),
-                                   args.batch, seed=args.seed)
+        return DeterministicLoader(
+            make_batch_fn(cfg, args.seq, corpus, args.patch_grid),
+            args.batch, seed=args.seed)
 
     opt_cfg = OptimizerConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 1))

@@ -11,8 +11,10 @@ The KV cache is updated in place (the reference returns a new cache; here
 that would copy every layer's cache on every token).  Decode takes a scalar
 ``cache_index`` (the fixed-batch engine) or a per-row ``(B,)`` tensor
 (continuous batching: each row scatter-written at its own slot, its own
-valid mask, no read back to the host).  Sliding-window ring caches wait for
-the other archs (``ROADMAP.md`` §1 item 4).
+valid mask, no read back to the host).  A sliding-window layer (gemma3's
+local layers) keeps a ring of ``min(max_len, window)`` slots: position p
+lives in slot ``p % W``, a prefill fills each slot with the newest real
+position of its class, and decode masks by age.
 """
 
 from __future__ import annotations
@@ -25,13 +27,14 @@ import torch.nn.functional as F
 
 from repro_torch.core.eligibility import resolve_block_fuse
 from repro_torch.core.linear import (LinearConfig, init_linear, linear_apply,
-                                     spm_block_operands)
+                                     spm_block_eligible, spm_block_operands)
 from repro_torch.layers.norms import qk_norm, rms_norm
 from repro_torch.layers.rope import apply_rope
 from repro_torch.params import Params
 
 __all__ = ["NEG_INF", "AttentionConfig", "init_attention", "init_kv_cache",
-           "chunked_causal_attention", "attention_apply"]
+           "chunked_causal_attention", "ring_sources", "qkv_block_fused",
+           "attention_apply"]
 
 NEG_INF = -1e30
 
@@ -103,12 +106,11 @@ def init_attention(cfg: AttentionConfig, generator: torch.Generator,
 def init_kv_cache(batch: int, max_len: int, cfg: AttentionConfig,
                   device: torch.device,
                   dtype: torch.dtype = torch.bfloat16) -> dict:
-    """``{"k", "v"}`` of shape (batch, max_len, n_kv_heads, head_dim)."""
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window KV caches come with the other archs "
-            "(ROADMAP.md §1)")
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """``{"k", "v"}`` of shape (batch, S, n_kv_heads, head_dim): S =
+    max_len, or ``min(max_len, window)`` ring slots for a windowed
+    layer."""
+    s = max_len if cfg.window is None else min(max_len, cfg.window)
+    shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -178,58 +180,88 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def _decode_attention(q, ck, cv, cache_index, H: int, Hkv: int,
-                      dh: int) -> torch.Tensor:
+                      dh: int, window: Optional[int]) -> torch.Tensor:
     """One query a row over the cache: ``cache_index`` an int (the whole
-    batch at one position) or a (B,) tensor (each row at its own, the
-    valid mask ``arange(S)[None] <= ci[:, None]``)."""
+    batch at one position) or a (B,) tensor (each row at its own).  A full
+    cache's valid slots are ``pos <= ci``; a ring's (``window``) are the
+    ``min(ci + 1, S)`` newest, ``age = (ci % S - pos) % S < min(ci + 1,
+    S)``, as in the reference."""
     B = q.shape[0]
     S = ck.shape[1]
     qg = (q.float() * dh ** -0.5).reshape(B, 1, Hkv, H // Hkv, dh)
     s = torch.einsum("bthgd,bshd->bhgts", qg, ck.float())   # (B,Hkv,G,1,S)
-    pos = torch.arange(S, device=q.device)
+    pos = torch.arange(S, device=q.device)[None, :]
     if isinstance(cache_index, torch.Tensor):
-        valid = (pos[None, :] <= cache_index[:, None])[:, None, None, None]
+        ci = cache_index[:, None]                            # (B, 1)
+        n_valid = torch.clamp_max(ci + 1, S)
+        newest = torch.remainder(ci, S)
     else:
-        valid = pos <= cache_index
-    s = torch.where(valid, s, NEG_INF)
+        ci = int(cache_index)
+        n_valid, newest = min(ci + 1, S), ci % S
+    if window is None:
+        valid = pos <= ci
+    else:
+        valid = torch.remainder(newest - pos, S) < n_valid
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgts,bshd->bthgd", p,
                         cv.float()).reshape(B, 1, H, dh)
 
 
+def ring_sources(start: int, T: int, S: int, lens: torch.Tensor
+                 ) -> torch.Tensor:
+    """The prompt position each ring slot takes at a prefill of T tokens
+    from ``start`` (B rows, true lengths ``lens`` (B,)): slot j holds the
+    newest real position p = j (mod S), at index ``clip(p - start, 0, T -
+    1)`` of the prompt, (B, S); padded keys never enter the ring."""
+    last = start + lens - 1                                  # (B,)
+    j = torch.arange(S, device=lens.device)[None, :]
+    p = last[:, None] - torch.remainder(last[:, None] - j, S)
+    return torch.clamp(p - start, 0, T - 1)
+
+
+def qkv_block_fused(cfg: AttentionConfig) -> bool:
+    """Whether ``attention_apply`` runs q/k/v as three fused block launches
+    (the pre-attention norm in their prologue): both projections can be a
+    block's stack (``spm_block_eligible``) and ``spm_block_fuse`` is not
+    False.  Else an explicit ``rms_norm`` and the linears' own runs."""
+    return resolve_block_fuse(cfg.spm_block_fuse,
+                              spm_block_eligible(cfg.q_proj)
+                              and spm_block_eligible(cfg.kv_proj))
+
+
 def attention_apply(params, x: torch.Tensor, cfg: AttentionConfig, *,
                     cos: torch.Tensor, sin: torch.Tensor,
                     cache: Optional[dict] = None,
-                    cache_index=None,
+                    cache_index=None, fill_len=None,
                     norm_params=None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B, T, d).  Three modes, as in the reference:
 
     * training, ``cache=None``;
     * prefill-into-cache, cache with T > 1: the chunked causal attention,
-      then K/V block-written from the scalar ``cache_index`` (default 0).
-      A right-padded row writes its whole padded block: the decode valid
-      mask hides the padded slots until decode overwrites them;
+      then K/V written from the scalar ``cache_index`` (default 0).  A full
+      layer block-writes the whole padded block of a right-padded row: the
+      decode valid mask hides the padded slots until decode overwrites
+      them.  A windowed layer replaces its ring whole, each slot from
+      ``ring_sources`` with ``fill_len`` (an int or (B,), default T) the
+      true lengths, so padded keys never evict real ones;
     * decode, cache with T == 1: ``cache_index`` an int (the whole batch at
       one position, the fixed-batch engine) or a (B,) integer tensor (each
       row scatter-written at its own slot and masked at its own length,
-      with no read back to the host: continuous batching).
+      with no read back to the host: continuous batching).  A ring writes
+      slot ``ci % S`` and masks by age.
 
     ``norm_params`` moves the pre-attention RMS norm inside: into the q/k/v
     kernels' prologue when fused, else one explicit ``rms_norm``."""
     B, T, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    bundles = None
-    if norm_params is not None:
+    if norm_params is not None and qkv_block_fused(cfg):
+        from repro_torch.kernels import ops as kernel_ops
         bundles = tuple(spm_block_operands(params[name], lcfg)
                         for name, lcfg in (("q", cfg.q_proj),
                                            ("k", cfg.kv_proj),
                                            ("v", cfg.kv_proj)))
-        if any(b is None for b in bundles):
-            bundles = None
-    if norm_params is not None and resolve_block_fuse(cfg.spm_block_fuse,
-                                                      bundles is not None):
-        from repro_torch.kernels import ops as kernel_ops
 
         def _norm_proj(b, lcfg):
             return kernel_ops.spm_block_fused(
@@ -258,28 +290,42 @@ def attention_apply(params, x: torch.Tensor, cfg: AttentionConfig, *,
                                        q_chunk=cfg.q_chunk,
                                        k_chunk=cfg.k_chunk)
         if cache is not None:
-            if cfg.window is not None:
-                raise NotImplementedError(
-                    "sliding-window ring caches come with the other archs "
-                    "(ROADMAP.md §1)")
-            start = 0 if cache_index is None else int(cache_index)
-            cache["k"][:, start: start + T] = k.to(cache["k"].dtype)
-            cache["v"][:, start: start + T] = v.to(cache["v"].dtype)
+            _prefill_write(cache, k, v, cfg.window, cache_index, fill_len)
     else:
-        if cfg.window is not None:
-            raise NotImplementedError(
-                "sliding-window ring caches come with the other archs "
-                "(ROADMAP.md §1)")
+        S = cache["k"].shape[1]
         if isinstance(cache_index, torch.Tensor):
             ci = cache_index
+            slot = torch.remainder(ci, S) if cfg.window is not None else ci
             rows = torch.arange(B, device=ci.device)
-            cache["k"][rows, ci] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][rows, ci] = v[:, 0].to(cache["v"].dtype)
+            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
         else:
             ci = int(cache_index)
-            cache["k"][:, ci] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][:, ci] = v[:, 0].to(cache["v"].dtype)
-        out = _decode_attention(q, cache["k"], cache["v"], ci, H, Hkv, dh)
+            slot = ci % S if cfg.window is not None else ci
+            cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        out = _decode_attention(q, cache["k"], cache["v"], ci, H, Hkv, dh,
+                                cfg.window)
 
     out = out.to(x.dtype).reshape(B, T, H * dh)
     return linear_apply(params["o"], out, cfg.o_proj), cache
+
+
+def _prefill_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                   window: Optional[int], cache_index, fill_len) -> None:
+    """A prefill's K/V into the cache, in place: a block write from the
+    scalar ``cache_index`` (a full layer), or the whole ring from
+    ``ring_sources`` (a windowed one)."""
+    B, T = k.shape[:2]
+    start = 0 if cache_index is None else int(cache_index)
+    if window is None:
+        cache["k"][:, start: start + T] = k.to(cache["k"].dtype)
+        cache["v"][:, start: start + T] = v.to(cache["v"].dtype)
+        return
+    S = cache["k"].shape[1]
+    lens = torch.as_tensor(T if fill_len is None else fill_len,
+                           device=k.device).long().expand(B)
+    src = ring_sources(start, T, S, lens)[:, :, None, None]
+    for name, t in (("k", k), ("v", v)):
+        idx = src.expand(B, S, *t.shape[2:])
+        cache[name].copy_(torch.gather(t, 1, idx).to(cache[name].dtype))

@@ -4,7 +4,7 @@ attention-only stacks and ``decode_step``."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,13 +17,16 @@ MOE_AUX_COEF = 0.01
 
 def lm_loss(params, batch: dict, cfg: T.ModelConfig
             ) -> Tuple[torch.Tensor, dict]:
-    """Next-token cross-entropy.  batch: ``tokens``, ``labels`` (already
-    shifted), optional ``mask`` and ``positions``.  The loss is the masked
+    """Next-token cross-entropy.  batch: ``tokens`` (or ``embeds`` for an
+    ``input_kind == "embeddings"`` config), ``labels`` (already shifted),
+    optional ``mask`` and ``positions`` ((3, B, T) under ``mrope``).  The loss is the masked
     mean ce plus ``MOE_AUX_COEF`` times the MoE aux term, which is 0 for the
     dense stacks the port runs.  Returns ``(loss, metrics)`` with
     ``ce_weight``, the mask sum that gradient accumulation weights ce by."""
-    logits, _ = T.forward(params, cfg, tokens=batch["tokens"],
-                          positions=batch.get("positions"))
+    kw = ({"tokens": batch["tokens"]} if cfg.input_kind == "tokens"
+          else {"embeds": batch["embeds"]})
+    logits, _ = T.forward(params, cfg, positions=batch.get("positions"),
+                          **kw)
     labels = batch["labels"]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
@@ -45,24 +48,29 @@ def train_metrics(metrics: dict) -> dict:
 
 
 def prefill(params, cfg: T.ModelConfig, *, max_len: int,
-            tokens: torch.Tensor, cache_dtype: torch.dtype = torch.bfloat16,
-            length=None, cache=None):
-    """Run the prompt (B, T) through one chunked-attention forward that
-    also writes K/V into a cache: a fresh one, or ``cache`` (per layer
-    ``{"mixer": {"k", "v"}}`` of B rows, views of a larger pool allowed),
-    whose first T positions it overwrites.  ``length`` (an int or (B,),
-    default T) is the true prompt length of a right-padded batch: the
-    logits are those of position ``length - 1`` of each row, the hidden row
-    gathered before the final norm and the unembed.  Returns ``(logits
-    (B, V), cache)``."""
-    B = tokens.shape[0]
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            cache_dtype: torch.dtype = torch.bfloat16, length=None,
+            cache=None):
+    """Run the prompt, ``tokens`` (B, T) or ``embeds`` (B, T, d), through
+    one chunked-attention forward that also writes K/V into a cache: a
+    fresh one, or ``cache`` (per layer ``{"mixer": {"k", "v"}}`` of B rows,
+    views of a larger pool allowed), whose first T positions it overwrites
+    (a windowed layer's whole ring).  ``length`` (an int or (B,), default
+    T) is the true prompt length of a right-padded batch: the logits are
+    those of position ``length - 1`` of each row, the hidden row gathered
+    before the final norm and the unembed, and windowed layers ring-fill
+    only real positions.  Returns ``(logits (B, V), cache)``."""
+    src = tokens if tokens is not None else embeds
+    B, T_len = src.shape[:2]
     if cache is None:
-        cache = T.init_cache(B, max_len, cfg, device=tokens.device,
+        cache = T.init_cache(B, max_len, cfg, device=src.device,
                              dtype=cache_dtype)
-    last = torch.as_tensor(tokens.shape[1] if length is None else length,
-                           device=tokens.device).long().expand(B) - 1
-    logits, cache = T.forward(params, cfg, tokens=tokens, cache=cache,
-                              cache_index=0, last_index=last)
+    last = torch.as_tensor(T_len if length is None else length,
+                           device=src.device).long().expand(B) - 1
+    kw = {"tokens": tokens} if tokens is not None else {"embeds": embeds}
+    logits, cache = T.forward(params, cfg, cache=cache, cache_index=0,
+                              fill_len=length, last_index=last, **kw)
     return logits[:, -1], cache
 
 

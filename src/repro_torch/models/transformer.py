@@ -2,11 +2,13 @@
 ``repro/models/transformer.py``).
 
 One ``ModelConfig`` keeps the reference's fields, so a reference config
-carries over; this slice runs the layers it needs (attention mixer, dense
-FFN, default RoPE) and raises ``NotImplementedError`` for MoE, Mamba, the
-shared block and M-RoPE, naming the roadmap item.  Layers run in a Python
-loop over an ``nn.ModuleList`` (the reference's ``scan`` over stacked
-params; ``convert.params_from_jax`` unstacks those).  With ``remat`` (the
+carries over; the port runs the dense-attention stacks (attention mixers
+with full or sliding-window caches, dense FFNs, default, local and M-RoPE
+tables, token or embedding inputs, ``embed_scale``) and raises
+``NotImplementedError`` for MoE, Mamba and the shared block, naming the
+roadmap item.  Layers run in a Python loop over an ``nn.ModuleList`` (the
+reference's ``scan`` over stacked params, whose ``scan_group`` no ported
+module reads; ``convert.params_from_jax`` unstacks groups of any length).  With ``remat`` (the
 default, as in the reference) and no cache, each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint`` wraps it
 there: the backward recomputes the layer's forward, kernels included, under
@@ -29,14 +31,14 @@ from repro_torch.layers.embedding import (EmbeddingConfig, embed,
                                           init_embedding, unembed)
 from repro_torch.layers.ffn import FFNConfig, ffn_block_apply, init_ffn
 from repro_torch.layers.norms import init_rms_norm, rms_norm
-from repro_torch.layers.rope import rope_angles
+from repro_torch.layers.rope import mrope_angles, rope_angles
 from repro_torch.parallel import ctx as par_ctx
 from repro_torch.params import Params
 
 __all__ = ["LayerSpec", "ModelConfig", "init_model", "init_cache",
            "forward", "dtype_of"]
 
-_ROADMAP = "ROADMAP.md §1 (the other archs)"
+_ROADMAP = "ROADMAP.md §1 item 5"
 
 
 def dtype_of(d: Any) -> torch.dtype:
@@ -57,10 +59,9 @@ class LayerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture and knobs: the reference's fields that this slice
-    reads.  The layer pattern carries what it does not run yet (other
-    mixers and MLPs, the shared block, local RoPE), which ``_supported``
-    refuses by name."""
+    """Architecture and knobs: the reference's fields that the port reads.
+    The layer pattern carries what it does not run yet (other mixers and
+    MLPs, the shared block), which ``_supported`` refuses by name."""
 
     name: str
     d_model: int
@@ -73,6 +74,9 @@ class ModelConfig:
     layers: Tuple[LayerSpec, ...]
     qk_norm: bool = False
     rope_theta: float = 1e4
+    rope_local_theta: float = 1e4
+    rope_kind: str = "default"       # "default" | "mrope"
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     q_chunk: int = 512
     k_chunk: int = 1024
     linear_impl: str = "dense"
@@ -88,7 +92,9 @@ class ModelConfig:
     spm_block_fuse: Optional[bool] = None  # None/True: block kernel; False
     spm_quant_acts: bool = False           # int8 activation I/O (K1/K2)
     spm_quant_coeffs: bool = False         # int8 per-stage coefficient tables
+    input_kind: str = "tokens"       # "tokens" | "embeddings"
     tie_embeddings: bool = True
+    embed_scale: float = 1.0
     logits_dtype: Any = "float32"
     dtype: Any = "bfloat16"
     param_dtype: Any = "float32"
@@ -146,10 +152,6 @@ def _supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: the shared block is not ported yet "
                 f"({_ROADMAP}: zamba2)")
-        if spec.rope != "default":
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.rope} RoPE tables are not ported yet "
-                f"({_ROADMAP}: mrope and local RoPE)")
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
@@ -175,61 +177,108 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, *,
                device, dtype: torch.dtype = torch.bfloat16) -> list:
-    """One ``{"mixer": {"k", "v"}}`` KV cache per layer."""
+    """One ``{"mixer": {"k", "v"}}`` KV cache per layer; a windowed layer's
+    is a ring of ``min(max_len, window)`` slots."""
     return [{"mixer": init_kv_cache(batch, max_len, cfg.attn_cfg(spec),
                                     device, dtype)}
             for spec in cfg.layers]
 
 
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor) -> dict:
+    """``{"default", "local"}`` -> (cos, sin), from positions (B, T), or
+    (3, B, T) under ``mrope`` (both entries the M-RoPE table).  The local
+    table uses ``rope_local_theta`` and is the default one when the two
+    thetas are equal."""
+    if cfg.rope_kind == "mrope":
+        cs = mrope_angles(positions, cfg.head_dim, cfg.mrope_sections,
+                          cfg.rope_theta)
+        return {"default": cs, "local": cs}
+    cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    local = (cs if cfg.rope_local_theta == cfg.rope_theta else
+             rope_angles(positions, cfg.head_dim, cfg.rope_local_theta))
+    return {"default": cs, "local": local}
+
+
 def _apply_layer(lp, spec: LayerSpec, cfg: ModelConfig, h: torch.Tensor,
-                 cos: torch.Tensor, sin: torch.Tensor, cache,
-                 cache_index) -> torch.Tensor:
-    """One layer: ``h + attn(norm1(h))``, then the FFN residual block."""
+                 rope: dict, cache, cache_index, fill_len) -> torch.Tensor:
+    """One layer: ``h + attn(norm1(h))`` with its RoPE table
+    (``rope[spec.rope]``), then the FFN residual block."""
+    cos, sin = rope[spec.rope]
     y, _ = attention_apply(lp["mixer"], h, cfg.attn_cfg(spec), cos=cos,
                            sin=sin, cache=cache, cache_index=cache_index,
-                           norm_params=lp["norm1"])
+                           fill_len=fill_len, norm_params=lp["norm1"])
     h = h + y
     return ffn_block_apply(lp["mlp"], lp["norm2"], h, cfg.ffn_cfg())
 
 
-def _recompute_safe_layer(sharding, lp, spec, cfg, h, cos, sin):
+def _recompute_safe_layer(sharding, lp, spec, cfg, h, rope):
     """A checkpointed layer: its recompute, which may run on another
     thread, sees the forward's feature-sharding context."""
     with par_ctx.use_context(sharding):
-        return _apply_layer(lp, spec, cfg, h, cos, sin, None, None)
+        return _apply_layer(lp, spec, cfg, h, rope, None, None, None)
 
 
-def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
+def _default_positions(cfg: ModelConfig, B: int, T: int, cache_index,
+                       device) -> torch.Tensor:
+    """(B, T) positions from ``cache_index`` (None: 0; an int; or a (B,)
+    tensor, ``ci[:, None] + arange(T)``), broadcast to (3, B, T) under
+    ``mrope``."""
+    ar = torch.arange(T, device=device)
+    if isinstance(cache_index, torch.Tensor):
+        pos = cache_index[:, None] + ar
+    else:
+        start = 0 if cache_index is None else int(cache_index)
+        pos = (start + ar).expand(B, T)
+    if cfg.rope_kind == "mrope":
+        pos = pos.expand(3, B, T)
+    return pos
+
+
+def forward(params, cfg: ModelConfig, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None, cache=None,
-            cache_index=None, last_index: Optional[torch.Tensor] = None):
-    """Returns ``(logits, cache)``.  ``cache=None`` is the plain causal
-    forward; with a cache, T > 1 prefills from the scalar ``cache_index``
-    and T == 1 decodes at ``cache_index``: an int for the whole batch or a
-    (B,) tensor, one position a row (``ci[:, None] + arange(T)``).
-    ``last_index`` (B,) computes the logits of position ``last_index[b]``
-    of each row only, (B, 1, V), which is all a prefill returns: the hidden
-    row is gathered before the final norm and the unembed."""
+            cache_index=None, fill_len=None,
+            last_index: Optional[torch.Tensor] = None):
+    """Returns ``(logits, cache)``.  The input is ``tokens`` (B, T) or
+    ``embeds`` (B, T, d), cast to ``cfg.dtype`` and multiplied by
+    ``embed_scale`` rounded to that dtype first, as the reference does.
+    ``cache=None`` is the plain causal forward; with a cache, T > 1
+    prefills from the scalar ``cache_index`` and T == 1 decodes at
+    ``cache_index``: an int for the whole batch or a (B,) tensor, one
+    position a row (``ci[:, None] + arange(T)``).  ``fill_len`` (an int or
+    (B,)) is a right-padded prefill's true lengths: windowed layers
+    ring-fill only real positions.  ``positions`` defaults from
+    ``cache_index`` ((3, B, T) under ``mrope``).  ``last_index`` (B,)
+    computes the logits of position ``last_index[b]`` of each row only,
+    (B, 1, V), which is all a prefill returns: the hidden row is gathered
+    before the final norm and the unembed."""
     _supported(cfg)
-    B, T = tokens.shape
-    h = embed(params["embed"], tokens, cfg.embed_cfg(), dtype_of(cfg.dtype))
+    dt = dtype_of(cfg.dtype)
+    if tokens is not None:
+        B, T = tokens.shape
+        h = embed(params["embed"], tokens, cfg.embed_cfg(), dt)
+        dev = tokens.device
+    else:
+        B, T = embeds.shape[:2]
+        h = embeds.to(dt)
+        dev = embeds.device
+    if cfg.embed_scale != 1.0:
+        h = h * torch.tensor(cfg.embed_scale, dtype=dt, device=dev)
     if positions is None:
-        ar = torch.arange(T, device=tokens.device)
-        if isinstance(cache_index, torch.Tensor):
-            positions = cache_index[:, None] + ar
-        else:
-            start = 0 if cache_index is None else int(cache_index)
-            positions = (start + ar).expand(B, T)
-    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        positions = _default_positions(cfg, B, T, cache_index, dev)
+    rope = _rope_tables(cfg, positions)
     sharding = par_ctx.current_context()
     for i, spec in enumerate(cfg.layers):
         lp = params["layers"][i]
         if cache is None and cfg.remat:
             h = torch.utils.checkpoint.checkpoint(
-                _recompute_safe_layer, sharding, lp, spec, cfg, h, cos, sin,
+                _recompute_safe_layer, sharding, lp, spec, cfg, h, rope,
                 use_reentrant=False)
         else:
             lc = None if cache is None else cache[i]["mixer"]
-            h = _apply_layer(lp, spec, cfg, h, cos, sin, lc, cache_index)
+            h = _apply_layer(lp, spec, cfg, h, rope, lc, cache_index,
+                             fill_len)
     if last_index is not None:
         h = torch.gather(h, 1, last_index.reshape(B, 1, 1).expand(
             B, 1, h.shape[-1]))
@@ -237,4 +286,3 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     logits = unembed(params["embed"], h.to(dtype_of(cfg.logits_dtype)),
                      cfg.embed_cfg())
     return logits, cache
-

@@ -238,10 +238,11 @@ class ContinuousBatchingEngine:
 
     **Prefill** pads each prompt to its bucket (powers of two from 8,
     capped at ``max_len``) and prefills each request alone, one row,
-    straight into its slot's row of the pool (the rest of the row zeroed,
-    so the whole row is replaced and a poisoned tenant's NaN K/V never
-    reaches the next: masked positions weigh ``0 * v``, and ``0 * NaN`` is
-    NaN).  One row, not the bucket's group, keeps every prefill of a bucket
+    straight into its slot's row of the pool (the rest of the row zeroed;
+    a sliding-window layer's ring row is written whole by the prefill,
+    every slot from the request's own real positions), so the whole row is
+    replaced and a poisoned tenant's NaN K/V never reaches the next: masked
+    positions weigh ``0 * v``, and ``0 * NaN`` is NaN.  One row, not the bucket's group, keeps every prefill of a bucket
     at one shape: cuBLAS picks its algorithm by shape and the fused kernels
     plan by row count, so a group-sized prefill could change a request's
     bits with its neighbours.  It also does no work for padded rows; it

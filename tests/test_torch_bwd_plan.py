@@ -240,3 +240,83 @@ def test_engine_order_of_sums_within_gamma_rows(n_rows, nt, strides):
     dropped[r0: r0 + n] = 0
     bad = _engine_sum(dropped, plan)
     assert not (np.abs(bad.astype(np.float64) - want) <= lim).all()
+
+
+def _linears(cfg):
+    """(name, LinearConfig) of every SPM linear of a config's layers (the
+    attention's q, k/v and o, the FFN's gate, up and down)."""
+    acfg, fcfg = cfg.attn_cfg(cfg.layers[0]), cfg.ffn_cfg()
+    return [("q", acfg.q_proj), ("kv", acfg.kv_proj), ("o", acfg.o_proj),
+            ("gate", fcfg.gate), ("up", fcfg.up), ("down", fcfg.down)]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 512, 4096])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b", "qwen2-vl-7b",
+                                  "musicgen-medium", "minitron-4b",
+                                  "qwen3-32b"])
+def test_every_registered_linear_has_its_plans(arch, rows):
+    """Every run of every linear of every registered config (at full width)
+    gets a K1 plan and a K2 plan at bf16, and K3/K4 block plans where the
+    linear is block-fusible: no launch on the main path raises for want of
+    a plan.  The lone stages on tiles wider than one cluster (9216 ...
+    25600 lanes) take K2's split mode."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core.eligibility import block_fusion_eligible
+    from repro_torch.kernels import ops
+    assert arch in ARCH_IDS
+    cfg = get_config(arch)
+    for name, lin in _linears(cfg):
+        scfg = lin.spm_config()
+        strides = scfg.pairing.strides()
+        n = scfg.n
+        for rs, nt in ops.plan_runs_for_rows(n, strides, rows):
+            f = K.fwd_plan(rows, nt, rs, n // nt, 2)
+            b = K.bwd_plan(rows, nt, rs, n // nt, 2)
+            assert f.smem_bytes <= K.SMEM_BYTES
+            assert b.smem_bytes <= K.SMEM_BYTES, (name, rs, nt)
+            assert bool(b.split) == (nt > 2 * 8 * K.BWD_MAX_THREADS), \
+                (name, rs, nt)
+        if block_fusion_eligible(n, strides):
+            assert K.fwd_plan(rows, n, strides, 1, 2, block=True,
+                              norm=True).smem_bytes <= K.SMEM_BYTES
+            assert K.bwd_plan(rows, n, strides, 1, 2, block=True,
+                              norm=True).smem_bytes <= K.SMEM_BYTES
+
+
+@pytest.mark.parametrize("io", [2, 4])
+@pytest.mark.parametrize("rows", [1, 8, 1000, 2048, 4096])
+@pytest.mark.parametrize("nt, tiles", [(9216, 1), (9472, 2), (12800, 2),
+                                       (15360, 1), (18944, 1), (25600, 1)])
+def test_split_plan_covers_pairs_and_rows_once(nt, tiles, rows, io):
+    """K2's split mode: every pair of the lone stage's tile in exactly one
+    slot of one block, both its lanes in that block's two segments, each
+    block a one-block cluster of at most 512 threads whose shared memory
+    is the engine's layout for one stage of stride P on 2P lanes within
+    232,448 B; every row in exactly one chunk of one group."""
+    s = nt // 2
+    p = K.bwd_plan(rows, nt, (s,), tiles, io)
+    P = p.pair_slots
+    assert p.split == s // P and p.split * P == s and P >= 4
+    assert (p.lane_blocks, p.cluster, p.lanes) == (1, 1, 2 * P)
+    assert P & (P - 1) == 0 and p.threads == P * p.row_slices \
+        <= K.BWD_MAX_THREADS
+    assert p.smem_bytes <= K.SMEM_BYTES
+    assert p.smem_bytes == K.bwd_smem_bytes(1, 2 * P, p.chunk_rows, 3, io,
+                                            io, False, p.row_slices, False,
+                                            1, io)
+    assert K.bwd_stage_modes(2 * P, 1, (P,)) == ["A"]
+    pairs = K.bwd_split_pairs(nt, p)
+    flat = sorted(q for blk in pairs for q in blk)
+    assert flat == list(range(s))
+    for j, blk in enumerate(pairs):
+        # the block's low segment: columns [j P, (j + 1) P), the high one
+        # s on, inside the tile
+        assert blk == list(range(j * P, (j + 1) * P))
+        assert blk[-1] + s < nt
+    chunks = K.bwd_row_chunks(rows, p.chunk_rows, p.groups)
+    seen = np.zeros(rows, dtype=int)
+    for _, r0, n in chunks:
+        assert 0 < n <= p.chunk_rows
+        seen[r0: r0 + n] += 1
+    assert (seen == 1).all()
+    assert {g for g, _, _ in chunks} == set(range(p.groups))

@@ -8,6 +8,7 @@ Tolerances are derived as in ``tests/test_torch_spm.py``.
 """
 
 import copy
+import functools
 import math
 
 import numpy as np
@@ -306,6 +307,120 @@ def test_k2_matches_plain(cuda, dtype, n, strides, n_tile, rows, in_w,
     assert torch.equal(got[0], want[0])
     _grads_within(got[1:], want[1:], mags[1:], rows)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, n_tile, rows, in_w, out_w, dead, int8", [
+    (9216, 9216, 8, 9216, 9216, None, False),       # minitron-4b's gate/up
+    (9216, 9216, 2048, 9216, 9216, None, False),
+    (25600, 25600, 8, 25600, 25600, None, False),   # qwen3-32b's
+    (25600, 25600, 2048, 25600, 25600, None, False),
+    (18944, 9472, 300, 18944, 3584, None, False),   # two tiles, one dead
+    (18944, 9472, 77, 18944, 18944, 9472, False),   # dead_from
+    (15360, 15360, 33, 3840, 15360, None, False),   # x zero past in_width
+    (9216, 9216, 300, 9216, 9216, None, True),      # int8 x (--quantize)
+    (18944, 9472, 77, 18944, 18944, None, True),    # a scale for each tile
+    (15360, 15360, 33, 3840, 15360, None, True)])   # int8 x past in_width
+def test_k2_lone_wide_stage_matches_plain(cuda, dtype, n, n_tile, rows, in_w,
+                                          out_w, dead, int8):
+    """K2's split mode: a lone stage on a tile wider than one cluster's 8
+    blocks of 512 pair slots (``bwd_plan``'s ``split``), held as
+    ``test_k2_matches_plain`` holds the other plans: g_x bit for bit, the
+    grads within gamma_rows, a second launch bitwise equal; with an int8
+    x (``x_scale``) as ``--quantize`` saves it, dequantized with the scale
+    of its tile."""
+    from repro_torch.kernels import quant as Q
+    strides = (n_tile // 2,)
+    gen = torch.Generator(device="cuda").manual_seed(rows + n)
+    cf = _rnd(gen, 1, n // 2, 4, scale=0.5)
+    d_in, d_out = 1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n)
+    x, xs, sr = _rnd(gen, rows, in_w), None, None
+    if int8:
+        sr = Q.scale_block_rows([(strides, n_tile)], rows, 2)
+        x, xs = Q.quantize_blocks(ops._pad_rows(x, sr), sr, n_tile)
+        rows = x.shape[0]
+    else:
+        x = x.to(dtype)
+    plan = K.bwd_plan(rows, n_tile, strides, n // n_tile, 2,
+                      x.element_size())
+    assert plan.split > 0 and plan.cluster == 1
+    gy = _rnd(gen, rows, out_w).to(dtype)
+    if dead is not None:
+        gy[:, dead:] = 0
+    kw = dict(strides=strides, n_tile=n_tile, has_bias=True,
+              in_width=None if in_w == n else in_w,
+              out_width=None if out_w == n else out_w, dead_from=dead,
+              scale_rows=sr)
+    before = (K.spm_stack_bwd_kernel_call.launches,
+              K.spm_stack_bwd_kernel_call.split_launches)
+    got = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out, xs, **kw)
+    again = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, d_out, xs, **kw)
+    assert (K.spm_stack_bwd_kernel_call.launches - before[0],
+            K.spm_stack_bwd_kernel_call.split_launches - before[1]) == (2, 2)
+    want = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, xs, **kw)
+    mags = K.spm_stack_bwd_plain(x, cf, gy, d_in, d_out, xs,
+                                 col_sum=_abs_sum, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and got[0].dtype == dtype
+    _grads_within(got[1:], want[1:], mags[1:], rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _arch_linears(arch):
+    """(name, LinearConfig) of a full-width layer's linears that run on K1
+    and K2: q, k and v unless they fuse into block launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.attention import qkv_block_fused
+    cfg = get_config(arch)
+    acfg, fcfg = cfg.attn_cfg(cfg.layers[0]), cfg.ffn_cfg()
+    lins = [("o", acfg.o_proj), ("gate", fcfg.gate), ("down", fcfg.down)]
+    if not qkv_block_fused(acfg):
+        lins += [("q", acfg.q_proj), ("kv", acfg.kv_proj)]
+    return lins
+
+
+@pytest.mark.parametrize("rows", [5, 300])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen2-vl-7b",
+                                  "musicgen-medium", "minitron-4b",
+                                  "qwen3-32b"])
+def test_arch_linears_match_plain(cuda, arch, rows):
+    """Every K1/K2 linear of each arch at full width (its own widths, run
+    plan and row-count tile cap), bf16: the run chain's output bit for bit
+    (``forward_runs``), and its backward (``backward_runs``) with g_x bit
+    for bit and the grads within gamma_rows."""
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    for name, lin in _arch_linears(arch):
+        scfg = lin.spm_config()
+        n = scfg.n
+        runs = ops.plan_runs_for_rows(n, scfg.pairing.strides(), rows)
+        L = sum(len(rs) for rs, _ in runs)
+        cf = _rnd(gen, L, n // 2, 4, scale=0.5)
+        d_in, d_out = 1 + 0.1 * _rnd(gen, n), 1 + 0.1 * _rnd(gen, n)
+        b = 0.1 * _rnd(gen, n)
+        widths = (None if lin.d_in == n else lin.d_in,
+                  None if lin.d_out == n else lin.d_out)
+        x = _rnd(gen, rows, lin.d_in).bfloat16()
+        gy = _rnd(gen, rows, lin.d_out).bfloat16()
+        y, saved = ops.forward_runs(x, cf, runs, d_in, d_out, b, *widths)
+        z = x
+        for r, (rs, nt) in enumerate(runs):
+            off = sum(len(q) for q, _ in runs[:r])
+            last = r == len(runs) - 1
+            z = K.spm_stack_plain(
+                z, cf[off: off + len(rs)], d_in if r == 0 else None,
+                d_out if last else None, b if last else None, strides=rs,
+                in_width=widths[0] if r == 0 else None,
+                out_width=widths[1] if last else None)
+        args = (saved, cf, gy, runs, d_in, d_out, True, *widths)
+        got = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args)
+        want = ops.backward_runs(K.spm_stack_bwd_plain, *args)
+        mags = ops.backward_runs(functools.partial(
+            K.spm_stack_bwd_plain, col_sum=_abs_sum), *args)
+        torch.cuda.synchronize()
+        assert torch.equal(y, z), (arch, name)
+        for a, p, m in zip(got, want, mags):
+            assert torch.equal(a[0], p[0]), (arch, name)
+            _grads_within(a[1:], p[1:], m[1:], rows)
 
 
 def _forced_plan(monkeypatch, C, R, G):
