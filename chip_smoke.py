@@ -223,6 +223,30 @@ Phases, each of which fails the run when it fails:
    and decode's 4), held as phases 2 and 5 hold them, the FFN's and
    musicgen-medium's q/k/v also timed.  The phase has 200 s
    (``ARCH_BUDGET_S``).
+23. **MoE, Mamba2 and the shared block** (``run_slice_phase``):
+   qwen3-moe-30b-a3b (128 experts, top-8), llama4-scout-17b-a16e (16
+   experts, top-1, a shared expert), mamba2-370m and zamba2-1.2b (a Mamba2
+   backbone, the shared attention + FFN block before every 6th layer),
+   each at full width and depth from seed 0: ``ServeEngine.generate`` of
+   4 rows, prompt 256, 32 greedy tokens (the SSM stacks prefill by decode
+   replay), and two training steps of 4 x 512 through
+   ``launch.train.train`` (bf16; aux finite, positive for MoE); every
+   K1-K4 launch count (K1's and K2's expert mode and K2's split mode
+   counted apart, one expert launch a run for all experts) equal to the
+   plan (``slice_serve_launches``, ``slice_train_launches``).  Init s,
+   prefill ms, decode tokens/s, step ms, peak memory.  Then qwen3-moe at
+   2 layers against the CPU in f32 (routing compared first: logits within
+   phase 7's f32 bound where it agrees, a flipped token only at a
+   near-tie of its router), and zamba2 at one 6-layer group (its chunked
+   forward within the f32 bound, its replayed prefill within 2e-3 of the
+   chunked forward).  Then K1 and K2 in the expert mode at every shape of
+   the path (each MoE arch's gate/up and down experts at the training
+   step's, the prefill's and decode's rows a expert; K1 bit for bit,
+   K2's g_x bit for bit and its grads within gamma_rows; timed at the
+   training rows beside ``torch.bmm``), and K1-K4 at every other shape
+   the four archs' path gives them (``slice_kernel_cases``; Mamba2's
+   in_proj at 2048 rows timed).  The phase has 200 s
+   (``SLICE_BUDGET_S``).
 
 Depths: phases 7, 10, 11 (its teacher-forced part), 14 and 18 hold the
 card to the CPU on the first ``PARITY_LAYERS`` = 8 of the 28 layers at
@@ -284,12 +308,12 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, reps: int = TIMED) -> float:
         torch = self.torch
-        for _ in range(3):
+        for _ in range(min(3, reps)):
             fn()
         pairs = []
-        for _ in range(TIMED):
+        for _ in range(reps):
             torch.cuda._sleep(2_000_000)       # about 1 ms of spinning
             self.flush.zero_()
             e0 = torch.cuda.Event(enable_timing=True)
@@ -299,7 +323,7 @@ class Timer:
             e1.record()
             pairs.append((e0, e1))
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in pairs) / TIMED
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def bound(nbytes: float, flops: float):
@@ -4891,6 +4915,638 @@ def run_archs_phase(torch, K, ops, T, LM, ServeEngine, launch_train,
     return out, rows, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 23: MoE, Mamba2 and the shared block
+# ---------------------------------------------------------------------------
+
+SLICE_ARCHS = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e", "mamba2-370m",
+               "zamba2-1.2b")
+SLICE_SERVE = (4, 256, 32)     # rows, prompt, greedy tokens
+SLICE_TRAIN = (4, 512, 2)      # batch, seq, steps
+SLICE_BUDGET_S = 200
+MOE_PARITY_LAYERS = 2          # qwen3-moe's card-vs-CPU depth, of 48
+ZAMBA_GROUP = 6                # zamba2's: one group, the shared block first
+SLICE_PARITY = (2, 128)        # rows, tokens of the card-vs-CPU forwards
+PLAIN_REPS = 3                 # timed calls of an expert chain's plain
+                               # version (a loop over the experts: 0.1-0.5
+                               # s a call)
+
+
+def _runs(ops, lin, rows: int):
+    sc = lin.spm_config()
+    return ops.plan_runs_for_rows(sc.n, sc.pairing.strides(), rows)
+
+
+def slice_linears(cfg, n_tok: int):
+    """(name, LinearConfig, rows, expert) of every K1 linear one forward
+    over ``n_tok`` tokens runs, layer by layer: the shared block's where it
+    applies (its q/k/v as K3 launches when they fuse, returned apart),
+    the mixer's (attention, or Mamba2's in and out projections), the dense
+    FFN's, or the MoE experts' at ``route_groups``' G * C rows (``expert``)
+    and the shared expert's.  Returns (linears, K3 launches)."""
+    from repro_torch.layers.attention import qkv_block_fused
+    from repro_torch.layers.moe import route_groups
+    out, k3 = [], 0
+
+    def attn(tag, acfg):
+        nonlocal k3
+        if qkv_block_fused(acfg):
+            k3 += 3
+        else:
+            out.extend([(tag + "q", acfg.q_proj, n_tok, False),
+                        (tag + "k", acfg.kv_proj, n_tok, False),
+                        (tag + "v", acfg.kv_proj, n_tok, False)])
+        out.append((tag + "o", acfg.o_proj, n_tok, False))
+
+    def ffn(tag, fcfg, rows, expert):
+        out.extend([(tag + name, getattr(fcfg, name), rows, expert)
+                    for name in ("gate", "up", "down")])
+
+    for spec in cfg.layers:
+        if spec.shared_block:
+            attn("shared ", cfg.shared_attn_cfg())
+            ffn("shared ", cfg.shared_ffn_cfg(), n_tok, False)
+        if spec.mixer == "attn":
+            attn("", cfg.attn_cfg(spec))
+        else:
+            m = cfg.mamba_cfg()
+            out.extend([("in_proj", m.in_proj, n_tok, False),
+                        ("out_proj", m.out_proj, n_tok, False)])
+        if spec.mlp == "dense":
+            ffn("", cfg.ffn_cfg(), n_tok, False)
+        elif spec.mlp == "moe":
+            mc = cfg.moe_cfg()
+            _, G, cap = route_groups(mc, n_tok)
+            ffn("expert ", mc.expert_ffn, G * cap, True)
+            if mc.shared_d_ff:
+                ffn("shared expert ", mc.shared_ffn, n_tok, False)
+    return out, k3
+
+
+def slice_forward_launches(cfg, ops, n_tok: int) -> dict:
+    """K1 (all), K1 in its expert mode (one a run for all experts) and K3
+    launches of one forward over ``n_tok`` tokens."""
+    lins, k3 = slice_linears(cfg, n_tok)
+    k1 = k1e = 0
+    for _, lin, rows, expert in lins:
+        r = len(_runs(ops, lin, rows))
+        k1 += r
+        k1e += r if expert else 0
+    return {"K1": k1, "K1 expert": k1e, "K3": k3}
+
+
+def slice_train_launches(cfg, ops, K, n_tok: int) -> dict:
+    """One training step over ``n_tok`` tokens: the forward twice (remat;
+    a layer's checkpoint covers its shared block), K2 once per K1 run and
+    K4 once per K3 launch, each in the same mode; K2's split-mode
+    launches."""
+    f = slice_forward_launches(cfg, ops, n_tok)
+    m = 2 if cfg.remat else 1
+    split = 0
+    for _, lin, rows, expert in slice_linears(cfg, n_tok)[0]:
+        n = lin.spm_config().n
+        for rs, nt in _runs(ops, lin, rows):
+            split += bool(K.bwd_plan(rows, nt, rs, n // nt, 2).split)
+    return {"K1": m * f["K1"], "K1 expert": m * f["K1 expert"],
+            "K2": f["K1"], "K2 expert": f["K1 expert"], "K2 split": split,
+            "K3": m * f["K3"], "K4": f["K3"]}
+
+
+def slice_counts(K) -> dict:
+    return {"K1": K.spm_stack_kernel_call.launches,
+            "K1 expert": K.spm_stack_kernel_call.expert_launches,
+            "K2": K.spm_stack_bwd_kernel_call.launches,
+            "K2 expert": K.spm_stack_bwd_kernel_call.expert_launches,
+            "K2 split": K.spm_stack_bwd_kernel_call.split_launches,
+            "K3": K.spm_block_kernel_call.launches,
+            "K4": K.spm_block_bwd_kernel_call.launches}
+
+
+def ssm_stack(cfg) -> bool:
+    return any(s.mixer != "attn" for s in cfg.layers)
+
+
+def slice_serve_launches(cfg, ops, batch: int, prompt: int,
+                         new: int) -> dict:
+    """One ``generate``: the prefill (one chunked forward over batch x
+    prompt tokens, or for an SSM stack ``prompt`` replayed decode steps)
+    and ``new - 1`` decode steps of ``batch`` rows; no backward."""
+    dec = slice_forward_launches(cfg, ops, batch)
+    if ssm_stack(cfg):
+        pre = {k: prompt * v for k, v in dec.items()}
+    else:
+        pre = slice_forward_launches(cfg, ops, batch * prompt)
+    return {k: pre[k] + (new - 1) * dec[k] for k in pre}
+
+
+def run_slice_serve(torch, K, ops, T, ServeEngine, cfg):
+    """``ServeEngine.generate`` of ``SLICE_SERVE`` at full width and depth
+    from seed 0, bf16 KV cache: tokens in range and unflagged, K1 (its
+    expert mode counted apart) and K3 launches equal to
+    ``slice_serve_launches``.  Init s, prefill ms (the measured
+    generate's prefill, synchronized on both sides), decode tokens/s (the
+    rest of it), peak memory."""
+    from repro_torch.models import causal_lm as LM
+    batch, plen, new = SLICE_SERVE
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg=cfg, params=params, max_len=plen + new,
+                      cache_dtype=torch.bfloat16, device=DEVICE)
+    gen = torch.Generator().manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen)
+    eng.generate(prompts[:, :8], max_new_tokens=2)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    real, spans = LM.prefill, []
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t)
+        return out
+    LM.prefill = timed_prefill
+    try:
+        t = time.perf_counter()
+        tokens, flags = eng.generate(prompts, max_new_tokens=new,
+                                     return_flags=True)
+        torch.cuda.synchronize()
+        tn = time.perf_counter() - t
+    finally:
+        LM.prefill = real
+    t1 = spans[0]
+    got = {k: v for k, v in slice_counts(K).items()
+           if k in ("K1", "K1 expert", "K3")}
+    peak = torch.cuda.max_memory_allocated()
+    want = slice_serve_launches(cfg, ops, batch, plen, new)
+    in_range = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    ok = (got == want and tuple(tokens.shape) == (batch, new) and in_range
+          and not bool(flags.any()))
+    res = dict(batch=batch, prompt_len=plen, new_tokens=new, init_s=init_s,
+               prefill_ms=t1 * 1e3,
+               prefill="decode replay" if ssm_stack(cfg) else "chunked",
+               decode_tok_per_s=batch * (new - 1) / (tn - t1),
+               generate_s=tn, peak_mem_bytes=peak, launches=got,
+               planned=want, ok=ok)
+    log(f"{cfg.name} serve: init {init_s:.1f} s, prefill ({res['prefill']}) "
+        f"{t1 * 1e3:.1f} ms, decode {res['decode_tok_per_s']:.1f} tok/s, "
+        f"generate {tn:.2f} s, peak {peak / 2**30:.2f} GiB, launches {got} "
+        f"(planned {want}), in range={in_range} flagged="
+        f"{int(flags.sum())} {'ok' if ok else 'FAIL'}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return res, ok
+
+
+def run_slice_train(torch, K, ops, launch_train, cfg):
+    """``SLICE_TRAIN`` steps through ``launch.train.train`` at full width
+    and depth, bf16: losses, aux and grad norms finite (aux > 0 for MoE),
+    no step skipped, every launch count equal to
+    ``slice_train_launches``.  Step ms, peak memory."""
+    batch, seq, steps = SLICE_TRAIN
+    args = launch_train.build_parser().parse_args(
+        ["--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
+         "--seq", str(seq), "--log-every", "1"])
+    mets, secs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    launch_train.train(args, on_step=lambda s, st, m, dt: (mets.append(m),
+                                                          secs.append(dt)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = slice_counts(K)
+    per = slice_train_launches(cfg, ops, K, batch * seq)
+    want = {k: steps * v for k, v in per.items()}
+    peak = torch.cuda.max_memory_allocated()
+    vals = [m[k] for m in mets for k in ("loss", "aux", "grad_norm")]
+    moe = bool(cfg.n_experts)
+    ok = (len(mets) == steps and got == want
+          and all(math.isfinite(v) for v in vals)
+          and all(m["grad_norm"] > 0 for m in mets)
+          and all((m["aux"] > 0) == moe for m in mets)
+          and not any(m["skipped"] for m in mets))
+    res = dict(batch=batch, seq=seq, steps=steps,
+               losses=[m["loss"] for m in mets],
+               aux=[m["aux"] for m in mets],
+               grad_norms=[m["grad_norm"] for m in mets], step_s=secs,
+               step_ms_last=secs[-1] * 1e3,
+               tokens_per_s=batch * seq / secs[-1], wall_s=wall,
+               peak_mem_bytes=peak, launches=got, planned=want,
+               planned_per_step=per, ok=ok)
+    log(f"{cfg.name} train: {steps} steps of {batch} x {seq} bf16, losses "
+        f"{[round(v, 4) for v in res['losses']]}, aux "
+        f"{[round(v, 4) for v in res['aux']]}, grad norms "
+        f"{[round(v, 4) for v in res['grad_norms']]}, step ms "
+        f"{[round(v * 1e3, 1) for v in secs]}, peak {peak / 2**30:.2f} GiB, "
+        f"launches {got} (planned {want}) {'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return res, ok
+
+
+def f32_depth_bound(cfg) -> float:
+    """Phase 7's f32 bound of a model's logits, per unit of their scale:
+    8 eps times the dependent roundings, counted generously (every linear
+    three a stage, each norm and row sum d_model, attention's head_dim and
+    softmax, the SSD scan's chunk, state and head sums, the router's
+    d_model and experts)."""
+    from repro_torch.core.pairings import default_n_stages
+    total = 2 * cfg.d_model
+    for name, lin, _, _ in slice_linears(cfg, 1)[0]:
+        total += 3 * default_n_stages(lin.spm_config().n) + 4
+    for spec in cfg.layers:
+        total += 2 * cfg.d_model + cfg.head_dim + 40
+        if spec.mixer == "mamba":
+            m = cfg.mamba_cfg()
+            total += 4 * (m.chunk + m.d_state + m.d_head) + m.d_inner
+        if spec.mlp == "moe":
+            total += cfg.d_model + cfg.n_experts + 4 * cfg.top_k
+    return 8 * total * EPS["float32"]
+
+
+def run_moe_parity(torch, T, cfg):
+    """qwen3-moe at ``MOE_PARITY_LAYERS`` layers, full width, f32, the same
+    weights: a teacher-forced forward of ``SLICE_PARITY`` tokens on the
+    card and on the CPU, each layer's routing recorded.  Where the two
+    sides route every token alike, the logits are held to the f32 bound;
+    a token routed otherwise must sit on a near-tie: its router's k-th and
+    (k+1)-th logits closer than the router dot's bound (the cumsum rank
+    then moves the later tokens of its group, so the logits past it are
+    not compared)."""
+    from repro_torch.layers import moe as M
+    cut = dataclasses.replace(cut_depth(cfg, n=MOE_PARITY_LAYERS),
+                              dtype="float32")
+    params = T.init_model(cut, seed=0, device=DEVICE)
+    cpu = copy.deepcopy(params).to("cpu")
+    rows, seq = SLICE_PARITY
+    gen = torch.Generator().manual_seed(29)
+    toks = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen)
+    seen = {"cuda": [], "cpu": []}
+    real = M._top_k_gating
+
+    def record(logits, k):
+        gates, mask = real(logits, k)
+        seen[logits.device.type].append((logits.detach().cpu(),
+                                         mask.detach().cpu()))
+        return gates, mask
+    M._top_k_gating = record
+    try:
+        with torch.inference_mode():
+            card = T.forward(params, cut, tokens=toks.to(DEVICE))[0].cpu()
+            host = T.forward(cpu, cut, tokens=toks)[0]
+    finally:
+        M._top_k_gating = real
+    k = cut.top_k
+    flips, worst_gap, same = 0, 0.0, True
+    for layer, ((lg, mg), (lc, mc)) in enumerate(zip(seen["cuda"],
+                                                     seen["cpu"])):
+        diff = (mg != mc).any(-1)
+        if not bool(diff.any()):
+            continue
+        same = False
+        top = torch.sort(lc, dim=-1, descending=True).values
+        gap = (top[..., k - 1] - top[..., k])[diff]
+        tol = 8 * (layer + 1) * cut.d_model * EPS["float32"] * (
+            lc.abs().max().item() + 1)
+        flips += int(diff.sum())
+        worst_gap = max(worst_gap, (gap / tol).max().item())
+    rel = f32_depth_bound(cut)
+    err = (card - host).abs().max().item()
+    limit = rel * (host.abs().max().item() + 1)
+    ok = (worst_gap <= 1 and bool(torch.isfinite(card).all())
+          and (not same or err <= limit))
+    res = dict(layers=MOE_PARITY_LAYERS, rows=rows, seq=seq,
+               routing_identical=same, flipped_tokens=flips,
+               flip_gap_over_tol=worst_gap, logits_max_abs_err=err,
+               logits_tol=limit, ok=ok)
+    log(f"qwen3-moe card vs CPU ({MOE_PARITY_LAYERS} layers, f32, "
+        f"{rows} x {seq}): routing identical={same} (flipped {flips}, "
+        f"gap/tol {worst_gap:.3f}), logits err {err:.3e} (tol {limit:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
+def run_zamba_parity(torch, T, LM, cfg):
+    """zamba2 at one ``ZAMBA_GROUP``-layer group (the shared block before
+    its first layer), full width, f32: the chunked forward's logits on the
+    card against the CPU's within the f32 bound, and on the card the
+    decode-replay prefill's last logits against the chunked forward's
+    within the reference's own contract (atol 2e-3,
+    ``tests/test_layers.py``)."""
+    cut = dataclasses.replace(cut_depth(cfg, n=ZAMBA_GROUP), dtype="float32")
+    params = T.init_model(cut, seed=0, device=DEVICE)
+    cpu = copy.deepcopy(params).to("cpu")
+    rows, seq = SLICE_PARITY
+    seq //= 2
+    gen = torch.Generator().manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen)
+    with torch.inference_mode():
+        card = T.forward(params, cut, tokens=toks.to(DEVICE))[0]
+        host = T.forward(cpu, cut, tokens=toks)[0]
+        replay, _ = LM.prefill(params, cut, max_len=seq,
+                               tokens=toks.to(DEVICE),
+                               cache_dtype=torch.float32)
+    card = card.cpu()
+    err = (card - host).abs().max().item()
+    limit = f32_depth_bound(cut) * (host.abs().max().item() + 1)
+    rerr = (replay.cpu() - card[:, -1]).abs().max().item()
+    ok = err <= limit and rerr <= 2e-3 and bool(torch.isfinite(card).all())
+    res = dict(layers=ZAMBA_GROUP, rows=rows, seq=seq,
+               logits_max_abs_err=err, logits_tol=limit,
+               replay_vs_chunked_max_abs_err=rerr, replay_tol=2e-3, ok=ok)
+    log(f"zamba2 card vs CPU ({ZAMBA_GROUP} layers, f32, {rows} x {seq}): "
+        f"logits err {err:.3e} (tol {limit:.3e}); replay prefill vs chunked "
+        f"{rerr:.3e} (tol 2e-3) {'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
+def slice_kernel_cases(ops):
+    """The distinct K1 and K2 shapes of phase 23's main path outside the
+    expert mode: every linear of ``slice_linears`` at the training step's
+    rows (K1 and K2), the prefill's (an attention stack's batch x prompt;
+    an SSM stack's replay rows) and decode's (K1).  Returns (K1 cases, K2
+    cases, timed K1, timed K2) in ``run_kernel_phase``'s form; timed: the
+    Mamba2 in_proj chains of mamba2-370m at the training rows."""
+    from repro_torch.configs import get_config
+    batch, plen, _ = SLICE_SERVE
+    tb, ts, _ = SLICE_TRAIN
+    seen1, seen2 = {}, {}
+    for arch in SLICE_ARCHS:
+        cfg = get_config(arch)
+        for rows, train in ((tb * ts, True),
+                            (batch if ssm_stack(cfg) else batch * plen,
+                             False), (batch, False)):
+            for name, lin, r, expert in slice_linears(cfg, rows)[0]:
+                if expert:
+                    continue
+                sc = lin.spm_config()
+                key = (sc.n, sc.pairing.strides(), r, lin.d_in, lin.d_out)
+                seen1.setdefault(key, []).append(f"{arch} {name}")
+                if train:
+                    seen2.setdefault(key, []).append(f"{arch} {name}")
+    m = get_config("mamba2-370m").mamba_cfg().in_proj
+    timed_key = (m.spm_config().n, m.spm_config().pairing.strides(),
+                 tb * ts, m.d_in, m.d_out)
+
+    def cases(seen, timed):
+        return [("; ".join(sorted(set(v)))[:60], n, s, r, di, do)
+                for (n, s, r, di, do), v in seen.items()
+                if ((n, s, r, di, do) == timed_key) == timed]
+    return cases(seen1, False), cases(seen2, False), cases(seen1, True), \
+        cases(seen2, True)
+
+
+def run_expert_kernel_cases(torch, K, ops, timer):
+    """K1 and K2 in their expert mode at every shape phase 23's main path
+    gives them (each MoE arch's gate/up and down experts at the training
+    step's, the prefill's and decode's rows a expert), bf16: the run
+    chain (one launch a run for all experts) bit for bit the per-expert
+    plain versions, a second chain bitwise; K2 (training rows) g_x bit for
+    bit and its grads within gamma_rows of one expert's rows.  At the
+    training rows both chains are timed (L2 flushed, CUDA events, mean of
+    ``TIMED``) beside the plain versions, the bound (each expert's x and y
+    moved once and its live table, 3 f32 operations an element and stage
+    forward, 10 backward) and ``torch.bmm`` with dense per-expert weights
+    (E, d_in, d_out) (for K2 its two products), which the port never
+    calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.moe import route_groups
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(2323)
+    abs_sum = (lambda t: t.abs().sum(0))
+    tb, ts, _ = SLICE_TRAIN
+    batch, plen, _ = SLICE_SERVE
+    for arch in SLICE_ARCHS[:2]:
+        cfg = get_config(arch)
+        mc = cfg.moe_cfg()
+        E = mc.n_experts
+        row_sets = []
+        for n_tok, train in ((tb * ts, True), (batch * plen, False),
+                             (batch, False)):
+            _, G, cap = route_groups(mc, n_tok)
+            row_sets.append((G * cap, train))
+        for label, lin in (("gate/up", mc.expert_ffn.gate),
+                           ("down", mc.expert_ffn.down)):
+            sc = lin.spm_config()
+            n = sc.n
+            strides = sc.pairing.strides()
+            widths = (None if lin.d_in == n else lin.d_in,
+                      None if lin.d_out == n else lin.d_out)
+            for rows, train in row_sets:
+                runs = ops.plan_runs_for_rows(n, strides, rows)
+                L = sum(len(rs) for rs, _ in runs)
+                th = (torch.rand(E, L, n // 2, generator=g, device=DEVICE)
+                      * 2 - 1) * math.pi
+                cf = torch.stack([th.cos(), -th.sin(), th.sin(), th.cos()],
+                                 -1) + 0.05 * torch.randn(
+                    E, L, n // 2, 4, generator=g, device=DEVICE)
+                del th
+                d_in = 1 + 0.1 * torch.randn(E, n, generator=g,
+                                             device=DEVICE)
+                d_out = 1 + 0.1 * torch.randn(E, n, generator=g,
+                                              device=DEVICE)
+                x = torch.randn(E, rows, lin.d_in, generator=g,
+                                device=DEVICE).bfloat16()
+                before = K.spm_stack_kernel_call.expert_launches
+                y, saved = ops.forward_runs(x, cf, runs, d_in, d_out, None,
+                                            *widths)
+                one_each = (K.spm_stack_kernel_call.expert_launches - before
+                            == len(runs))
+                again, _ = ops.forward_runs(x, cf, runs, d_in, d_out, None,
+                                            *widths)
+
+                def plain_chain():
+                    z = x
+                    for r, (rs, nt) in enumerate(runs):
+                        off = sum(len(q) for q, _ in runs[:r])
+                        last = r == len(runs) - 1
+                        z = K.spm_stack_plain(
+                            z, cf[:, off: off + len(rs)],
+                            d_in if r == 0 else None,
+                            d_out if last else None, strides=rs, n_tile=nt,
+                            in_width=widths[0] if r == 0 else None,
+                            out_width=widths[1] if last else None)
+                    return z
+                plain = plain_chain()
+                torch.cuda.synchronize()
+                err = (y.float() - plain.float()).abs().max().item()
+                ok = (err == 0 and torch.equal(y, again) and one_each
+                      and bool(torch.isfinite(y.float()).all()))
+                esz = 2
+                tiles_live = [(-(-(widths[1] or n) // nt)
+                               if r == len(runs) - 1 else n // nt, rs, nt)
+                              for r, (rs, nt) in enumerate(runs)]
+                table = sum(E * len(rs) * t * nt // 2 * 16
+                            for t, rs, nt in tiles_live)
+                io = E * rows * (lin.d_in + lin.d_out) * esz
+                flops = sum(E * rows * t * nt * (3 * len(rs) + 2)
+                            for t, rs, nt in tiles_live)
+                bms, bby = bound(io + table + 2 * E * n * 4, flops)
+                ms = plain_ms = lib_ms = None
+                if train and timer is not None:
+                    ms = timer(lambda: ops.forward_runs(
+                        x, cf, runs, d_in, d_out, None, *widths))
+                    plain_ms = timer(plain_chain, reps=PLAIN_REPS)
+                    w = torch.randn(E, lin.d_in, lin.d_out, generator=g,
+                                    device=DEVICE).bfloat16()
+                    lib_ms = timer(lambda: torch.bmm(x, w))
+                    del w
+                rows_out.append(dict(
+                    kernel="K1 expert", case=f"{arch} {label}",
+                    dtype="bfloat16", rows=rows, experts=E, n=n,
+                    in_width=lin.d_in, out_width=lin.d_out,
+                    runs=[[list(rs), nt] for rs, nt in runs],
+                    launches_per_call=len(runs), max_abs_err=err, tol=0.0,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                    library_ms=lib_ms, ok=ok))
+                log(f"K1 expert {arch} {label:7s} E={E} rows={rows:4d} "
+                    f"runs={len(runs)} err={err:.3e} (tol 0) one launch a "
+                    f"run={one_each} ms={fmt_ms(ms)} plain_ms="
+                    f"{fmt_ms(plain_ms)} bound_ms={bms:.4f} ({bby}) "
+                    f"library_ms={fmt_ms(lib_ms)} (torch.bmm) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"K1 expert {arch} {label} rows={rows}")
+                if train:
+                    gy = torch.randn(E, rows, lin.d_out, generator=g,
+                                     device=DEVICE).bfloat16()
+                    args = (saved, cf, gy, runs, d_in, d_out, False,
+                            *widths)
+                    before = K.spm_stack_bwd_kernel_call.expert_launches
+                    kern = ops.backward_runs(K.spm_stack_bwd_kernel_call,
+                                             *args)
+                    one_each = (K.spm_stack_bwd_kernel_call.expert_launches
+                                - before == len(runs))
+                    again = ops.backward_runs(K.spm_stack_bwd_kernel_call,
+                                              *args)
+                    plain = ops.backward_runs(K.spm_stack_bwd_plain, *args)
+                    mags = ops.backward_runs(functools.partial(
+                        K.spm_stack_bwd_plain, col_sum=abs_sum), *args)
+                    torch.cuda.synchronize()
+                    gx_err = max((a[0].float() - p[0].float()).abs().max()
+                                 .item() for a, p in zip(kern, plain))
+                    worst = max(grads_within(a[1:], p[1:], m[1:], rows)
+                                for a, p, m in zip(kern, plain, mags))
+                    det = all(torch.equal(u, v) for a, c in zip(kern, again)
+                              for u, v in zip(a, c))
+                    ok = gx_err == 0 and worst <= 1 and det and one_each
+                    nbytes = E * rows * (2 * lin.d_in + lin.d_out) * esz \
+                        + 2 * table + 2 * 2 * E * n * 4
+                    bflops = sum(E * rows * t * nt * (10 * len(rs) + 6)
+                                 for t, rs, nt in tiles_live)
+                    kbms, kbby = bound(nbytes, bflops)
+                    kms = kplain = klib = None
+                    if timer is not None:
+                        kms = timer(lambda: ops.backward_runs(
+                            K.spm_stack_bwd_kernel_call, *args))
+                        kplain = timer(lambda: ops.backward_runs(
+                            K.spm_stack_bwd_plain, *args), reps=PLAIN_REPS)
+                        w = torch.randn(E, lin.d_in, lin.d_out, generator=g,
+                                        device=DEVICE).bfloat16()
+                        klib = timer(lambda: (
+                            torch.bmm(gy, w.transpose(1, 2)),
+                            torch.bmm(x.transpose(1, 2), gy)))
+                        del w
+                    rows_out.append(dict(
+                        kernel="K2 expert", case=f"{arch} {label}",
+                        dtype="bfloat16", rows=rows, experts=E, n=n,
+                        in_width=lin.d_in, out_width=lin.d_out,
+                        runs=[[list(rs), nt] for rs, nt in runs],
+                        launches_per_call=len(runs), gx_max_abs_err=gx_err,
+                        max_abs_err=gx_err, grad_err_over_limit=worst,
+                        deterministic=det, ms=kms, plain_ms=kplain,
+                        bound_ms=kbms, bound_by=kbby, library_ms=klib,
+                        ok=ok))
+                    log(f"K2 expert {arch} {label:7s} E={E} rows={rows:4d} "
+                        f"runs={len(runs)} gx_err={gx_err:.3e} (tol 0) grad "
+                        f"err/limit={worst:.3f} det={det} one launch a run="
+                        f"{one_each} ms={fmt_ms(kms)} plain_ms="
+                        f"{fmt_ms(kplain)} bound_ms={kbms:.4f} ({kbby}) "
+                        f"library_ms={fmt_ms(klib)} (torch.bmm x2) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"K2 expert {arch} {label} "
+                                        f"rows={rows}")
+                    del gy, kern, again, plain, mags
+                del x, cf, y, saved, d_in, d_out
+                torch.cuda.empty_cache()
+    return rows_out, failures
+
+
+def run_slice_phase(torch, K, ops, T, LM, ServeEngine, launch_train, timer):
+    """Phase 23: each of ``SLICE_ARCHS`` at full width and depth from seed
+    0, served (``run_slice_serve``) and trained (``run_slice_train``);
+    qwen3-moe at 2 layers and zamba2 at one group against the CPU; K1 and
+    K2 in the expert mode at every shape of the main path
+    (``run_expert_kernel_cases``) and in their other modes at every other
+    shape it gives them (``slice_kernel_cases``).  Returns (results,
+    kernel rows, failures)."""
+    from repro_torch.configs import get_config
+    out, failures, times = {"serve": {}, "train": {}}, [], {}
+    for arch in SLICE_ARCHS:
+        cfg = get_config(arch)
+        log(f"-- {arch}: {cfg.n_layers} layers, d={cfg.d_model}, mixers "
+            f"{sorted({s.mixer for s in cfg.layers})}, mlps "
+            f"{sorted({s.mlp for s in cfg.layers})}, experts "
+            f"{cfg.n_experts} top-{cfg.top_k}, shared block "
+            f"{cfg.has_shared_block}")
+        t = time.perf_counter()
+        out["serve"][arch], ok = run_slice_serve(torch, K, ops, T,
+                                                 ServeEngine, cfg)
+        if not ok:
+            failures.append(f"{arch} serve")
+        out["train"][arch], ok = run_slice_train(torch, K, ops,
+                                                 launch_train, cfg)
+        if not ok:
+            failures.append(f"{arch} train")
+        times[arch] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["moe_parity"], ok = run_moe_parity(
+        torch, T, get_config("qwen3-moe-30b-a3b"))
+    if not ok:
+        failures.append("qwen3-moe card vs CPU")
+    out["zamba_parity"], ok = run_zamba_parity(torch, T, LM,
+                                               get_config("zamba2-1.2b"))
+    if not ok:
+        failures.append("zamba2 card vs CPU")
+    times["parity"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rows, kfail = run_expert_kernel_cases(torch, K, ops, timer)
+    failures += kfail
+    times["expert kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    k1, k2, k1t, k2t = slice_kernel_cases(ops)
+    bf = (torch.bfloat16,)
+    # zamba2's shared q/k/v: K3 at the training, replay and decode rows,
+    # K4 at the training rows (n 2048, 11 stages)
+    shared = get_config("zamba2-1.2b").shared_attn_cfg().q_proj.spm_config()
+    k3_shape = (shared.n, shared.pairing.strides())
+    tb, ts, _ = SLICE_TRAIN
+    k3 = [("zamba2 shared q/k/v", r, shared.n, None, False)
+          for r in (tb * ts, SLICE_SERVE[0])]
+    k4 = [("zamba2 shared q/k/v", tb * ts, shared.n, None, False, False)]
+    for tm, c1, c2, c3, c4 in ((timer, k1t, k2t, [], []),
+                               (None, k1, k2, k3, k4)):
+        more, kf = run_kernel_phase(torch, K, ops, tm, k1=c1, k3=c3,
+                                    dtypes=bf, k3_shape=k3_shape)
+        rows += more
+        failures += kf
+        more, kf = run_bwd_kernel_phase(torch, K, ops, tm, k2=c2, k4=c4,
+                                        dtypes=bf, k4_shape=k3_shape)
+        rows += more
+        failures += kf
+    times["K1 K2"] = time.perf_counter() - t
+    out["seconds"] = times
+    log("phase 23 parts: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in times.items()))
+    return out, rows, failures
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5032,6 +5688,14 @@ def main() -> int:
     if phase_s["22"] > ARCH_BUDGET_S:
         failures.append(f"phase 22 took {phase_s['22']:.1f} s of its "
                         f"{ARCH_BUDGET_S} s")
+    slice_out, slice_rows, slice_failures = phase(
+        "23", run_slice_phase, torch, K, ops, T, LM, ServeEngine,
+        launch_train, timer)
+    kernel_rows += slice_rows
+    failures += slice_failures
+    if phase_s["23"] > SLICE_BUDGET_S:
+        failures.append(f"phase 23 took {phase_s['23']:.1f} s of its "
+                        f"{SLICE_BUDGET_S} s")
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -5133,6 +5797,30 @@ def main() -> int:
                         if x["kernel"] == "K2 split"),
         ms=k2s["ms"], plain_ms=k2s["plain_ms"], bound_ms=k2s["bound_ms"],
         bound_by=k2s["bound_by"], library_ms=k2s["library_ms"]))
+    # K1's and K2's expert mode: launches from phase 23's serve runs (K1)
+    # and training steps (K2) of the two MoE archs; times at qwen3-moe's
+    # gate/up experts at a training step's rows a expert
+    from repro_torch.layers.moe import route_groups
+    moe = get_config("qwen3-moe-30b-a3b")
+    _, G, cap = route_groups(moe.moe_cfg(), SLICE_TRAIN[0] * SLICE_TRAIN[1])
+    for name, key, src, by in (
+            ("K1 expert spm_stack_fwd", "K1 expert",
+             "src/repro_torch/kernels/csrc/spm_stack.cu", "serve"),
+            ("K2 expert spm_stack_bwd", "K2 expert",
+             "src/repro_torch/kernels/csrc/spm_stack_bwd.cu", "train")):
+        r = head(key, "qwen3-moe-30b-a3b gate/up", "bfloat16", G * cap)
+        entries.append(dict(
+            name=name, route="cuda", source=src,
+            replaces="src/repro/kernels/spm_stack.py:"
+                     + ("157" if key == "K1 expert" else "523"),
+            launches=sum(v["launches"][key]
+                         for v in slice_out[by].values()),
+            train_launches=sum(v["launches"][key]
+                               for v in slice_out["train"].values()),
+            max_abs_err=max(x["max_abs_err"] for x in kernel_rows
+                            if x["kernel"] == key),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     # the continuous engine's launches (phase 20, the serve at the busiest
     # load; the int8 and overlap runs at their cut depth)
     busiest = cont["loads"][max(CB_LOADS)]["launches"]
@@ -5153,6 +5841,7 @@ def main() -> int:
                   overlap=overlap, int8_overlap=q8_overlap,
                   overlap_train_parity=oparity,
                   paper=paper, continuous=cont, chaos=chaos, archs=archs,
+                  moe_ssm=slice_out,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",
@@ -5178,7 +5867,12 @@ def main() -> int:
                                    "K2 col_base int8": "the same",
                                    "K2 split": "gemma3-12b's lone stage "
                                                "7680 on a 15360 tile, bf16, "
-                                               "2048 rows"})
+                                               "2048 rows",
+                                   "K1 expert": "qwen3-moe-30b-a3b's "
+                                                "gate/up experts (128, n "
+                                                "2048, 11 stages, out 768), "
+                                                "bf16, 160 rows a expert",
+                                   "K2 expert": "the same"})
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

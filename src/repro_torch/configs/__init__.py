@@ -1,8 +1,9 @@
-"""Architecture configs: the dense-attention archs (full and smoke) and
+"""Architecture configs: the reference's ten archs (full and smoke) and
 the registry."""
 
 from repro_torch.configs.base import (dense_layers,  # noqa: F401
-                                      local_global_layers,
+                                      hybrid_layers, local_global_layers,
+                                      mamba_layers, moe_layers,
                                       with_feature_sharding,
                                       with_overlap_executor,
                                       with_fused_linears, with_overrides,

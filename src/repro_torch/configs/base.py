@@ -1,5 +1,5 @@
-"""Config construction helpers (port of the parts of
-``repro/configs/base.py`` that the ported archs use)."""
+"""Config construction helpers (port of ``repro/configs/base.py``; its
+``with_compressed_pod_grads`` belongs to the multi-device slice)."""
 
 from __future__ import annotations
 
@@ -8,9 +8,10 @@ from typing import Optional, Tuple
 
 from repro_torch.models.transformer import LayerSpec, ModelConfig
 
-__all__ = ["dense_layers", "local_global_layers", "with_overrides", "with_fused_linears",
-           "with_feature_sharding", "with_overlap_executor",
-           "with_quantized_io"]
+__all__ = ["dense_layers", "local_global_layers", "moe_layers",
+           "mamba_layers", "hybrid_layers", "with_overrides",
+           "with_fused_linears", "with_feature_sharding",
+           "with_overlap_executor", "with_quantized_io"]
 
 
 def dense_layers(n: int) -> Tuple[LayerSpec, ...]:
@@ -29,6 +30,24 @@ def local_global_layers(n: int, local_per_global: int,
         raise ValueError(f"{n} layers are not whole groups of "
                          f"{len(group)}")
     return tuple(group * reps)
+
+
+def moe_layers(n: int) -> Tuple[LayerSpec, ...]:
+    """``n`` attention + MoE-FFN layers (the Qwen3-MoE / Llama4 pattern)."""
+    return tuple([LayerSpec(mlp="moe")] * n)
+
+
+def mamba_layers(n: int) -> Tuple[LayerSpec, ...]:
+    """``n`` Mamba2 mixer layers without an FFN (the Mamba2 backbone)."""
+    return tuple([LayerSpec(mixer="mamba", mlp="none")] * n)
+
+
+def hybrid_layers(n: int, attn_every: int) -> Tuple[LayerSpec, ...]:
+    """Zamba2's pattern: a Mamba2 backbone with the shared attention + FFN
+    block applied before every ``attn_every``-th layer (layer 0 first)."""
+    return tuple(LayerSpec(mixer="mamba", mlp="none",
+                           shared_block=(i % attn_every == 0))
+                 for i in range(n))
 
 
 def with_overrides(cfg: ModelConfig, **kw) -> ModelConfig:

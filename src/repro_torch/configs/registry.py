@@ -1,6 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution.  The port holds the
-dense-attention archs; the MoE, Mamba2 and hybrid ones wait (ROADMAP.md
-§1 item 5)."""
+"""Architecture registry: ``--arch <id>`` resolution, all ten of the
+reference's archs."""
 
 from __future__ import annotations
 
@@ -19,6 +18,10 @@ _MODULES = {
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
@@ -28,8 +31,7 @@ _UNSET = object()   # None is itself a valid knob value (auto)
 
 def _mod(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"unknown or unported arch {arch!r}; "
-                       f"ported: {list(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
     return importlib.import_module(_MODULES[arch])
 
 

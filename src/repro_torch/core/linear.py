@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -99,26 +99,38 @@ def _spm_config(cfg: LinearConfig) -> SPMConfig:
 
 
 def init_linear(cfg: LinearConfig, generator: torch.Generator,
-                device: torch.device) -> Params:
+                device: torch.device, lead: Tuple[int, ...] = ()) -> Params:
     """Dense: 1/sqrt(d_in) normal ``w`` (d_in, d_out) (+ zero ``b``); SPM:
-    ``init_spm`` of the embedded square operator."""
+    ``init_spm`` of the embedded square operator.  ``lead`` (the MoE's
+    ``(E,)``) stacks independent linears on every leaf."""
+    lead = tuple(lead)
     if cfg.impl == "dense":
-        p = {"w": torch.randn(cfg.d_in, cfg.d_out, generator=generator,
-                              device=device, dtype=cfg.param_dtype)
+        p = {"w": torch.randn(*lead, cfg.d_in, cfg.d_out,
+                              generator=generator, device=device,
+                              dtype=cfg.param_dtype)
              / math.sqrt(cfg.d_in)}
         if cfg.use_bias:
-            p["b"] = torch.zeros(cfg.d_out, dtype=cfg.param_dtype,
+            p["b"] = torch.zeros(*lead, cfg.d_out, dtype=cfg.param_dtype,
                                  device=device)
         return Params(p)
-    return spm_mod.init_spm(cfg.spm_config(), generator, device)
+    return spm_mod.init_spm(cfg.spm_config(), generator, device, lead)
 
 
 def linear_apply(params, x: torch.Tensor, cfg: LinearConfig) -> torch.Tensor:
-    """(..., d_in) -> (..., d_out)."""
+    """(..., d_in) -> (..., d_out).  Params stacked over a leading expert
+    axis take x (E, ..., d_in): each expert maps its own rows (SPM: one
+    expert-mode kernel launch a run for all of them)."""
     if cfg.impl == "dense":
-        y = x @ params["w"].to(x.dtype)
+        w = params["w"].to(x.dtype)
+        if w.dim() == 3:                     # experts: (E, R, d) @ (E, d, o)
+            y = (x.reshape(x.shape[0], -1, cfg.d_in) @ w).reshape(
+                *x.shape[:-1], cfg.d_out)
+        else:
+            y = x @ w
         if cfg.use_bias:
-            y = y + params["b"].to(x.dtype)
+            b = params["b"].to(x.dtype)
+            y = y + (b.reshape(b.shape[0], *([1] * (y.dim() - 2)), -1)
+                     if b.dim() == 2 else b)
         return y
     if x.shape[-1] != cfg.d_in:
         raise ValueError(f"expected (..., {cfg.d_in}), got {tuple(x.shape)}")

@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,38 +117,44 @@ class SPMConfig:
 
 
 def init_spm(cfg: SPMConfig, generator: torch.Generator,
-             device: torch.device) -> Params:
+             device: torch.device, lead: Tuple[int, ...] = ()) -> Params:
     """Random per-pair rotations plus small noise (``init_mode=
     "orthogonal"``) or identity plus noise, as the reference initializes;
     the numbers come from ``generator`` (torch, so not the reference's).
-    The parameter names are the reference's pytree keys."""
+    The parameter names are the reference's pytree keys.  ``lead`` (the
+    MoE's ``(E,)``) stacks that many independent operators on every
+    leaf."""
     dt = cfg.param_dtype
     L, P = cfg.n_stages, cfg.n_pairs
     kw = dict(generator=generator, device=device, dtype=dt)
+    lead = tuple(lead)
 
     def uniform_angle():
-        return (torch.rand(L, P, **kw) * 2 - 1) * math.pi
+        return (torch.rand(*lead, L, P, **kw) * 2 - 1) * math.pi
+
+    def const(value, *shape):
+        return torch.full((*lead, *shape), value, dtype=dt, device=device)
 
     p: dict = {}
     if cfg.variant == "rotation":
-        p["theta"] = (cfg.init_scale * torch.randn(L, P, **kw)
+        p["theta"] = (cfg.init_scale * torch.randn(*lead, L, P, **kw)
                       if cfg.init_mode == "identity" else uniform_angle())
     else:
         if cfg.init_mode == "identity":
             base = torch.tensor([1.0, 0.0, 0.0, 1.0], dtype=dt,
-                                device=device).expand(L, P, 4)
+                                device=device).expand(*lead, L, P, 4)
         else:
             th = uniform_angle()
             c, s = torch.cos(th), torch.sin(th)
             base = torch.stack([c, -s, s, c], dim=-1)
-        p["mix"] = base + cfg.init_scale * torch.randn(L, P, 4, **kw)
+        p["mix"] = base + cfg.init_scale * torch.randn(*lead, L, P, 4, **kw)
     if cfg.odd:
-        p["res_scale"] = torch.ones(L, dtype=dt, device=device)
+        p["res_scale"] = const(1.0, L)
     if cfg.use_diag:
-        p["d_in"] = torch.ones(cfg.n, dtype=dt, device=device)
-        p["d_out"] = torch.ones(cfg.n, dtype=dt, device=device)
+        p["d_in"] = const(1.0, cfg.n)
+        p["d_out"] = const(1.0, cfg.n)
     if cfg.use_bias:
-        p["bias"] = torch.zeros(cfg.n, dtype=dt, device=device)
+        p["bias"] = const(0.0, cfg.n)
     return Params(p)
 
 
@@ -342,8 +348,17 @@ def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
     are returned.  The kernel path computes in f32 with I/O in x's dtype;
     the composition computes in x's dtype.  A sharded operator
     (``n_shards > 1``) under a feature mesh of that size runs in the
-    sharded executor, whose local runs take the kernel path."""
+    sharded executor, whose local runs take the kernel path.
+
+    Params stacked over a leading expert axis (an MoE's experts: tables
+    (E, L, n/2, 4), vectors (E, n)) take x (E, ..., width): the kernel path
+    runs each run of all experts in one expert-mode launch; the
+    composition runs them one at a time.  Sharding takes no expert
+    axis."""
     n = cfg.n
+    table = params["theta" if cfg.variant == "rotation" else "mix"]
+    if table.dim() == (3 if cfg.variant == "rotation" else 4):
+        return _spm_apply_experts(params, x, cfg, in_width, out_width)
     in_width = None if in_width == n else in_width
     out_width = None if out_width == n else out_width
     expect = in_width if in_width is not None else n
@@ -383,6 +398,34 @@ def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
     if out_width is not None:
         z = z[..., :out_width]
     return z
+
+
+def _spm_apply_experts(params, x: torch.Tensor, cfg: SPMConfig, in_width,
+                       out_width) -> torch.Tensor:
+    """``spm_apply`` over params with a leading expert axis."""
+    coeffs = stage_coeffs(params, cfg)
+    E = coeffs.shape[0]
+    if x.shape[0] != E:
+        raise ValueError(f"expected x ({E}, ..., width), got "
+                         f"{tuple(x.shape)}")
+    if cfg.n_shards > 1:
+        from repro_torch.parallel import ctx as par_ctx
+        if par_ctx.feature_mesh(cfg.n_shards) is not None:
+            from repro_torch.kernels.spm_stack import _EXPERT_LATER
+            raise NotImplementedError(_EXPERT_LATER)
+    if use_fused_kernel(cfg, cfg.pairing):
+        from repro_torch.kernels import ops as kernel_ops
+        return kernel_ops.spm_stack_fused(
+            x, coeffs, cfg.pairing.strides(),
+            d_in=params["d_in"] if cfg.use_diag else None,
+            d_out=params["d_out"] if cfg.use_diag else None,
+            bias=params["bias"] if cfg.use_bias else None,
+            in_width=in_width, out_width=out_width,
+            quant_acts=cfg.quant_acts, quant_coeffs=cfg.quant_coeffs)
+    return torch.stack([
+        spm_apply({k: params[k][e] for k in params.keys()}, x[e], cfg,
+                  in_width=in_width, out_width=out_width)
+        for e in range(E)])
 
 
 def spm_matrix(params, cfg: SPMConfig) -> torch.Tensor:

@@ -151,31 +151,37 @@ __device__ __forceinline__ float spm_act_grad(float u, int act) {
 // The deterministic finish of a cross-block sum: out[o][e] = sum over
 // g = 0 .. G-1, in that order, of part[g][o][e] for e < live, and exactly
 // 0 for e >= live (feature tiles no block visited).  part is (G, outer,
-// inner) f32, out (outer, inner).  No atomics: two launches on the same
-// partials give bitwise equal sums.
+// inner) f32, out (outer, inner); with `batches` > 1 (K2's expert mode)
+// part is (batches, G, outer, inner) and out (batches, outer, inner), each
+// batch summed on its own.  No atomics: two launches on the same partials
+// give bitwise equal sums.
 static __global__ void spm_sum_partials(const float* __restrict__ part,
                                         float* __restrict__ out, int G,
-                                        int outer, long inner, long live) {
+                                        int outer, long inner, long live,
+                                        int batches) {
   const long total = (long)outer * inner;
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
-       i += (long)gridDim.x * blockDim.x) {
-    const long e = i % inner;
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+       i < total * batches; i += (long)gridDim.x * blockDim.x) {
+    const long b = i / total, t = i - b * total;
+    const long e = t % inner;
+    const float* pb = part + b * G * total + t;
     float acc = 0.f;
     if (e < live)
-      for (int g = 0; g < G; ++g) acc = __fadd_rn(acc, part[g * total + i]);
+      for (int g = 0; g < G; ++g) acc = __fadd_rn(acc, pb[g * total]);
     out[i] = acc;
   }
 }
 
 static inline cudaError_t spm_launch_sum(const float* part, float* out,
                                          int G, int outer, long inner,
-                                         long live, cudaStream_t stream) {
-  const long total = (long)outer * inner;
+                                         long live, cudaStream_t stream,
+                                         int batches = 1) {
+  const long total = (long)outer * inner * batches;
   long blocks = (total + 255) / 256;
   if (blocks > 4 * 132) blocks = 4 * 132;
   if (blocks < 1) blocks = 1;
   spm_sum_partials<<<(int)blocks, 256, 0, stream>>>(part, out, G, outer,
-                                                    inner, live);
+                                                    inner, live, batches);
   return cudaGetLastError();
 }
 

@@ -24,9 +24,17 @@
 // persistent row groups with the next chunk's x in flight by cp.async, and
 // the lanes split over a cluster at decode rows.
 //
-// Grid: (G x C, tiles): row group g = blockIdx.x / C walks chunks g, g + G,
-// ...; lane block c = its cluster rank; tile j = blockIdx.y.  The row tail
-// and the output edge are masked here: no padded copies.
+// Grid: (G x C, tiles, E): row group g = blockIdx.x / C walks chunks g, g +
+// G, ...; lane block c = its cluster rank; tile j = blockIdx.y.  The row
+// tail and the output edge are masked here: no padded copies.
+//
+// Expert mode (E > 1, f32 / bf16 I/O): one launch runs the same run of E
+// independent operators, expert e = blockIdx.z, as the reference's
+// `jax.vmap` of the run over the MoE expert axis adds a grid axis.  x is
+// (E, B, in_w) and y (E, B, out_w); expert e's table starts cf_es pairs
+// after expert e-1's (the run's stages of an (E, L, n/2, 4) table) and its
+// d_in / d_out / bias n floats on.  The plan is one expert's B rows;
+// everything else (widths, masks, the walk) is per expert unchanged.
 //
 // Windowed read (the reference's `col_base`, :393-454, the feature-sharded
 // executor's first local run): x is the whole (B, in_w) operand shared by
@@ -69,9 +77,21 @@ __global__ void __launch_bounds__(256, 1) spm_stack_fwd_kernel(
     const T* __restrict__ x, T* __restrict__ y, CF cf,
     const float* __restrict__ d_in, const float* __restrict__ d_out,
     const float* __restrict__ bias, int B, int n, int nt, int in_w,
-    int out_w, int x_off, eng::Shape sh, const __grid_constant__ eng::Plan pl) {
+    int out_w, int x_off, long cf_es, eng::Shape sh,
+    const __grid_constant__ eng::Plan pl) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = sh.C, w = nt / C, np = pl.np;
+  // expert mode: expert blockIdx.z's rows, table (cf_es pairs on) and
+  // (n,) vectors; blockIdx.z = 0 otherwise
+  {
+    const long e = blockIdx.z;
+    x += e * B * in_w;
+    y += e * B * out_w;
+    cf = cf + e * cf_es;
+    if (d_in) d_in += e * n;
+    if (d_out) d_out += e * n;
+    if (bias) bias += e * n;
+  }
   const int c = C == 1 ? 0 : (int)cg::this_cluster().block_rank();
   const int g = blockIdx.x / C;
   const int c0 = blockIdx.y * nt, lane0 = c * w;
@@ -252,9 +272,9 @@ template <typename T, typename CF, bool kRes>
 static cudaError_t launch_stack(const void* x, void* y, CF cf,
                                 const void* d_in, const void* d_out,
                                 const void* bias, int B, int n, int nt,
-                                int in_w, int out_w, int x_off,
-                                const eng::Shape& sh, const SpmStrides& st,
-                                cudaStream_t stream) {
+                                int in_w, int out_w, int x_off, int E,
+                                long cf_es, const eng::Shape& sh,
+                                const SpmStrides& st, cudaStream_t stream) {
   eng::Plan pl;
   size_t smem;
   if (!plan(st, nt, sizeof(T) == 4 ? SPM_IO_F32 : SPM_IO_BF16,
@@ -264,10 +284,11 @@ static cudaError_t launch_stack(const void* x, void* y, CF cf,
   auto kernel = spm_stack_fwd_kernel<T, CF, kRes>;
   cudaError_t e = spm_allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
-  return eng::launch(kernel, dim3(sh.G * sh.C, (out_w + nt - 1) / nt), sh.T,
-                     smem, sh.C, stream, (const T*)x, (T*)y, cf,
+  return eng::launch(kernel, dim3(sh.G * sh.C, (out_w + nt - 1) / nt, E),
+                     sh.T, smem, sh.C, stream, (const T*)x, (T*)y, cf,
                      (const float*)d_in, (const float*)d_out,
-                     (const float*)bias, B, n, nt, in_w, out_w, x_off, sh, pl);
+                     (const float*)bias, B, n, nt, in_w, out_w, x_off, cf_es,
+                     sh, pl);
 }
 
 template <typename CF, bool kRes>
@@ -301,16 +322,18 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
                             void* y, void* ys, CF cf, const void* d_in,
                             const void* d_out, const void* bias, int B,
                             int n, int nt, int in_w, int out_w, int x_off,
-                            int scale_rows, const eng::Shape& sh,
-                            const SpmStrides& st, cudaStream_t s) {
+                            int scale_rows, int E, long cf_es,
+                            const eng::Shape& sh, const SpmStrides& st,
+                            cudaStream_t s) {
   if (io_type == SPM_IO_F32)
     return launch_stack<float, CF, kRes>(x, y, cf, d_in, d_out, bias, B, n,
-                                         nt, in_w, out_w, x_off, sh, st, s);
+                                         nt, in_w, out_w, x_off, E, cf_es,
+                                         sh, st, s);
   if (io_type == SPM_IO_BF16)
     return launch_stack<__nv_bfloat16, CF, kRes>(x, y, cf, d_in, d_out,
                                                  bias, B, n, nt, in_w, out_w,
-                                                 x_off, sh, st, s);
-  if (io_type == SPM_IO_INT8 && x_off == 0)
+                                                 x_off, E, cf_es, sh, st, s);
+  if (io_type == SPM_IO_INT8 && x_off == 0 && E == 1)
     return launch_stack_q8<CF, kRes>(x, xs, y, ys, cf, d_in, d_out, bias, B,
                                      n, nt, in_w, out_w, scale_rows, sh, st,
                                      s);
@@ -322,16 +345,16 @@ static cudaError_t dispatch_res(int io_type, const void* x, const void* xs,
                                 void* y, void* ys, CF cf, const void* d_in,
                                 const void* d_out, const void* bias, int B,
                                 int n, int nt, int in_w, int out_w,
-                                int x_off, int scale_rows,
-                                const eng::Shape& sh, const SpmStrides& st,
-                                cudaStream_t s) {
+                                int x_off, int scale_rows, int E,
+                                long cf_es, const eng::Shape& sh,
+                                const SpmStrides& st, cudaStream_t s) {
   if (sh.resident)
     return dispatch<CF, true>(io_type, x, xs, y, ys, cf, d_in, d_out, bias,
-                              B, n, nt, in_w, out_w, x_off, scale_rows, sh,
-                              st, s);
+                              B, n, nt, in_w, out_w, x_off, scale_rows, E,
+                              cf_es, sh, st, s);
   return dispatch<CF, false>(io_type, x, xs, y, ys, cf, d_in, d_out, bias, B,
-                             n, nt, in_w, out_w, x_off, scale_rows, sh, st,
-                             s);
+                             n, nt, in_w, out_w, x_off, scale_rows, E, cf_es,
+                             sh, st, s);
 }
 
 // C interface (loaded with ctypes).  io_type SPM_IO_INT8 is the int8
@@ -341,8 +364,10 @@ static cudaError_t dispatch_res(int io_type, const void* x, const void* xs,
 // is the windowed read (f32 / bf16 only): x (B, in_w) is read x_off
 // columns on.  The launch shape (C lane blocks, Cr row blocks, T threads,
 // R rows a chunk, G row groups, the table resident) is the planner's,
-// kernels/spm_stack.py `fwd_plan`.  Returns the cudaError_t of the launch
-// (0 on success).
+// kernels/spm_stack.py `fwd_plan`.  E > 1 is the expert mode (f32 / bf16
+// I/O, f32 table, no window): x (E, B, in_w), y (E, B, out_w), expert e's
+// table cf_es pairs after expert e-1's, its vectors n floats on.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int spm_stack_fwd(int io_type, const void* x, const void* xs,
                              void* y, void* ys, const void* cf,
                              const void* cf_scale, const void* d_in,
@@ -350,10 +375,11 @@ extern "C" int spm_stack_fwd(int io_type, const void* x, const void* xs,
                              int n, int nt, int in_w, int out_w, int x_off,
                              int scale_rows, int C, int Cr, int T, int R,
                              int G, int resident, const int* strides, int L,
-                             void* stream) {
+                             int E, long cf_es, void* stream) {
   SpmStrides st;
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || nt <= 0 || n % nt ||
-      x_off < 0 || L < 1)
+      x_off < 0 || L < 1 || E < 1 || E > 65535 ||
+      (E > 1 && (cf_scale || x_off || cf_es < (long)L * (n / 2))))
     return (int)cudaErrorInvalidValue;
   const eng::Shape sh{C, Cr, T, R, G, resident};
   cudaStream_t s = (cudaStream_t)stream;
@@ -361,10 +387,10 @@ extern "C" int spm_stack_fwd(int io_type, const void* x, const void* xs,
     return (int)dispatch_res(
         io_type, x, xs, y, ys,
         SpmQCoeffs{(const char4*)cf, (const float*)cf_scale}, d_in, d_out,
-        bias, B, n, nt, in_w, out_w, x_off, scale_rows, sh, st, s);
+        bias, B, n, nt, in_w, out_w, x_off, scale_rows, E, cf_es, sh, st, s);
   return (int)dispatch_res(io_type, x, xs, y, ys, (const float4*)cf, d_in,
                            d_out, bias, B, n, nt, in_w, out_w, x_off,
-                           scale_rows, sh, st, s);
+                           scale_rows, E, cf_es, sh, st, s);
 }
 
 // How many clusters of a launch shape the card holds at once

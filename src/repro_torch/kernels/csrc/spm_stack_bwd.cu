@@ -53,6 +53,16 @@
 // jump by seg - P at lane P, and an int8 x's scale is that of tile t.
 // C = 1, layout A; no window.
 //
+// Expert mode (E > 1, f32 / bf16, f32 table, no window): one launch runs
+// the backward of the same run of E independent operators, expert e =
+// blockIdx.z, as the reference's `jax.vmap` over the MoE expert axis adds a
+// grid axis to this kernel.  Expert e's x, gy and g_x rows, its table and
+// vectors, and its slice of (E, G, ...) partial buffers are offset from
+// expert 0's; the ordered sums run per expert (`spm_sum_partials`'s
+// batches), so each expert's grads are summed over its own rows only.
+// The plan is one expert's rows; dead tiles and split mode work per
+// expert unchanged.
+//
 // Int8 modes (the reference's `x_scale` and `coeff_scale`): a saved int8 x
 // is staged as codes and dequantized with the scale of its (scale_rows,
 // n_tile) block by the block that stages it, in the remat and in g_din
@@ -68,6 +78,8 @@
 // memory loads and a barrier, and the passes that store into other
 // blocks' tiles (spm_bwd_engine.cuh has the numbers; PERF.md the times
 // against the bound).
+
+#include <type_traits>
 
 #include "spm_bwd_engine.cuh"
 
@@ -131,15 +143,33 @@ __device__ __forceinline__ void store_seg(T* dst, long ld, long row0,
   eng::store_rows(dst, ld, row0, rows, h, col0 + h + gap, lim, src + h, w);
 }
 
-template <typename T, typename TX, typename CF>
+// kExp: the expert mode, a separate instantiation so that the one-operator
+// kernel keeps its pointers as kernel parameters (offsetting them by
+// blockIdx.z would hold them in registers, which the bf16 build, at its
+// 128-register cap, pays for in spills: 27% on the o run).
+template <typename T, typename TX, typename CF, bool kExp>
 __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
     const TX* __restrict__ x, const float* __restrict__ xs,
     const T* __restrict__ gy, T* __restrict__ gx, CF cf,
     const float* __restrict__ d_in, const float* __restrict__ d_out,
     float4* __restrict__ part_cf, float* __restrict__ part_vec, int B, int n,
     int nt, int in_w, int gy_w, int gx_w, int x_off, int gy_off, int vis,
-    int has_bias, int scale_rows, int seg, eng::Shape sh, SpmStrides st) {
+    int has_bias, int scale_rows, int seg, long cf_es, eng::Shape sh,
+    SpmStrides st) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // expert mode: expert blockIdx.z's rows, table (cf_es pairs on), (n,)
+  // vectors and slices of the partial buffers
+  if (kExp) {
+    const long e = blockIdx.z;
+    x += e * B * in_w;
+    gy += e * B * gy_w;
+    gx += e * B * gx_w;
+    cf = cf + e * cf_es;
+    if (d_in) d_in += e * n;
+    if (d_out) d_out += e * n;
+    part_cf += e * sh.G * st.n * (long)(n >> 1);
+    part_vec += e * sh.G * (long)kVecs * n;
+  }
   const int c = (int)cooperative_groups::this_cluster().block_rank();
   const int g = blockIdx.x / sh.C;
   const int j = blockIdx.y;
@@ -378,19 +408,19 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
   cooperative_groups::this_cluster().sync();
 }
 
-template <typename T, typename TX, typename CF>
+template <typename T, typename TX, typename CF, bool kExp>
 static cudaError_t launch_stack_bwd(
     const void* x, const void* xs, const void* gy, void* gx, CF cf,
     const void* d_in, const void* d_out, void* g_cf, void* g_vec,
     void* part_cf, void* part_vec, int B, int n, int nt, int in_w, int gy_w,
     int gx_w, int x_off, int gy_off, int vis, int has_bias, int scale_rows,
-    int split, const eng::Shape& sh, const SpmStrides& st,
+    int split, int E, long cf_es, const eng::Shape& sh, const SpmStrides& st,
     cudaStream_t stream) {
   static size_t smem_set = 0;
   const size_t smem =
       eng::layout_of(st.n, sh, kVecs, sizeof(TX), sizeof(T), false).total;
   if (smem > 232448) return cudaErrorInvalidValue;
-  auto kernel = spm_stack_bwd_kernel<T, TX, CF>;
+  auto kernel = spm_stack_bwd_kernel<T, TX, CF, kExp>;
   cudaError_t e = spm_allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
   const int gx_tiles = (gx_w + nt - 1) / nt;
@@ -398,19 +428,21 @@ static cudaError_t launch_stack_bwd(
   const int per = split ? split : 1;
   const int seg = split ? nt / 2 : 0;
   e = eng::launch(kernel,
-                  dim3(sh.G * sh.C, per * (gx_tiles > vis ? gx_tiles : vis)),
+                  dim3(sh.G * sh.C, per * (gx_tiles > vis ? gx_tiles : vis),
+                       E),
                   sh.pb * sh.rs, smem, sh.C, stream, (const TX*)x,
                   (const float*)xs, (const T*)gy, (T*)gx, cf,
                   (const float*)d_in, (const float*)d_out, (float4*)part_cf,
                   (float*)part_vec, B, n, nt / per, in_w, gy_w, gx_w, x_off,
-                  gy_off, vis * per, has_bias, scale_rows, seg, sh, st);
+                  gy_off, vis * per, has_bias, scale_rows, seg, cf_es, sh,
+                  st);
   if (e != cudaSuccess) return e;
   const long live = (long)vis * nt;
   e = spm_launch_sum((const float*)part_cf, (float*)g_cf, sh.G, st.n,
-                     (long)(n / 2) * 4, live * 2, stream);
+                     (long)(n / 2) * 4, live * 2, stream, E);
   if (e != cudaSuccess) return e;
   return spm_launch_sum((const float*)part_vec, (float*)g_vec, sh.G, kVecs,
-                        n, live, stream);
+                        n, live, stream, E);
 }
 
 // The cotangent type T, then whether x is int8 (xs non-null).
@@ -421,20 +453,29 @@ static cudaError_t dispatch_x(const void* x, const void* xs, const void* gy,
                               void* part_cf, void* part_vec, int B, int n,
                               int nt, int in_w, int gy_w, int gx_w, int x_off,
                               int gy_off, int vis, int has_bias,
-                              int scale_rows, int split, const eng::Shape& sh,
-                              const SpmStrides& st, cudaStream_t s) {
+                              int scale_rows, int split, int E, long cf_es,
+                              const eng::Shape& sh, const SpmStrides& st,
+                              cudaStream_t s) {
   if (xs) {
-    if (scale_rows <= 0 || B % scale_rows || x_off || gy_off)
+    if (scale_rows <= 0 || B % scale_rows || x_off || gy_off || E != 1)
       return cudaErrorInvalidValue;
-    return launch_stack_bwd<T, int8_t>(
+    return launch_stack_bwd<T, int8_t, CF, false>(
         x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B,
-        n, nt, in_w, gy_w, gx_w, 0, 0, vis, has_bias, scale_rows, split, sh,
-        st, s);
+        n, nt, in_w, gy_w, gx_w, 0, 0, vis, has_bias, scale_rows, split, 1,
+        cf_es, sh, st, s);
   }
-  return launch_stack_bwd<T, T>(x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec,
-                                part_cf, part_vec, B, n, nt, in_w, gy_w, gx_w,
-                                x_off, gy_off, vis, has_bias, scale_rows,
-                                split, sh, st, s);
+  if constexpr (std::is_same<CF, const float4*>::value) {
+    if (E > 1)
+      return launch_stack_bwd<T, T, CF, true>(
+          x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B,
+          n, nt, in_w, gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows,
+          split, E, cf_es, sh, st, s);
+  }
+  if (E != 1) return cudaErrorInvalidValue;
+  return launch_stack_bwd<T, T, CF, false>(
+      x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B, n,
+      nt, in_w, gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows, split,
+      1, cf_es, sh, st, s);
 }
 
 template <typename CF>
@@ -444,18 +485,19 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
                             void* g_vec, void* part_cf, void* part_vec, int B,
                             int n, int nt, int in_w, int gy_w, int gx_w,
                             int x_off, int gy_off, int vis, int has_bias,
-                            int scale_rows, int split, const eng::Shape& sh,
-                            const SpmStrides& st, cudaStream_t s) {
+                            int scale_rows, int split, int E, long cf_es,
+                            const eng::Shape& sh, const SpmStrides& st,
+                            cudaStream_t s) {
   if (io_type == SPM_IO_F32)
     return dispatch_x<float>(x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec,
                              part_cf, part_vec, B, n, nt, in_w, gy_w, gx_w,
                              x_off, gy_off, vis, has_bias, scale_rows, split,
-                             sh, st, s);
+                             E, cf_es, sh, st, s);
   if (io_type == SPM_IO_BF16)
     return dispatch_x<__nv_bfloat16>(
         x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B, n,
         nt, in_w, gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows, split,
-        sh, st, s);
+        E, cf_es, sh, st, s);
   return cudaErrorInvalidValue;
 }
 
@@ -469,8 +511,12 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
 // gy_off > 0 are the windowed reads of x / gy (f32 / bf16 x only).  The
 // launch shape (C, w, pb, rs, R, G, split) is the planner's (`bwd_plan`):
 // split > 0 is split mode, one stage of stride nt / 2 over `split` blocks
-// of w = nt / split lanes a tile (C = 1; no window).  Returns
-// the cudaError_t of the launches (0 on success).
+// of w = nt / split lanes a tile (C = 1; no window).  E > 1 is the expert
+// mode (f32 / bf16 x, f32 table, no window): x, gy and g_x (E, B, width),
+// expert e's table cf_es pairs after expert e-1's and its d_in / d_out n
+// floats on, g_cf (E, L, n/2, 4), g_vec (E, 3, n), the partial buffers
+// (E, G, ...), each expert's grads summed over its own rows.  Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
                              const void* gy, void* gx, const void* cf,
                              const void* cf_scale, const void* d_in,
@@ -480,14 +526,15 @@ extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
                              int gy_off, int vis, int has_bias,
                              int scale_rows, int C, int w, int pb, int rs,
                              int R, int G, int split, const int* strides,
-                             int L, void* stream) {
+                             int L, int E, long cf_es, void* stream) {
   SpmStrides st;
   eng::Shape sh{C, w, pb, rs, R, G, 0, 0, 0};
   const int ntb = split ? (split > 0 && nt % split == 0 ? nt / split : 0)
                         : nt;
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || nt <= 0 || n % nt ||
       vis <= 0 || vis * nt > n || x_off < 0 || gy_off < 0 || ntb <= 0 ||
-      !eng::valid_shape(sh, ntb))
+      !eng::valid_shape(sh, ntb) || E < 1 || E > 65535 ||
+      (E > 1 && (cf_scale || x_off || gy_off || cf_es < (long)L * (n / 2))))
     return (int)cudaErrorInvalidValue;
   if (split) {
     // one stage of stride nt / 2, run as stride pb on the block's 2 pb
@@ -503,11 +550,11 @@ extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
         io_type, x, xs, gy, gx,
         SpmQCoeffs{(const char4*)cf, (const float*)cf_scale}, d_in, d_out,
         g_cf, g_vec, part_cf, part_vec, B, n, nt, in_w, gy_w, gx_w, x_off,
-        gy_off, vis, has_bias, scale_rows, split, sh, st, s);
+        gy_off, vis, has_bias, scale_rows, split, E, cf_es, sh, st, s);
   return (int)dispatch(io_type, x, xs, gy, gx, (const float4*)cf, d_in,
                        d_out, g_cf, g_vec, part_cf, part_vec, B, n, nt, in_w,
                        gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows,
-                       split, sh, st, s);
+                       split, E, cf_es, sh, st, s);
 }
 
 // How many clusters of a launch shape the card holds at once
@@ -523,14 +570,15 @@ extern "C" int spm_stack_bwd_clusters(int io_type, const int* strides,
   if (io_type == SPM_IO_F32) {
     const size_t smem = eng::layout_of(L, sh, kVecs, 4, 4, false).total;
     static size_t set = 0;
-    auto kernel = spm_stack_bwd_kernel<float, float, const float4*>;
+    auto kernel = spm_stack_bwd_kernel<float, float, const float4*, false>;
     if (spm_allow_smem(kernel, smem, &set) != cudaSuccess) return 0;
     return eng::max_clusters(kernel, pb * rs, smem, C);
   }
   const size_t smem = eng::layout_of(L, sh, kVecs, 2, 2, false).total;
   static size_t set = 0;
   auto kernel =
-      spm_stack_bwd_kernel<__nv_bfloat16, __nv_bfloat16, const float4*>;
+      spm_stack_bwd_kernel<__nv_bfloat16, __nv_bfloat16, const float4*,
+                           false>;
   if (spm_allow_smem(kernel, smem, &set) != cudaSuccess) return 0;
   return eng::max_clusters(kernel, pb * rs, smem, C);
 }

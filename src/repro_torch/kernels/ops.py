@@ -15,6 +15,12 @@ between quantize-at-entry and dequantize-at-exit (plans whose runs share
 one tile only), int8 coefficient tables with per-stage scales, f32
 compute.  ``spm_stack_fused_q8`` is the int8-in, int8-out forward.
 
+An (E, L, n/2, 4) table with x (E, ..., d) is the expert mode (the
+reference's ``jax.vmap`` of the operator over the MoE expert axis): the
+plan is that of one expert's rows, and each run is ONE K1 launch for all E
+experts forward and one K2 launch backward (their expert mode), never a
+loop over the experts.  The int8 modes raise there (``ROADMAP.md`` §1).
+
 ``spm_block_fused`` launches K3 once for a whole norm -> SPM [-> act -> SPM
 -> residual] block; its backward is one K4 launch from x and the row
 statistics alone.
@@ -183,16 +189,24 @@ class _StackFn(torch.autograd.Function):
             last = first
         g_dout = last.pop(0) if has_dout else None
         g_bias = last.pop(0) if has_bias else None
-        delta = outs[0][0][:ctx.rows]
+        delta = outs[0][0]
+        if q_acts:
+            delta = delta[:ctx.rows]          # the rows padded for scales
         if ctx.in_width is not None and delta.shape[-1] != ctx.in_width:
-            delta = delta[:, :ctx.in_width]   # g_x came back widened
-        return (delta, torch.cat([o[1] for o in outs], dim=0), g_din,
+            delta = delta[..., :ctx.in_width]   # g_x came back widened
+        return (delta, torch.cat([o[1] for o in outs], dim=-3), g_din,
                 g_dout, g_bias, None, None, None, None)
 
 
 def _pad_rows(x2: torch.Tensor, block_rows: int) -> torch.Tensor:
     pad = -x2.shape[0] % block_rows
     return F.pad(x2, (0, 0, 0, pad)) if pad else x2
+
+
+def _stages(coeffs: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Stages [lo, hi) of an (L, n/2, 4) or expert (E, L, n/2, 4) table
+    (a view)."""
+    return coeffs[..., lo:hi, :, :]
 
 
 def forward_runs(z, coeffs, runs, d_in, d_out, bias,
@@ -213,7 +227,7 @@ def forward_runs(z, coeffs, runs, d_in, d_out, bias,
         q8 = isinstance(z, tuple)
         x, x_scale = z if q8 else (z, None)
         z = K.spm_stack_kernel_call(
-            x, coeffs[off: off + nL],
+            x, _stages(coeffs, off, off + nL),
             d_in if r == 0 else None, d_out if last else None,
             bias if last else None, x_scale,
             None if coeff_scale is None else coeff_scale[off: off + nL],
@@ -239,7 +253,7 @@ def backward_runs(bwd, saved, coeffs, gy, runs, d_in, d_out,
     visits only the tiles holding live cotangent and returns a g_x that is
     exactly zero from its first skipped column, so the run upstream prunes
     the same columns (``dead_from``), re-derived at its own tile width."""
-    n = 2 * coeffs.shape[1]
+    n = 2 * coeffs.shape[-2]
     offs, off = [], 0
     for run_strides, _ in runs:
         offs.append(off)
@@ -252,7 +266,8 @@ def backward_runs(bwd, saved, coeffs, gy, runs, d_in, d_out,
         lo, hi = offs[r], offs[r] + len(run_strides)
         x, x_scale = saved[r] if isinstance(saved[r], tuple) \
             else (saved[r], None)
-        outs[r] = bwd(x, coeffs[lo:hi], delta, d_in if r == 0 else None,
+        outs[r] = bwd(x, _stages(coeffs, lo, hi), delta,
+                      d_in if r == 0 else None,
                       d_out if last else None, x_scale,
                       None if coeff_scale is None else coeff_scale[lo:hi],
                       strides=run_strides, n_tile=n_tile,
@@ -288,16 +303,29 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
     scale per (``scale_block_rows``, tile) block; a plan whose runs do not
     share one tile (``quant_acts_eligible``) keeps f32/bf16 activation
     I/O, as the reference does.  ``quant_coeffs`` moves the table as int8
-    with one scale a stage.  Compute stays f32 in both."""
+    with one scale a stage.  Compute stays f32 in both.
+
+    An (E, L, n/2, 4) table with (E, n) vectors and x (E, ..., in_width
+    or n) is the expert mode: the plan is that of one expert's rows, and
+    each run one expert-mode launch for all experts.  No int8 modes
+    there."""
     strides = tuple(int(s) for s in strides)
-    n = 2 * coeffs.shape[1]
+    n = 2 * coeffs.shape[-2]
     in_width, out_width = _widths(n, in_width, out_width)
     expect = in_width if in_width is not None else n
     if x.shape[-1] != expect:
         raise ValueError(f"expected (..., {expect}), got {tuple(x.shape)}")
     lead = x.shape[:-1]
-    z = x.reshape(-1, expect).contiguous()
-    runs = plan_runs_for_rows(n, strides, z.shape[0])
+    if coeffs.dim() == 4:
+        if quant_acts or quant_coeffs:
+            raise NotImplementedError(K._EXPERT_LATER)
+        if x.dim() < 2 or x.shape[0] != coeffs.shape[0]:
+            raise ValueError(f"expected x ({coeffs.shape[0]}, ..., "
+                             f"{expect}), got {tuple(x.shape)}")
+        z = x.reshape(x.shape[0], -1, expect).contiguous()
+    else:
+        z = x.reshape(-1, expect).contiguous()
+    runs = plan_runs_for_rows(n, strides, z.shape[-2])
     quant = None
     q_acts = bool(quant_acts) and quant_acts_eligible(runs)
     if q_acts or quant_coeffs:

@@ -54,6 +54,15 @@ those reading a rectangular input (``in_width``), their
 ``int8_launches`` those with an int8 table.  K2's ``split_launches``
 count those in its split mode (a lone stage wider than one cluster).
 
+K1 and K2 have an expert mode (the reference's ``jax.vmap`` of a run over
+the MoE expert axis, which adds a grid axis to the Pallas call): with an
+(E, L, n/2, 4) table, x (E, B, width) and (E, n) vectors, one launch runs
+the same run of all E experts, each over its own B rows (the plan is one
+expert's), and K2 sums each expert's grads over its rows only.  Their
+``expert_launches`` count those launches (``launches`` counts them too);
+the plain versions loop over the experts.  The int8 and windowed modes
+take no expert axis: they raise (``ROADMAP.md`` §1).
+
 K1 and K2 have int8 modes (the reference's ``x_scale``, ``coeff_scale``
 and ``quant_out``; scale conventions in ``kernels/quant.py``): int8
 activations with one scale per (``scale_rows``, ``n_tile``) block, and int8
@@ -246,6 +255,63 @@ def _plain_x(x, x_scale, scale_rows, n_tile) -> torch.Tensor:
             else Q.dequantize_blocks(x, x_scale, scale_rows, n_tile))
 
 
+_EXPERT_LATER = ("the expert mode of K1 and K2 takes no int8 operands and "
+                 "no window (ROADMAP.md §1: int8 and feature sharding in "
+                 "the expert mode)")
+
+
+def _expert_check(x, coeffs, vecs, strides, n_tile, in_w, out_w, int8,
+                  window) -> None:
+    """The expert mode's operands on any device: x (E, B, in_w), an
+    (E, L, n/2, 4) table, (E, n) vectors; no int8 operand, no window."""
+    if int8 or window:
+        raise NotImplementedError(_EXPERT_LATER)
+    E, L, half = coeffs.shape[:3]
+    n = 2 * half
+    if x.dim() != 3 or x.shape[0] != E or x.shape[2] != in_w:
+        raise ValueError(f"expected x ({E}, B, {in_w}), got "
+                         f"{tuple(x.shape)}")
+    if L != len(strides) or n % n_tile or not (0 < in_w <= n
+                                               and 0 < out_w <= n):
+        raise ValueError(f"bad run: n={n} n_tile={n_tile} L={L} "
+                         f"strides={strides} in={in_w} out={out_w}")
+    for s in strides:
+        if n_tile % (2 * s):
+            raise ValueError(f"stride {s} crosses an {n_tile}-wide tile")
+    for v, name in vecs:
+        if v is not None and tuple(v.shape) != (E, n):
+            raise ValueError(f"{name}: need ({E}, {n}), got "
+                             f"{tuple(v.shape)}")
+
+
+def _expert_cuda_check(x, coeffs, vecs) -> int:
+    """The expert mode's operands on the card; returns the pairs from one
+    expert's table to the next's (a run's stages may be a view of a longer
+    table: only each expert's own (L, n/2, 4) block must be dense)."""
+    E, L, half, _ = coeffs.shape
+    dev = x.device
+    if x.dtype not in _IO or not x.is_contiguous():
+        raise ValueError("expert x must be contiguous f32 or bf16")
+    if (coeffs.dtype != torch.float32 or coeffs.device != dev
+            or coeffs.stride()[1:] != (half * 4, 4, 1)
+            or coeffs.stride(0) % 4 or coeffs.stride(0) < L * half * 4
+            or coeffs.data_ptr() % 16):
+        raise ValueError(f"coeffs: need an f32 (E, L, {half}, 4) table on "
+                         f"{dev}, each expert's (L, {half}, 4) block dense")
+    if L > MAX_STAGES:
+        raise ValueError(f"coeffs: at most {MAX_STAGES} stages")
+    for v, name in vecs:
+        if v is not None and (v.dtype != torch.float32 or v.device != dev
+                              or not v.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous f32 (E, n) tensor "
+                             f"on {dev}")
+    return coeffs.stride(0) // 4
+
+
+def _at(t: Optional[torch.Tensor], e: int) -> Optional[torch.Tensor]:
+    return None if t is None else t[e]
+
+
 # ---------------------------------------------------------------------------
 # K1: one planned run of the fused operator
 # ---------------------------------------------------------------------------
@@ -274,7 +340,15 @@ def spm_stack_plain(x: torch.Tensor, coeffs: torch.Tensor,
     of its (``scale_rows``, ``n_tile``) block, an int8 table ``q * scale``
     of its stage, and ``quant_out`` returns ``(q int8, scales)`` with one
     scale for each (``scale_rows``, ``n_tile``) block of the output, its
-    absmax taken over the whole tile, lanes past ``out_width`` included."""
+    absmax taken over the whole tile, lanes past ``out_width`` included.
+
+    An (E, L, n/2, 4) table is the expert mode: x (E, B, width) and (E, n)
+    vectors, one expert at a time, stacked."""
+    if coeffs.dim() == 4:
+        return torch.stack([spm_stack_plain(
+            x[e], coeffs[e], _at(d_in, e), _at(d_out, e), _at(bias, e),
+            strides=strides, in_width=in_width, out_width=out_width,
+            n_tile=n_tile) for e in range(coeffs.shape[0])])
     n = 2 * coeffs.shape[1]
     z = _plain_x(x, x_scale, scale_rows, n_tile)
     if col_base is not None:
@@ -644,9 +718,19 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     y_scale (B // scale_rows, ceil(out_width / n_tile)) f32)``.  B must be
     a multiple of ``scale_rows``; each scale block is one chunk of a
     thread-block cluster.  A scale block no cluster can hold on chip
-    raises.  The launch shape is ``fwd_plan``'s."""
-    n = 2 * coeffs.shape[1]
+    raises.  The launch shape is ``fwd_plan``'s.
+
+    Expert mode (an (E, L, n/2, 4) table): x (E, B, in_width) -> y (E, B,
+    out_width), d_in/d_out/bias (E, n); one launch for all E experts, the
+    plan that of one expert's B rows over E times its tiles.  No int8
+    operand, no window."""
     strides = tuple(int(s) for s in strides)
+    if coeffs.dim() == 4:
+        return _stack_experts(x, coeffs, d_in, d_out, bias, strides, n_tile,
+                              in_width, out_width,
+                              x_scale is not None or coeff_scale is not None
+                              or quant_out, col_base is not None)
+    n = 2 * coeffs.shape[1]
     in_w = n if in_width is None else int(in_width)
     out_w = n if out_width is None else int(out_width)
     if x.dim() != 2 or x.shape[1] != in_w:
@@ -691,15 +775,13 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
                     x.element_size(),
                     scale_rows=scale_rows if quant_out else None,
                     cf_bytes=16 if coeff_scale is None else 4)
-    fn = _fn("spm_stack", "spm_stack_fwd",
-             (_I,) + (_P,) * 9 + (_I,) * 13
-             + (ctypes.POINTER(ctypes.c_int), _I, _P))
     x_off = 0 if col_base is None else int(col_base) * n_tile
-    rc = fn(io, _ptr(x), _ptr(x_scale), _ptr(y), _ptr(ys), _ptr(coeffs),
-            _ptr(coeff_scale), _ptr(d_in), _ptr(d_out), _ptr(bias), B, n,
-            n_tile, in_w, out_w, x_off, scale_rows or 0,
-            *_fwd_shape_args(plan), _strides_arg(strides), len(strides),
-            _stream(x))
+    rc = _k1_fn()(io, _ptr(x), _ptr(x_scale), _ptr(y), _ptr(ys),
+                  _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in), _ptr(d_out),
+                  _ptr(bias), B, n, n_tile, in_w, out_w, x_off,
+                  scale_rows or 0, *_fwd_shape_args(plan),
+                  _strides_arg(strides), len(strides), 1,
+                  len(strides) * (n // 2), _stream(x))
     if rc != 0:
         raise RuntimeError(f"spm_stack_fwd launch failed: cudaError {rc}")
     _count(spm_stack_kernel_call, x_scale, coeff_scale,
@@ -707,10 +789,51 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     return (y, ys) if quant_out else y
 
 
+def _k1_fn():
+    return _fn("spm_stack", "spm_stack_fwd",
+               (_I,) + (_P,) * 9 + (_I,) * 13
+               + (ctypes.POINTER(ctypes.c_int), _I, _I, ctypes.c_long, _P))
+
+
+def _stack_experts(x, coeffs, d_in, d_out, bias, strides, n_tile, in_width,
+                   out_width, int8: bool, window: bool):
+    """K1's expert mode (``spm_stack_kernel_call``)."""
+    n = 2 * coeffs.shape[2]
+    in_w = n if in_width is None else int(in_width)
+    out_w = n if out_width is None else int(out_width)
+    vecs = [(d_in, "d_in"), (d_out, "d_out"), (bias, "bias")]
+    _expert_check(x, coeffs, vecs, strides, n_tile, in_w, out_w, int8,
+                  window)
+    if x.device.type == "cpu":
+        return spm_stack_plain(x, coeffs, d_in, d_out, bias, strides=strides,
+                               in_width=in_w, out_width=out_width,
+                               n_tile=n_tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    cf_es = _expert_cuda_check(x, coeffs, vecs)
+    E, B = x.shape[:2]
+    y = torch.empty((E, B, out_w), dtype=x.dtype, device=x.device)
+    if B == 0 or E == 0:
+        return y
+    tiles = -(-out_w // n_tile)
+    plan = fwd_plan(B, n_tile, strides, tiles * E, x.element_size())
+    rc = _k1_fn()(_IO[x.dtype], _ptr(x), None, _ptr(y), None, _ptr(coeffs),
+                  None, _ptr(d_in), _ptr(d_out), _ptr(bias), B, n, n_tile,
+                  in_w, out_w, 0, 0, *_fwd_shape_args(plan),
+                  _strides_arg(strides), len(strides), E, cf_es, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"spm_stack_fwd (experts) launch failed: "
+                           f"cudaError {rc}")
+    _count(spm_stack_kernel_call, None, None)
+    spm_stack_kernel_call.expert_launches += 1
+    return y
+
+
 spm_stack_kernel_call.launches = 0
 spm_stack_kernel_call.int8_launches = 0
 spm_stack_kernel_call.int8_io_launches = 0
 spm_stack_kernel_call.window_launches = 0
+spm_stack_kernel_call.expert_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1167,7 +1290,17 @@ def spm_stack_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
     over rows differ in order.  Dead tiles come back as exact zeros.  An
     int8 x or table is dequantized as K1's plain version does it.  With
     ``col_base`` x (with ``in_width``) and gy (with ``out_width``) are read
-    through the window, as K1's plain version reads x."""
+    through the window, as K1's plain version reads x.
+
+    An (E, L, n/2, 4) table is the expert mode, one expert at a time:
+    every output stacked over the experts."""
+    if coeffs.dim() == 4:
+        outs = [spm_stack_bwd_plain(
+            x[e], coeffs[e], gy[e], _at(d_in, e), _at(d_out, e),
+            strides=strides, n_tile=n_tile, has_bias=has_bias,
+            in_width=in_width, out_width=out_width, dead_from=dead_from,
+            col_sum=col_sum) for e in range(coeffs.shape[0])]
+        return tuple(torch.stack(ts) for ts in zip(*outs))
     n = 2 * coeffs.shape[1]
     cf = _plain_coeffs(coeffs, coeff_scale)
     x_raw = _plain_x(x, x_scale, scale_rows, n_tile)
@@ -1238,9 +1371,20 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     ``in_width`` x is the global (B, in_width) operand read through the
     window, with ``out_width`` gy the global (B, out_width) one, each zero
     past its global width; g_x is the full (B, n) slab and every tile is
-    visited (no ``dead_from``).  No int8 x."""
-    n = 2 * coeffs.shape[1]
+    visited (no ``dead_from``).  No int8 x.
+
+    Expert mode (an (E, L, n/2, 4) table): x (E, B, in_width), gy (E, B,
+    out_width), d_in/d_out (E, n); one launch for all E experts, each
+    expert's grads summed over its own rows; every output gains the
+    leading E axis.  No int8 operand, no window."""
     strides = tuple(int(s) for s in strides)
+    if coeffs.dim() == 4:
+        return _stack_bwd_experts(
+            x, coeffs, gy, d_in, d_out, strides, n_tile, has_bias, in_width,
+            out_width, dead_from,
+            x_scale is not None or coeff_scale is not None,
+            col_base is not None)
+    n = 2 * coeffs.shape[1]
     in_w = n if in_width is None else int(in_width)
     gy_w = n if out_width is None else int(out_width)
     if x.dim() != 2 or x.shape[1] != in_w or gy.dim() != 2 \
@@ -1302,15 +1446,13 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
         part_cf = torch.empty((G, L, n // 2, 4), dtype=torch.float32,
                               device=dev)
         part_vec = torch.empty((G, 3, n), dtype=torch.float32, device=dev)
-        fn = _fn("spm_stack_bwd", "spm_stack_bwd",
-                 (_I,) + (_P,) * 12 + (_I,) * 18
-                 + (ctypes.POINTER(ctypes.c_int), _I, _P))
-        rc = fn(_IO[io_dt], _ptr(x), _ptr(x_scale), _ptr(gy), _ptr(gx),
-                _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in), _ptr(d_out),
-                _ptr(g_cf), _ptr(g_vec), _ptr(part_cf), _ptr(part_vec), B,
-                n, n_tile, in_w, gy_w, gx_w, x_off, gy_off, vis,
-                int(has_bias), scale_rows or 0, *_shape_args(plan),
-                plan.split, _strides_arg(strides), L, _stream(x))
+        rc = _k2_fn()(_IO[io_dt], _ptr(x), _ptr(x_scale), _ptr(gy),
+                      _ptr(gx), _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in),
+                      _ptr(d_out), _ptr(g_cf), _ptr(g_vec), _ptr(part_cf),
+                      _ptr(part_vec), B, n, n_tile, in_w, gy_w, gx_w, x_off,
+                      gy_off, vis, int(has_bias), scale_rows or 0,
+                      *_shape_args(plan), plan.split, _strides_arg(strides),
+                      L, 1, L * (n // 2), _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_stack_bwd launch failed: cudaError {rc}")
         _count(spm_stack_bwd_kernel_call, x_scale, coeff_scale,
@@ -1324,11 +1466,81 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     return out
 
 
+def _k2_fn():
+    return _fn("spm_stack_bwd", "spm_stack_bwd",
+               (_I,) + (_P,) * 12 + (_I,) * 18
+               + (ctypes.POINTER(ctypes.c_int), _I, _I, ctypes.c_long, _P))
+
+
+def _stack_bwd_experts(x, coeffs, gy, d_in, d_out, strides, n_tile,
+                       has_bias, in_width, out_width, dead_from,
+                       int8: bool, window: bool) -> tuple:
+    """K2's expert mode (``spm_stack_bwd_kernel_call``)."""
+    E, L, half, _ = coeffs.shape
+    n = 2 * half
+    in_w = n if in_width is None else int(in_width)
+    gy_w = n if out_width is None else int(out_width)
+    vecs = [(d_in, "d_in"), (d_out, "d_out")]
+    _expert_check(x, coeffs, vecs, strides, n_tile, in_w, gy_w, int8,
+                  window)
+    if gy.shape != (E, x.shape[1], gy_w):
+        raise ValueError(f"expected gy ({E}, {x.shape[1]}, {gy_w}), got "
+                         f"{tuple(gy.shape)}")
+    if x.device.type == "cpu":
+        return spm_stack_bwd_plain(x, coeffs, gy, d_in, d_out,
+                                   strides=strides, n_tile=n_tile,
+                                   has_bias=has_bias, in_width=in_width,
+                                   out_width=out_width, dead_from=dead_from)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    cf_es = _expert_cuda_check(x, coeffs, vecs)
+    if gy.dtype != x.dtype or gy.device != x.device \
+            or not gy.is_contiguous():
+        raise ValueError("gy must be contiguous, on x's device, in x's "
+                         "dtype")
+    vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width, dead_from)
+    B = x.shape[1]
+    dev = x.device
+    gx = torch.empty((E, B, gx_w), dtype=x.dtype, device=dev)
+    g_cf = torch.empty((E, L, half, 4), dtype=torch.float32, device=dev)
+    g_vec = torch.empty((E, 3, n), dtype=torch.float32, device=dev)
+    if B == 0 or E == 0:
+        for t in (gx, g_cf, g_vec):
+            t.zero_()
+    else:
+        plan = bwd_plan(B, n_tile, strides, vis * E, gy.element_size(),
+                        x.element_size())
+        G = plan.groups
+        part_cf = torch.empty((E, G, L, half, 4), dtype=torch.float32,
+                              device=dev)
+        part_vec = torch.empty((E, G, 3, n), dtype=torch.float32,
+                               device=dev)
+        rc = _k2_fn()(_IO[x.dtype], _ptr(x), None, _ptr(gy), _ptr(gx),
+                      _ptr(coeffs), None, _ptr(d_in), _ptr(d_out),
+                      _ptr(g_cf), _ptr(g_vec), _ptr(part_cf),
+                      _ptr(part_vec), B, n, n_tile, in_w, gy_w, gx_w, 0, 0,
+                      vis, int(has_bias), 0, *_shape_args(plan), plan.split,
+                      _strides_arg(strides), L, E, cf_es, _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"spm_stack_bwd (experts) launch failed: "
+                               f"cudaError {rc}")
+        _count(spm_stack_bwd_kernel_call, None, None)
+        spm_stack_bwd_kernel_call.expert_launches += 1
+        spm_stack_bwd_kernel_call.split_launches += bool(plan.split)
+    out = (gx, g_cf)
+    for present, row in ((d_in is not None, 0), (d_out is not None, 1),
+                         (has_bias, 2)):
+        if present:
+            out += (g_vec[:, row],)
+    return out
+
+
 spm_stack_bwd_kernel_call.launches = 0
 spm_stack_bwd_kernel_call.int8_launches = 0
 spm_stack_bwd_kernel_call.int8_io_launches = 0
 spm_stack_bwd_kernel_call.window_launches = 0
 spm_stack_bwd_kernel_call.split_launches = 0
+spm_stack_bwd_kernel_call.expert_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -2028,6 +2240,6 @@ def reset_launch_counts() -> None:
                spm_block_kernel_call, spm_block_bwd_kernel_call,
                spm_overlap_kernel_call, spm_overlap_bwd_kernel_call):
         for name in ("launches", "int8_launches", "int8_io_launches",
-                     "window_launches", "split_launches"):
+                     "window_launches", "split_launches", "expert_launches"):
             if hasattr(fn, name):
                 setattr(fn, name, 0)

@@ -10,7 +10,9 @@ occupancy and per-request latency in ticks.  Runs on ``cuda`` unless
 ``--device cpu`` is given; ``--smoke`` takes the smoke-size config.
 Weights and prompts are random, made from ``--seed``.  An
 embeddings-input arch (``qwen2-vl-7b``, ``musicgen-medium``) serves from a
-token prompt and decodes its own codebook, as the reference does.
+token prompt and decodes its own codebook, as the reference does.  An SSM
+arch (``mamba2-370m``, ``zamba2-1.2b``) prefills by decode replay; the
+continuous engine refuses it, and ``--continuous`` reports that refusal.
 """
 
 from __future__ import annotations
@@ -85,11 +87,14 @@ def main() -> None:
 def serve_continuous(args, cfg, params, prompts, device) -> None:
     """Serve ``prompts`` as requests through the continuous engine and
     print the reference's summary line and each request's tokens."""
-    eng = ContinuousBatchingEngine(
-        cfg, params, slots=args.slots,
-        max_len=args.prompt_len + args.new_tokens,
-        cache_dtype=getattr(torch, args.cache_dtype), seed=args.seed + 2,
-        device=device)
+    try:
+        eng = ContinuousBatchingEngine(
+            cfg, params, slots=args.slots,
+            max_len=args.prompt_len + args.new_tokens,
+            cache_dtype=getattr(torch, args.cache_dtype),
+            seed=args.seed + 2, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--continuous: {e}")
     reqs = [Request(prompt=prompts[i], max_new_tokens=args.new_tokens,
                     temperature=args.temperature, rid=i)
             for i in range(args.batch)]

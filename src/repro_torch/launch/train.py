@@ -16,8 +16,11 @@ function of (seed, step); an embeddings-input arch gets them hashed into
 embeddings by a fixed table, with (3, B, T) M-RoPE ids under ``mrope``
 (``--patch-grid``: a synthetic patch grid's).  Each step is the forward,
 the closed-form backward through the SPM kernels and AdamW, with the
-non-finite guard and the chaos port always on, as in the reference.  ``--quantize`` trains
-through the int8 modes of K1 and K2 (``configs.with_quantized_io``).
+non-finite guard and the chaos port always on, as in the reference.
+``--quantize`` trains through the int8 modes of K1 and K2
+(``configs.with_quantized_io``); with an MoE arch it is refused at parsing
+(the kernels' expert mode has no int8 operands yet: ``ROADMAP.md`` §1).
+The logged metrics include ``aux``, the MoE load-balancing term.
 
 Around the step, as in the reference: atomic keep-N checkpoints every
 ``--ckpt-every`` steps into ``--ckpt-dir`` with the data cursor in their
@@ -129,9 +132,23 @@ def make_batch_fn(cfg: T.ModelConfig, seq_len: int, corpus: np.ndarray,
     return batch_fn
 
 
+class _Parser(argparse.ArgumentParser):
+    """Refuses ``--quantize`` for an MoE arch when the arguments are
+    parsed."""
+
+    def parse_args(self, args=None, namespace=None):
+        ns = super().parse_args(args, namespace)
+        cfg = get_smoke(ns.arch) if ns.smoke else get_config(ns.arch)
+        if ns.quantize and any(s.mlp == "moe" for s in cfg.layers):
+            self.error(f"--quantize: {ns.arch} is an MoE arch, and the "
+                       "expert mode of K1 and K2 takes no int8 operands "
+                       "yet (ROADMAP.md §1)")
+        return ns
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The reference's flags, plus ``--device``."""
-    ap = argparse.ArgumentParser()
+    ap = _Parser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
@@ -291,6 +308,7 @@ def train(args: argparse.Namespace,
             s += 1
             if s % args.log_every == 0:
                 print(f"step {s:5d} loss={metrics['loss']:.4f} "
+                      f"aux={metrics['aux']:.4f} "
                       f"gnorm={metrics['grad_norm']:.3f} "
                       f"lr={metrics['lr']:.2e} {dt * 1e3:.0f} ms/step")
             if args.ckpt_dir and s % args.ckpt_every == 0:

@@ -11,7 +11,7 @@ stack, activation, down stack and residual add.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,17 +78,20 @@ class FFNConfig:
 
 
 def init_ffn(cfg: FFNConfig, generator: torch.Generator,
-             device: torch.device) -> Params:
-    """``up`` and ``down`` (and ``gate`` for swiglu)."""
-    p = {"up": init_linear(cfg.up, generator, device)}
+             device: torch.device, lead: Tuple[int, ...] = ()) -> Params:
+    """``up`` and ``down`` (and ``gate`` for swiglu); ``lead`` (the MoE's
+    ``(E,)``) stacks independent FFNs on every leaf."""
+    p = {"up": init_linear(cfg.up, generator, device, lead)}
     if cfg.activation == "swiglu":
-        p["gate"] = init_linear(cfg.gate, generator, device)
-    p["down"] = init_linear(cfg.down, generator, device)
+        p["gate"] = init_linear(cfg.gate, generator, device, lead)
+    p["down"] = init_linear(cfg.down, generator, device, lead)
     return Params(p)
 
 
 def ffn_apply(params, x: torch.Tensor, cfg: FFNConfig) -> torch.Tensor:
-    """The FFN body alone: swiglu or ``down(act(up(x)))``."""
+    """The FFN body alone: swiglu or ``down(act(up(x)))``.  Params
+    stacked over a leading expert axis (an MoE's experts) take x (E, ...,
+    d_model): each linear is then one expert-mode launch a run."""
     u = linear_apply(params["up"], x, cfg.up)
     if cfg.activation == "swiglu":
         g = linear_apply(params["gate"], x, cfg.gate)

@@ -276,8 +276,8 @@ def test_smoke_logits_loss_and_grads_match_reference(pairs, arch,
     loss, m = LM.lm_loss(tp, tb, tcfg)
     loss.backward()
     with torch.no_grad():
-        logits, _ = T.forward(tp, tcfg, positions=tb.get("positions"),
-                              **{kw: tb[kw]})
+        logits, _, _ = T.forward(tp, tcfg, positions=tb.get("positions"),
+                                 **{kw: tb[kw]})
     depth = _depth(tcfg)
     ref_logits = np.asarray(jlog)
     np.testing.assert_allclose(

@@ -243,17 +243,43 @@ def test_engine_order_of_sums_within_gamma_rows(n_rows, nt, strides):
 
 
 def _linears(cfg):
-    """(name, LinearConfig) of every SPM linear of a config's layers (the
-    attention's q, k/v and o, the FFN's gate, up and down)."""
-    acfg, fcfg = cfg.attn_cfg(cfg.layers[0]), cfg.ffn_cfg()
-    return [("q", acfg.q_proj), ("kv", acfg.kv_proj), ("o", acfg.o_proj),
-            ("gate", fcfg.gate), ("up", fcfg.up), ("down", fcfg.down)]
+    """(name, LinearConfig) of every SPM linear of a config's layers: the
+    attention's q, k/v and o, the dense FFN's gate, up and down, the MoE
+    experts' (planned over one expert's rows) and the shared expert's, the
+    Mamba2 in and out projections, and zamba2's shared block (attention
+    and FFN)."""
+    def attn(tag, acfg):
+        return [(tag + "q", acfg.q_proj), (tag + "kv", acfg.kv_proj),
+                (tag + "o", acfg.o_proj)]
+
+    def ffn(tag, fcfg):
+        return [(tag + "gate", fcfg.gate), (tag + "up", fcfg.up),
+                (tag + "down", fcfg.down)]
+
+    out = []
+    if any(s.mixer == "attn" for s in cfg.layers):
+        out += attn("", cfg.attn_cfg(cfg.layers[0]))
+    if any(s.mixer == "mamba" for s in cfg.layers):
+        mcfg = cfg.mamba_cfg()
+        out += [("in_proj", mcfg.in_proj), ("out_proj", mcfg.out_proj)]
+    if any(s.mlp == "dense" for s in cfg.layers):
+        out += ffn("", cfg.ffn_cfg())
+    if any(s.mlp == "moe" for s in cfg.layers):
+        out += ffn("expert ", cfg.moe_cfg().expert_ffn)
+        if cfg.shared_d_ff:
+            out += ffn("shared expert ", cfg.moe_cfg().shared_ffn)
+    if cfg.has_shared_block:
+        out += attn("shared ", cfg.shared_attn_cfg())
+        out += ffn("shared ", cfg.shared_ffn_cfg())
+    return out
 
 
-@pytest.mark.parametrize("rows", [1, 8, 512, 4096])
+@pytest.mark.parametrize("rows", [1, 8, 160, 512, 4096])
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b", "qwen2-vl-7b",
                                   "musicgen-medium", "minitron-4b",
-                                  "qwen3-32b"])
+                                  "qwen3-32b", "qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e", "mamba2-370m",
+                                  "zamba2-1.2b"])
 def test_every_registered_linear_has_its_plans(arch, rows):
     """Every run of every linear of every registered config (at full width)
     gets a K1 plan and a K2 plan at bf16, and K3/K4 block plans where the

@@ -1441,3 +1441,103 @@ def test_continuous_churn_parity_on_card(cuda, cache_dtype):
         assert solo[r.rid]["tokens"] == results[r.rid]["tokens"], r.rid
         assert not results[r.rid]["flagged"]
         assert all(0 <= t < cfg.vocab_size for t in solo[r.rid]["tokens"])
+
+
+def _expert_linears(arch):
+    """(name, LinearConfig) of an MoE arch's expert linears (gate/up share
+    a shape) at full width."""
+    from repro_torch.configs import get_config
+    fcfg = get_config(arch).moe_cfg().expert_ffn
+    return [("gate/up", fcfg.gate), ("down", fcfg.down)]
+
+
+@pytest.mark.parametrize("arch, rows, bwd", [
+    ("qwen3-moe-30b-a3b", 160, True), ("qwen3-moe-30b-a3b", 80, False),
+    ("qwen3-moe-30b-a3b", 8, False), ("llama4-scout-17b-a16e", 160, True),
+    ("llama4-scout-17b-a16e", 80, False),
+    ("llama4-scout-17b-a16e", 1, False)])
+def test_expert_mode_matches_plain(cuda, arch, rows, bwd):
+    """K1 and K2 in their expert mode at the expert linears' shapes (rows
+    a expert: a training step's G * cap, a prefill's and decode's), bf16:
+    one launch a run for all experts, counted apart; the run chain's output
+    bit for bit the per-expert plain versions'; K2's g_x bit for bit, its
+    grads within gamma_rows of one expert's rows, a second launch
+    bitwise."""
+    from repro_torch.configs import get_config
+    E = get_config(arch).n_experts
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    for name, lin in _expert_linears(arch):
+        scfg = lin.spm_config()
+        n = scfg.n
+        runs = ops.plan_runs_for_rows(n, scfg.pairing.strides(), rows)
+        L = sum(len(rs) for rs, _ in runs)
+        cf = _rnd(gen, E, L, n // 2, 4, scale=0.5)
+        d_in, d_out = 1 + 0.1 * _rnd(gen, E, n), 1 + 0.1 * _rnd(gen, E, n)
+        widths = (None if lin.d_in == n else lin.d_in,
+                  None if lin.d_out == n else lin.d_out)
+        x = _rnd(gen, E, rows, lin.d_in).bfloat16()
+        K.reset_launch_counts()
+        y, saved = ops.forward_runs(x, cf, runs, d_in, d_out, None, *widths)
+        assert K.spm_stack_kernel_call.expert_launches == len(runs) \
+            == K.spm_stack_kernel_call.launches
+        z = x
+        for r, (rs, nt) in enumerate(runs):
+            off = sum(len(q) for q, _ in runs[:r])
+            last = r == len(runs) - 1
+            z = K.spm_stack_plain(
+                z, cf[:, off: off + len(rs)], d_in if r == 0 else None,
+                d_out if last else None, strides=rs, n_tile=nt,
+                in_width=widths[0] if r == 0 else None,
+                out_width=widths[1] if last else None)
+        torch.cuda.synchronize()
+        assert torch.equal(y, z), (arch, name)
+        if not bwd:
+            continue
+        gy = _rnd(gen, E, rows, lin.d_out).bfloat16()
+        args = (saved, cf, gy, runs, d_in, d_out, False, *widths)
+        got = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args)
+        again = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args)
+        assert K.spm_stack_bwd_kernel_call.expert_launches == 2 * len(runs)
+        want = ops.backward_runs(K.spm_stack_bwd_plain, *args)
+        mags = ops.backward_runs(functools.partial(
+            K.spm_stack_bwd_plain, col_sum=_abs_sum), *args)
+        torch.cuda.synchronize()
+        for a, b, p, m in zip(got, again, want, mags):
+            assert torch.equal(a[0], p[0]), (arch, name)
+            _grads_within(a[1:], p[1:], m[1:], rows)
+            assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e", "mamba2-370m",
+                                  "zamba2-1.2b"])
+def test_moe_and_ssm_smoke_models_on_card_match_cpu(cuda, arch):
+    """The f32 smoke models on the card give the CPU's greedy tokens (SSM
+    stacks through decode replay); the MoE experts through the expert mode
+    only, and one training step's loss within the f32 bound."""
+    from repro_torch.models import causal_lm as LM
+    cfg = get_smoke(arch)
+    params = T.init_model(cfg, seed=0, device="cpu")
+    prompts = torch.arange(16).reshape(2, 8) % 7
+    cpu_tokens = ServeEngine(cfg=cfg, params=params, max_len=16,
+                             cache_dtype=torch.float32, device="cpu"
+                             ).generate(prompts, max_new_tokens=6)
+    batch = {"tokens": prompts, "labels": (prompts + 1) % 7}
+    cpu_loss = LM.lm_loss(params, batch, cfg)[0].item()
+    card = copy.deepcopy(params).to("cuda")
+    K.reset_launch_counts()
+    gpu_tokens = ServeEngine(cfg=cfg, params=card, max_len=16,
+                             cache_dtype=torch.float32).generate(
+        prompts, max_new_tokens=6)
+    assert K.spm_stack_kernel_call.launches > 0
+    if cfg.n_experts:
+        assert K.spm_stack_kernel_call.expert_launches > 0
+    np.testing.assert_array_equal(gpu_tokens.cpu().numpy(),
+                                  cpu_tokens.numpy())
+    card.trainable()
+    loss = LM.lm_loss(card, {k: v.cuda() for k, v in batch.items()},
+                      cfg)[0]
+    loss.backward()
+    if cfg.n_experts:
+        assert K.spm_stack_bwd_kernel_call.expert_launches > 0
+    assert abs(loss.item() - cpu_loss) <= 1e-4 * (abs(cpu_loss) + 1)
