@@ -32,8 +32,9 @@ Phases, each of which fails the run when it fails:
    ``ServeEngine.generate`` for batch 8, prompt 512, 64 greedy tokens, bf16
    KV cache; each kernel's launch count must equal the count the port's own
    run plan implies.  Prefill ms, decode tokens/s and peak memory.
-4. **Model parity**: the same weights through the port on the card
-   (kernels) and on the CPU (plain versions), batch 4, prompt 16, 24
+4. **Model parity**: the same weights, cut to their first
+   ``PARITY_LAYERS`` (8) layers at full width, through the port on the
+   card (kernels) and on the CPU (plain versions), batch 4, prompt 16, 24
    teacher-forced steps; logits within a bf16-derived tolerance, tokens
    equal wherever the top-2 gap exceeds it.  Then one row of the served
    batch is replayed on the CPU (prompt 512, the served tokens fed back):
@@ -199,7 +200,8 @@ Phases, each of which fails the run when it fails:
 22. **The other dense-attention archs** (``run_archs_phase``):
    gemma3-12b (5:1 local:global, 1024-slot rings), qwen2-vl-7b (M-RoPE,
    embedding inputs), musicgen-medium (embedding inputs, fused q/k/v),
-   minitron-4b and qwen3-32b, each at full width and depth from seed 0:
+   minitron-4b and qwen3-32b, each at full width from seed 0, cut to a
+   quarter of its depth (``ARCH_LAYERS``; gemma3-12b's two 5:1 groups):
    ``ServeEngine.generate`` of 4 rows, 16 tokens (gemma3-12b's prompt 1280,
    so every ring wraps in prefill and decode; the others 256), K1/K3
    launches equal to the plan (q/k/v as K1 runs where they do not fuse);
@@ -227,9 +229,11 @@ Phases, each of which fails the run when it fails:
    qwen3-moe-30b-a3b (128 experts, top-8), llama4-scout-17b-a16e (16
    experts, top-1, a shared expert), mamba2-370m and zamba2-1.2b (a Mamba2
    backbone, the shared attention + FFN block before every 6th layer),
-   each at full width and depth from seed 0: ``ServeEngine.generate`` of
-   4 rows, prompt 256, 32 greedy tokens (the SSM stacks prefill by decode
-   replay), and two training steps of 4 x 512 through
+   each at full width from seed 0, cut to ``SLICE_LAYERS`` (12) layers
+   (qwen3-moe at full depth is phase 24's):
+   ``ServeEngine.generate`` of 4 rows, prompt 256, 32 greedy tokens (the
+   SSM stacks prefill by decode replay), and two training steps of 4 x
+   512 through
    ``launch.train.train`` (bf16; aux finite, positive for MoE); every
    K1-K4 launch count (K1's and K2's expert mode and K2's split mode
    counted apart, one expert launch a run for all experts) equal to the
@@ -247,11 +251,39 @@ Phases, each of which fails the run when it fails:
    the four archs' path gives them (``slice_kernel_cases``; Mamba2's
    in_proj at 2048 rows timed).  The phase has 200 s
    (``SLICE_BUDGET_S``).
+24. **The MoE archs under the reference's operator knobs**
+   (``run_modes_phase``): full-width qwen3-moe-30b-a3b from seed 0, bf16,
+   through two ``launch.train --quantize`` steps of 4 x 512 (int8
+   activations and tables in the experts' expert mode, per expert),
+   quantized serving of 4 rows, prompt 256, 32 tokens, two steps of
+   ``with_feature_sharding(cfg, 4)`` on a 4-shard mesh on the card
+   (windowed expert runs) and two of
+   ``with_overlap_executor(with_quantized_io(with_feature_sharding(cfg,
+   4)))`` (K5/K6 over the expert axis, int8 tables); every launch count
+   (expert, int8, int8-I/O, windowed and pair launches apart) equal to the
+   plan (``modes_train_plan``, ``modes_serve_plan``); a sharded run whose
+   peak passes ``MODES_PEAK_GIB`` reruns at ``MODES_CUT_LAYERS`` layers.
+   Then the card against the CPU at ``MOE_PARITY_LAYERS`` layers, f32,
+   routing compared first (``run_modes_parity``: one forward, backward
+   and first AdamW update a side, each on its own device; the int8 model
+   with the CPU replaying the card's codes, phase 10's criterion; the
+   step-serial and overlap sharded models, phases 14's and 18's; launch
+   counts, finiteness and codes held even where a near-tie routes a token
+   otherwise).  Then each new mode
+   against its plain version at every shape of the path
+   (``modes_kernel_cases``: K1/K2 expert int8 at qwen3-moe's training,
+   prefill and decode rows and llama4's training rows; K1/K2 expert
+   ``col_base`` at every shard of the 512- and 2048-lane windows; K5/K6
+   over qwen3-moe's experts; K1 and K5 bit for bit, K2's and K6's g_x bit
+   for bit, grads within gamma_rows), timed at the training rows beside
+   ``torch.bmm`` and, at the headline shapes, the plain version (called
+   once).  The phase has 150 s (``MODES_BUDGET_S``).
 
-Depths: phases 7, 10, 11 (its teacher-forced part), 14 and 18 hold the
-card to the CPU on the first ``PARITY_LAYERS`` = 8 of the 28 layers at
-full width, and phase 4 replays one served row (two before): they were
-the script's slowest CPU sides.  On an NVIDIA H100 80GB HBM3 at 700 W the
+Depths: phases 4 (its teacher-forced part), 7, 10, 11 (its
+teacher-forced part), 14 and 18 hold the card to the CPU on the first
+``PARITY_LAYERS`` = 8 of the 28 layers at full width, and phase 4
+replays one served row (two before): they were the script's slowest CPU
+sides.  On an NVIDIA H100 80GB HBM3 at 700 W the
 whole script took 766.1 s with the build 227.0 s and phase 21 116.2 s,
 phases 4, 10, 11 and 14 41.9, 20.0, 41.6 and 23.3 s (56.0, 39.7, 81.0 and
 46.0 at full depth and two replayed rows, on another host).
@@ -308,9 +340,9 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
 
-    def __call__(self, fn, reps: int = TIMED) -> float:
+    def __call__(self, fn, reps: int = TIMED, warm=None) -> float:
         torch = self.torch
-        for _ in range(min(3, reps)):
+        for _ in range(min(3, reps) if warm is None else warm):
             fn()
         pairs = []
         for _ in range(reps):
@@ -753,8 +785,9 @@ def run_serve_phase(torch, K, ops, T, ServeEngine, cfg, batch=8,
 REPLAY_ROWS = 1         # served rows replayed on the CPU
 REPLAY_STEPS = 16       # served tokens checked per replayed row
 MIN_DECIDED = 16        # tokens the parity phase must decide, at least
-PARITY_LAYERS = 8       # depth of the card-vs-CPU models of phases 10, 11,
-                        # 14 and 18 (full width, the first of 28 layers)
+PARITY_LAYERS = 8       # depth of the card-vs-CPU models of phases 4 (its
+                        # teacher-forced part), 7, 10, 11, 14 and 18 (full
+                        # width, the first of 28 layers)
 
 
 def cut_depth(cfg, params=None, n=PARITY_LAYERS):
@@ -772,10 +805,12 @@ def cut_depth(cfg, params=None, n=PARITY_LAYERS):
 def run_parity_phase(torch, LM, cfg, params, served_prompts, served_tokens):
     """Two checks of the card against the CPU on the same weights.
 
-    1. Teacher-forced: both sides decode the card's greedy tokens (batch 4,
-       prompt 16, 24 steps), so each step compares logits of the same
-       inputs; they must agree within the tolerance below, and tokens must
-       be equal wherever the card's top-2 gap exceeds it.
+    1. Teacher-forced, on the model cut to its first ``PARITY_LAYERS``
+       layers at full width (the same weights): both sides decode the
+       card's greedy tokens (batch 4, prompt 16, 24 steps), so each step
+       compares logits of the same inputs; they must agree within the
+       tolerance below, and tokens must be equal wherever the card's top-2
+       gap exceeds it.
     2. Replay of the served batch: ``REPLAY_ROWS`` rows of the serve
        phase's prompts go through the CPU, which is then fed the card's
        served tokens; each served token whose CPU top-2 gap exceeds the
@@ -788,6 +823,8 @@ def run_parity_phase(torch, LM, cfg, params, served_prompts, served_tokens):
     ``2 * 2^-8 * |h|_2 * max_v |w_v|_2`` (Cauchy-Schwarz).  Together the
     two checks must decide at least ``MIN_DECIDED`` tokens."""
     cpu_params = copy.deepcopy(params).to("cpu")
+    tf_cfg, tf_card = cut_depth(cfg, params)
+    _, tf_cpu = cut_depth(cfg, cpu_params)
     gen = torch.Generator().manual_seed(11)
     batch, plen, steps = 4, 16, 24
     prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen)
@@ -805,9 +842,9 @@ def run_parity_phase(torch, LM, cfg, params, served_prompts, served_tokens):
     t0 = time.perf_counter()
     with torch.inference_mode():
         max_len = plen + steps
-        lg, cg = LM.prefill(params, cfg, max_len=max_len,
+        lg, cg = LM.prefill(tf_card, tf_cfg, max_len=max_len,
                             tokens=prompts.to(DEVICE))
-        lc, cc = LM.prefill(cpu_params, cfg, max_len=max_len, tokens=prompts)
+        lc, cc = LM.prefill(tf_cpu, tf_cfg, max_len=max_len, tokens=prompts)
         for step in range(steps):
             a, b = lg.float().cpu(), lc.float()
             err = (a - b).abs().max().item()
@@ -821,9 +858,9 @@ def run_parity_phase(torch, LM, cfg, params, served_prompts, served_tokens):
             mism += int((a.argmax(-1) != b.argmax(-1))[decided].sum())
             tok = a.argmax(-1)
             if step + 1 < steps:
-                lg, cg = LM.decode_step(params, cfg, tok.to(DEVICE), cg,
+                lg, cg = LM.decode_step(tf_card, tf_cfg, tok.to(DEVICE), cg,
                                         plen + step)
-                lc, cc = LM.decode_step(cpu_params, cfg, tok, cc, plen + step)
+                lc, cc = LM.decode_step(tf_cpu, tf_cfg, tok, cc, plen + step)
         tf_s = time.perf_counter() - t0
 
         # replay of the served batch on the CPU
@@ -842,7 +879,8 @@ def run_parity_phase(torch, LM, cfg, params, served_prompts, served_tokens):
                 lc, cc = LM.decode_step(cpu_params, cfg, st[:, step], cc,
                                         sp.shape[1] + step)
         replay_s = time.perf_counter() - t0
-    res = dict(max_abs_err=worst, tol=t, batch=batch, prompt_len=plen,
+    res = dict(max_abs_err=worst, tol=t, layers=tf_cfg.n_layers,
+               batch=batch, prompt_len=plen,
                steps=steps, compared=batch * steps, decided_tokens=checked,
                token_mismatches=mism, replay_rows=REPLAY_ROWS,
                replay_prompt_len=int(sp.shape[1]), replay_steps=REPLAY_STEPS,
@@ -851,7 +889,8 @@ def run_parity_phase(torch, LM, cfg, params, served_prompts, served_tokens):
     ok = (mism == 0 and r_mism == 0
           and checked + r_checked >= MIN_DECIDED)
     log(f"parity: logits max err {worst:.3e} (tol {t:.3e}) over "
-        f"{batch}x{steps} teacher-forced steps, {checked} tokens decided "
+        f"{batch}x{steps} teacher-forced steps ({tf_cfg.n_layers} layers), "
+        f"{checked} tokens decided "
         f"by a top-2 gap > tol, {mism} differ; served replay "
         f"{REPLAY_ROWS}x{REPLAY_STEPS}: {r_checked} decided, {r_mism} "
         f"differ (at least {MIN_DECIDED} decided in all; "
@@ -1663,6 +1702,22 @@ def parity_batch(torch, cfg, batch: int, seq: int) -> dict:
     return b
 
 
+def train_depth(cfg, seq: int) -> int:
+    """Dependent roundings of one training step of ``cfg`` (forward and
+    backward), counted as the CPU tests count them: per layer the norm's
+    d_model, 3 per stage of each stack, the head's scores over head_dim
+    and keys, the MLP's three stacks (an MoE's expert stacks, its router
+    over the experts and its top-k combine) and the residual path."""
+    L_attn = cfg.attn_cfg(cfg.layers[0]).q_proj.spm_config().n_stages
+    ffn = cfg.moe_cfg().expert_ffn if cfg.n_experts else cfg.ffn_cfg()
+    L_ffn = ffn.gate.spm_config().n_stages
+    per_layer = (cfg.d_model + 3 * L_attn + 8 + cfg.head_dim + seq
+                 + 3 * L_attn + 3 * (3 * L_ffn + 4) + cfg.d_model)
+    if cfg.n_experts:
+        per_layer += cfg.n_experts + 4 * cfg.top_k
+    return 2 * (cfg.n_layers * per_layer + 2 * cfg.d_model)
+
+
 def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
                            seq=16, shards=0, overlap=False, cpu_side=None):
     """The same full-width weights, f32 activations, one step on the card
@@ -1701,12 +1756,7 @@ def run_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
     params = T.init_model(cfg, seed=0, device="cpu")
     card = copy.deepcopy(params).to(DEVICE)
     b = parity_batch(torch, cfg, batch, seq)
-    L_attn = cfg.attn_cfg(cfg.layers[0]).q_proj.spm_config().n_stages
-    L_ffn = cfg.ffn_cfg().gate.spm_config().n_stages
-    per_layer = (cfg.d_model + 3 * L_attn + 8 + cfg.head_dim + seq
-                 + 3 * L_attn + 3 * (3 * L_ffn + 4) + cfg.d_model)
-    depth = 2 * (cfg.n_layers * per_layer + 2 * cfg.d_model)
-    rel = 8 * math.sqrt(depth) * EPS["float32"]
+    rel = 8 * math.sqrt(train_depth(cfg, seq)) * EPS["float32"]
     t0 = time.perf_counter()
     out = {} if cpu_side is None else {"cpu": cpu_side}
     for side, p in (("cpu", params), ("card", card)):
@@ -2089,12 +2139,7 @@ def run_q8_train_parity_phase(torch, T, LM, train_mod, adamw, cfg, batch=2,
     params = T.init_model(cfg, seed=0, device="cpu")
     card = copy.deepcopy(params).to(DEVICE)
     b = parity_batch(torch, cfg, batch, seq)
-    L_attn = cfg.attn_cfg(cfg.layers[0]).q_proj.spm_config().n_stages
-    L_ffn = cfg.ffn_cfg().gate.spm_config().n_stages
-    per_layer = (cfg.d_model + 3 * L_attn + 8 + cfg.head_dim + seq
-                 + 3 * L_attn + 3 * (3 * L_ffn + 4) + cfg.d_model)
-    depth = 2 * (cfg.n_layers * per_layer + 2 * cfg.d_model)
-    rel = 8 * math.sqrt(depth) * EPS["float32"]
+    rel = 8 * math.sqrt(train_depth(cfg, seq)) * EPS["float32"]
     t0 = time.perf_counter()
     out, tapes = {}, {}
     for side, p in (("card", card), ("cpu", params)):
@@ -4459,6 +4504,9 @@ ARCH_PROMPT_DEFAULT = 256
 ARCH_TRAIN = (4, 512, 2)             # batch, seq, steps
 ARCH_PATCH_GRID = 16    # qwen2-vl-7b's training M-RoPE ids: 16 x 16 patches
 ARCH_BUDGET_S = 200
+ARCH_LAYERS = {"gemma3-12b": 12, "qwen2-vl-7b": 7, "musicgen-medium": 12,
+               "minitron-4b": 8, "qwen3-32b": 16}   # a quarter of each
+# depth (gemma3-12b's two 5:1 local:global groups), full width
 GEMMA_GROUP = 6         # one 5:1 local:global pattern group
 GEMMA_PROMPT = 1100     # the card-vs-CPU and continuous runs' longest
 CONT_SLOTS = 4
@@ -4562,11 +4610,12 @@ def run_lone_k2_phase(torch, K, timer):
 
 
 def run_arch_train(torch, K, ops, launch_train, arch, cfg):
-    """``ARCH_TRAIN`` steps of ``cfg`` at full width and depth through
-    ``launch.train.train`` (bf16; qwen2-vl-7b's embeddings with the M-RoPE
-    ids of a ``ARCH_PATCH_GRID`` patch grid): every loss finite, no step
-    skipped, grad norms finite and non-zero, K1-K4 launches equal to the
-    plan and K2's split-mode launches to ``planned_split_launches``."""
+    """``ARCH_TRAIN`` steps of ``cfg`` (full width, the depth it has)
+    through ``launch.train.train`` (bf16; qwen2-vl-7b's embeddings with
+    the M-RoPE ids of a ``ARCH_PATCH_GRID`` patch grid): every loss finite,
+    no step skipped, grad norms finite and non-zero, K1-K4 launches equal
+    to the plan and K2's split-mode launches to
+    ``planned_split_launches``."""
     batch, seq, steps = ARCH_TRAIN
     argv = ["--arch", arch, "--steps", str(steps), "--batch",
             str(batch), "--seq", str(seq), "--log-every", "1"]
@@ -4578,8 +4627,8 @@ def run_arch_train(torch, K, ops, launch_train, arch, cfg):
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    launch_train.train(args, on_step=lambda s, st, m, dt: (mets.append(m),
-                                                          secs.append(dt)))
+    launch_train.train(args, on_step=lambda s, st, m, dt: (
+        mets.append(m), secs.append(dt)), cfg=cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {k: v for k, v in q8_counts(K).items() if " " not in k}
@@ -4845,8 +4894,9 @@ def run_arch_kernel_cases(torch, K, ops, timer):
 
 def run_archs_phase(torch, K, ops, T, LM, ServeEngine, launch_train,
                     train_mod, adamw, timer):
-    """Phase 22: each of ``ARCHS`` at full width and depth from seed 0,
-    served (``run_serve_phase``: ``ARCH_ROWS`` rows, ``ARCH_NEW`` tokens,
+    """Phase 22: each of ``ARCHS`` at full width from seed 0, cut to
+    ``ARCH_LAYERS`` layers, served (``run_serve_phase``: ``ARCH_ROWS`` rows,
+    ``ARCH_NEW`` tokens,
     gemma3-12b's prompt past its rings) and trained (``run_arch_train``);
     gemma3-12b against the CPU and through the continuous engine at one
     pattern group; qwen2-vl-7b's training step against the CPU at 2 layers
@@ -4858,7 +4908,7 @@ def run_archs_phase(torch, K, ops, T, LM, ServeEngine, launch_train,
     out, failures = {"serve": {}, "train": {}}, []
     times = {}
     for arch in ARCHS:
-        cfg = get_config(arch)
+        cfg = cut_depth(get_config(arch), n=ARCH_LAYERS[arch])
         plen = ARCH_PROMPT.get(arch, ARCH_PROMPT_DEFAULT)
         windows = {s.window for s in cfg.layers if s.window}
         if any(plen <= w for w in windows):
@@ -4924,12 +4974,11 @@ SLICE_ARCHS = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e", "mamba2-370m",
 SLICE_SERVE = (4, 256, 32)     # rows, prompt, greedy tokens
 SLICE_TRAIN = (4, 512, 2)      # batch, seq, steps
 SLICE_BUDGET_S = 200
+SLICE_LAYERS = 12              # the served and trained depth, a quarter of
+# the MoE archs' and mamba2's 48 and two of zamba2's 6-layer groups
 MOE_PARITY_LAYERS = 2          # qwen3-moe's card-vs-CPU depth, of 48
 ZAMBA_GROUP = 6                # zamba2's: one group, the shared block first
 SLICE_PARITY = (2, 128)        # rows, tokens of the card-vs-CPU forwards
-PLAIN_REPS = 3                 # timed calls of an expert chain's plain
-                               # version (a loop over the experts: 0.1-0.5
-                               # s a call)
 
 
 def _runs(ops, lin, rows: int):
@@ -5040,9 +5089,9 @@ def slice_serve_launches(cfg, ops, batch: int, prompt: int,
 
 
 def run_slice_serve(torch, K, ops, T, ServeEngine, cfg):
-    """``ServeEngine.generate`` of ``SLICE_SERVE`` at full width and depth
-    from seed 0, bf16 KV cache: tokens in range and unflagged, K1 (its
-    expert mode counted apart) and K3 launches equal to
+    """``ServeEngine.generate`` of ``SLICE_SERVE`` with ``cfg`` (full width,
+    the depth it has) from seed 0, bf16 KV cache: tokens in range and
+    unflagged, K1 (its expert mode counted apart) and K3 launches equal to
     ``slice_serve_launches``.  Init s, prefill ms (the measured
     generate's prefill, synchronized on both sides), decode tokens/s (the
     rest of it), peak memory."""
@@ -5103,9 +5152,9 @@ def run_slice_serve(torch, K, ops, T, ServeEngine, cfg):
 
 
 def run_slice_train(torch, K, ops, launch_train, cfg):
-    """``SLICE_TRAIN`` steps through ``launch.train.train`` at full width
-    and depth, bf16: losses, aux and grad norms finite (aux > 0 for MoE),
-    no step skipped, every launch count equal to
+    """``SLICE_TRAIN`` steps of ``cfg`` (full width, the depth it has)
+    through ``launch.train.train``, bf16: losses, aux and grad norms finite
+    (aux > 0 for MoE), no step skipped, every launch count equal to
     ``slice_train_launches``.  Step ms, peak memory."""
     batch, seq, steps = SLICE_TRAIN
     args = launch_train.build_parser().parse_args(
@@ -5116,8 +5165,8 @@ def run_slice_train(torch, K, ops, launch_train, cfg):
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    launch_train.train(args, on_step=lambda s, st, m, dt: (mets.append(m),
-                                                          secs.append(dt)))
+    launch_train.train(args, on_step=lambda s, st, m, dt: (
+        mets.append(m), secs.append(dt)), cfg=cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = slice_counts(K)
@@ -5309,7 +5358,8 @@ def run_expert_kernel_cases(torch, K, ops, timer):
     plain versions, a second chain bitwise; K2 (training rows) g_x bit for
     bit and its grads within gamma_rows of one expert's rows.  At the
     training rows both chains are timed (L2 flushed, CUDA events, mean of
-    ``TIMED``) beside the plain versions, the bound (each expert's x and y
+    ``TIMED``) beside the plain versions (called once), the bound (each
+    expert's x and y
     moved once and its live table, 3 f32 operations an element and stage
     forward, 10 backward) and ``torch.bmm`` with dense per-expert weights
     (E, d_in, d_out) (for K2 its two products), which the port never
@@ -5391,7 +5441,9 @@ def run_expert_kernel_cases(torch, K, ops, timer):
                 if train and timer is not None:
                     ms = timer(lambda: ops.forward_runs(
                         x, cf, runs, d_in, d_out, None, *widths))
-                    plain_ms = timer(plain_chain, reps=PLAIN_REPS)
+                    # a loop over the experts (0.1-0.5 s a call), called
+                    # once, warm from the check above
+                    plain_ms = timer(plain_chain, reps=1, warm=0)
                     w = torch.randn(E, lin.d_in, lin.d_out, generator=g,
                                     device=DEVICE).bfloat16()
                     lib_ms = timer(lambda: torch.bmm(x, w))
@@ -5445,7 +5497,7 @@ def run_expert_kernel_cases(torch, K, ops, timer):
                         kms = timer(lambda: ops.backward_runs(
                             K.spm_stack_bwd_kernel_call, *args))
                         kplain = timer(lambda: ops.backward_runs(
-                            K.spm_stack_bwd_plain, *args), reps=PLAIN_REPS)
+                            K.spm_stack_bwd_plain, *args), reps=1, warm=0)
                         w = torch.randn(E, lin.d_in, lin.d_out, generator=g,
                                         device=DEVICE).bfloat16()
                         klib = timer(lambda: (
@@ -5479,8 +5531,9 @@ def run_expert_kernel_cases(torch, K, ops, timer):
 
 
 def run_slice_phase(torch, K, ops, T, LM, ServeEngine, launch_train, timer):
-    """Phase 23: each of ``SLICE_ARCHS`` at full width and depth from seed
-    0, served (``run_slice_serve``) and trained (``run_slice_train``);
+    """Phase 23: each of ``SLICE_ARCHS`` at full width from seed 0, cut to
+    ``SLICE_LAYERS`` layers, served (``run_slice_serve``) and trained
+    (``run_slice_train``);
     qwen3-moe at 2 layers and zamba2 at one group against the CPU; K1 and
     K2 in the expert mode at every shape of the main path
     (``run_expert_kernel_cases``) and in their other modes at every other
@@ -5489,7 +5542,7 @@ def run_slice_phase(torch, K, ops, T, LM, ServeEngine, launch_train, timer):
     from repro_torch.configs import get_config
     out, failures, times = {"serve": {}, "train": {}}, [], {}
     for arch in SLICE_ARCHS:
-        cfg = get_config(arch)
+        cfg = cut_depth(get_config(arch), n=SLICE_LAYERS)
         log(f"-- {arch}: {cfg.n_layers} layers, d={cfg.d_model}, mixers "
             f"{sorted({s.mixer for s in cfg.layers})}, mlps "
             f"{sorted({s.mlp for s in cfg.layers})}, experts "
@@ -5543,6 +5596,873 @@ def run_slice_phase(torch, K, ops, T, LM, ServeEngine, launch_train, timer):
     times["K1 K2"] = time.perf_counter() - t
     out["seconds"] = times
     log("phase 23 parts: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in times.items()))
+    return out, rows, failures
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the MoE archs under --quantize and feature sharding
+# ---------------------------------------------------------------------------
+
+MODES_ARCH = "qwen3-moe-30b-a3b"
+MODES_TRAIN = (4, 512, 2)      # batch, seq, steps of each training run
+MODES_BUDGET_S = 150
+MODES_PEAK_GIB = 75            # a sharded run whose peak passes this
+MODES_CUT_LAYERS = 24          # reruns at this depth (of 48)
+
+
+def modes_counts(K) -> dict:
+    """Every launch count phase 24 holds to its plan."""
+    out = {}
+    for tag, fn in (("K1", K.spm_stack_kernel_call),
+                    ("K2", K.spm_stack_bwd_kernel_call)):
+        out.update({tag: fn.launches, f"{tag} int8": fn.int8_launches,
+                    f"{tag} int8 io": fn.int8_io_launches,
+                    f"{tag} col_base": fn.window_launches,
+                    f"{tag} expert": fn.expert_launches,
+                    f"{tag} expert int8": fn.expert_int8_launches,
+                    f"{tag} expert col_base": fn.expert_window_launches})
+    for tag, fn in (("K5", K.spm_overlap_kernel_call),
+                    ("K6", K.spm_overlap_bwd_kernel_call)):
+        out.update({tag: fn.launches, f"{tag} int8": fn.int8_launches,
+                    f"{tag} col_base": fn.window_launches,
+                    f"{tag} expert": fn.expert_launches})
+    out["K3"] = K.spm_block_kernel_call.launches
+    out["K4"] = K.spm_block_bwd_kernel_call.launches
+    return out
+
+
+def _zero_counts() -> dict:
+    keys = []
+    for tag in ("K1", "K2"):
+        keys += [tag] + [f"{tag} {m}" for m in (
+            "int8", "int8 io", "col_base", "expert", "expert int8",
+            "expert col_base")]
+    for tag in ("K5", "K6"):
+        keys += [tag] + [f"{tag} {m}" for m in ("int8", "col_base",
+                                                "expert")]
+    return dict.fromkeys(keys + ["K3", "K4"], 0)
+
+
+def modes_forward_plan(cfg, ops, n_tok: int) -> dict:
+    """The launches of one forward of ``cfg`` (quantized or sharded, so no
+    linear block-fuses) over ``n_tok`` tokens, the backward's own remat
+    runs (``bwd remat``) beside them.  Unsharded: K1 once a planned run,
+    int8 tables everywhere under ``spm_quant_coeffs``, int8 activations
+    where a linear's plan allows (``quant_acts_eligible``).  Sharded:
+    ``linear_plan`` of each linear (K1 a shard and run, or K5 a fused
+    pair, windowed where the input is narrower than n); every launch reads
+    an int8 table under ``spm_quant_coeffs`` and none moves int8
+    activations.  Expert launches (one for all experts) counted apart."""
+    from repro_torch.core.eligibility import quant_acts_eligible
+    out = _zero_counts()
+    out["K1 bwd remat"] = out["K1 expert bwd remat"] = 0
+    q_cf, q_io = cfg.spm_quant_coeffs, cfg.spm_quant_acts
+    for _, lin, rows, expert in slice_linears(cfg, n_tok)[0]:
+        if lin.spm_config().n_shards > 1:
+            p = linear_plan(lin, rows)
+            k1, k1w, remat = p["K1"], p["K1 col_base"], p["K1 bwd remat"]
+            k5, k5w, io = p["K5"], p["K5 col_base"], 0
+        else:
+            runs = _runs(ops, lin, rows)
+            k1, k1w, remat, k5, k5w = len(runs), 0, 0, 0, 0
+            io = k1 if q_io and quant_acts_eligible(runs) else 0
+        add = {"K1": k1, "K1 int8": k1 if q_cf else 0, "K1 int8 io": io,
+               "K1 col_base": k1w, "K1 bwd remat": remat, "K5": k5,
+               "K5 int8": k5 if q_cf else 0, "K5 col_base": k5w}
+        if expert:
+            add.update({"K1 expert": k1, "K1 expert int8": add["K1 int8"],
+                        "K1 expert col_base": k1w,
+                        "K1 expert bwd remat": remat, "K5 expert": k5})
+        for k, v in add.items():
+            out[k] += v
+    return out
+
+
+def modes_train_plan(cfg, ops, n_tok: int) -> dict:
+    """One training step: the forward twice (remat) plus the sharded
+    backward's remat runs; K2 once per forward K1 launch and K6 once per
+    K5, each in the same modes; no K3/K4."""
+    f = modes_forward_plan(cfg, ops, n_tok)
+    m = 2 if cfg.remat else 1
+    out = _zero_counts()
+    for k in out:
+        tag, rest = k.split(" ", 1) if " " in k else (k, "")
+        if tag in ("K1", "K5"):
+            out[k] = m * f[k]
+        elif tag == "K2":
+            out[k] = f[("K1 " + rest).strip()]
+        elif tag == "K6":
+            out[k] = f[("K5 " + rest).strip()]
+    out["K1"] += f["K1 bwd remat"]
+    out["K1 int8"] += f["K1 bwd remat"] if cfg.spm_quant_coeffs else 0
+    out["K1 expert"] += f["K1 expert bwd remat"]
+    out["K1 expert int8"] += (f["K1 expert bwd remat"]
+                              if cfg.spm_quant_coeffs else 0)
+    return out
+
+
+def modes_serve_plan(cfg, ops, batch: int, prompt: int, new: int) -> dict:
+    """One ``generate``: the prefill's forward over batch x prompt tokens
+    and ``new - 1`` decode forwards of ``batch`` rows."""
+    pre = modes_forward_plan(cfg, ops, batch * prompt)
+    dec = modes_forward_plan(cfg, ops, batch)
+    return {k: pre[k] + (new - 1) * dec[k] for k in _zero_counts()}
+
+
+def run_modes_train(torch, K, ops, T, LM, train_mod, adamw, launch_train,
+                    cfg, quantize=False, shards=0, overlap=False,
+                    label=""):
+    """``MODES_TRAIN`` training steps of full-width ``cfg``, bf16, from
+    seed 0: unsharded through ``launch.train.train`` (``quantize``: its
+    ``--quantize``), or with ``shards`` as phase 13 drives them
+    (``with_feature_sharding`` and ``make_train_step`` under
+    ``activation_sharding`` of a mesh of that many shards on the card;
+    ``overlap``: ``with_overlap_executor``; ``quantize``:
+    ``with_quantized_io``; launch.train's batches, seed and optimizer).
+    Losses, aux (> 0) and grad norms finite, no step skipped, every launch
+    count equal to ``modes_train_plan``.  Step ms, peak memory.  A sharded
+    run whose peak passes ``MODES_PEAK_GIB`` (or that runs out of memory)
+    reruns at ``MODES_CUT_LAYERS`` layers."""
+    from repro_torch.configs import (with_feature_sharding,
+                                     with_overlap_executor,
+                                     with_quantized_io)
+    from repro_torch.data import DeterministicLoader, build_corpus
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    batch, seq, steps = MODES_TRAIN
+    args = launch_train.build_parser().parse_args(
+        ["--arch", cfg.name, "--steps", str(steps), "--batch", str(batch),
+         "--seq", str(seq), "--log-every", "1"]
+        + (["--quantize"] if quantize else []))
+    rcfg = cfg
+    if shards:
+        rcfg = with_feature_sharding(rcfg, shards)
+    if overlap:
+        rcfg = with_overlap_executor(rcfg, True)
+    if quantize:
+        rcfg = with_quantized_io(rcfg)
+    full_peak = None
+    for layers in (cfg.n_layers, MODES_CUT_LAYERS):
+        run_cfg = (rcfg if layers == cfg.n_layers
+                   else cut_depth(rcfg, n=layers))
+        mets, secs = [], []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            if not shards:
+                launch_train.train(args, on_step=lambda s, st, m, dt: (
+                    mets.append(m), secs.append(dt)))
+            else:
+                loader = DeterministicLoader(
+                    launch_train.make_batch_fn(
+                        run_cfg, seq, build_corpus(200_000, seed=args.seed)),
+                    batch, seed=args.seed)
+                step_fn = train_mod.make_train_step(
+                    lambda p, b: LM.lm_loss(p, b, run_cfg),
+                    adamw.OptimizerConfig(lr=args.lr, total_steps=steps,
+                                          warmup_steps=1),
+                    chaos_guard=True)
+                state = train_mod.make_train_state(
+                    T.init_model(run_cfg, seed=args.seed, device=DEVICE))
+                mesh = make_feature_mesh(shards, device=DEVICE)
+                with activation_sharding(mesh, shard_feature=True):
+                    for s in range(steps):
+                        b = {k: v.to(DEVICE)
+                             for k, v in loader.batch_at(s).items()}
+                        t = time.perf_counter()
+                        state, m = step_fn(state, b, 0.0)
+                        mets.append(LM.train_metrics(m))
+                        secs.append(time.perf_counter() - t)
+                del state
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        except torch.cuda.OutOfMemoryError:
+            peak = None
+        if not shards or (peak is not None
+                          and peak <= MODES_PEAK_GIB * 2 ** 30):
+            break
+        full_peak = peak
+        seen = ("out of memory" if peak is None
+                else f"{peak / 2**30:.2f} GiB")
+        log(f"{label}: peak {seen} at {layers} layers; again at "
+            f"{MODES_CUT_LAYERS}")
+    wall = time.perf_counter() - t0
+    got = modes_counts(K)
+    per = modes_train_plan(run_cfg, ops, batch * seq)
+    want = {k: steps * v for k, v in per.items()}
+    vals = [m[k] for m in mets for k in ("loss", "aux", "grad_norm")]
+    ok = (peak is not None and len(mets) == steps and got == want
+          and all(math.isfinite(v) for v in vals)
+          and all(m["grad_norm"] > 0 and m["aux"] > 0 for m in mets)
+          and not any(m["skipped"] for m in mets))
+    res = dict(label=label, layers=run_cfg.n_layers, shards=shards,
+               overlap=overlap, quantize=quantize, batch=batch, seq=seq,
+               steps=steps, losses=[m["loss"] for m in mets],
+               aux=[m["aux"] for m in mets],
+               grad_norms=[m["grad_norm"] for m in mets], step_s=secs,
+               step_ms_last=secs[-1] * 1e3 if secs else None,
+               tokens_per_s=batch * seq / secs[-1] if secs else None,
+               wall_s=wall, peak_mem_bytes=peak,
+               full_depth_peak_bytes=full_peak, launches=got, planned=want,
+               planned_per_step=per, ok=ok)
+    log(f"{label} train ({run_cfg.n_layers} layers"
+        f"{f', {shards} shards' if shards else ''}): {steps} steps of "
+        f"{batch} x {seq} bf16, losses {[round(v, 4) for v in res['losses']]}"
+        f", aux {[round(v, 4) for v in res['aux']]}, grad norms "
+        f"{[round(v, 4) for v in res['grad_norms']]}, step ms "
+        f"{[round(v * 1e3, 1) for v in secs]}, peak "
+        f"{(peak or 0) / 2**30:.2f} GiB, launches "
+        f"{ {k: v for k, v in got.items() if v or want[k]} } (planned "
+        f"{ {k: v for k, v in want.items() if v or got[k]} }) "
+        f"{'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return res, ok
+
+
+def run_modes_serve(torch, K, ops, T, ServeEngine, cfg):
+    """``ServeEngine.generate`` of ``SLICE_SERVE`` with the quantized model
+    (``with_quantized_io``) at full width and depth from seed 0, bf16 KV
+    cache: tokens in range and unflagged, launches equal to
+    ``modes_serve_plan`` (int8, int8-I/O and expert ones counted apart).
+    Prefill ms (the measured generate's prefill, synchronized), decode
+    tokens/s (the rest of it), peak memory."""
+    from repro_torch.configs import with_quantized_io
+    qcfg = with_quantized_io(cfg)
+    batch, plen, new = SLICE_SERVE
+    params = T.init_model(qcfg, seed=0, device=DEVICE)
+    eng = ServeEngine(cfg=qcfg, params=params, max_len=plen + new,
+                      cache_dtype=torch.bfloat16, device=DEVICE)
+    gen = torch.Generator().manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen)
+    eng.generate(prompts[:, :8], max_new_tokens=2)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    from repro_torch.models import causal_lm as LM
+    real, spans = LM.prefill, []
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t)
+        return out
+    LM.prefill = timed_prefill
+    try:
+        t = time.perf_counter()
+        tokens, flags = eng.generate(prompts, max_new_tokens=new,
+                                     return_flags=True)
+        torch.cuda.synchronize()
+        tn = time.perf_counter() - t
+    finally:
+        LM.prefill = real
+    t1 = spans[0]
+    got = modes_counts(K)
+    peak = torch.cuda.max_memory_allocated()
+    want = modes_serve_plan(qcfg, ops, batch, plen, new)
+    in_range = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    ok = (got == want and tuple(tokens.shape) == (batch, new) and in_range
+          and not bool(flags.any()))
+    res = dict(batch=batch, prompt_len=plen, new_tokens=new,
+               prefill_ms=t1 * 1e3,
+               decode_tok_per_s=batch * (new - 1) / (tn - t1),
+               generate_s=tn, peak_mem_bytes=peak, launches=got,
+               planned=want, ok=ok)
+    log(f"{cfg.name} int8 serve: prefill {t1 * 1e3:.1f} ms, decode "
+        f"{res['decode_tok_per_s']:.1f} tok/s, generate {tn:.2f} s, peak "
+        f"{peak / 2**30:.2f} GiB, launches "
+        f"{ {k: v for k, v in got.items() if v or want[k]} } (planned "
+        f"{ {k: v for k, v in want.items() if v or got[k]} }), in range="
+        f"{in_range} flagged={int(flags.sum())} {'ok' if ok else 'FAIL'}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return res, ok
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """Records every top-k routing decision, by device type: (router
+    logits, mask) in call order."""
+    from repro_torch.layers import moe as M
+    seen = {"cuda": [], "cpu": []}
+    real = M._top_k_gating
+
+    def record(logits, k):
+        gates, mask = real(logits, k)
+        seen[logits.device.type].append((logits.detach().cpu(),
+                                         mask.detach().cpu()))
+        return gates, mask
+    M._top_k_gating = record
+    try:
+        yield seen
+    finally:
+        M._top_k_gating = real
+
+
+def routing_agrees(seen, cfg):
+    """``run_moe_parity``'s routing check over recorded calls: (identical,
+    tokens routed otherwise, the worst such token's gap between its
+    router's k-th and (k+1)-th logits over the router dot's bound; <= 1
+    is a near-tie)."""
+    k, flips, worst, same = cfg.top_k, 0, 0.0, True
+    pairs = list(zip(seen["cuda"], seen["cpu"]))
+    if len(seen["cuda"]) != len(seen["cpu"]) or not pairs:
+        return False, -1, math.inf
+    for i, ((lg, mg), (lc, mc)) in enumerate(pairs):
+        diff = (mg != mc).any(-1)
+        if not bool(diff.any()):
+            continue
+        same = False
+        top = lc.sort(dim=-1, descending=True).values
+        gap = (top[..., k - 1] - top[..., k])[diff]
+        tol = 8 * (i + 1) * cfg.d_model * EPS["float32"] * (
+            lc.abs().max().item() + 1)
+        flips += int(diff.sum())
+        worst = max(worst, (gap / tol).max().item())
+    return same, flips, worst
+
+
+def modes_step(torch, LM, adamw, cfg, p, b, dev, shards=0, replay=None):
+    """One forward and backward of ``cfg`` on ``p`` at ``dev`` (under a
+    mesh of ``shards`` there, when given; the int8 chains under a
+    ``CodeTape`` replaying ``replay``'s codes, when given), then the first
+    AdamW update of its grads (``adamw_update``, the default config and
+    fresh moments, as ``make_train_step``'s first step) on the same
+    device.  Returns the loss, the grads and the updated params (on
+    ``dev``), the update's norm, whether the loss and grads are finite, the
+    launch counts (``modes_counts``) and the tape."""
+    from repro_torch.kernels import spm_stack as K
+    from repro_torch.kernels.codes import CodeTape
+    from repro_torch.parallel import activation_sharding, make_feature_mesh
+    ctx = (activation_sharding(make_feature_mesh(shards, device=dev),
+                               shard_feature=True)
+           if shards else contextlib.nullcontext())
+    p.trainable()
+    for q in p.parameters():
+        q.grad = None
+    K.reset_launch_counts()
+    with ctx, CodeTape(replay=replay) as tape:
+        loss, _ = LM.lm_loss(p, {k: v.to(dev) for k, v in b.items()}, cfg)
+        loss.backward()
+    counts = modes_counts(K)
+    values = {k: q.detach() for k, q in p.named_parameters()}
+    grads = {k: q.grad.detach().float() for k, q in p.named_parameters()}
+    finite = math.isfinite(loss.item()) and all(
+        bool(g.isfinite().all()) for g in grads.values())
+    with torch.no_grad():
+        p1, _, _ = adamw.adamw_update(values, grads,
+                                      adamw.init_opt_state(values),
+                                      adamw.OptimizerConfig())
+        moved = math.sqrt(sum(float(((p1[k] - values[k]) ** 2).sum())
+                              for k in p1))
+    return dict(loss=loss.item(), finite=finite, counts=counts, tape=tape,
+                grads=grads, p1=p1, moved=moved)
+
+
+def run_modes_parity(torch, T, LM, adamw, cfg):
+    """Card against CPU at ``MOE_PARITY_LAYERS`` layers of ``cfg``, full
+    width, f32, no remat, from the same seed-0 weights on both sides: one
+    ``modes_step`` a side of three models.  ``int8``
+    (``with_quantized_io``): the CPU replays the card's codes, phase 10's
+    criterion (each chain's output bit for bit, entry codes within one of
+    the card's, at most ``flip_budget`` flipped).  ``sharded``
+    (``with_feature_sharding(cut, SHARDS)``), phase 14's: the card runs
+    windowed K1 and K2 and no K3-K6.  ``overlap``
+    (``with_overlap_executor`` on top), phase 18's: the card runs K5 and K6,
+    windowed (every first pair fuses), and no K3/K4, against the sharded
+    case's CPU side.  The CPU launches nothing.  The loss, each grad
+    (relative norm) and the updated params (each side's AdamW on its own
+    device, compared on the card) are held to phase 7's f32 bound.  Routing is compared first (``routing_agrees``): where a token
+    is routed otherwise at a near-tie (gap over tol <= 1) the loss, grads
+    and update are not held to the bound; the launch counts, finiteness
+    and the code checks are held in every case, and a flip that is no
+    near-tie fails."""
+    from repro_torch.configs import (with_feature_sharding,
+                                     with_overlap_executor,
+                                     with_quantized_io)
+    # no remat: at 2 layers it saves nothing on the card and only doubles
+    # the CPU's forward (the same function either way)
+    cut = dataclasses.replace(cut_depth(cfg, n=MOE_PARITY_LAYERS),
+                              remat=False, dtype="float32")
+    sharded = with_feature_sharding(cut, SHARDS)
+    batch, seq = 2, 16
+    b = parity_batch(torch, cut, batch, seq)
+    rel = 8 * math.sqrt(train_depth(cut, seq)) * EPS["float32"]
+    cpu_p = T.init_model(cut, seed=0, device="cpu")
+    card_p = copy.deepcopy(cpu_p).to(DEVICE)   # every model's weights
+    out, ok_all, cpu_side = {}, True, None
+    for name, mcfg, shards, need in (
+            ("int8", with_quantized_io(cut), 0, ("K1 expert int8",
+                                                 "K2 expert int8")),
+            ("sharded", sharded, SHARDS, ("K1 col_base", "K2 col_base")),
+            ("overlap", with_overlap_executor(sharded, True), SHARDS,
+             ("K5", "K6", "K5 col_base", "K6 col_base"))):
+        t0 = time.perf_counter()
+        with routing_recorded() as seen:
+            a = modes_step(torch, LM, adamw, mcfg, card_p, b, DEVICE,
+                           shards)
+            if name != "overlap":     # the overlap case reuses the sharded
+                # case's CPU side (the same f32 function)
+                cpu_side = modes_step(
+                    torch, LM, adamw, mcfg, cpu_p, b, "cpu", shards,
+                    replay=a["tape"] if name == "int8" else None)
+                cpu_side["routing"] = seen["cpu"]
+                # compared on the card, where the sums are quick
+                for key in ("grads", "p1"):
+                    cpu_side[key] = {k: v.to(DEVICE)
+                                     for k, v in cpu_side[key].items()}
+        seen["cpu"] = cpu_side["routing"]
+        c = cpu_side
+        secs = time.perf_counter() - t0
+        same, flips, gap = routing_agrees(seen, cut)
+        loss_err = abs(a["loss"] - c["loss"])
+        worst_name, worst = None, 0.0
+        for k, gc in c["grads"].items():
+            num = (a["grads"][k] - gc).norm().item()
+            den = gc.norm().item()
+            r = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+            if r >= worst:
+                worst_name, worst = k, r
+        diff = math.sqrt(sum(float(((a["p1"][k] - c["p1"][k]) ** 2).sum())
+                             for k in c["p1"]))
+        bound_ok = (loss_err <= rel * abs(c["loss"]) and worst <= rel
+                    and diff <= rel * c["moved"])
+        ac = a["counts"]
+        none = ("K3", "K4") + (() if name == "overlap" else ("K5", "K6"))
+        launches_ok = (all(ac[k] > 0 for k in need)
+                       and all(ac[k] == 0 for k in none)
+                       and not any(c["counts"].values()))
+        codes = c["tape"].summary() if name == "int8" else None
+        codes_ok = codes is None or (
+            codes["chains"] == codes["recorded"] > 0
+            and codes["out_differ"] == 0 and codes["entry_max_diff"] <= 1
+            and codes["entry_flips"] <= flip_budget(rel, codes["codes"]))
+        ok = (launches_ok and codes_ok and a["finite"] and c["finite"]
+              and (bound_ok if same else gap <= 1))
+        res = dict(batch=batch, seq=seq, layers=cut.n_layers,
+                   shards=shards, loss_card=a["loss"], loss_cpu=c["loss"],
+                   loss_abs_err=loss_err, worst_grad_rel_err=worst,
+                   worst_grad=worst_name, params_diff_norm=diff,
+                   update_norm=c["moved"], rel_tol=rel,
+                   card_launches={k: v for k, v in ac.items() if v},
+                   codes=codes, finite=a["finite"] and c["finite"],
+                   routing_identical=same, flipped_tokens=flips,
+                   flip_gap_over_tol=gap, held_to_bound=same,
+                   cpu_reused=name == "overlap", seconds=secs, ok=ok)
+        log(f"{name} train parity ({cut.n_layers} layers, {batch} x {seq}): "
+            f"loss card {a['loss']:.6f} cpu {c['loss']:.6f} (err "
+            f"{loss_err:.2e}), worst grad rel err {worst:.2e} "
+            f"({worst_name}), params diff {diff:.3e} vs update "
+            f"{c['moved']:.3e}; tol {rel:.2e} relative; routing identical="
+            f"{same} (flipped {flips}, gap/tol {gap:.3f}); card launches "
+            f"{res['card_launches']}"
+            + (f"; {codes}" if codes else "")
+            + f" ({secs:.1f} s"
+            + (", the CPU side reused" if name == "overlap" else "")
+            + f") {'ok' if ok else 'FAIL'}")
+        out[name] = res
+        ok_all = ok_all and ok
+    return out, ok_all
+
+
+def _expert_table(torch, g, lead, n):
+    """Rotations plus noise, as ``init_spm`` draws them, (*lead, n/2, 4)."""
+    th = (torch.rand(*lead, n // 2, generator=g, device=DEVICE) * 2 - 1) \
+        * math.pi
+    cf = torch.stack([th.cos(), -th.sin(), th.sin(), th.cos()], -1)
+    return cf + 0.05 * torch.randn(*cf.shape, generator=g, device=DEVICE)
+
+
+def modes_kernel_cases():
+    """(kind, arch, label, LinearConfig, rows, train) of every new mode's
+    shape on phase 24's path: the int8 expert chains (qwen3-moe's gate/up
+    and down at a training step's, the prefill's and decode's rows a
+    expert; llama4-scout's at a training step's with int8 tables), the
+    windowed expert runs (the sharded first local run of a rectangular
+    expert input: qwen3-moe's down, n_local 512; llama4's gate, 2048) and
+    qwen3-moe's expert pairs (each expert linear's first {local -> cross}
+    pair at 4 shards, with int8 tables).  ``train``: a training step's
+    rows, where K2 and K6 are checked and the kernels timed."""
+    from repro_torch.configs import get_config, with_feature_sharding
+    from repro_torch.layers.moe import route_groups
+    tb, ts, _ = MODES_TRAIN
+    batch, plen, _ = SLICE_SERVE
+    out = []
+    for arch in SLICE_ARCHS[:2]:
+        mc = get_config(arch).moe_cfg()
+        smc = with_feature_sharding(get_config(arch), SHARDS).moe_cfg()
+        toks = ((tb * ts, batch * plen, batch) if arch == MODES_ARCH
+                else (tb * ts,))
+        for i, n_tok in enumerate(toks):
+            _, G, cap = route_groups(mc, n_tok)
+            for label in ("gate/up", "down"):
+                lin = getattr(mc.expert_ffn, label.split("/")[0])
+                out.append(("int8", arch, label, lin, G * cap, i == 0))
+        _, G, cap = route_groups(mc, tb * ts)
+        for label in ("gate/up", "down"):
+            lin = getattr(smc.expert_ffn, label.split("/")[0])
+            if lin.d_in < lin.spm_config().n:
+                out.append(("col_base", arch, label, lin, G * cap, True))
+            if arch == MODES_ARCH:
+                out.append(("pair", arch, label, lin, G * cap, True))
+    return out
+
+
+def run_modes_kernel_cases(torch, K, ops, Q, timer):
+    """Each new mode against its plain version at every shape of
+    ``modes_kernel_cases``, bf16, one launch a run for all experts: the
+    int8 expert chains (int8 activations where one expert's plan allows:
+    codes and scales bit for bit, K2's g_x bit for bit and its grads
+    within gamma_rows of one expert's rows), the windowed expert runs at
+    every shard with f32 and int8 tables (K1 and K2's g_x bit for bit),
+    the expert pairs through K5/K6 (K5 bit for bit, K6's g_x bit for bit,
+    its grads and sums within gamma_rows).  At a training step's rows the
+    kernel is timed (L2 flushed, CUDA events, mean of ``TIMED``) beside
+    the bound (each expert's x and y moved once and its table, 3 f32
+    operations an element and stage forward, 10 backward) and
+    ``torch.bmm`` over dense (E, d_in, d_out) weights (for the backward
+    its two products), which the port never calls; at the headline
+    shapes (qwen3-moe's gate/up, and its down's shard 0 for the windows)
+    beside its plain version too, called once (a loop over the
+    experts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.eligibility import plan_steps, quant_acts_eligible
+    rows_out, failures = [], []
+    g = torch.Generator(device=DEVICE).manual_seed(2424)
+    abs_sum = (lambda t: t.abs().sum(0))
+
+    def record(kernel, case, rows, E, err, ok, ms=None, plain_ms=None,
+               bms=None, bby=None, lib=None, **more):
+        rows_out.append(dict(kernel=kernel, case=case, dtype="bfloat16",
+                             rows=rows, experts=E, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                             library_ms=lib, ok=ok, **more))
+        log(f"{kernel} {case} E={E} rows={rows} err={err:.3e} "
+            + " ".join(f"{k}={v}" for k, v in more.items())
+            + f" ms={fmt_ms(ms)} plain_ms={fmt_ms(plain_ms)} bound_ms="
+            + (f"{bms:.4f} ({bby})" if bms is not None else "-")
+            + f" library_ms={fmt_ms(lib)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{kernel} {case} rows={rows}")
+
+    def timed(fn, plain=False):
+        # a plain version (a loop over the experts) is called once, at the
+        # headline shapes only
+        if not plain:
+            return timer(fn)
+        return timer(fn, reps=1, warm=0) if headline else None
+
+    for kind, arch, label, lin, rows, train in modes_kernel_cases():
+        headline = arch == MODES_ARCH and label == (
+            "down" if kind == "col_base" else "gate/up")
+        E = get_config(arch).n_experts
+        sc = lin.spm_config()
+        n = sc.n
+        case = f"{arch} {label}"
+        timing = train and timer is not None
+        x = torch.randn(E, rows, lin.d_in, generator=g,
+                        device=DEVICE).bfloat16()
+        w = None
+        if timing:
+            w = torch.randn(E, lin.d_in, lin.d_out, generator=g,
+                            device=DEVICE).bfloat16()
+        if kind == "int8":
+            runs = ops.plan_runs_for_rows(n, sc.pairing.strides(), rows)
+            L = sum(len(rs) for rs, _ in runs)
+            kcf, scf = Q.quantize_coeffs(_expert_table(torch, g, (E, L), n))
+            d_in = 1 + 0.1 * torch.randn(E, n, generator=g, device=DEVICE)
+            d_out = 1 + 0.1 * torch.randn(E, n, generator=g, device=DEVICE)
+            widths = (None if lin.d_in == n else lin.d_in,
+                      None if lin.d_out == n else lin.d_out)
+            q_io = quant_acts_eligible(runs)
+            sr = Q.scale_block_rows(runs, rows, 2) if q_io else None
+            z = (Q.quantize_blocks(ops._pad_rows(x, sr), sr, runs[0][1])
+                 if q_io else x)
+            rows_p = z[0].shape[1] if q_io else rows
+
+            def chain():
+                return ops.forward_runs(z, kcf, runs, d_in, d_out, None,
+                                        *widths, coeff_scale=scf,
+                                        scale_rows=sr)
+
+            def plain_chain():
+                p = z
+                for r, (rs, nt) in enumerate(runs):
+                    off = sum(len(q) for q, _ in runs[:r])
+                    last = r == len(runs) - 1
+                    xq, xs = p if q_io else (p, None)
+                    p = K.spm_stack_plain(
+                        xq, kcf[:, off: off + len(rs)],
+                        d_in if r == 0 else None, d_out if last else None,
+                        None, xs, scf[:, off: off + len(rs)].contiguous(),
+                        strides=rs, n_tile=nt,
+                        in_width=widths[0] if r == 0 else None,
+                        out_width=widths[1] if last else None,
+                        quant_out=q_io, scale_rows=sr)
+                return p
+            before = K.spm_stack_kernel_call.expert_int8_launches
+            y, saved = chain()
+            one_each = (K.spm_stack_kernel_call.expert_int8_launches - before
+                        == len(runs))
+            again, _ = chain()
+            want = plain_chain()
+            torch.cuda.synchronize()
+            ys = y if q_io else (y,)
+            ws, ags = (want if q_io else (want,)), (again if q_io
+                                                    else (again,))
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(ys, ws))
+            ok = (err == 0 and one_each
+                  and all(torch.equal(a, b) for a, b in zip(ys, ags)))
+            tiles_live = [(-(-(widths[1] or n) // nt) if r == len(runs) - 1
+                           else n // nt, rs, nt)
+                          for r, (rs, nt) in enumerate(runs)]
+            table = sum(E * len(rs) * t * nt // 2 * 4
+                        for t, rs, nt in tiles_live)
+            # the bound counts each expert's live rows; its padded rows
+            # (zeros the function does not need) are moved and computed
+            # by the kernel alone
+            esz = 1 if q_io else 2
+            io = E * rows * (lin.d_in + lin.d_out) * esz
+            flops = sum(E * rows * t * nt * (3 * len(rs) + 2)
+                        for t, rs, nt in tiles_live)
+            bms, bby = bound(io + table + 2 * E * n * 4, flops)
+            ms = pms = lib = None
+            if timing:
+                ms = timed(chain)
+                pms = timed(plain_chain, plain=True)
+                lib = timed(lambda: torch.bmm(x, w))
+            record("K1 expert int8", case, rows, E, err, ok, ms, pms, bms,
+                   bby, lib, int8_io=q_io, scale_rows=sr,
+                   runs=len(runs))
+            if train:
+                gy = torch.randn(E, rows_p, lin.d_out, generator=g,
+                                 device=DEVICE).bfloat16()
+                args = (saved, kcf, gy, runs, d_in, d_out, False, *widths)
+                kw = dict(coeff_scale=scf, scale_rows=sr)
+                before = K.spm_stack_bwd_kernel_call.expert_int8_launches
+                kern = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args,
+                                         **kw)
+                one_each = (K.spm_stack_bwd_kernel_call.expert_int8_launches
+                            - before == len(runs))
+                again = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args,
+                                          **kw)
+                plain = ops.backward_runs(K.spm_stack_bwd_plain, *args, **kw)
+                mags = ops.backward_runs(functools.partial(
+                    K.spm_stack_bwd_plain, col_sum=abs_sum), *args, **kw)
+                torch.cuda.synchronize()
+                gx_err = max((a[0].float() - p[0].float()).abs().max().item()
+                             for a, p in zip(kern, plain))
+                worst = max(grads_within(a[1:], p[1:], m[1:], rows_p)
+                            for a, p, m in zip(kern, plain, mags))
+                det = all(torch.equal(u, v) for a, c in zip(kern, again)
+                          for u, v in zip(a, c))
+                ok = gx_err == 0 and worst <= 1 and det and one_each
+                nbytes = (E * rows * lin.d_in * esz
+                          + E * rows * (lin.d_in + lin.d_out) * 2
+                          + table + table * 4 + 2 * 2 * E * n * 4)
+                bflops = sum(E * rows * t * nt * (10 * len(rs) + 6)
+                             for t, rs, nt in tiles_live)
+                kbms, kbby = bound(nbytes, bflops)
+                kms = kp = kl = None
+                if timing:
+                    kms = timed(lambda: ops.backward_runs(
+                        K.spm_stack_bwd_kernel_call, *args, **kw))
+                    kp = timed(lambda: ops.backward_runs(
+                        K.spm_stack_bwd_plain, *args, **kw), plain=True)
+                    gyr = gy[:, :rows]
+                    kl = timed(lambda: (torch.bmm(gyr, w.transpose(1, 2)),
+                                        torch.bmm(x.transpose(1, 2), gyr)))
+                record("K2 expert int8", case, rows, E, gx_err, ok, kms, kp,
+                       kbms, kbby, kl, grad_err_over_limit=round(worst, 4),
+                       deterministic=det)
+                del gy, kern, again, plain, mags
+            del kcf, scf, z, y, saved, want
+        elif kind == "col_base":
+            nl = n // SHARDS
+            steps = plan_steps(n, sc.pairing.strides(), SHARDS)
+            (rs, nt), *_ = ops.plan_runs_for_rows(nl, steps[0][2], rows)
+            for shard in range(SHARDS):
+                # the path's f32 tables (int8 ones: the GPU tests,
+                # ``test_expert_window_matches_plain``)
+                cf = _expert_table(torch, g, (E, len(rs)), nl)
+                d_in = 1 + 0.1 * torch.randn(E, nl, generator=g,
+                                             device=DEVICE)
+                kw = dict(strides=rs, n_tile=nt, in_width=lin.d_in,
+                          col_base=shard * nl // nt)
+                before = (K.spm_stack_kernel_call.expert_window_launches,
+                          K.spm_stack_bwd_kernel_call
+                          .expert_window_launches)
+                y = K.spm_stack_kernel_call(x, cf, d_in, **kw)
+                gy = torch.randn(E, rows, nl, generator=g,
+                                 device=DEVICE).bfloat16()
+                got = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, **kw)
+                one_each = (
+                    K.spm_stack_kernel_call.expert_window_launches
+                    - before[0] == 1 == K.spm_stack_bwd_kernel_call
+                    .expert_window_launches - before[1])
+                want = K.spm_stack_plain(x, cf, d_in, **kw)
+                ref = K.spm_stack_bwd_plain(x, cf, gy, d_in, **kw)
+                mags = K.spm_stack_bwd_plain(x, cf, gy, d_in,
+                                             col_sum=abs_sum, **kw)
+                torch.cuda.synchronize()
+                err = (y.float() - want.float()).abs().max().item()
+                gx_err = (got[0].float() - ref[0].float()).abs().max() \
+                    .item()
+                worst = grads_within(got[1:], ref[1:], mags[1:], rows)
+                ok1 = err == 0 and one_each
+                ok2 = gx_err == 0 and worst <= 1 and one_each
+                tabb = E * len(rs) * nl // 2 * 16
+                live = max(0, min(nl, lin.d_in - shard * nl))
+                fb = E * rows * (live + nl) * 2 + tabb + E * nl * 4
+                ff = E * rows * nl * (3 * len(rs) + 1)
+                bms, bby = bound(fb, ff)
+                kbms, kbby = bound(fb + E * rows * nl * 2 + tabb * 4,
+                                   E * rows * nl * (10 * len(rs) + 2))
+                ms = pms = lib = kms = kp = kl = None
+                if timing and shard == 0:
+                    xw = x[..., :nl].contiguous()
+                    ww = w[:, :nl, :nl].contiguous()
+                    ms = timed(lambda: K.spm_stack_kernel_call(
+                        x, cf, d_in, **kw))
+                    pms = timed(lambda: K.spm_stack_plain(
+                        x, cf, d_in, **kw), plain=True)
+                    lib = timed(lambda: torch.bmm(xw, ww))
+                    kms = timed(lambda: K.spm_stack_bwd_kernel_call(
+                        x, cf, gy, d_in, **kw))
+                    kp = timed(lambda: K.spm_stack_bwd_plain(
+                        x, cf, gy, d_in, **kw), plain=True)
+                    kl = timed(lambda: (
+                        torch.bmm(gy, ww.transpose(1, 2)),
+                        torch.bmm(xw.transpose(1, 2), gy)))
+                record("K1 expert col_base", f"{case} shard {shard}",
+                       rows, E, err, ok1, ms, pms, bms, bby, lib,
+                       n_local=nl)
+                record("K2 expert col_base", f"{case} shard {shard}",
+                       rows, E, gx_err, ok2, kms, kp, kbms, kbby, kl,
+                       grad_err_over_limit=round(worst, 4))
+                del cf, y, gy, got, want, ref, mags
+        else:   # the expert pair, K5 and K6, int8 tables
+            S, nl = SHARDS, n // SHARDS
+            steps = plan_steps(n, sc.pairing.strides(), S)
+            (rs, nt), = ops.plan_runs(nl, steps[0][2])
+            k = steps[1][2]
+            in_w = lin.d_in if lin.d_in < n else None
+            cf, scf = Q.quantize_coeffs(_expert_table(
+                torch, g, (S, E, len(rs)), nl))
+            ma, mb, u, v, d_in = (1 + 0.1 * torch.randn(
+                E, n, generator=g, device=DEVICE) for _ in range(5))
+            xp = torch.randn(E, rows, in_w or n, generator=g,
+                             device=DEVICE).bfloat16()
+            gy = torch.randn(E, rows, n, generator=g,
+                             device=DEVICE).bfloat16()
+            kw = dict(strides=rs, n_tile=nt, k=k, in_width=in_w)
+            before = (K.spm_overlap_kernel_call.expert_launches,
+                      K.spm_overlap_bwd_kernel_call.expert_launches)
+            y = K.spm_overlap_kernel_call(xp, cf, ma, mb, d_in, None, None,
+                                          scf, **kw)
+            got = K.spm_overlap_bwd_kernel_call(xp, cf, gy, u, v, d_in,
+                                                None, scf, **kw)
+            one_each = (K.spm_overlap_kernel_call.expert_launches
+                        - before[0] == 1 == K.spm_overlap_bwd_kernel_call
+                        .expert_launches - before[1])
+            again = K.spm_overlap_kernel_call(xp, cf, ma, mb, d_in, None,
+                                              None, scf, **kw)
+            want = K.spm_overlap_plain(xp, cf, ma, mb, d_in, None, None, scf,
+                                       **kw)
+            ref = K.spm_overlap_bwd_plain(xp, cf, gy, u, v, d_in, None, scf,
+                                          **kw)
+            mags = K.spm_overlap_bwd_plain(xp, cf, gy, u, v, d_in, None, scf,
+                                           col_sum=abs_sum, **kw)
+            torch.cuda.synchronize()
+            err = (y.float() - want.float()).abs().max().item()
+            gx_err = (got[0].float() - ref[0].float()).abs().max().item()
+            worst = grads_within(got[1:], ref[1:], mags[1:], rows)
+            ok5 = err == 0 and one_each and torch.equal(y, again)
+            ok6 = gx_err == 0 and worst <= 1 and one_each
+            tabb = S * E * len(rs) * nl // 2 * 4
+            fb = E * rows * ((in_w or n) + n) * 2 + tabb + 3 * E * n * 4
+            bms, bby = bound(fb, E * rows * n * (3 * len(rs) + 3))
+            kbms, kbby = bound(fb + E * rows * n * 2 + tabb * 4
+                               + 4 * E * n * 4,
+                               E * rows * n * (10 * len(rs) + 8))
+            ms = pms = lib = kms = kp = kl = None
+            if timing:
+                wp = torch.randn(E, in_w or n, n, generator=g,
+                                 device=DEVICE).bfloat16()
+                ms = timed(lambda: K.spm_overlap_kernel_call(
+                    xp, cf, ma, mb, d_in, None, None, scf, **kw))
+                pms = timed(lambda: K.spm_overlap_plain(
+                    xp, cf, ma, mb, d_in, None, None, scf, **kw),
+                    plain=True)
+                lib = timed(lambda: torch.bmm(xp, wp))
+                kms = timed(lambda: K.spm_overlap_bwd_kernel_call(
+                    xp, cf, gy, u, v, d_in, None, scf, **kw))
+                kp = timed(lambda: K.spm_overlap_bwd_plain(
+                    xp, cf, gy, u, v, d_in, None, scf, **kw), plain=True)
+                kl = timed(lambda: (torch.bmm(gy, wp.transpose(1, 2)),
+                                    torch.bmm(xp.transpose(1, 2), gy)))
+                del wp
+            record("K5 expert", case + " int8 table", rows, E, err, ok5, ms,
+                   pms, bms, bby, lib, n_local=nl, k=k,
+                   window=in_w is not None)
+            record("K6 expert", case + " int8 table", rows, E, gx_err, ok6,
+                   kms, kp, kbms, kbby, kl,
+                   grad_err_over_limit=round(worst, 4))
+            del cf, scf, xp, gy, y, got, again, want, ref, mags
+        del x, w
+        torch.cuda.empty_cache()
+    return rows_out, failures
+
+
+def run_modes_phase(torch, K, ops, Q, T, LM, ServeEngine, train_mod, adamw,
+                    launch_train, timer):
+    """Phase 24: ``MODES_ARCH`` at full width and depth from seed 0 under
+    the reference's operator knobs: two ``launch.train --quantize``
+    steps, quantized serving, two steps of ``with_feature_sharding(cfg,
+    4)`` on a 4-shard mesh on the card, and two of
+    ``with_overlap_executor(with_quantized_io(with_feature_sharding(cfg,
+    4)))`` (K5/K6 over the expert axis, int8 tables); then the card
+    against the CPU at ``MOE_PARITY_LAYERS`` layers
+    (``run_modes_parity``), and every new mode against its plain version
+    (``run_modes_kernel_cases``).  Returns (results, kernel rows,
+    failures)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MODES_ARCH)
+    out, failures, times = {}, [], {}
+    common = (torch, K, ops, T, LM, train_mod, adamw, launch_train, cfg)
+    for name, kw in (("int8 train", dict(quantize=True)),
+                     ("sharded train", dict(shards=SHARDS)),
+                     ("int8 overlap train", dict(shards=SHARDS, overlap=True,
+                                                 quantize=True))):
+        t = time.perf_counter()
+        out[name], ok = run_modes_train(*common, label=name, **kw)
+        times[name] = time.perf_counter() - t
+        if not ok:
+            failures.append(f"phase 24 {name}")
+        if name == "int8 train":
+            t = time.perf_counter()
+            out["int8 serve"], ok = run_modes_serve(torch, K, ops, T,
+                                                    ServeEngine, cfg)
+            times["int8 serve"] = time.perf_counter() - t
+            if not ok:
+                failures.append("phase 24 int8 serve")
+    t = time.perf_counter()
+    out["parity"], ok = run_modes_parity(torch, T, LM, adamw, cfg)
+    times["parity"] = time.perf_counter() - t
+    if not ok:
+        failures.append("phase 24 card vs CPU")
+    t = time.perf_counter()
+    with torch.inference_mode():     # no autograd around the kernel checks
+        rows, kfail = run_modes_kernel_cases(torch, K, ops, Q, timer)
+    failures += kfail
+    times["kernels"] = time.perf_counter() - t
+    out["seconds"] = times
+    log("phase 24 parts: " + ", ".join(f"{k} {v:.1f} s"
                                        for k, v in times.items()))
     return out, rows, failures
 
@@ -5696,6 +6616,14 @@ def main() -> int:
     if phase_s["23"] > SLICE_BUDGET_S:
         failures.append(f"phase 23 took {phase_s['23']:.1f} s of its "
                         f"{SLICE_BUDGET_S} s")
+    modes, modes_rows, modes_failures = phase(
+        "24", run_modes_phase, torch, K, ops, Q, T, LM, ServeEngine,
+        train_mod, adamw, launch_train, timer)
+    kernel_rows += modes_rows
+    failures += modes_failures
+    if phase_s["24"] > MODES_BUDGET_S:
+        failures.append(f"phase 24 took {phase_s['24']:.1f} s of its "
+                        f"{MODES_BUDGET_S} s")
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -5821,6 +6749,43 @@ def main() -> int:
                             if x["kernel"] == key),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # the new expert modes of phase 24: launches from its runs (the int8
+    # ones from the --quantize steps and the quantized serve, the windowed
+    # ones from the step-serial sharded steps, K5/K6 from the int8 overlap
+    # steps); times at qwen3-moe's training rows a expert
+    _, G, cap = route_groups(moe.moe_cfg(), MODES_TRAIN[0] * MODES_TRAIN[1])
+    runs24 = {"int8": ("int8 train", "int8 serve"),
+              "col_base": ("sharded train",),
+              "pair": ("int8 overlap train",)}
+    for name, key, src, rep_, kind, case in (
+            ("K1 expert int8 spm_stack_fwd", "K1 expert int8",
+             "src/repro_torch/kernels/csrc/spm_stack.cu", "157", "int8",
+             f"{MODES_ARCH} gate/up"),
+            ("K2 expert int8 spm_stack_bwd", "K2 expert int8",
+             "src/repro_torch/kernels/csrc/spm_stack_bwd.cu", "523", "int8",
+             f"{MODES_ARCH} gate/up"),
+            ("K1 expert col_base spm_stack_fwd", "K1 expert col_base",
+             "src/repro_torch/kernels/csrc/spm_stack.cu", "393", "col_base",
+             f"{MODES_ARCH} down shard 0"),
+            ("K2 expert col_base spm_stack_bwd", "K2 expert col_base",
+             "src/repro_torch/kernels/csrc/spm_stack_bwd.cu", "664",
+             "col_base", f"{MODES_ARCH} down shard 0"),
+            ("K5 expert spm_overlap_fwd", "K5 expert",
+             "src/repro_torch/kernels/csrc/spm_overlap.cu", "1319", "pair",
+             f"{MODES_ARCH} gate/up int8 table"),
+            ("K6 expert spm_overlap_bwd", "K6 expert",
+             "src/repro_torch/kernels/csrc/spm_overlap_bwd.cu", "1479",
+             "pair", f"{MODES_ARCH} gate/up int8 table")):
+        r = head(key, case, "bfloat16", G * cap)
+        entries.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=f"src/repro/kernels/spm_stack.py:{rep_}",
+            launches=sum(modes[run]["launches"][key]
+                         for run in runs24[kind]),
+            max_abs_err=max(x["max_abs_err"] for x in kernel_rows
+                            if x["kernel"] == key),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     # the continuous engine's launches (phase 20, the serve at the busiest
     # load; the int8 and overlap runs at their cut depth)
     busiest = cont["loads"][max(CB_LOADS)]["launches"]
@@ -5841,7 +6806,7 @@ def main() -> int:
                   overlap=overlap, int8_overlap=q8_overlap,
                   overlap_train_parity=oparity,
                   paper=paper, continuous=cont, chaos=chaos, archs=archs,
-                  moe_ssm=slice_out,
+                  moe_ssm=slice_out, moe_modes=modes,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",
@@ -5872,7 +6837,27 @@ def main() -> int:
                                                 "gate/up experts (128, n "
                                                 "2048, 11 stages, out 768), "
                                                 "bf16, 160 rows a expert",
-                                   "K2 expert": "the same"})
+                                   "K2 expert": "the same",
+                                   "K1 expert int8": "qwen3-moe-30b-a3b's "
+                                                     "gate/up experts, int8 "
+                                                     "activations and "
+                                                     "tables, 160 rows a "
+                                                     "expert",
+                                   "K2 expert int8": "the same",
+                                   "K1 expert col_base": "qwen3-moe-30b-a3b's "
+                                                         "down experts, shard "
+                                                         "0 of 4 (n_local 512"
+                                                         " of in_width 768), "
+                                                         "bf16, 160 rows a "
+                                                         "expert",
+                                   "K2 expert col_base": "the same",
+                                   "K5 expert": "qwen3-moe-30b-a3b's "
+                                                "gate/up experts' first pair "
+                                                "over 4 shards (n_local 512,"
+                                                " 9 stages, k=1), int8 "
+                                                "tables, bf16, 160 rows a "
+                                                "expert",
+                                   "K6 expert": "the same"})
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -352,9 +352,9 @@ def spm_apply(params, x: torch.Tensor, cfg: SPMConfig, *,
 
     Params stacked over a leading expert axis (an MoE's experts: tables
     (E, L, n/2, 4), vectors (E, n)) take x (E, ..., width): the kernel path
-    runs each run of all experts in one expert-mode launch; the
-    composition runs them one at a time.  Sharding takes no expert
-    axis."""
+    runs each run of all experts in one expert-mode launch, the sharded
+    executor each step of all experts at once; the composition runs them
+    one at a time."""
     n = cfg.n
     table = params["theta" if cfg.variant == "rotation" else "mix"]
     if table.dim() == (3 if cfg.variant == "rotation" else 4):
@@ -410,9 +410,11 @@ def _spm_apply_experts(params, x: torch.Tensor, cfg: SPMConfig, in_width,
                          f"{tuple(x.shape)}")
     if cfg.n_shards > 1:
         from repro_torch.parallel import ctx as par_ctx
-        if par_ctx.feature_mesh(cfg.n_shards) is not None:
-            from repro_torch.kernels.spm_stack import _EXPERT_LATER
-            raise NotImplementedError(_EXPERT_LATER)
+        mesh = par_ctx.feature_mesh(cfg.n_shards)
+        if mesh is not None and sharded_eligible(cfg, cfg.pairing):
+            from repro_torch.parallel import spm_shard
+            return spm_shard.spm_apply_sharded(
+                params, x, cfg, mesh, in_width=in_width, out_width=out_width)
     if use_fused_kernel(cfg, cfg.pairing):
         from repro_torch.kernels import ops as kernel_ops
         return kernel_ops.spm_stack_fused(

@@ -2,10 +2,11 @@
 
 Each source in ``csrc/`` (one per kernel) is compiled by its own ``nvcc``
 into a shared library with a plain C interface; all sources compile
-concurrently.  Builds go to ``_build/`` beside this file (listed in
-``.gitignore``), keyed by a hash of the sources and flags, so a checkout
-builds what it needs and a changed source rebuilds.  Nothing is built when
-the module is imported.
+concurrently, the longest spreading their kernels' optimization over the
+cores (``SPLIT_COMPILE``).  Builds go to ``_build/`` beside this file
+(listed in ``.gitignore``), keyed by a hash of the sources and flags, so a
+checkout builds what it needs and a changed source rebuilds.  Nothing is
+built when the module is imported.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["BuildError", "SOURCES", "NVCC_FLAGS", "build_all", "load_all",
-           "library", "build_log"]
+__all__ = ["BuildError", "SOURCES", "NVCC_FLAGS", "SPLIT_COMPILE",
+           "build_all", "load_all", "library", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -33,6 +34,11 @@ SOURCES = {"spm_stack": "spm_stack.cu", "spm_stack_bwd": "spm_stack_bwd.cu",
            "spm_overlap_bwd": "spm_overlap_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Sources whose kernels nvcc optimizes on every core (-split-compile 0): K3's
+# many instantiations took 210.5 s alone and 87.3 s split on the H100
+# machine, K1's 93.6 s and 56.7 s, their kernels as fast.  Not K2's: split,
+# its bf16 o run took 0.6463 ms against 0.5315.
+SPLIT_COMPILE = {"spm_stack", "spm_block"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,16 +58,21 @@ def _nvcc() -> str:
     return path
 
 
-def _digest(src: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / src]:
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + (["-split-compile", "0"] if name in SPLIT_COMPILE
+                         else [])
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
 def _target(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest(SOURCES[name])}.so"
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
 def build_all() -> Dict[str, float]:
@@ -76,18 +87,27 @@ def build_all() -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
     secs = {name: 0.0 for name in SOURCES}
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        text, _ = proc.communicate()
+
+    def wait(name, proc, t0):
+        # one thread a compiler: each source's own wall seconds
+        _log[name] = proc.communicate()[0]
         secs[name] = time.perf_counter() - t0
-        _log[name] = text
+    waiters = [threading.Thread(target=wait, args=(name, proc, t0))
+               for name, (proc, _, _, t0) in procs.items()]
+    for t in waiters:
+        t.start()
+    for t in waiters:
+        t.join()
+    for name, (proc, tmp, out, _) in procs.items():
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+                          f"{_log[name]}")
             continue
         os.replace(tmp, out)       # atomic: a half-written .so never loads
     if failed:

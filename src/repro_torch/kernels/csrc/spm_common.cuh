@@ -83,6 +83,18 @@ struct SpmQCoeffs {
   }
 };
 
+// Expert `e`'s table in an expert stack (the reference's `jax.vmap` over
+// the MoE expert axis): its pairs cf_es on, and an int8 table's row of the
+// contiguous (E, L) stage scales.
+__host__ __device__ __forceinline__ const float4* spm_cf_expert(
+    const float4* cf, long e, long cf_es, int) {
+  return cf + e * cf_es;
+}
+__host__ __device__ __forceinline__ SpmQCoeffs spm_cf_expert(
+    const SpmQCoeffs& cf, long e, long cf_es, int L) {
+  return SpmQCoeffs{cf.q + e * cf_es, cf.scale + e * L};
+}
+
 // Shard `j`'s table in a stack of per-shard tables (S, L, pairs, 4), each
 // shard's L stages `pairs` apart (K5, K6): an int8 stack also moves to the
 // shard's row of the (S, L) scales.

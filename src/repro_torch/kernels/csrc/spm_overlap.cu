@@ -47,8 +47,16 @@
 // int8), a chunk holds 32 rows, the next chunk's x is in flight while one
 // walks, and one cluster barrier a chunk hands the slots over.  The
 // partner's slab moves over the SM-to-SM network inside a GPC, never
-// through device memory.  Grid: (S, G, n_local / nt), clusters of 2 along
-// x; row group g = blockIdx.y walks chunks g, g + G, ....
+// through device memory.  Grid: (S, G x E, n_local / nt), clusters of 2
+// along x; row group g = blockIdx.y % G walks chunks g, g + G, ....
+//
+// Expert mode (E > 1, the reference's `jax.vmap` of the pair over the MoE
+// expert axis): expert e = blockIdx.y / G runs the same pair on its own
+// operands, x (E, B, in_w) and y (E, B, n) offset by its rows, its tables
+// the (shard, e) entries of an (S, E, L, n_local/2, 4) stack ((S, E, L)
+// scales), its mix and epilogue vectors n floats on.  The expert shares
+// grid.y with the row groups because grid.z is the tiles; the plan is one
+// expert's rows, and a cluster (two partners) never spans two experts.
 
 #include <cooperative_groups.h>
 
@@ -68,7 +76,19 @@ __global__ void __launch_bounds__(256, 1) spm_overlap_fwd_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   const int shard = spm_pair_shard(blockIdx.x >> 1, (int)rank, kbit);
-  const int g = blockIdx.y;
+  const int E = gridDim.y / sh.G;
+  const int ex = blockIdx.y / sh.G;
+  const int g = blockIdx.y - ex * sh.G;
+  if (E > 1) {
+    const long e = ex;
+    x += e * B * in_w;
+    y += e * B * n;
+    mix_a += e * n;
+    mix_b += e * n;
+    if (d_in) d_in += e * n;
+    if (d_out) d_out += e * n;
+    if (bias) bias += e * n;
+  }
   const long c0 = (long)shard * n_local + blockIdx.z * nt;  // lane 0's column
   const long half = n_local >> 1;
   const int np = pl.np;
@@ -80,7 +100,7 @@ __global__ void __launch_bounds__(256, 1) spm_overlap_fwd_kernel(
   auto* tbl = reinterpret_cast<typename eng::Raw<CF>::T*>(smem + lay.tbl);
   float* z = reinterpret_cast<float*>(smem + lay.tile);
   T* xs = reinterpret_cast<T*>(smem + lay.xst);
-  const CF cft = spm_cf_shard(cf, shard, pl.L, half) +
+  const CF cft = spm_cf_shard(cf, shard * E + ex, pl.L, half) +
                  (long)blockIdx.z * (nt >> 1);
   if (kRes) {
     eng::load_table(cft, half, pl.L, nt >> 1, tbl);
@@ -193,8 +213,8 @@ static cudaError_t launch_overlap(const void* x, void* y, CF cf,
                                   const void* d_in, const void* d_out,
                                   const void* bias, int B, int S,
                                   int n_local, int nt, int in_w, int kbit,
-                                  const eng::Shape& sh, const SpmStrides& st,
-                                  cudaStream_t stream) {
+                                  int E, const eng::Shape& sh,
+                                  const SpmStrides& st, cudaStream_t stream) {
   eng::Plan pl;
   size_t smem;
   if (!plan(st, nt, sizeof(T), sizeof(typename eng::Raw<CF>::T), sh, &pl,
@@ -204,7 +224,7 @@ static cudaError_t launch_overlap(const void* x, void* y, CF cf,
   auto kernel = spm_overlap_fwd_kernel<T, CF, kRes>;
   cudaError_t e = spm_allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
-  return eng::launch(kernel, dim3(S, sh.G, n_local / nt), sh.T, smem, 2,
+  return eng::launch(kernel, dim3(S, sh.G * E, n_local / nt), sh.T, smem, 2,
                      stream, (const T*)x, (T*)y, cf, (const float*)mix_a,
                      (const float*)mix_b, (const float*)d_in,
                      (const float*)d_out, (const float*)bias, B, n_local, nt,
@@ -216,16 +236,17 @@ static cudaError_t dispatch(int io_type, const void* x, void* y, CF cf,
                             const void* mix_a, const void* mix_b,
                             const void* d_in, const void* d_out,
                             const void* bias, int B, int S, int n_local,
-                            int nt, int in_w, int kbit, const eng::Shape& sh,
-                            const SpmStrides& st, cudaStream_t s) {
+                            int nt, int in_w, int kbit, int E,
+                            const eng::Shape& sh, const SpmStrides& st,
+                            cudaStream_t s) {
   if (io_type == SPM_IO_F32)
     return launch_overlap<float, CF, kRes>(x, y, cf, mix_a, mix_b, d_in,
                                            d_out, bias, B, S, n_local, nt,
-                                           in_w, kbit, sh, st, s);
+                                           in_w, kbit, E, sh, st, s);
   if (io_type == SPM_IO_BF16)
     return launch_overlap<__nv_bfloat16, CF, kRes>(
         x, y, cf, mix_a, mix_b, d_in, d_out, bias, B, S, n_local, nt, in_w,
-        kbit, sh, st, s);
+        kbit, E, sh, st, s);
   return cudaErrorInvalidValue;
 }
 
@@ -234,14 +255,16 @@ static cudaError_t dispatch_res(int io_type, const void* x, void* y, CF cf,
                                 const void* mix_a, const void* mix_b,
                                 const void* d_in, const void* d_out,
                                 const void* bias, int B, int S, int n_local,
-                                int nt, int in_w, int kbit,
+                                int nt, int in_w, int kbit, int E,
                                 const eng::Shape& sh, const SpmStrides& st,
                                 cudaStream_t s) {
   if (sh.resident)
     return dispatch<CF, true>(io_type, x, y, cf, mix_a, mix_b, d_in, d_out,
-                              bias, B, S, n_local, nt, in_w, kbit, sh, st, s);
+                              bias, B, S, n_local, nt, in_w, kbit, E, sh, st,
+                              s);
   return dispatch<CF, false>(io_type, x, y, cf, mix_a, mix_b, d_in, d_out,
-                             bias, B, S, n_local, nt, in_w, kbit, sh, st, s);
+                             bias, B, S, n_local, nt, in_w, kbit, E, sh, st,
+                             s);
 }
 
 // C interface (loaded with ctypes).  x (B, in_w) and y (B, S * n_local) of
@@ -250,6 +273,8 @@ static cudaError_t dispatch_res(int io_type, const void* x, void* y, CF cf,
 // d_in / d_out / bias (n,) f32 or null.  Shard j pairs with j ^ (1 <<
 // kbit).  The launch shape (T threads, R rows a chunk, G row groups, the
 // table resident) is the planner's, kernels/spm_stack.py `fwd_plan`.
+// E > 1 is the expert mode: x (E, B, in_w), y (E, B, S * n_local), cf
+// (S, E, L, n_local/2, 4) with scales (S, E, L), the vectors (E, n).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int spm_overlap_fwd(int io_type, const void* x, void* y,
                                const void* cf, const void* cf_scale,
@@ -258,22 +283,23 @@ extern "C" int spm_overlap_fwd(int io_type, const void* x, void* y,
                                const void* bias, int B, int S, int n_local,
                                int nt, int in_w, int kbit, int T, int R,
                                int G, int resident, const int* strides,
-                               int L, void* stream) {
+                               int L, int E, void* stream) {
   SpmStrides st;
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || L < 1 || nt <= 0 ||
       n_local % nt || S < 2 || kbit < 0 || S % (2 << kbit) || in_w <= 0 ||
-      in_w > S * n_local || !mix_a || !mix_b)
+      in_w > S * n_local || !mix_a || !mix_b || E < 1 || G < 1 ||
+      (long)G * E > 65535)
     return (int)cudaErrorInvalidValue;
   const eng::Shape sh{1, 1, T, R, G, resident};
   cudaStream_t s = (cudaStream_t)stream;
   if (cf_scale)
     return (int)dispatch_res(
         io_type, x, y, SpmQCoeffs{(const char4*)cf, (const float*)cf_scale},
-        mix_a, mix_b, d_in, d_out, bias, B, S, n_local, nt, in_w, kbit, sh,
-        st, s);
+        mix_a, mix_b, d_in, d_out, bias, B, S, n_local, nt, in_w, kbit, E,
+        sh, st, s);
   return (int)dispatch_res(io_type, x, y, (const float4*)cf, mix_a, mix_b,
                            d_in, d_out, bias, B, S, n_local, nt, in_w, kbit,
-                           sh, st, s);
+                           E, sh, st, s);
 }
 
 // How many clusters of a launch shape the card holds at once

@@ -36,6 +36,13 @@
 // ordered sum (spm_sum_partials) finishes them: no float atomics, two
 // launches agree bit for bit.
 //
+// Expert mode (E > 1, as K5's): expert e = blockIdx.y / G runs the same
+// pair's backward on its own rows of x (E, B, in_w), gy and g_x (E, B, n),
+// its (shard, e) tables of an (S, E, L, n_local/2, 4) stack, its vectors n
+// floats on; the table partials are (G, S, E, L, n_local/2, 4), summed
+// over G into g_cf (S, E, ...), the vector partials (E, G, 5, n), summed
+// per expert into (E, 5, n): each expert's sums run over its own rows.
+//
 // What bounds it on an H100: by bytes, memory, as K2 (x and gy read once,
 // g_x written once, the tables read and their grads written); in fact, as
 // K2, the engine's passes over R rows (at 4 shards of 512 lanes every
@@ -63,9 +70,22 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
   const int side = rank / sh.C;
   const int c = rank - side * sh.C;
   const int shard = spm_pair_shard(blockIdx.x / (2 * sh.C), side, kbit);
-  const int g = blockIdx.y;
+  const int E = gridDim.y / sh.G;
+  const int ex = blockIdx.y / sh.G;
+  const int g = blockIdx.y - ex * sh.G;
   const int t = blockIdx.z;
   const int n = S * n_local;
+  if (E > 1) {
+    const long e = ex;
+    x += e * B * in_w;
+    gy += e * B * n;
+    gx += e * B * n;
+    u += e * n;
+    v += e * n;
+    if (d_in) d_in += e * n;
+    if (d_out) d_out += e * n;
+    part_vec += e * sh.G * (long)kVecs * n;
+  }
   const int L = st.n;
   const int w = sh.w;
   const long half = n_local >> 1;
@@ -97,7 +117,8 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
   eng::setup(st, w, sh.C, c, eng::kLayA, stg, ps);
   __syncthreads();
   eng::load_table(geo, stg,
-                  spm_cf_shard(cf, shard, L, half) + (long)t * (nt >> 1),
+                  spm_cf_shard(cf, shard * E + ex, L, half) +
+                      (long)t * (nt >> 1),
                   half, tbl, acc, vacc, kVecs);
   const bool head_b = L > 0 && ps[0].lin == eng::kLayB;
   const bool tail_b = L > 0 && ps[np - 1].lin == eng::kLayB;
@@ -261,7 +282,9 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
 
   eng::store_table_grads(
       geo, stg, acc,
-      part_cf + ((long)g * S + shard) * L * half + (long)t * (nt >> 1), half);
+      part_cf + (((long)g * S + shard) * E + ex) * L * half +
+          (long)t * (nt >> 1),
+      half);
   float* pv = part_vec + (long)g * kVecs * n + lane0;
   for (int e = threadIdx.x; e < kVecs * w; e += blockDim.x) {
     const int vv = e / w;
@@ -275,8 +298,8 @@ static cudaError_t launch_overlap_bwd(
     const void* x, const void* gy, void* gx, CF cf, const void* u,
     const void* v, const void* d_in, const void* d_out, void* g_cf,
     void* g_vec, void* part_cf, void* part_vec, int B, int S, int n_local,
-    int nt, int in_w, int kbit, const eng::Shape& sh, const SpmStrides& st,
-    cudaStream_t stream) {
+    int nt, int in_w, int kbit, int E, const eng::Shape& sh,
+    const SpmStrides& st, cudaStream_t stream) {
   static size_t smem_set = 0;
   const size_t smem =
       eng::layout_of(st.n, sh, kVecs, sizeof(T), sizeof(T), true).total;
@@ -284,19 +307,20 @@ static cudaError_t launch_overlap_bwd(
   auto kernel = spm_overlap_bwd_kernel<T, CF>;
   cudaError_t e = spm_allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
-  e = eng::launch(kernel, dim3(S * sh.C, sh.G, n_local / nt), sh.pb * sh.rs,
+  e = eng::launch(kernel, dim3(S * sh.C, sh.G * E, n_local / nt),
+                  sh.pb * sh.rs,
                   smem, 2 * sh.C, stream, (const T*)x, (const T*)gy, (T*)gx,
                   cf, (const float*)u, (const float*)v, (const float*)d_in,
                   (const float*)d_out, (float4*)part_cf, (float*)part_vec, B,
                   S, n_local, nt, in_w, kbit, sh, st);
   if (e != cudaSuccess) return e;
-  const long cf_len = (long)S * st.n * (n_local / 2) * 4;
+  const long cf_len = (long)S * E * st.n * (n_local / 2) * 4;
   e = spm_launch_sum((const float*)part_cf, (float*)g_cf, sh.G, 1, cf_len,
                      cf_len, stream);
   if (e != cudaSuccess) return e;
   const long n = (long)S * n_local;
   return spm_launch_sum((const float*)part_vec, (float*)g_vec, sh.G, kVecs,
-                        n, n, stream);
+                        n, n, stream, E);
 }
 
 template <typename CF>
@@ -305,16 +329,16 @@ static cudaError_t dispatch(int io_type, const void* x, const void* gy,
                             const void* d_in, const void* d_out, void* g_cf,
                             void* g_vec, void* part_cf, void* part_vec, int B,
                             int S, int n_local, int nt, int in_w, int kbit,
-                            const eng::Shape& sh, const SpmStrides& st,
+                            int E, const eng::Shape& sh, const SpmStrides& st,
                             cudaStream_t s) {
   if (io_type == SPM_IO_F32)
     return launch_overlap_bwd<float>(x, gy, gx, cf, u, v, d_in, d_out, g_cf,
                                      g_vec, part_cf, part_vec, B, S, n_local,
-                                     nt, in_w, kbit, sh, st, s);
+                                     nt, in_w, kbit, E, sh, st, s);
   if (io_type == SPM_IO_BF16)
     return launch_overlap_bwd<__nv_bfloat16>(
         x, gy, gx, cf, u, v, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B,
-        S, n_local, nt, in_w, kbit, sh, st, s);
+        S, n_local, nt, in_w, kbit, E, sh, st, s);
   return cudaErrorInvalidValue;
 }
 
@@ -326,7 +350,11 @@ static cudaError_t dispatch(int io_type, const void* x, const void* gy,
 // operands are left meaningless); part_cf (G, S, L, n_local/2, 4) and
 // part_vec (G, 5, n) the partials.  The launch shape (C lane blocks a
 // shard tile, w, pb, rs, R, G) is the planner's (`bwd_plan`), 2C <= 8.
-// Returns the cudaError_t of the launches (0 on success).
+// E > 1 is the expert mode: x (E, B, in_w), gy and gx (E, B, n), cf and
+// g_cf (S, E, L, n_local/2, 4) (scales (S, E, L)), u / v / d_in / d_out
+// (E, n), g_vec (E, 5, n), part_cf (G, S, E, L, n_local/2, 4) and
+// part_vec (E, G, 5, n).  Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int spm_overlap_bwd(int io_type, const void* x, const void* gy,
                                void* gx, const void* cf,
                                const void* cf_scale, const void* u,
@@ -335,12 +363,14 @@ extern "C" int spm_overlap_bwd(int io_type, const void* x, const void* gy,
                                void* part_cf, void* part_vec, int B, int S,
                                int n_local, int nt, int in_w, int kbit, int C,
                                int w, int pb, int rs, int R, int G,
-                               const int* strides, int L, void* stream) {
+                               const int* strides, int L, int E,
+                               void* stream) {
   SpmStrides st;
   eng::Shape sh{C, w, pb, rs, R, G, 0, 0, 0};
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || nt <= 0 ||
       n_local % nt || S < 2 || kbit < 0 || S % (2 << kbit) || in_w <= 0 ||
-      in_w > S * n_local || !u || !v || !eng::valid_shape(sh, nt) || C > 4)
+      in_w > S * n_local || !u || !v || !eng::valid_shape(sh, nt) || C > 4 ||
+      E < 1 || (long)G * E > 65535)
     return (int)cudaErrorInvalidValue;
   eng::set_passes(st, eng::kLayA, &sh);
   cudaStream_t s = (cudaStream_t)stream;
@@ -349,10 +379,10 @@ extern "C" int spm_overlap_bwd(int io_type, const void* x, const void* gy,
         io_type, x, gy, gx,
         SpmQCoeffs{(const char4*)cf, (const float*)cf_scale}, u, v, d_in,
         d_out, g_cf, g_vec, part_cf, part_vec, B, S, n_local, nt, in_w, kbit,
-        sh, st, s);
+        E, sh, st, s);
   return (int)dispatch(io_type, x, gy, gx, (const float4*)cf, u, v, d_in,
                        d_out, g_cf, g_vec, part_cf, part_vec, B, S, n_local,
-                       nt, in_w, kbit, sh, st, s);
+                       nt, in_w, kbit, E, sh, st, s);
 }
 
 // How many clusters of a launch shape (2C blocks each) the card holds at

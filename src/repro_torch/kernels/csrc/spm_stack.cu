@@ -28,13 +28,19 @@
 // G, ...; lane block c = its cluster rank; tile j = blockIdx.y.  The row
 // tail and the output edge are masked here: no padded copies.
 //
-// Expert mode (E > 1, f32 / bf16 I/O): one launch runs the same run of E
-// independent operators, expert e = blockIdx.z, as the reference's
-// `jax.vmap` of the run over the MoE expert axis adds a grid axis.  x is
-// (E, B, in_w) and y (E, B, out_w); expert e's table starts cf_es pairs
-// after expert e-1's (the run's stages of an (E, L, n/2, 4) table) and its
-// d_in / d_out / bias n floats on.  The plan is one expert's B rows;
-// everything else (widths, masks, the walk) is per expert unchanged.
+// Expert mode (E > 1): one launch runs the same run of E independent
+// operators, expert e = blockIdx.z, as the reference's `jax.vmap` of the
+// run over the MoE expert axis adds a grid axis.  x is (E, B, in_w) and y
+// (E, B, out_w); expert e's table starts cf_es pairs after expert e-1's
+// (the run's stages of an (E, L, n/2, 4) table), an int8 table's stage
+// scales L floats on ((E, L)), and its d_in / d_out / bias n floats on.
+// The plan is one expert's B rows; everything else (widths, masks, the
+// walk, the window) is per expert unchanged.  With int8 activations the
+// scale grid is per expert too, as vmap maps the reference's: x's scales
+// (E, B / scale_rows, ceil(in_w / nt)) and y's (E, B / scale_rows,
+// tiles), so an expert's padded rows enter its own last block's scale;
+// the q8 kernel's clusters lie along x, so a cluster's absmax never spans
+// two experts.
 //
 // Windowed read (the reference's `col_base`, :393-454, the feature-sharded
 // executor's first local run): x is the whole (B, in_w) operand shared by
@@ -87,7 +93,7 @@ __global__ void __launch_bounds__(256, 1) spm_stack_fwd_kernel(
     const long e = blockIdx.z;
     x += e * B * in_w;
     y += e * B * out_w;
-    cf = cf + e * cf_es;
+    cf = spm_cf_expert(cf, e, cf_es, pl.L);
     if (d_in) d_in += e * n;
     if (d_out) d_out += e * n;
     if (bias) bias += e * n;
@@ -147,10 +153,24 @@ __global__ void __launch_bounds__(256, 1) spm_stack_fwd_q8_kernel(
     int8_t* __restrict__ y, float* __restrict__ ys, CF cf,
     const float* __restrict__ d_in, const float* __restrict__ d_out,
     const float* __restrict__ bias, int B, int n, int nt, int in_w,
-    int out_w, int scale_rows, eng::Shape sh,
+    int out_w, int scale_rows, long cf_es, eng::Shape sh,
     const __grid_constant__ eng::Plan pl) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float warp_max[32];
+  const int blocks = B / scale_rows;
+  const int xcols = (in_w + nt - 1) / nt;
+  // expert mode: expert blockIdx.z's rows, scale grids, table and vectors
+  if (gridDim.z > 1) {
+    const long e = blockIdx.z;
+    x += e * B * in_w;
+    xs_scale += e * blocks * xcols;
+    y += e * B * out_w;
+    ys += e * blocks * gridDim.y;
+    cf = spm_cf_expert(cf, e, cf_es, pl.L);
+    if (d_in) d_in += e * n;
+    if (d_out) d_out += e * n;
+    if (bias) bias += e * n;
+  }
   __shared__ float block_max[2];  // by chunk parity
   cg::cluster_group cluster = cg::this_cluster();
   const int rho = (int)cluster.block_rank(), Cr = sh.Cr;
@@ -167,8 +187,6 @@ __global__ void __launch_bounds__(256, 1) spm_stack_fwd_q8_kernel(
   if (kRes) {
     eng::load_table(cft, n >> 1, pl.L, nt >> 1, tbl);
   }
-  const int blocks = B / scale_rows;
-  const int xcols = (in_w + nt - 1) / nt;
   float amax = 0.f;
   auto chunk = [&](int k, int* r0, int* rows, float* scale) {
     const int sb = g + k * sh.G;
@@ -296,8 +314,9 @@ static cudaError_t launch_stack_q8(const void* x, const void* xs, void* y,
                                    void* ys, CF cf, const void* d_in,
                                    const void* d_out, const void* bias,
                                    int B, int n, int nt, int in_w,
-                                   int out_w, int scale_rows,
-                                   const eng::Shape& sh, const SpmStrides& st,
+                                   int out_w, int scale_rows, int E,
+                                   long cf_es, const eng::Shape& sh,
+                                   const SpmStrides& st,
                                    cudaStream_t stream) {
   eng::Plan pl;
   size_t smem;
@@ -310,11 +329,12 @@ static cudaError_t launch_stack_q8(const void* x, const void* xs, void* y,
   auto kernel = spm_stack_fwd_q8_kernel<CF, kRes>;
   cudaError_t e = spm_allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
-  return eng::launch(kernel, dim3(sh.G * sh.Cr, (out_w + nt - 1) / nt), sh.T,
-                     smem, sh.Cr, stream, (const int8_t*)x, (const float*)xs,
-                     (int8_t*)y, (float*)ys, cf, (const float*)d_in,
-                     (const float*)d_out, (const float*)bias, B, n, nt, in_w,
-                     out_w, scale_rows, sh, pl);
+  return eng::launch(kernel, dim3(sh.G * sh.Cr, (out_w + nt - 1) / nt, E),
+                     sh.T, smem, sh.Cr, stream, (const int8_t*)x,
+                     (const float*)xs, (int8_t*)y, (float*)ys, cf,
+                     (const float*)d_in, (const float*)d_out,
+                     (const float*)bias, B, n, nt, in_w, out_w, scale_rows,
+                     cf_es, sh, pl);
 }
 
 template <typename CF, bool kRes>
@@ -333,10 +353,10 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
     return launch_stack<__nv_bfloat16, CF, kRes>(x, y, cf, d_in, d_out,
                                                  bias, B, n, nt, in_w, out_w,
                                                  x_off, E, cf_es, sh, st, s);
-  if (io_type == SPM_IO_INT8 && x_off == 0 && E == 1)
+  if (io_type == SPM_IO_INT8 && x_off == 0)
     return launch_stack_q8<CF, kRes>(x, xs, y, ys, cf, d_in, d_out, bias, B,
-                                     n, nt, in_w, out_w, scale_rows, sh, st,
-                                     s);
+                                     n, nt, in_w, out_w, scale_rows, E,
+                                     cf_es, sh, st, s);
   return cudaErrorInvalidValue;
 }
 
@@ -364,10 +384,11 @@ static cudaError_t dispatch_res(int io_type, const void* x, const void* xs,
 // is the windowed read (f32 / bf16 only): x (B, in_w) is read x_off
 // columns on.  The launch shape (C lane blocks, Cr row blocks, T threads,
 // R rows a chunk, G row groups, the table resident) is the planner's,
-// kernels/spm_stack.py `fwd_plan`.  E > 1 is the expert mode (f32 / bf16
-// I/O, f32 table, no window): x (E, B, in_w), y (E, B, out_w), expert e's
-// table cf_es pairs after expert e-1's, its vectors n floats on.  Returns
-// the cudaError_t of the launch (0 on success).
+// kernels/spm_stack.py `fwd_plan`.  E > 1 is the expert mode, in every
+// mode above: x (E, B, in_w), y (E, B, out_w), expert e's table cf_es
+// pairs after expert e-1's (an int8 table's scales (E, L), contiguous),
+// its vectors n floats on, int8 x's and y's scales (E, B / scale_rows,
+// tiles).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int spm_stack_fwd(int io_type, const void* x, const void* xs,
                              void* y, void* ys, const void* cf,
                              const void* cf_scale, const void* d_in,
@@ -379,7 +400,7 @@ extern "C" int spm_stack_fwd(int io_type, const void* x, const void* xs,
   SpmStrides st;
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || nt <= 0 || n % nt ||
       x_off < 0 || L < 1 || E < 1 || E > 65535 ||
-      (E > 1 && (cf_scale || x_off || cf_es < (long)L * (n / 2))))
+      (E > 1 && cf_es < (long)L * (n / 2)))
     return (int)cudaErrorInvalidValue;
   const eng::Shape sh{C, Cr, T, R, G, resident};
   cudaStream_t s = (cudaStream_t)stream;

@@ -53,15 +53,17 @@
 // jump by seg - P at lane P, and an int8 x's scale is that of tile t.
 // C = 1, layout A; no window.
 //
-// Expert mode (E > 1, f32 / bf16, f32 table, no window): one launch runs
-// the backward of the same run of E independent operators, expert e =
-// blockIdx.z, as the reference's `jax.vmap` over the MoE expert axis adds a
-// grid axis to this kernel.  Expert e's x, gy and g_x rows, its table and
+// Expert mode (E > 1): one launch runs the backward of the same run of E
+// independent operators, expert e = blockIdx.z, as the reference's
+// `jax.vmap` over the MoE expert axis adds a grid axis to this kernel.
+// Expert e's x, gy and g_x rows, its table (an int8 one's (E, L) stage
+// scales too), an int8 x's (E, B / scale_rows, tiles) block scales, its
 // vectors, and its slice of (E, G, ...) partial buffers are offset from
 // expert 0's; the ordered sums run per expert (`spm_sum_partials`'s
 // batches), so each expert's grads are summed over its own rows only.
-// The plan is one expert's rows; dead tiles and split mode work per
-// expert unchanged.
+// The plan is one expert's rows; dead tiles, split mode and the windows
+// (x_off / gy_off inside each expert's own rows) work per expert
+// unchanged.
 //
 // Int8 modes (the reference's `x_scale` and `coeff_scale`): a saved int8 x
 // is staged as codes and dequantized with the scale of its (scale_rows,
@@ -78,8 +80,6 @@
 // memory loads and a barrier, and the passes that store into other
 // blocks' tiles (spm_bwd_engine.cuh has the numbers; PERF.md the times
 // against the bound).
-
-#include <type_traits>
 
 #include "spm_bwd_engine.cuh"
 
@@ -164,7 +164,11 @@ __global__ void __launch_bounds__(512, 1) spm_stack_bwd_kernel(
     x += e * B * in_w;
     gy += e * B * gy_w;
     gx += e * B * gx_w;
-    cf = cf + e * cf_es;
+    cf = spm_cf_expert(cf, e, cf_es, st.n);
+    if (xs) {  // the scale grid's tile: the whole tile in split mode
+      const int xw = seg ? 2 * seg : nt;
+      xs += e * (long)(B / scale_rows) * ((in_w + xw - 1) / xw);
+    }
     if (d_in) d_in += e * n;
     if (d_out) d_out += e * n;
     part_cf += e * sh.G * st.n * (long)(n >> 1);
@@ -457,21 +461,23 @@ static cudaError_t dispatch_x(const void* x, const void* xs, const void* gy,
                               const eng::Shape& sh, const SpmStrides& st,
                               cudaStream_t s) {
   if (xs) {
-    if (scale_rows <= 0 || B % scale_rows || x_off || gy_off || E != 1)
+    if (scale_rows <= 0 || B % scale_rows || x_off || gy_off)
       return cudaErrorInvalidValue;
+    if (E > 1)
+      return launch_stack_bwd<T, int8_t, CF, true>(
+          x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B,
+          n, nt, in_w, gy_w, gx_w, 0, 0, vis, has_bias, scale_rows, split, E,
+          cf_es, sh, st, s);
     return launch_stack_bwd<T, int8_t, CF, false>(
         x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B,
         n, nt, in_w, gy_w, gx_w, 0, 0, vis, has_bias, scale_rows, split, 1,
         cf_es, sh, st, s);
   }
-  if constexpr (std::is_same<CF, const float4*>::value) {
-    if (E > 1)
-      return launch_stack_bwd<T, T, CF, true>(
-          x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B,
-          n, nt, in_w, gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows,
-          split, E, cf_es, sh, st, s);
-  }
-  if (E != 1) return cudaErrorInvalidValue;
+  if (E > 1)
+    return launch_stack_bwd<T, T, CF, true>(
+        x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B, n,
+        nt, in_w, gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows,
+        split, E, cf_es, sh, st, s);
   return launch_stack_bwd<T, T, CF, false>(
       x, xs, gy, gx, cf, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B, n,
       nt, in_w, gy_w, gx_w, x_off, gy_off, vis, has_bias, scale_rows, split,
@@ -512,11 +518,12 @@ static cudaError_t dispatch(int io_type, const void* x, const void* xs,
 // launch shape (C, w, pb, rs, R, G, split) is the planner's (`bwd_plan`):
 // split > 0 is split mode, one stage of stride nt / 2 over `split` blocks
 // of w = nt / split lanes a tile (C = 1; no window).  E > 1 is the expert
-// mode (f32 / bf16 x, f32 table, no window): x, gy and g_x (E, B, width),
-// expert e's table cf_es pairs after expert e-1's and its d_in / d_out n
-// floats on, g_cf (E, L, n/2, 4), g_vec (E, 3, n), the partial buffers
-// (E, G, ...), each expert's grads summed over its own rows.  Returns the
-// cudaError_t of the launches (0 on success).
+// mode, in every mode above: x, gy and g_x (E, B, width), expert e's table
+// cf_es pairs after expert e-1's (an int8 table's scales (E, L),
+// contiguous) and its d_in / d_out n floats on, an int8 x's scales (E,
+// B / scale_rows, tiles), g_cf (E, L, n/2, 4), g_vec (E, 3, n), the
+// partial buffers (E, G, ...), each expert's grads summed over its own
+// rows.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
                              const void* gy, void* gx, const void* cf,
                              const void* cf_scale, const void* d_in,
@@ -534,7 +541,7 @@ extern "C" int spm_stack_bwd(int io_type, const void* x, const void* xs,
   if (!spm_copy_strides(&st, strides, L) || B <= 0 || nt <= 0 || n % nt ||
       vis <= 0 || vis * nt > n || x_off < 0 || gy_off < 0 || ntb <= 0 ||
       !eng::valid_shape(sh, ntb) || E < 1 || E > 65535 ||
-      (E > 1 && (cf_scale || x_off || gy_off || cf_es < (long)L * (n / 2))))
+      (E > 1 && cf_es < (long)L * (n / 2)))
     return (int)cudaErrorInvalidValue;
   if (split) {
     // one stage of stride nt / 2, run as stride pb on the block's 2 pb

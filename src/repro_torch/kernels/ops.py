@@ -19,7 +19,10 @@ An (E, L, n/2, 4) table with x (E, ..., d) is the expert mode (the
 reference's ``jax.vmap`` of the operator over the MoE expert axis): the
 plan is that of one expert's rows, and each run is ONE K1 launch for all E
 experts forward and one K2 launch backward (their expert mode), never a
-loop over the experts.  The int8 modes raise there (``ROADMAP.md`` §1).
+loop over the experts.  The int8 modes are per expert there, as vmap makes
+the reference's: rows padded and scale blocks counted from each expert's
+row 0 (``scale_block_rows`` of one expert's rows), one table scale per
+expert and stage, eligibility decided on one expert's plan.
 
 ``spm_block_fused`` launches K3 once for a whole norm -> SPM [-> act -> SPM
 -> residual] block; its backward is one K4 launch from x and the row
@@ -151,7 +154,7 @@ class _StackFn(torch.autograd.Function):
                 out_width, quant):
         scale_rows, q_acts, q_coeffs = quant or (None, False, False)
         kcf, scf = Q.quantize_coeffs(coeffs) if q_coeffs else (coeffs, None)
-        rows = x2.shape[0]
+        rows = x2.shape[-2]
         z = x2
         if q_acts:
             z = Q.quantize_blocks(_pad_rows(x2, scale_rows), scale_rows,
@@ -161,7 +164,7 @@ class _StackFn(torch.autograd.Function):
                                 scale_rows=scale_rows)
         if q_acts:
             y = Q.dequantize_blocks(*y, scale_rows, runs[-1][1],
-                                    dtype=x2.dtype)[:rows]
+                                    dtype=x2.dtype)[..., :rows, :]
             saved = [t for pair in saved for t in pair]
         ctx.runs, ctx.in_width, ctx.out_width = runs, in_width, out_width
         ctx.quant, ctx.rows, ctx.x_dtype = quant, rows, x2.dtype
@@ -191,7 +194,7 @@ class _StackFn(torch.autograd.Function):
         g_bias = last.pop(0) if has_bias else None
         delta = outs[0][0]
         if q_acts:
-            delta = delta[:ctx.rows]          # the rows padded for scales
+            delta = delta[..., :ctx.rows, :]  # the rows padded for scales
         if ctx.in_width is not None and delta.shape[-1] != ctx.in_width:
             delta = delta[..., :ctx.in_width]   # g_x came back widened
         return (delta, torch.cat([o[1] for o in outs], dim=-3), g_din,
@@ -199,7 +202,9 @@ class _StackFn(torch.autograd.Function):
 
 
 def _pad_rows(x2: torch.Tensor, block_rows: int) -> torch.Tensor:
-    pad = -x2.shape[0] % block_rows
+    """Rows (axis -2: each expert's own) zero-padded to a multiple of
+    ``block_rows``."""
+    pad = -x2.shape[-2] % block_rows
     return F.pad(x2, (0, 0, 0, pad)) if pad else x2
 
 
@@ -207,6 +212,14 @@ def _stages(coeffs: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """Stages [lo, hi) of an (L, n/2, 4) or expert (E, L, n/2, 4) table
     (a view)."""
     return coeffs[..., lo:hi, :, :]
+
+
+def _stage_scales(coeff_scale: Optional[torch.Tensor], lo: int,
+                  hi: int) -> Optional[torch.Tensor]:
+    """Stages [lo, hi) of (L,) or expert (E, L) table scales, contiguous
+    (the kernels read an expert's scales L apart)."""
+    return None if coeff_scale is None \
+        else coeff_scale[..., lo:hi].contiguous()
 
 
 def forward_runs(z, coeffs, runs, d_in, d_out, bias,
@@ -230,7 +243,7 @@ def forward_runs(z, coeffs, runs, d_in, d_out, bias,
             x, _stages(coeffs, off, off + nL),
             d_in if r == 0 else None, d_out if last else None,
             bias if last else None, x_scale,
-            None if coeff_scale is None else coeff_scale[off: off + nL],
+            _stage_scales(coeff_scale, off, off + nL),
             strides=run_strides, n_tile=n_tile,
             in_width=in_width if r == 0 else None,
             out_width=out_width if last else None, quant_out=q8,
@@ -269,7 +282,7 @@ def backward_runs(bwd, saved, coeffs, gy, runs, d_in, d_out,
         outs[r] = bwd(x, _stages(coeffs, lo, hi), delta,
                       d_in if r == 0 else None,
                       d_out if last else None, x_scale,
-                      None if coeff_scale is None else coeff_scale[lo:hi],
+                      _stage_scales(coeff_scale, lo, hi),
                       strides=run_strides, n_tile=n_tile,
                       has_bias=last and has_bias,
                       in_width=in_width if r == 0 else None,
@@ -307,8 +320,9 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
 
     An (E, L, n/2, 4) table with (E, n) vectors and x (E, ..., in_width
     or n) is the expert mode: the plan is that of one expert's rows, and
-    each run one expert-mode launch for all experts.  No int8 modes
-    there."""
+    each run one expert-mode launch for all experts; the int8 modes are
+    per expert (scale blocks of one expert's rows, (E, L) table
+    scales)."""
     strides = tuple(int(s) for s in strides)
     n = 2 * coeffs.shape[-2]
     in_width, out_width = _widths(n, in_width, out_width)
@@ -317,8 +331,6 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"expected (..., {expect}), got {tuple(x.shape)}")
     lead = x.shape[:-1]
     if coeffs.dim() == 4:
-        if quant_acts or quant_coeffs:
-            raise NotImplementedError(K._EXPERT_LATER)
         if x.dim() < 2 or x.shape[0] != coeffs.shape[0]:
             raise ValueError(f"expected x ({coeffs.shape[0]}, ..., "
                              f"{expect}), got {tuple(x.shape)}")
@@ -329,7 +341,7 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
     quant = None
     q_acts = bool(quant_acts) and quant_acts_eligible(runs)
     if q_acts or quant_coeffs:
-        quant = (Q.scale_block_rows(runs, z.shape[0], x.element_size())
+        quant = (Q.scale_block_rows(runs, z.shape[-2], x.element_size())
                  if q_acts else None, q_acts, bool(quant_coeffs))
     f32 = (lambda t: None if t is None else t.float().contiguous())
     z = _StackFn.apply(z, f32(coeffs), f32(d_in), f32(d_out), f32(bias),

@@ -49,18 +49,22 @@ def _code(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def quantize_blocks(x2: torch.Tensor, block_rows: int, n_tile: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, W) -> ``(q int8 (B, W), scales f32 (B // block_rows,
-    ceil(W / n_tile)))``.  B must be a multiple of ``block_rows``; a
-    trailing partial tile is scaled over its real columns only."""
-    B, W = x2.shape
+    """(..., B, W) -> ``(q int8 (..., B, W), scales f32 (..., B //
+    block_rows, ceil(W / n_tile)))``.  B must be a multiple of
+    ``block_rows``; a trailing partial tile is scaled over its real columns
+    only.  Leading axes are independent operands (an MoE's experts, the
+    reference's ``jax.vmap``): each one's scale grid starts at its own row
+    0."""
+    *lead, B, W = x2.shape
     if B % block_rows:
         raise ValueError(f"rows {B} not a multiple of {block_rows}")
     nb, ncol = B // block_rows, -(-W // n_tile)
     xf = F.pad(x2.float(), (0, ncol * n_tile - W))
-    xr = xf.reshape(nb, block_rows, ncol, n_tile)
-    scales = _scale(xr.abs().amax(dim=(1, 3)))
-    q = _code(xr, scales[:, None, :, None])
-    return q.reshape(B, ncol * n_tile)[:, :W].contiguous(), scales
+    xr = xf.reshape(*lead, nb, block_rows, ncol, n_tile)
+    scales = _scale(xr.abs().amax(dim=(-3, -1)))
+    q = _code(xr, scales[..., :, None, :, None])
+    return (q.reshape(*lead, B, ncol * n_tile)[..., :W].contiguous(),
+            scales)
 
 
 def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor,
@@ -68,26 +72,27 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The inverse of ``quantize_blocks`` up to its rounding: ``q * scale``
     in f32, then cast to ``dtype``."""
-    B, W = q.shape
+    *lead, B, W = q.shape
     nb, ncol = B // block_rows, -(-W // n_tile)
     qf = F.pad(q.float(), (0, ncol * n_tile - W))
-    xr = qf.reshape(nb, block_rows, ncol, n_tile) * scales[:, None, :, None]
-    return xr.reshape(B, ncol * n_tile)[:, :W].to(dtype)
+    xr = (qf.reshape(*lead, nb, block_rows, ncol, n_tile)
+          * scales[..., :, None, :, None])
+    return xr.reshape(*lead, B, ncol * n_tile)[..., :W].to(dtype)
 
 
 def quantize_coeffs(coeffs: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(L, n_pairs, 4) -> ``(q int8, scales f32 (L,))``, one scale a
-    stage."""
+    """(..., L, n_pairs, 4) -> ``(q int8, scales f32 (..., L))``, one scale
+    a stage (of each expert, under leading axes)."""
     cf = coeffs.float()
-    scales = _scale(cf.abs().amax(dim=(1, 2)))
-    return _code(cf, scales[:, None, None]).contiguous(), scales
+    scales = _scale(cf.abs().amax(dim=(-2, -1)))
+    return _code(cf, scales[..., None, None]).contiguous(), scales
 
 
 def dequantize_coeffs(q: torch.Tensor, scales: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``q * scale`` per stage: the multiply the kernels do on load."""
-    return (q.float() * scales.reshape(-1, 1, 1)).to(dtype)
+    return (q.float() * scales[..., None, None]).to(dtype)
 
 
 def block_scale_bound(x2: torch.Tensor, block_rows: int,

@@ -59,9 +59,15 @@ the MoE expert axis, which adds a grid axis to the Pallas call): with an
 (E, L, n/2, 4) table, x (E, B, width) and (E, n) vectors, one launch runs
 the same run of all E experts, each over its own B rows (the plan is one
 expert's), and K2 sums each expert's grads over its rows only.  Their
-``expert_launches`` count those launches (``launches`` counts them too);
+``expert_launches`` count those launches (``launches`` counts them too;
+``expert_int8_launches`` and ``expert_window_launches`` those of them in
+an int8 or the windowed mode);
 the plain versions loop over the experts.  The int8 and windowed modes
-take no expert axis: they raise (``ROADMAP.md`` §1).
+take the expert axis too, per expert as under ``jax.vmap``: x's scale grid
+(E, B / scale_rows, tiles) restarts at each expert's row 0, an int8 table
+has (E, L) stage scales, and a window reads each expert's own (B,
+in_width) rows.  K5 and K6 take it as well: (S, E, L, n_local/2, 4)
+tables, (S, E, L) scales, x (E, B, in_width) and (E, n) vectors.
 
 K1 and K2 have int8 modes (the reference's ``x_scale``, ``coeff_scale``
 and ``quant_out``; scale conventions in ``kernels/quant.py``): int8
@@ -200,8 +206,8 @@ def _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows,
                          "x_scale and quant_out go together")
     if x_scale is not None or quant_out:
         if scale_rows is None or scale_rows <= 0 \
-                or x.shape[0] % scale_rows:
-            raise ValueError(f"rows {x.shape[0]} must be a multiple of "
+                or x.shape[-2] % scale_rows:
+            raise ValueError(f"rows {x.shape[-2]} must be a multiple of "
                              f"scale_rows={scale_rows}")
 
 
@@ -213,6 +219,14 @@ def _count(fn, x_scale, coeff_scale, window: bool = False) -> None:
         fn.int8_launches += 1
     if x_scale is not None:
         fn.int8_io_launches += 1
+
+
+def _count_expert(fn, x_scale, coeff_scale, col_base) -> None:
+    """An expert-mode launch of K1 or K2, its int8 and windowed ones
+    counted apart too."""
+    fn.expert_launches += 1
+    fn.expert_int8_launches += x_scale is not None or coeff_scale is not None
+    fn.expert_window_launches += col_base is not None
 
 
 def _strides_arg(strides: Sequence[int]):
@@ -255,51 +269,65 @@ def _plain_x(x, x_scale, scale_rows, n_tile) -> torch.Tensor:
             else Q.dequantize_blocks(x, x_scale, scale_rows, n_tile))
 
 
-_EXPERT_LATER = ("the expert mode of K1 and K2 takes no int8 operands and "
-                 "no window (ROADMAP.md §1: int8 and feature sharding in "
-                 "the expert mode)")
-
-
-def _expert_check(x, coeffs, vecs, strides, n_tile, in_w, out_w, int8,
-                  window) -> None:
+def _expert_check(x, coeffs, vecs, strides, n_tile, in_w, out_w,
+                  window: bool, coeff_scale=None) -> None:
     """The expert mode's operands on any device: x (E, B, in_w), an
-    (E, L, n/2, 4) table, (E, n) vectors; no int8 operand, no window."""
-    if int8 or window:
-        raise NotImplementedError(_EXPERT_LATER)
+    (E, L, n/2, 4) table (int8 with (E, L) ``coeff_scale``), (E, n)
+    vectors; under a window ``in_w`` / ``out_w`` are global widths."""
     E, L, half = coeffs.shape[:3]
     n = 2 * half
     if x.dim() != 3 or x.shape[0] != E or x.shape[2] != in_w:
         raise ValueError(f"expected x ({E}, B, {in_w}), got "
                          f"{tuple(x.shape)}")
-    if L != len(strides) or n % n_tile or not (0 < in_w <= n
-                                               and 0 < out_w <= n):
+    cap = max(in_w, out_w) if window else n
+    if L != len(strides) or n % n_tile or not (0 < in_w <= cap
+                                               and 0 < out_w <= cap):
         raise ValueError(f"bad run: n={n} n_tile={n_tile} L={L} "
                          f"strides={strides} in={in_w} out={out_w}")
     for s in strides:
         if n_tile % (2 * s):
             raise ValueError(f"stride {s} crosses an {n_tile}-wide tile")
+    if coeff_scale is not None and tuple(coeff_scale.shape) != (E, L):
+        raise ValueError(f"coeff_scale: need ({E}, {L}), got "
+                         f"{tuple(coeff_scale.shape)}")
     for v, name in vecs:
         if v is not None and tuple(v.shape) != (E, n):
             raise ValueError(f"{name}: need ({E}, {n}), got "
                              f"{tuple(v.shape)}")
 
 
-def _expert_cuda_check(x, coeffs, vecs) -> int:
+def _expert_cuda_check(x, coeffs, vecs, coeff_scale=None, x_scale=None,
+                       n_tile=None, scale_rows=None) -> int:
     """The expert mode's operands on the card; returns the pairs from one
     expert's table to the next's (a run's stages may be a view of a longer
-    table: only each expert's own (L, n/2, 4) block must be dense)."""
+    table: only each expert's own (L, n/2, 4) block must be dense).  An
+    int8 table's (E, L) stage scales and an int8 x's (E, B / scale_rows,
+    ceil(width / n_tile)) block scales are contiguous f32."""
     E, L, half, _ = coeffs.shape
     dev = x.device
-    if x.dtype not in _IO or not x.is_contiguous():
-        raise ValueError("expert x must be contiguous f32 or bf16")
-    if (coeffs.dtype != torch.float32 or coeffs.device != dev
+    if x_scale is None and x.dtype not in _IO or not x.is_contiguous():
+        raise ValueError("expert x must be contiguous f32 or bf16 (int8 "
+                         "with its scales)")
+    dt, align = (torch.float32, 16) if coeff_scale is None \
+        else (torch.int8, 4)
+    if (coeffs.dtype != dt or coeffs.device != dev
             or coeffs.stride()[1:] != (half * 4, 4, 1)
             or coeffs.stride(0) % 4 or coeffs.stride(0) < L * half * 4
-            or coeffs.data_ptr() % 16):
-        raise ValueError(f"coeffs: need an f32 (E, L, {half}, 4) table on "
+            or coeffs.data_ptr() % align):
+        raise ValueError(f"coeffs: need a {dt} (E, L, {half}, 4) table on "
                          f"{dev}, each expert's (L, {half}, 4) block dense")
     if L > MAX_STAGES:
         raise ValueError(f"coeffs: at most {MAX_STAGES} stages")
+    want = {}
+    if coeff_scale is not None:
+        want["coeff_scale"] = (coeff_scale, (E, L))
+    if x_scale is not None:
+        want["x_scale"] = (x_scale, (E, x.shape[1] // scale_rows,
+                                     -(-x.shape[2] // n_tile)))
+    for name, (t, shape) in want.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name}: need contiguous f32 {shape} on {dev}")
     for v, name in vecs:
         if v is not None and (v.dtype != torch.float32 or v.device != dev
                               or not v.is_contiguous()):
@@ -342,13 +370,19 @@ def spm_stack_plain(x: torch.Tensor, coeffs: torch.Tensor,
     scale for each (``scale_rows``, ``n_tile``) block of the output, its
     absmax taken over the whole tile, lanes past ``out_width`` included.
 
-    An (E, L, n/2, 4) table is the expert mode: x (E, B, width) and (E, n)
-    vectors, one expert at a time, stacked."""
+    An (E, L, n/2, 4) table is the expert mode: x (E, B, width), (E, n)
+    vectors, (E, ...) scales, one expert at a time, stacked (with
+    ``quant_out``: the codes and the scales each)."""
     if coeffs.dim() == 4:
-        return torch.stack([spm_stack_plain(
+        outs = [spm_stack_plain(
             x[e], coeffs[e], _at(d_in, e), _at(d_out, e), _at(bias, e),
-            strides=strides, in_width=in_width, out_width=out_width,
-            n_tile=n_tile) for e in range(coeffs.shape[0])])
+            _at(x_scale, e), _at(coeff_scale, e), strides=strides,
+            in_width=in_width, out_width=out_width, n_tile=n_tile,
+            quant_out=quant_out, scale_rows=scale_rows, col_base=col_base)
+            for e in range(coeffs.shape[0])]
+        if quant_out:
+            return tuple(torch.stack(ts) for ts in zip(*outs))
+        return torch.stack(outs)
     n = 2 * coeffs.shape[1]
     z = _plain_x(x, x_scale, scale_rows, n_tile)
     if col_base is not None:
@@ -722,14 +756,15 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
 
     Expert mode (an (E, L, n/2, 4) table): x (E, B, in_width) -> y (E, B,
     out_width), d_in/d_out/bias (E, n); one launch for all E experts, the
-    plan that of one expert's B rows over E times its tiles.  No int8
-    operand, no window."""
+    plan that of one expert's B rows over E times its tiles.  Every mode
+    above takes the expert axis, per expert: x_scale (E, B / scale_rows,
+    tiles) and y_scale alike, coeff_scale (E, L), and a window reads each
+    expert's (B, in_width) rows."""
     strides = tuple(int(s) for s in strides)
     if coeffs.dim() == 4:
-        return _stack_experts(x, coeffs, d_in, d_out, bias, strides, n_tile,
-                              in_width, out_width,
-                              x_scale is not None or coeff_scale is not None
-                              or quant_out, col_base is not None)
+        return _stack_experts(x, coeffs, d_in, d_out, bias, x_scale,
+                              coeff_scale, strides, n_tile, in_width,
+                              out_width, quant_out, scale_rows, col_base)
     n = 2 * coeffs.shape[1]
     in_w = n if in_width is None else int(in_width)
     out_w = n if out_width is None else int(out_width)
@@ -761,13 +796,7 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
                          n, x_scale, n_tile, scale_rows)
     B = x.shape[0]
     tiles = -(-out_w // n_tile)
-    if quant_out:
-        y = torch.empty((B, out_w), dtype=torch.int8, device=x.device)
-        ys = torch.empty((B // scale_rows, tiles), dtype=torch.float32,
-                         device=x.device)
-    else:
-        y = torch.empty((B, out_w), dtype=x.dtype, device=x.device)
-        ys = None
+    y, ys = _k1_outputs(x, (B, out_w), tiles, quant_out, scale_rows)
     if B == 0:
         return (y, ys) if quant_out else y
     io = _IO_INT8 if quant_out else _IO[x.dtype]
@@ -789,44 +818,69 @@ def spm_stack_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     return (y, ys) if quant_out else y
 
 
+def _k1_outputs(x, shape, tiles, quant_out, scale_rows):
+    """K1's output ([E,] B, out_w) in x's dtype, or int8 with its ([E,] B /
+    scale_rows, tiles) f32 scales under ``quant_out`` (else None)."""
+    if not quant_out:
+        return torch.empty(shape, dtype=x.dtype, device=x.device), None
+    *lead, B, _ = shape
+    return (torch.empty(shape, dtype=torch.int8, device=x.device),
+            torch.empty((*lead, B // scale_rows, tiles), dtype=torch.float32,
+                        device=x.device))
+
+
 def _k1_fn():
     return _fn("spm_stack", "spm_stack_fwd",
                (_I,) + (_P,) * 9 + (_I,) * 13
                + (ctypes.POINTER(ctypes.c_int), _I, _I, ctypes.c_long, _P))
 
 
-def _stack_experts(x, coeffs, d_in, d_out, bias, strides, n_tile, in_width,
-                   out_width, int8: bool, window: bool):
+def _stack_experts(x, coeffs, d_in, d_out, bias, x_scale, coeff_scale,
+                   strides, n_tile, in_width, out_width, quant_out,
+                   scale_rows, col_base):
     """K1's expert mode (``spm_stack_kernel_call``)."""
     n = 2 * coeffs.shape[2]
     in_w = n if in_width is None else int(in_width)
     out_w = n if out_width is None else int(out_width)
     vecs = [(d_in, "d_in"), (d_out, "d_out"), (bias, "bias")]
-    _expert_check(x, coeffs, vecs, strides, n_tile, in_w, out_w, int8,
-                  window)
+    _expert_check(x, coeffs, vecs, strides, n_tile, in_w, out_w,
+                  col_base is not None, coeff_scale)
+    _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows, quant_out)
+    _check_window(col_base, in_width, None, x_scale is not None or quant_out)
+    if col_base is not None and out_width is not None:
+        raise ValueError("K1's windowed mode stores the whole (B, n) slab")
     if x.device.type == "cpu":
-        return spm_stack_plain(x, coeffs, d_in, d_out, bias, strides=strides,
-                               in_width=in_w, out_width=out_width,
-                               n_tile=n_tile)
+        return spm_stack_plain(x, coeffs, d_in, d_out, bias, x_scale,
+                               coeff_scale, strides=strides, in_width=in_w,
+                               out_width=out_width, n_tile=n_tile,
+                               quant_out=quant_out, scale_rows=scale_rows,
+                               col_base=col_base)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    cf_es = _expert_cuda_check(x, coeffs, vecs)
+    cf_es = _expert_cuda_check(x, coeffs, vecs, coeff_scale, x_scale, n_tile,
+                               scale_rows)
     E, B = x.shape[:2]
-    y = torch.empty((E, B, out_w), dtype=x.dtype, device=x.device)
-    if B == 0 or E == 0:
-        return y
     tiles = -(-out_w // n_tile)
-    plan = fwd_plan(B, n_tile, strides, tiles * E, x.element_size())
-    rc = _k1_fn()(_IO[x.dtype], _ptr(x), None, _ptr(y), None, _ptr(coeffs),
-                  None, _ptr(d_in), _ptr(d_out), _ptr(bias), B, n, n_tile,
-                  in_w, out_w, 0, 0, *_fwd_shape_args(plan),
+    y, ys = _k1_outputs(x, (E, B, out_w), tiles, quant_out, scale_rows)
+    if B == 0 or E == 0:
+        return (y, ys) if quant_out else y
+    io = _IO_INT8 if quant_out else _IO[x.dtype]
+    plan = fwd_plan(B, n_tile, strides, tiles * E,
+                    1 if quant_out else x.element_size(),
+                    scale_rows=scale_rows if quant_out else None,
+                    cf_bytes=16 if coeff_scale is None else 4)
+    x_off = 0 if col_base is None else int(col_base) * n_tile
+    rc = _k1_fn()(io, _ptr(x), _ptr(x_scale), _ptr(y), _ptr(ys),
+                  _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in), _ptr(d_out),
+                  _ptr(bias), B, n, n_tile, in_w, out_w, x_off,
+                  scale_rows or 0, *_fwd_shape_args(plan),
                   _strides_arg(strides), len(strides), E, cf_es, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spm_stack_fwd (experts) launch failed: "
                            f"cudaError {rc}")
-    _count(spm_stack_kernel_call, None, None)
-    spm_stack_kernel_call.expert_launches += 1
-    return y
+    _count(spm_stack_kernel_call, x_scale, coeff_scale, col_base is not None)
+    _count_expert(spm_stack_kernel_call, x_scale, coeff_scale, col_base)
+    return (y, ys) if quant_out else y
 
 
 spm_stack_kernel_call.launches = 0
@@ -834,6 +888,8 @@ spm_stack_kernel_call.int8_launches = 0
 spm_stack_kernel_call.int8_io_launches = 0
 spm_stack_kernel_call.window_launches = 0
 spm_stack_kernel_call.expert_launches = 0
+spm_stack_kernel_call.expert_int8_launches = 0
+spm_stack_kernel_call.expert_window_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1292,14 +1348,16 @@ def spm_stack_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
     ``col_base`` x (with ``in_width``) and gy (with ``out_width``) are read
     through the window, as K1's plain version reads x.
 
-    An (E, L, n/2, 4) table is the expert mode, one expert at a time:
-    every output stacked over the experts."""
+    An (E, L, n/2, 4) table is the expert mode, one expert at a time (its
+    scales and vectors too): every output stacked over the experts."""
     if coeffs.dim() == 4:
         outs = [spm_stack_bwd_plain(
             x[e], coeffs[e], gy[e], _at(d_in, e), _at(d_out, e),
-            strides=strides, n_tile=n_tile, has_bias=has_bias,
-            in_width=in_width, out_width=out_width, dead_from=dead_from,
-            col_sum=col_sum) for e in range(coeffs.shape[0])]
+            _at(x_scale, e), _at(coeff_scale, e), strides=strides,
+            n_tile=n_tile, has_bias=has_bias, in_width=in_width,
+            out_width=out_width, dead_from=dead_from, scale_rows=scale_rows,
+            col_base=col_base, col_sum=col_sum)
+            for e in range(coeffs.shape[0])]
         return tuple(torch.stack(ts) for ts in zip(*outs))
     n = 2 * coeffs.shape[1]
     cf = _plain_coeffs(coeffs, coeff_scale)
@@ -1376,14 +1434,14 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     Expert mode (an (E, L, n/2, 4) table): x (E, B, in_width), gy (E, B,
     out_width), d_in/d_out (E, n); one launch for all E experts, each
     expert's grads summed over its own rows; every output gains the
-    leading E axis.  No int8 operand, no window."""
+    leading E axis.  The int8 and windowed modes take it per expert, as
+    K1's do."""
     strides = tuple(int(s) for s in strides)
     if coeffs.dim() == 4:
         return _stack_bwd_experts(
-            x, coeffs, gy, d_in, d_out, strides, n_tile, has_bias, in_width,
-            out_width, dead_from,
-            x_scale is not None or coeff_scale is not None,
-            col_base is not None)
+            x, coeffs, gy, d_in, d_out, x_scale, coeff_scale, strides,
+            n_tile, has_bias, in_width, out_width, dead_from, scale_rows,
+            col_base)
     n = 2 * coeffs.shape[1]
     in_w = n if in_width is None else int(in_width)
     gy_w = n if out_width is None else int(out_width)
@@ -1420,14 +1478,8 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
             or not gy.is_contiguous():
         raise ValueError("gy must be contiguous, on x's device, in x's "
                          "dtype (f32 or bf16 beside an int8 x)")
-    if col_base is None:
-        vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width,
-                                   dead_from)
-        x_off = gy_off = 0
-    else:
-        vis, gx_w = n // n_tile, n
-        x_off = int(col_base) * n_tile if in_width is not None else 0
-        gy_off = int(col_base) * n_tile if out_width is not None else 0
+    vis, gx_w, x_off, gy_off = _bwd_reads(n, n_tile, in_width, out_width,
+                                          dead_from, col_base)
     B, L = x.shape[0], len(strides)
     dev = x.device
     gx = torch.empty((B, gx_w), dtype=io_dt, device=dev)
@@ -1466,42 +1518,62 @@ def spm_stack_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     return out
 
 
+def _bwd_reads(n, n_tile, in_width, out_width, dead_from, col_base):
+    """K2's visited tiles and g_x width (``bwd_live_tiles``; every tile and
+    the whole slab under a window) and the windows' column offsets into x
+    and gy."""
+    if col_base is None:
+        return (*bwd_live_tiles(n, n_tile, in_width, out_width, dead_from),
+                0, 0)
+    off = int(col_base) * n_tile
+    return (n // n_tile, n, off if in_width is not None else 0,
+            off if out_width is not None else 0)
+
+
 def _k2_fn():
     return _fn("spm_stack_bwd", "spm_stack_bwd",
                (_I,) + (_P,) * 12 + (_I,) * 18
                + (ctypes.POINTER(ctypes.c_int), _I, _I, ctypes.c_long, _P))
 
 
-def _stack_bwd_experts(x, coeffs, gy, d_in, d_out, strides, n_tile,
-                       has_bias, in_width, out_width, dead_from,
-                       int8: bool, window: bool) -> tuple:
+def _stack_bwd_experts(x, coeffs, gy, d_in, d_out, x_scale, coeff_scale,
+                       strides, n_tile, has_bias, in_width, out_width,
+                       dead_from, scale_rows, col_base) -> tuple:
     """K2's expert mode (``spm_stack_bwd_kernel_call``)."""
     E, L, half, _ = coeffs.shape
     n = 2 * half
     in_w = n if in_width is None else int(in_width)
     gy_w = n if out_width is None else int(out_width)
     vecs = [(d_in, "d_in"), (d_out, "d_out")]
-    _expert_check(x, coeffs, vecs, strides, n_tile, in_w, gy_w, int8,
-                  window)
+    _expert_check(x, coeffs, vecs, strides, n_tile, in_w, gy_w,
+                  col_base is not None, coeff_scale)
     if gy.shape != (E, x.shape[1], gy_w):
         raise ValueError(f"expected gy ({E}, {x.shape[1]}, {gy_w}), got "
                          f"{tuple(gy.shape)}")
+    _check_quant_args(x, coeffs, x_scale, coeff_scale, scale_rows)
+    _check_window(col_base, in_width, out_width, x_scale is not None)
+    if col_base is not None and dead_from is not None:
+        raise ValueError("the windowed mode visits every tile: no dead_from")
     if x.device.type == "cpu":
-        return spm_stack_bwd_plain(x, coeffs, gy, d_in, d_out,
-                                   strides=strides, n_tile=n_tile,
-                                   has_bias=has_bias, in_width=in_width,
-                                   out_width=out_width, dead_from=dead_from)
+        return spm_stack_bwd_plain(
+            x, coeffs, gy, d_in, d_out, x_scale, coeff_scale,
+            strides=strides, n_tile=n_tile, has_bias=has_bias,
+            in_width=in_width, out_width=out_width, dead_from=dead_from,
+            scale_rows=scale_rows, col_base=col_base)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    cf_es = _expert_cuda_check(x, coeffs, vecs)
-    if gy.dtype != x.dtype or gy.device != x.device \
+    cf_es = _expert_cuda_check(x, coeffs, vecs, coeff_scale, x_scale, n_tile,
+                               scale_rows)
+    io_dt = x.dtype if x_scale is None else gy.dtype
+    if io_dt not in _IO or gy.dtype != io_dt or gy.device != x.device \
             or not gy.is_contiguous():
         raise ValueError("gy must be contiguous, on x's device, in x's "
-                         "dtype")
-    vis, gx_w = bwd_live_tiles(n, n_tile, in_width, out_width, dead_from)
+                         "dtype (f32 or bf16 beside an int8 x)")
+    vis, gx_w, x_off, gy_off = _bwd_reads(n, n_tile, in_width, out_width,
+                                          dead_from, col_base)
     B = x.shape[1]
     dev = x.device
-    gx = torch.empty((E, B, gx_w), dtype=x.dtype, device=dev)
+    gx = torch.empty((E, B, gx_w), dtype=io_dt, device=dev)
     g_cf = torch.empty((E, L, half, 4), dtype=torch.float32, device=dev)
     g_vec = torch.empty((E, 3, n), dtype=torch.float32, device=dev)
     if B == 0 or E == 0:
@@ -1510,22 +1582,28 @@ def _stack_bwd_experts(x, coeffs, gy, d_in, d_out, strides, n_tile,
     else:
         plan = bwd_plan(B, n_tile, strides, vis * E, gy.element_size(),
                         x.element_size())
+        if plan.split and col_base is not None:
+            raise ValueError("K2's split mode (a lone stage wider than a "
+                             "cluster) takes no window")
         G = plan.groups
         part_cf = torch.empty((E, G, L, half, 4), dtype=torch.float32,
                               device=dev)
         part_vec = torch.empty((E, G, 3, n), dtype=torch.float32,
                                device=dev)
-        rc = _k2_fn()(_IO[x.dtype], _ptr(x), None, _ptr(gy), _ptr(gx),
-                      _ptr(coeffs), None, _ptr(d_in), _ptr(d_out),
-                      _ptr(g_cf), _ptr(g_vec), _ptr(part_cf),
-                      _ptr(part_vec), B, n, n_tile, in_w, gy_w, gx_w, 0, 0,
-                      vis, int(has_bias), 0, *_shape_args(plan), plan.split,
-                      _strides_arg(strides), L, E, cf_es, _stream(x))
+        rc = _k2_fn()(_IO[io_dt], _ptr(x), _ptr(x_scale), _ptr(gy),
+                      _ptr(gx), _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in),
+                      _ptr(d_out), _ptr(g_cf), _ptr(g_vec), _ptr(part_cf),
+                      _ptr(part_vec), B, n, n_tile, in_w, gy_w, gx_w, x_off,
+                      gy_off, vis, int(has_bias), scale_rows or 0,
+                      *_shape_args(plan), plan.split, _strides_arg(strides),
+                      L, E, cf_es, _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_stack_bwd (experts) launch failed: "
                                f"cudaError {rc}")
-        _count(spm_stack_bwd_kernel_call, None, None)
-        spm_stack_bwd_kernel_call.expert_launches += 1
+        _count(spm_stack_bwd_kernel_call, x_scale, coeff_scale,
+               col_base is not None)
+        _count_expert(spm_stack_bwd_kernel_call, x_scale, coeff_scale,
+                      col_base)
         spm_stack_bwd_kernel_call.split_launches += bool(plan.split)
     out = (gx, g_cf)
     for present, row in ((d_in is not None, 0), (d_out is not None, 1),
@@ -1541,6 +1619,8 @@ spm_stack_bwd_kernel_call.int8_io_launches = 0
 spm_stack_bwd_kernel_call.window_launches = 0
 spm_stack_bwd_kernel_call.split_launches = 0
 spm_stack_bwd_kernel_call.expert_launches = 0
+spm_stack_bwd_kernel_call.expert_int8_launches = 0
+spm_stack_bwd_kernel_call.expert_window_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1932,12 +2012,14 @@ spm_block_bwd_kernel_call.launches = 0
 def _check_pair(x, coeffs, coeff_scale, vecs, strides, n_tile, k,
                 in_width):
     """Shapes of a pair call, on any device: returns ``(S, n_local, n,
-    in_w)``."""
-    if coeffs.dim() != 4 or coeffs.shape[3] != 4:
-        raise ValueError(f"coeffs: need (S, L, n_local/2, 4), got "
+    in_w)``.  An (S, E, L, n_local/2, 4) stack is the expert mode: x (E, B,
+    in_w), (E, n) vectors, (S, E, L) stage scales."""
+    if coeffs.dim() not in (4, 5) or coeffs.shape[-1] != 4:
+        raise ValueError(f"coeffs: need (S, [E,] L, n_local/2, 4), got "
                          f"{tuple(coeffs.shape)}")
-    S, L = coeffs.shape[:2]
-    nl = 2 * coeffs.shape[2]
+    S, L = coeffs.shape[0], coeffs.shape[-3]
+    lead = tuple(coeffs.shape[1:-3])
+    nl = 2 * coeffs.shape[-2]
     n = S * nl
     in_w = n if in_width is None else int(in_width)
     if S < 2 or S & (S - 1) or k <= 0 or k & (k - 1) or S % (2 * k):
@@ -1948,16 +2030,19 @@ def _check_pair(x, coeffs, coeff_scale, vecs, strides, n_tile, k,
     for st in strides:
         if n_tile % (2 * st):
             raise ValueError(f"stride {st} crosses an {n_tile}-wide tile")
-    if x.dim() != 2 or x.shape[1] != in_w:
-        raise ValueError(f"expected x (B, {in_w}), got {tuple(x.shape)}")
+    if x.dim() != 2 + len(lead) or tuple(x.shape[:-2]) != lead \
+            or x.shape[-1] != in_w:
+        raise ValueError(f"expected x ({', '.join(map(str, lead + ('B',)))}"
+                         f", {in_w}), got {tuple(x.shape)}")
     if (coeff_scale is not None) != (coeffs.dtype == torch.int8):
         raise TypeError("int8 coeffs and coeff_scale go together")
-    if coeff_scale is not None and coeff_scale.shape != (S, L):
-        raise ValueError(f"coeff_scale: need ({S}, {L}), got "
+    if coeff_scale is not None and tuple(coeff_scale.shape) != (S, *lead, L):
+        raise ValueError(f"coeff_scale: need {(S, *lead, L)}, got "
                          f"{tuple(coeff_scale.shape)}")
     for v, name in vecs:
-        if v is not None and v.shape != (n,):
-            raise ValueError(f"{name}: need ({n},), got {tuple(v.shape)}")
+        if v is not None and tuple(v.shape) != (*lead, n):
+            raise ValueError(f"{name}: need {(*lead, n)}, got "
+                             f"{tuple(v.shape)}")
     return S, nl, n, in_w
 
 
@@ -1966,10 +2051,7 @@ def _pair_tables(coeffs, coeff_scale) -> torch.Tensor:
     stage as the kernels dequantize them on load."""
     if coeff_scale is None:
         return coeffs.float()
-    S, L = coeffs.shape[:2]
-    return Q.dequantize_coeffs(coeffs.reshape(S * L, *coeffs.shape[2:]),
-                               coeff_scale.reshape(S * L)
-                               ).reshape(coeffs.shape)
+    return Q.dequantize_coeffs(coeffs, coeff_scale)
 
 
 def _check_pair_cuda(x, coeffs, coeff_scale, vecs) -> None:
@@ -1981,10 +2063,15 @@ def _check_pair_cuda(x, coeffs, coeff_scale, vecs) -> None:
     if not coeffs.is_contiguous() or (coeff_scale is not None
                                       and not coeff_scale.is_contiguous()):
         raise ValueError("coeffs and coeff_scale must be contiguous")
-    _check_coeffs(coeffs[0], 2 * coeffs.shape[2], x.device, "coeffs",
-                  None if coeff_scale is None else coeff_scale[0])
+    first = (0,) * (coeffs.dim() - 3)
+    _check_coeffs(coeffs[first], 2 * coeffs.shape[-2], x.device, "coeffs",
+                  None if coeff_scale is None else coeff_scale[first])
     for v, name in vecs:
-        _check_vec(v, coeffs.shape[0] * 2 * coeffs.shape[2], x.device, name)
+        if v is not None and (v.dtype != torch.float32
+                              or v.device != x.device
+                              or not v.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous f32 tensor on "
+                             f"{x.device}")
 
 
 def _kbit(k: int) -> int:
@@ -2003,28 +2090,34 @@ def spm_overlap_plain(x: torch.Tensor, coeffs: torch.Tensor,
     rounds: shard j's local run in f32 from its lanes of x (zero from
     ``in_width`` on) [times d_in], rounded to x's dtype (the slab a shard
     sends), then ``y = mix_a * z_j + mix_b * z_(j^k)`` in f32, ``* d_out``
-    after the add, ``+ bias``, one rounding on the store."""
+    after the add, ``+ bias``, one rounding on the store.  An expert stack
+    runs every expert at once, each on its own rows, tables and vectors
+    (the same per-element operations as one expert at a time)."""
     S, nl, n, _ = _check_pair(x, coeffs, coeff_scale,
                               [(mix_a, "mix_a"), (mix_b, "mix_b"),
                                (d_in, "d_in"), (d_out, "d_out"),
                                (bias, "bias")], strides, n_tile, k, in_width)
     cf = _pair_tables(coeffs, coeff_scale)
-    xf = F.pad(x.float(), (0, n - x.shape[1]))
+    xf = F.pad(x.float(), (0, n - x.shape[-1]))
+
+    def lanes(v, sl):        # a ([E,] n) vector's slice against ([E,] B, .)
+        return v[..., sl].float().unsqueeze(-2)
     sent = []
     for j in range(S):
-        z = xf[:, j * nl:(j + 1) * nl]
+        sl = slice(j * nl, (j + 1) * nl)
+        z = xf[..., sl]
         if d_in is not None:
-            z = z * d_in[j * nl:(j + 1) * nl].float()
+            z = z * lanes(d_in, sl)
         sent.append(spm_stack_ref(z, cf[j], tuple(strides)
                                   ).to(x.dtype).float())
     ys = []
     for j in range(S):
         sl = slice(j * nl, (j + 1) * nl)
-        y = mix_a[sl].float() * sent[j] + mix_b[sl].float() * sent[j ^ k]
+        y = lanes(mix_a, sl) * sent[j] + lanes(mix_b, sl) * sent[j ^ k]
         if d_out is not None:
-            y = y * d_out[sl].float()
+            y = y * lanes(d_out, sl)
         if bias is not None:
-            y = y + bias[sl].float()
+            y = y + lanes(bias, sl)
         ys.append(y)
     return torch.cat(ys, dim=-1).to(x.dtype)
 
@@ -2045,7 +2138,12 @@ def spm_overlap_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     read of a rectangular first run), folds d_in, and is mixed with shard
     ``j ^ k``'s: ``y = mix_a * z + mix_b * z_partner`` (the role-resolved
     cross coefficients), then ``* d_out`` and ``+ bias`` when the schedule
-    ends on this cross stage.  Vectors are (n,) f32."""
+    ends on this cross stage.  Vectors are (n,) f32.
+
+    Expert mode (an (S, E, L, n_local/2, 4) stack, the reference's
+    ``jax.vmap`` of the pair over the MoE expert axis): x (E, B, in_width)
+    -> y (E, B, n), coeff_scale (S, E, L), vectors (E, n); one launch for
+    every shard and expert, the plan that of one expert's rows."""
     strides = tuple(int(st) for st in strides)
     S, nl, n, in_w = _check_pair(
         x, coeffs, coeff_scale, [(mix_a, "mix_a"), (mix_b, "mix_b"),
@@ -2061,32 +2159,36 @@ def spm_overlap_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     vecs = [(mix_a, "mix_a"), (mix_b, "mix_b"), (d_in, "d_in"),
             (d_out, "d_out"), (bias, "bias")]
     _check_pair_cuda(x, coeffs, coeff_scale, vecs)
-    B = x.shape[0]
-    y = torch.empty((B, n), dtype=x.dtype, device=x.device)
-    if B == 0:
+    E = coeffs.shape[1] if coeffs.dim() == 5 else 1
+    B = x.shape[-2]
+    y = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    if B == 0 or E == 0:
         return y
     tiles = nl // n_tile
     # a cluster holds both partners of a pair (and their send slots)
-    plan = fwd_plan(B, n_tile, strides, S // 2 * tiles, x.element_size(),
-                    sides=2, cf_bytes=16 if coeff_scale is None else 4)
+    plan = fwd_plan(B, n_tile, strides, S // 2 * tiles * E,
+                    x.element_size(), sides=2,
+                    cf_bytes=16 if coeff_scale is None else 4)
     fn = _fn("spm_overlap", "spm_overlap_fwd",
              (_I,) + (_P,) * 9 + (_I,) * 10
-             + (ctypes.POINTER(ctypes.c_int), _I, _P))
+             + (ctypes.POINTER(ctypes.c_int), _I, _I, _P))
     rc = fn(_IO[x.dtype], _ptr(x), _ptr(y), _ptr(coeffs), _ptr(coeff_scale),
             _ptr(mix_a), _ptr(mix_b), _ptr(d_in), _ptr(d_out), _ptr(bias),
             B, S, nl, n_tile, in_w, _kbit(k), plan.threads, plan.chunk_rows,
             plan.groups, int(plan.resident), _strides_arg(strides),
-            len(strides), _stream(x))
+            len(strides), E, _stream(x))
     if rc != 0:
         raise RuntimeError(f"spm_overlap_fwd launch failed: cudaError {rc}")
     _count(spm_overlap_kernel_call, None, coeff_scale,
            in_width is not None)
+    spm_overlap_kernel_call.expert_launches += coeffs.dim() == 5
     return y
 
 
 spm_overlap_kernel_call.launches = 0
 spm_overlap_kernel_call.int8_launches = 0
 spm_overlap_kernel_call.window_launches = 0
+spm_overlap_kernel_call.expert_launches = 0
 
 
 def spm_overlap_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
@@ -2104,28 +2206,35 @@ def spm_overlap_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
     packages, ``t_own``/``t_swp`` the same over the raw gy (with d_out);
     the transpose mix ``u * delta + v * delta_partner`` in f32 enters the
     reverse walk over the f32 remat.  Only the sums over rows differ from
-    the kernel's, in order."""
+    the kernel's, in order.  An expert stack runs every expert at once, as
+    K5's plain version does, ``col_sum`` over each expert's rows."""
     S, nl, n, _ = _check_pair(x, coeffs, coeff_scale,
                               [(u, "u"), (v, "v"), (d_in, "d_in"),
                                (d_out, "d_out")], strides, n_tile, k,
                               in_width)
-    if gy.shape != (x.shape[0], n):
-        raise ValueError(f"expected gy ({x.shape[0]}, {n}), got "
+    if gy.shape != (*x.shape[:-1], n):
+        raise ValueError(f"expected gy {(*x.shape[:-1], n)}, got "
                          f"{tuple(gy.shape)}")
+    if coeffs.dim() == 5:      # the rows first, as col_sum reduces them
+        rows_sum = col_sum
+        col_sum = (lambda t: rows_sum(t.transpose(0, 1)))  # noqa: E731
     strides = tuple(strides)
     io = gy.dtype
     cf = _pair_tables(coeffs, coeff_scale)
-    xf = F.pad(x.float(), (0, n - x.shape[1]))
+    xf = F.pad(x.float(), (0, n - x.shape[-1]))
     gyf = gy.float()
     sls = [slice(j * nl, (j + 1) * nl) for j in range(S)]
+
+    def lanes(t, sl):        # a ([E,] n) vector's slice against ([E,] B, .)
+        return t[..., sl].float().unsqueeze(-2)
     x_raw, zs, pk_d, pk_z = [], [], [], []
     for j, sl in enumerate(sls):
-        x_raw.append(xf[:, sl])
-        z0 = x_raw[j] * d_in[sl].float() if d_in is not None else x_raw[j]
+        x_raw.append(xf[..., sl])
+        z0 = x_raw[j] * lanes(d_in, sl) if d_in is not None else x_raw[j]
         z, zj = stages_collect(z0, cf[j], strides)
         zs.append(zj)
-        d = gyf[:, sl] * d_out[sl].float() if d_out is not None \
-            else gyf[:, sl]
+        d = gyf[..., sl] * lanes(d_out, sl) if d_out is not None \
+            else gyf[..., sl]
         pk_d.append(d.to(io).float())
         pk_z.append(z.to(io).float())
     gx, g_cf, outs = [], [], {k_: [] for k_ in
@@ -2135,21 +2244,24 @@ def spm_overlap_bwd_plain(x: torch.Tensor, coeffs: torch.Tensor,
         outs["s_own"].append(col_sum(pk_d[j] * pk_z[j]))
         outs["s_swp"].append(col_sum(pk_d[j] * pk_z[p]))
         if d_out is not None:
-            outs["t_own"].append(col_sum(gyf[:, sl] * pk_z[j]))
-            outs["t_swp"].append(col_sum(gyf[:, sl] * pk_z[p]))
-        dmid = u[sl].float() * pk_d[j] + v[sl].float() * pk_d[p]
+            outs["t_own"].append(col_sum(gyf[..., sl] * pk_z[j]))
+            outs["t_swp"].append(col_sum(gyf[..., sl] * pk_z[p]))
+        dmid = lanes(u, sl) * pk_d[j] + lanes(v, sl) * pk_d[p]
         d0, gc = walk_back(zs[j], dmid, cf[j], strides, col_sum)
         g_cf.append(gc)
         if d_in is not None:
             outs["g_din"].append(col_sum(d0 * x_raw[j]))
-            d0 = d0 * d_in[sl].float()
+            d0 = d0 * lanes(d_in, sl)
         gx.append(d0)
-    res = (torch.cat(gx, dim=-1).to(io), torch.stack(g_cf, dim=0),
-           torch.cat(outs["s_own"]), torch.cat(outs["s_swp"]))
+
+    def cat(ts):
+        return torch.cat(ts, dim=-1)
+    res = (cat(gx).to(io), torch.stack(g_cf, dim=0), cat(outs["s_own"]),
+           cat(outs["s_swp"]))
     if d_in is not None:
-        res += (torch.cat(outs["g_din"]),)
+        res += (cat(outs["g_din"]),)
     if d_out is not None:
-        res += (torch.cat(outs["t_own"]), torch.cat(outs["t_swp"]))
+        res += (cat(outs["t_own"]), cat(outs["t_swp"]))
     return res
 
 
@@ -2172,13 +2284,17 @@ def spm_overlap_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
     t_swp (n,)])``, all grads f32: ``s_own = sum delta * z_out``, ``s_swp
     = sum delta * z_partner`` (the caller places them by role), ``t_own``/
     ``t_swp`` the same sums over the raw gy, for ``g_dout = mix_a * t_own
-    + mix_b * t_swp``."""
+    + mix_b * t_swp``.
+
+    Expert mode (an (S, E, L, n_local/2, 4) stack, as K5's): x (E, B,
+    in_width), gy and g_x (E, B, n), g_coeffs (S, E, L, n_local/2, 4), the
+    vectors (E, n), each expert's sums over its own rows; one launch."""
     strides = tuple(int(st) for st in strides)
     vecs = [(u, "u"), (v, "v"), (d_in, "d_in"), (d_out, "d_out")]
     S, nl, n, in_w = _check_pair(x, coeffs, coeff_scale, vecs, strides,
                                  n_tile, k, in_width)
-    if gy.shape != (x.shape[0], n):
-        raise ValueError(f"expected gy ({x.shape[0]}, {n}), got "
+    if gy.shape != (*x.shape[:-1], n):
+        raise ValueError(f"expected gy {(*x.shape[:-1], n)}, got "
                          f"{tuple(gy.shape)}")
     if x.device.type == "cpu":
         return spm_overlap_bwd_plain(x, coeffs, gy, u, v, d_in, d_out,
@@ -2191,47 +2307,53 @@ def spm_overlap_bwd_kernel_call(x: torch.Tensor, coeffs: torch.Tensor,
             or not gy.is_contiguous():
         raise ValueError("gy must be contiguous, on x's device, in x's "
                          "dtype")
-    B, L = x.shape[0], len(strides)
+    B, L = x.shape[-2], len(strides)
+    lead = tuple(x.shape[:-2])
+    E = lead[0] if lead else 1
     dev = x.device
     tiles = nl // n_tile
-    gx = torch.empty((B, n), dtype=x.dtype, device=dev)
-    g_cf = torch.empty((S, L, nl // 2, 4), dtype=torch.float32, device=dev)
-    g_vec = torch.empty((5, n), dtype=torch.float32, device=dev)
-    if B == 0:
+    gx = torch.empty((*lead, B, n), dtype=x.dtype, device=dev)
+    g_cf = torch.empty((S, *lead, L, nl // 2, 4), dtype=torch.float32,
+                       device=dev)
+    g_vec = torch.empty((*lead, 5, n), dtype=torch.float32, device=dev)
+    if B == 0 or E == 0:
         for t in (gx, g_cf, g_vec):
             t.zero_()
     else:
         # a cluster holds both partners of a pair (and the package)
-        plan = bwd_plan(B, n_tile, strides, S // 2 * tiles,
+        plan = bwd_plan(B, n_tile, strides, S // 2 * tiles * E,
                         x.element_size(), nvec=5, package=True, sides=2)
         G = plan.groups
-        part_cf = torch.empty((G, S, L, nl // 2, 4), dtype=torch.float32,
+        part_cf = torch.empty((G, S, E, L, nl // 2, 4), dtype=torch.float32,
                               device=dev)
-        part_vec = torch.empty((G, 5, n), dtype=torch.float32, device=dev)
+        part_vec = torch.empty((E, G, 5, n), dtype=torch.float32,
+                               device=dev)
         fn = _fn("spm_overlap_bwd", "spm_overlap_bwd",
                  (_I,) + (_P,) * 13 + (_I,) * 12
-                 + (ctypes.POINTER(ctypes.c_int), _I, _P))
+                 + (ctypes.POINTER(ctypes.c_int), _I, _I, _P))
         rc = fn(_IO[x.dtype], _ptr(x), _ptr(gy), _ptr(gx), _ptr(coeffs),
                 _ptr(coeff_scale), _ptr(u), _ptr(v), _ptr(d_in),
                 _ptr(d_out), _ptr(g_cf), _ptr(g_vec), _ptr(part_cf),
                 _ptr(part_vec), B, S, nl, n_tile, in_w, _kbit(k),
-                *_shape_args(plan), _strides_arg(strides), L, _stream(x))
+                *_shape_args(plan), _strides_arg(strides), L, E, _stream(x))
         if rc != 0:
             raise RuntimeError(f"spm_overlap_bwd launch failed: cudaError "
                                f"{rc}")
         _count(spm_overlap_bwd_kernel_call, None, coeff_scale,
                in_width is not None)
-    res = (gx, g_cf, g_vec[0], g_vec[1])
+        spm_overlap_bwd_kernel_call.expert_launches += bool(lead)
+    res = (gx, g_cf, g_vec[..., 0, :], g_vec[..., 1, :])
     if d_in is not None:
-        res += (g_vec[4],)
+        res += (g_vec[..., 4, :],)
     if d_out is not None:
-        res += (g_vec[2], g_vec[3])
+        res += (g_vec[..., 2, :], g_vec[..., 3, :])
     return res
 
 
 spm_overlap_bwd_kernel_call.launches = 0
 spm_overlap_bwd_kernel_call.int8_launches = 0
 spm_overlap_bwd_kernel_call.window_launches = 0
+spm_overlap_bwd_kernel_call.expert_launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -2240,6 +2362,7 @@ def reset_launch_counts() -> None:
                spm_block_kernel_call, spm_block_bwd_kernel_call,
                spm_overlap_kernel_call, spm_overlap_bwd_kernel_call):
         for name in ("launches", "int8_launches", "int8_io_launches",
-                     "window_launches", "split_launches", "expert_launches"):
+                     "window_launches", "split_launches", "expert_launches",
+                     "expert_int8_launches", "expert_window_launches"):
             if hasattr(fn, name):
                 setattr(fn, name, 0)

@@ -18,8 +18,8 @@ embeddings by a fixed table, with (3, B, T) M-RoPE ids under ``mrope``
 the closed-form backward through the SPM kernels and AdamW, with the
 non-finite guard and the chaos port always on, as in the reference.
 ``--quantize`` trains through the int8 modes of K1 and K2
-(``configs.with_quantized_io``); with an MoE arch it is refused at parsing
-(the kernels' expert mode has no int8 operands yet: ``ROADMAP.md`` §1).
+(``configs.with_quantized_io``), the MoE archs' experts through their
+expert mode, per expert as under the reference's ``jax.vmap``.
 The logged metrics include ``aux``, the MoE load-balancing term.
 
 Around the step, as in the reference: atomic keep-N checkpoints every
@@ -132,23 +132,9 @@ def make_batch_fn(cfg: T.ModelConfig, seq_len: int, corpus: np.ndarray,
     return batch_fn
 
 
-class _Parser(argparse.ArgumentParser):
-    """Refuses ``--quantize`` for an MoE arch when the arguments are
-    parsed."""
-
-    def parse_args(self, args=None, namespace=None):
-        ns = super().parse_args(args, namespace)
-        cfg = get_smoke(ns.arch) if ns.smoke else get_config(ns.arch)
-        if ns.quantize and any(s.mlp == "moe" for s in cfg.layers):
-            self.error(f"--quantize: {ns.arch} is an MoE arch, and the "
-                       "expert mode of K1 and K2 takes no int8 operands "
-                       "yet (ROADMAP.md §1)")
-        return ns
-
-
 def build_parser() -> argparse.ArgumentParser:
     """The reference's flags, plus ``--device``."""
-    ap = _Parser()
+    ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
@@ -193,7 +179,8 @@ def train(args: argparse.Namespace,
           event_log: Optional[FaultEventLog] = None,
           chaos: Optional[ChaosSchedule] = None,
           on_step: Optional[Callable] = None,
-          timings: Optional[list] = None) -> dict:
+          timings: Optional[list] = None,
+          cfg: Optional[T.ModelConfig] = None) -> dict:
     """Train as ``args`` says and return the final state.  The inner
     ``loop(resume)`` holds the steps, saves and rollbacks;
     ``run_with_recovery`` restarts it on failure.
@@ -205,7 +192,10 @@ def train(args: argparse.Namespace,
     with float metrics and the step's wall seconds (synchronized, from
     after the batch reached the device and before the chaos plan's
     ``pre_step``).  ``timings``, when given, receives each checkpoint
-    save, verify and restore's wall times (``train/checkpoint.py``)."""
+    save, verify and restore's wall times (``train/checkpoint.py``).
+    ``cfg``, when given, is trained in place of ``args.arch``'s registered
+    config (a registered arch cut in depth); ``--linear-impl`` and
+    ``--quantize`` still apply to it."""
     for flag, why in _LATER.items():
         value = getattr(args, flag)
         if value > 1 if flag == "pod_dp" else bool(value):
@@ -213,7 +203,8 @@ def train(args: argparse.Namespace,
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.linear_impl:
         cfg = with_overrides(cfg, linear_impl=args.linear_impl)
     if args.quantize:

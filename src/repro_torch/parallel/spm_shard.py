@@ -69,6 +69,18 @@ the same way in the backward, so the grads are those of the dequantized
 tables (straight through).  Cross-stage coefficients stay f32, and int8
 activations (``quant_acts``) do not apply here, as in the reference.
 
+**Experts** (an MoE's stacked expert operators: tables (E, L, n/2, 4),
+vectors (E, n), x (E, rows, in_width); the reference's ``jax.vmap`` of
+its sharded executor over the expert axis): every step runs all experts
+at once.  The step tables are (S, E, ...), shard-major; the exchanges
+and the cross mixes are one elementwise op for all experts (rounding
+after each op in the activation dtype, as above); a local run is one
+K1/K2 expert-mode launch a planned run (windowed per expert), a fused
+pair one K5/K6 launch over every shard and expert.  Rows, row blocks and
+the plans are one expert's, every sum over rows is each expert's own,
+and int8 tables have one scale a shard, expert and stage.  Without the
+kernel path the composition runs an expert at a time.
+
 The mesh (``parallel/ctx.FeatureMesh``) binds each shard to a device.
 Every shard must be on the input's own device, and a mesh that places one
 elsewhere raises: a hand-over is then the partner's slab itself (in K5/K6
@@ -98,7 +110,8 @@ from repro_torch.core.eligibility import (OVERLAP_ROW_BLOCKS,
 from repro_torch.core.pairings import Stage
 from repro_torch.kernels import quant as Q
 from repro_torch.kernels import spm_stack as K
-from repro_torch.kernels.ops import plan_runs, plan_runs_for_rows
+from repro_torch.kernels.ops import (_stage_scales, _stages, plan_runs,
+                                    plan_runs_for_rows)
 from repro_torch.parallel.ctx import FeatureMesh
 
 __all__ = ["spm_apply_sharded", "cross_partner_perm", "ShardPlan",
@@ -135,7 +148,8 @@ class ShardPlan:
     running as separate elementwise ops.  ``row_blocks`` (empty: the
     step-serial schedule) are the overlap schedule's row blocks,
     ``rdma_crosses`` the cross steps fused with their local run into K5/K6,
-    ``quant_cf`` whether the local runs read int8 tables."""
+    ``quant_cf`` whether the local runs read int8 tables, ``experts``
+    whether the operator carries a leading expert axis."""
 
     n: int
     n_local: int
@@ -150,6 +164,7 @@ class ShardPlan:
     row_blocks: Tuple[int, ...] = ()
     rdma_crosses: Tuple[int, ...] = ()
     quant_cf: bool = False
+    experts: bool = False
 
     @property
     def overlap(self) -> bool:
@@ -243,39 +258,36 @@ def _step_tables(coeffs: torch.Tensor, steps, n_shards: int,
     """Per-step coefficient tables with a leading shard axis.  A local step
     takes shard j's contiguous pair block of each of its stages,
     ``(S, Lr, n_local/2, 4)``; a cross step the shared partner rows,
-    ``(S, n_local, 4)``.  Differentiable: the cross case is a gather whose
+    ``(S, n_local, 4)``; an expert stack (E, L, n/2, 4) gives ``(S, E,
+    ...)`` of each.  Differentiable: the cross case is a gather whose
     backward scatter-adds the two partners' partials into the shared rows.
-    Each shard's table is contiguous."""
+    Each shard's local table is contiguous."""
     nl2 = n_local // 2
+    lead = coeffs.shape[:-3]
     tabs = []
     for step in steps:
         if step[0] == "local":
             _, start, run = step
-            blk = coeffs[start: start + len(run)]          # (Lr, n/2, 4)
-            tabs.append(blk.reshape(len(run), n_shards, nl2, 4)
-                        .transpose(0, 1).contiguous())     # (S, Lr, nl2, 4)
+            blk = coeffs[..., start: start + len(run), :, :]
+            tabs.append(blk.reshape(*lead, len(run), n_shards, nl2, 4)
+                        .movedim(-3, 0).contiguous())   # (S, [E,] Lr, nl2, 4)
         else:
             _, ell, k = step
             rows = _cross_rows_on(n_shards, n_local, k, coeffs.device)
-            tabs.append(coeffs[ell][rows])                 # (S, n_local, 4)
+            t = coeffs[..., ell, :, :][..., rows, :]    # ([E,] S, n_local, 4)
+            tabs.append(t.movedim(-3, 0))
     return tuple(tabs)
 
 
 def _quant_tables(plan: ShardPlan, tables) -> Tuple[Optional[tuple], ...]:
-    """Under ``quant_cf``, each local step's int8 tables ``(q (S, Lr,
-    n_local/2, 4), scales (S, Lr))``: one scale a stage of each shard's own
-    table (``kernels/quant.quantize_coeffs`` of that shard's slab, as the
-    reference quantizes inside its shard body); None for cross steps and
-    without ``quant_cf``."""
-    out = []
-    for step, t in zip(plan.steps, tables):
-        if not plan.quant_cf or step[0] != "local":
-            out.append(None)
-            continue
-        S, Lr = t.shape[:2]
-        q, sc = Q.quantize_coeffs(t.detach().reshape(S * Lr, *t.shape[2:]))
-        out.append((q.reshape(t.shape), sc.reshape(S, Lr)))
-    return tuple(out)
+    """Under ``quant_cf``, each local step's int8 tables ``(q (S, [E,] Lr,
+    n_local/2, 4), scales (S, [E,] Lr))``: one scale a stage of each
+    shard's own table (of each expert: ``kernels/quant.quantize_coeffs`` of
+    that shard's slab, as the reference quantizes inside its shard body);
+    None for cross steps and without ``quant_cf``."""
+    return tuple(Q.quantize_coeffs(t.detach())
+                 if plan.quant_cf and step[0] == "local" else None
+                 for step, t in zip(plan.steps, tables))
 
 
 # ---------------------------------------------------------------------------
@@ -338,12 +350,27 @@ def _rdma_cross_indices(steps, n_local: int) -> Tuple[int, ...]:
 
 
 def _overlap_split(t: torch.Tensor, blocks: Tuple[int, ...]):
-    """``t``'s rows cut into the plan's row blocks (views)."""
-    return [t] if len(blocks) <= 1 else list(torch.split(t, blocks, dim=0))
+    """``t``'s rows (axis -2: each expert's) cut into the plan's row
+    blocks (views)."""
+    return [t] if len(blocks) <= 1 else list(torch.split(t, blocks, dim=-2))
 
 
 def _join(parts):
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def _low_b(n_shards: int, k: int, device, ndim: int) -> torch.Tensor:
+    """``_low_on`` shaped (S, 1, ..., 1) with ``ndim`` axes, to select
+    over a shard-major (S, [E,] ...) tensor."""
+    return _low_on(n_shards, k, device).reshape(n_shards,
+                                                *([1] * (ndim - 1)))
+
+
+def _flat_shards(t: torch.Tensor) -> torch.Tensor:
+    """(S, [E,] n_local) per-shard vectors -> ([E,] n), shard j's lanes at
+    j * n_local."""
+    t = t.movedim(0, -2)
+    return t.reshape(*t.shape[:-2], -1)
 
 
 def _sum_vec_lists(parts):
@@ -370,12 +397,12 @@ def _cross_mix(z, zp, cf, low: bool, d_out=None, bias=None):
     operand order is the reference's (``spm_shard.py:354``), which elastic
     re-sharding keeps bitwise.  A schedule-ending stage scales the mixed
     sum by ``d_out`` after the add, then adds ``bias``."""
-    a, b, c, d = (cf[:, i].to(z.dtype) for i in range(4))
+    a, b, c, d = (cf[..., i].unsqueeze(-2).to(z.dtype) for i in range(4))
     y = a * z + b * zp if low else c * zp + d * z
     if d_out is not None:
-        y = y * d_out.to(z.dtype)
+        y = y * d_out.unsqueeze(-2).to(z.dtype)
     if bias is not None:
-        y = y + bias.to(z.dtype)
+        y = y + bias.unsqueeze(-2).to(z.dtype)
     return y
 
 
@@ -398,26 +425,28 @@ def _cross_bwd(z_in, delta, cfs, k: int, plan: ShardPlan, d_out=None,
     g_dout = g_bias = None
     if d_out is not None or has_bias:
         if has_bias:
-            g_bias = [delta[j].float().sum(0) for j in range(S)]
+            g_bias = [delta[j].float().sum(-2) for j in range(S)]
         if d_out is not None:
             g_dout = []
             for j in range(S):
-                a, b, c, d = (cfs[j][:, i].float() for i in range(4))
+                a, b, c, d = (cfs[j][..., i].unsqueeze(-2).float()
+                              for i in range(4))
                 zf, zpf = z_in[j].float(), zp[j].float()
                 m = a * zf + b * zpf if j & k == 0 else c * zpf + d * zf
-                g_dout.append((delta[j].float() * m).sum(0))
-            delta = [delta[j] * d_out[j].to(delta[j].dtype)
+                g_dout.append((delta[j].float() * m).sum(-2))
+            delta = [delta[j] * d_out[j].unsqueeze(-2).to(delta[j].dtype)
                      for j in range(S)]
     dp = _exchange(delta, k)
     g_in, g_cf = [], []
     for j in range(S):
-        a, b, c, d = (cfs[j][:, i].to(delta[j].dtype) for i in range(4))
+        a, b, c, d = (cfs[j][..., i].unsqueeze(-2).to(delta[j].dtype)
+                      for i in range(4))
         low = j & k == 0
         # g_x0 = a d0 + c d1 on the low shard; g_x1 = b d0 + d d1 on the high
         g_in.append(a * delta[j] + c * dp[j] if low
                     else b * dp[j] + d * delta[j])
-        s_own = (delta[j].float() * z_in[j].float()).sum(0)
-        s_swp = (delta[j].float() * zp[j].float()).sum(0)
+        s_own = (delta[j].float() * z_in[j].float()).sum(-2)
+        s_swp = (delta[j].float() * zp[j].float()).sum(-2)
         zero = torch.zeros_like(s_own)
         g_cf.append(torch.stack([s_own, s_swp, zero, zero], dim=-1) if low
                     else torch.stack([zero, zero, s_swp, s_own], dim=-1))
@@ -426,11 +455,11 @@ def _cross_bwd(z_in, delta, cfs, k: int, plan: ShardPlan, d_out=None,
 
 def _cross_role_vecs(cf: torch.Tensor, k: int):
     """The role-resolved forward mix vectors of a cross step over all
-    shards, (n,) each: ``y = mix_a * z + mix_b * zp`` with (mix_a, mix_b)
-    = (a, b) on the low partner and (d, c) on the high."""
-    low = _low_on(cf.shape[0], k, cf.device)
-    return (torch.where(low, cf[..., 0], cf[..., 3]).reshape(-1),
-            torch.where(low, cf[..., 1], cf[..., 2]).reshape(-1))
+    shards, ([E,] n) each: ``y = mix_a * z + mix_b * zp`` with (mix_a,
+    mix_b) = (a, b) on the low partner and (d, c) on the high."""
+    low = _low_b(cf.shape[0], k, cf.device, cf.dim() - 1)
+    return (_flat_shards(torch.where(low, cf[..., 0], cf[..., 3])),
+            _flat_shards(torch.where(low, cf[..., 1], cf[..., 2])))
 
 
 # ---------------------------------------------------------------------------
@@ -445,25 +474,31 @@ def _segment_fwd(z, cf, run: Tuple[int, ...], plan: ShardPlan, *,
     the last, or the composition with the kernel path off.  With
     ``col_base`` (a global column) ``z`` is the whole (rows, in_width)
     input and the first run reads this shard's window of it.  ``qcf``:
-    the run's int8 table and stage scales (``quant_cf``)."""
+    the run's int8 table and stage scales (``quant_cf``).  An expert
+    stack's run is one expert-mode launch a planned run (the composition:
+    an expert at a time)."""
     if plan.use_kernel:
         kcf, scf = qcf if qcf is not None else (cf, None)
-        runs = plan_runs_for_rows(plan.n_local, run, z.shape[0])
+        runs = plan_runs_for_rows(plan.n_local, run, z.shape[-2])
         z = z.contiguous()
         off = 0
         for r, (run_strides, n_tile) in enumerate(runs):
             first, last = r == 0, r == len(runs) - 1
             win = first and col_base is not None
-            sl = slice(off, off + len(run_strides))
+            lo, hi = off, off + len(run_strides)
             z = K.spm_stack_kernel_call(
-                z, kcf[sl], d_in if first else None,
+                z, _stages(kcf, lo, hi), d_in if first else None,
                 d_out if last else None, bias if last else None,
-                coeff_scale=None if scf is None else scf[sl],
+                coeff_scale=_stage_scales(scf, lo, hi),
                 strides=run_strides, n_tile=n_tile,
                 in_width=plan.in_width if win else None,
                 col_base=col_base // n_tile if win else None)
             off += len(run_strides)
         return z
+    if plan.experts:
+        one = dataclasses.replace(plan, experts=False)
+        return torch.stack([_segment_fwd(z[e], cf[e], run, one)
+                            for e in range(cf.shape[0])])
     for i, s in enumerate(run):
         z = spm_mod.apply_stage(z, cf[i].to(z.dtype), Stage(stride=s))
     return z
@@ -478,20 +513,20 @@ def _segment_bwd(z_in, delta, cf, run: Tuple[int, ...], plan: ShardPlan, *,
     this shard's (rows, n_local) g_x), or with the kernel path off the
     composition's per-stage eqs. 12-14.  Returns ``(delta, g_coeffs,
     g_din, g_dout, g_bias)``, g_coeffs in the table's dtype, the last
-    three None unless folded here."""
+    three None unless folded here.  Experts as ``_segment_fwd``."""
     if plan.use_kernel:
         kcf, scf = qcf if qcf is not None else (cf, None)
-        runs = plan_runs_for_rows(plan.n_local, run, delta.shape[0])
+        runs = plan_runs_for_rows(plan.n_local, run, delta.shape[-2])
         delta = delta.contiguous()
         zs, z, off = [], z_in.contiguous(), 0
         for r, (run_strides, n_tile) in enumerate(runs):
             zs.append(z)
             win = r == 0 and col_base is not None
-            sl = slice(off, off + len(run_strides))
+            lo, hi = off, off + len(run_strides)
             if r < len(runs) - 1:          # the last output is not needed
                 z = K.spm_stack_kernel_call(
-                    z, kcf[sl], d_in if r == 0 else None,
-                    coeff_scale=None if scf is None else scf[sl],
+                    z, _stages(kcf, lo, hi), d_in if r == 0 else None,
+                    coeff_scale=_stage_scales(scf, lo, hi),
                     strides=run_strides, n_tile=n_tile,
                     in_width=plan.in_width if win else None,
                     col_base=col_base // n_tile if win else None)
@@ -503,11 +538,11 @@ def _segment_bwd(z_in, delta, cf, run: Tuple[int, ...], plan: ShardPlan, *,
             run_strides, n_tile = runs[r]
             first, last = r == 0, r == len(runs) - 1
             win = first and col_base is not None
-            sl = slice(int(offs[r]), int(offs[r + 1]))
+            lo, hi = int(offs[r]), int(offs[r + 1])
             out = K.spm_stack_bwd_kernel_call(
-                zs[r], kcf[sl], delta,
+                zs[r], _stages(kcf, lo, hi), delta,
                 d_in if first else None, d_out if last else None,
-                coeff_scale=None if scf is None else scf[sl],
+                coeff_scale=_stage_scales(scf, lo, hi),
                 strides=run_strides, n_tile=n_tile,
                 has_bias=last and has_bias,
                 in_width=plan.in_width if win else None,
@@ -520,7 +555,13 @@ def _segment_bwd(z_in, delta, cf, run: Tuple[int, ...], plan: ShardPlan, *,
                 g_dout = vecs.pop(0)
             if last and has_bias:
                 g_bias = vecs.pop(0)
-        return delta, torch.cat(g_parts, dim=0), g_din, g_dout, g_bias
+        return delta, torch.cat(g_parts, dim=-3), g_din, g_dout, g_bias
+    if plan.experts:
+        one = dataclasses.replace(plan, experts=False)
+        outs = [_segment_bwd(z_in[e], delta[e], cf[e], run, one)
+                for e in range(cf.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]), None, None, None)
     zs, z = [], z_in
     for i, s in enumerate(run):
         zs.append(z)
@@ -583,11 +624,11 @@ def _pair_bwd(plan: ShardPlan, glob: dict, li: int, ci: int,
     fold_dout = last and plan.fold_dout
     run_strides, n_tile = _pair_run(plan, li)
     cfc = glob["tabs"][ci]
-    low = _low_on(S, k, cfc.device)
+    low = _low_b(S, k, cfc.device, cfc.dim() - 1)
     # the transpose mix: g_mid = u * delta + v * delta_p with (u, v) =
     # (a, c) on the low partner and (d, b) on the high
-    u = torch.where(low, cfc[..., 0], cfc[..., 3]).reshape(-1)
-    v = torch.where(low, cfc[..., 2], cfc[..., 1]).reshape(-1)
+    u = _flat_shards(torch.where(low, cfc[..., 0], cfc[..., 3]))
+    v = _flat_shards(torch.where(low, cfc[..., 2], cfc[..., 1]))
     q = glob["qtabs"][li]
     cf, scf = q if q is not None else (glob["tabs"][li], None)
     out = K.spm_overlap_bwd_kernel_call(
@@ -604,8 +645,12 @@ def _pair_bwd(plan: ShardPlan, glob: dict, li: int, ci: int,
         mix_a, mix_b = _cross_role_vecs(cfc, k)
         g_dout = mix_a.float() * vecs[0] + mix_b.float() * vecs[1]
     if last and plan.fold_bias:
-        g_bias = gy.float().sum(0)
-    so, sw = s_own.reshape(S, nl), s_swp.reshape(S, nl)
+        g_bias = gy.float().sum(-2)
+
+    def per_shard(t):      # ([E,] n) -> (S, [E,] n_local)
+        return t.reshape(*t.shape[:-1], S, nl).movedim(-2, 0)
+
+    so, sw = per_shard(s_own), per_shard(s_swp)
     zero = torch.zeros_like(so)
     g_cross = torch.where(low[..., None],
                           torch.stack([so, sw, zero, zero], dim=-1),
@@ -626,7 +671,7 @@ def _shard_operands(plan: ShardPlan, tables, qtabs, d_in, d_out, bias):
         sl = plan.shard_slice(j)
 
         def vec(v):
-            return None if v is None else v[sl]
+            return None if v is None else v[..., sl].contiguous()
 
         ops.append(dict(tabs=[t[j] for t in tables],
                         qtabs=[None if q is None else (q[0][j], q[1][j])
@@ -661,7 +706,8 @@ def _step_fwd(plan: ShardPlan, ops, i: int, z, blocks):
     win = first and plan.win_in
     outs = []
     for zb in _overlap_split(z, blocks):
-        blk = [zb if win else zb[:, plan.shard_slice(j)] for j in range(S)]
+        blk = [zb if win else zb[..., plan.shard_slice(j)]
+               for j in range(S)]
         if step[0] == "cross":
             k = step[2]
             zp = _exchange(blk, k)
@@ -696,8 +742,9 @@ def _step_bwd(plan: ShardPlan, ops, i: int, z_in, delta, blocks):
     parts = []
     for zb, db in zip(_overlap_split(z_in, blocks),
                       _overlap_split(delta, blocks)):
-        zs = [zb if win else zb[:, plan.shard_slice(j)] for j in range(S)]
-        ds = [db[:, plan.shard_slice(j)] for j in range(S)]
+        zs = [zb if win else zb[..., plan.shard_slice(j)]
+              for j in range(S)]
+        ds = [db[..., plan.shard_slice(j)] for j in range(S)]
         if step[0] == "cross":
             parts.append((*_cross_bwd(
                 zs, ds, [o["tabs"][i] for o in ops], step[2], plan,
@@ -719,9 +766,12 @@ def _step_bwd(plan: ShardPlan, ops, i: int, z_in, delta, blocks):
             return None
         return _sum_vec_lists([join(p[m]) for p in parts])
 
+    def cat(vs):
+        return torch.cat(vs, dim=-1)
+
     return (_join([torch.cat(p[0], dim=-1) for p in parts]),
-            summed(1, torch.stack), summed(4, torch.cat), summed(2, torch.cat),
-            summed(3, torch.cat))
+            summed(1, torch.stack), summed(4, cat), summed(2, cat),
+            summed(3, cat))
 
 
 def _walk_fwd(plan: ShardPlan, ops, glob, x2: torch.Tensor):
@@ -732,13 +782,13 @@ def _walk_fwd(plan: ShardPlan, ops, glob, x2: torch.Tensor):
     kept.  A rectangular input without the windowed read enters
     zero-padded to n."""
     fdt = x2.dtype
-    blocks = plan.row_blocks or (x2.shape[0],)
+    blocks = plan.row_blocks or (x2.shape[-2],)
     z = x2
     if plan.in_width is not None and not plan.win_in:
         z = F.pad(x2, (0, plan.n - plan.in_width))
     x_res = z if plan.saves_x_res else None
     if plan.has_din and not plan.fold_din:
-        z = z * glob["d_in"].to(fdt)
+        z = z * glob["d_in"].unsqueeze(-2).to(fdt)
     keep = plan.saved_step_inputs
     step_ins: List = [None] * len(plan.steps)
     for seg, i0 in _spans(plan):
@@ -753,9 +803,9 @@ def _walk_fwd(plan: ShardPlan, ops, glob, x2: torch.Tensor):
             z = _step_fwd(plan, ops, i, z, blocks)
     z_last = z if plan.saves_z_last else None
     if plan.has_dout and not plan.fold_dout:
-        z = z * glob["d_out"].to(fdt)
+        z = z * glob["d_out"].unsqueeze(-2).to(fdt)
     if plan.has_bias and not plan.fold_bias:
-        z = z + glob["bias"].to(fdt)
+        z = z + glob["bias"].unsqueeze(-2).to(fdt)
     return z, (x_res, step_ins, z_last)
 
 
@@ -764,14 +814,14 @@ def _walk_bwd(plan: ShardPlan, ops, glob, res, gy2: torch.Tensor):
     returns ``(g_x (rows, n), g_tables (per step, (S, ...)), g_din, g_dout,
     g_bias)``, the vectors (n,) or None where absent."""
     x_res, step_ins, z_last = res
-    blocks = plan.row_blocks or (gy2.shape[0],)
+    blocks = plan.row_blocks or (gy2.shape[-2],)
     g_din = g_dout = g_bias = None
     delta = gy2
     if plan.has_bias and not plan.fold_bias:
-        g_bias = gy2.float().sum(0)
+        g_bias = gy2.float().sum(-2)
     if plan.has_dout and not plan.fold_dout:
-        g_dout = (gy2.float() * z_last.float()).sum(0)
-        delta = gy2 * glob["d_out"].to(gy2.dtype)
+        g_dout = (gy2.float() * z_last.float()).sum(-2)
+        delta = gy2 * glob["d_out"].unsqueeze(-2).to(gy2.dtype)
     g_tabs: List = [None] * len(plan.steps)
     for seg, i0 in reversed(_spans(plan)):
         vecs = []
@@ -792,15 +842,15 @@ def _walk_bwd(plan: ShardPlan, ops, glob, res, gy2: torch.Tensor):
             g_dout = go if go is not None else g_dout
             g_bias = gb if gb is not None else g_bias
     if plan.has_din and not plan.fold_din:
-        g_din = (delta.float() * x_res.float()).sum(0)
-        delta = delta * glob["d_in"].to(delta.dtype)
+        g_din = (delta.float() * x_res.float()).sum(-2)
+        delta = delta * glob["d_in"].unsqueeze(-2).to(delta.dtype)
     return delta, g_tabs, g_din, g_dout, g_bias
 
 
 class _ShardedCore(torch.autograd.Function):
-    """The sharded operator: ``x2`` (rows, in_width or n) -> (rows,
-    out_width or n), differentiable in x2, the step tables and the vector
-    operands."""
+    """The sharded operator: ``x2`` ([E,] rows, in_width or n) -> ([E,]
+    rows, out_width or n), differentiable in x2, the step tables and the
+    vector operands."""
 
     @staticmethod
     def forward(ctx, plan: ShardPlan, d_in, d_out, bias, x2, *tables):
@@ -810,7 +860,7 @@ class _ShardedCore(torch.autograd.Function):
                     bias=bias)
         y2, (x_res, step_ins, z_last) = _walk_fwd(plan, ops, glob, x2)
         if plan.out_width is not None:
-            y2 = y2[:, :plan.out_width].contiguous()
+            y2 = y2[..., :plan.out_width].contiguous()
         ctx.plan = plan
         ctx.x_dtype = x2.dtype
         ctx.save_for_backward(d_in, d_out, bias, x_res, z_last, *step_ins,
@@ -834,7 +884,7 @@ class _ShardedCore(torch.autograd.Function):
         g_x2, g_tabs, g_din, g_dout, g_bias = _walk_bwd(
             plan, ops, glob, (x_res, step_ins, z_last), gy2)
         if plan.in_width is not None:
-            g_x2 = g_x2[:, :plan.in_width]
+            g_x2 = g_x2[..., :plan.in_width]
 
         def vec(g, like):
             return None if like is None else g.to(like.dtype)
@@ -867,6 +917,11 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
     a CUDA input with the kernel path on; ``cfg.quant_coeffs`` with the
     kernel path gives every local run int8 tables (``quant_cf``), and
     ``cfg.quant_acts`` does not apply here.
+
+    Params stacked over a leading expert axis (tables (E, L, n/2, 4),
+    vectors (E, n)) take x (E, ..., in_width or n): every step runs all
+    experts at once, each over its own rows (the reference's ``jax.vmap``
+    of this executor).
     """
     n = cfg.n
     if mesh.shape[AXIS] != cfg.n_shards:
@@ -887,8 +942,14 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
     in_w = in_width if in_width is not None else n
     if x.shape[-1] != in_w:
         raise ValueError(f"expected (..., {in_w}), got {tuple(x.shape)}")
+    coeffs = spm_mod.stage_coeffs(params, cfg)
+    experts = coeffs.dim() == 4
+    if experts and x.shape[0] != coeffs.shape[0]:
+        raise ValueError(f"expected x ({coeffs.shape[0]}, ..., {in_w}), "
+                         f"got {tuple(x.shape)}")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, in_w).contiguous()
+    x2 = (x.reshape(x.shape[0], -1, in_w) if experts
+          else x.reshape(-1, in_w)).contiguous()
     use_kernel = resolve_shard_kernel(cfg, steps)
     overlap = resolve_overlap(cfg, steps)
     rdma = overlap and resolve_rdma(use_kernel, x.device.type == "cuda")
@@ -896,12 +957,11 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
         n=n, n_local=n_local, n_shards=cfg.n_shards, steps=steps,
         has_din=cfg.use_diag, has_dout=cfg.use_diag, has_bias=cfg.use_bias,
         use_kernel=use_kernel, in_width=in_width, out_width=out_width,
-        row_blocks=(() if not overlap else (x2.shape[0],) if rdma
-                    else _overlap_row_blocks(steps, n_local, x2.shape[0],
+        row_blocks=(() if not overlap else (x2.shape[-2],) if rdma
+                    else _overlap_row_blocks(steps, n_local, x2.shape[-2],
                                              x2.element_size(), use_kernel)),
         rdma_crosses=_rdma_cross_indices(steps, n_local) if rdma else (),
-        quant_cf=use_kernel and bool(cfg.quant_coeffs))
-    coeffs = spm_mod.stage_coeffs(params, cfg)
+        quant_cf=use_kernel and bool(cfg.quant_coeffs), experts=experts)
     if plan.use_kernel:
         coeffs = coeffs.float()        # the kernels read f32 tables
     tables = _step_tables(coeffs, steps, cfg.n_shards, n_local)

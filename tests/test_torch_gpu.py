@@ -1541,3 +1541,221 @@ def test_moe_and_ssm_smoke_models_on_card_match_cpu(cuda, arch):
     if cfg.n_experts:
         assert K.spm_stack_bwd_kernel_call.expert_launches > 0
     assert abs(loss.item() - cpu_loss) <= 1e-4 * (abs(cpu_loss) + 1)
+
+
+def _expert_lin(arch, name, shards=None):
+    """An MoE arch's expert linear at full width (``with_feature_sharding``
+    when ``shards``): its LinearConfig and SPMConfig."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import with_feature_sharding
+    cfg = get_config(arch)
+    if shards:
+        cfg = with_feature_sharding(cfg, shards)
+    lin = getattr(cfg.moe_cfg().expert_ffn, name)
+    return lin, lin.spm_config()
+
+
+def _q8_plain_chain(z, kcf, scf, runs, d_in, d_out, widths, q_acts, sr):
+    """The int8 run chain through K1's plain version, run by run."""
+    for r, (rs, nt) in enumerate(runs):
+        off = sum(len(q) for q, _ in runs[:r])
+        last = r == len(runs) - 1
+        x, xs = z if q_acts else (z, None)
+        z = K.spm_stack_plain(
+            x, kcf[:, off: off + len(rs)], d_in if r == 0 else None,
+            d_out if last else None, None, xs,
+            scf[:, off: off + len(rs)].contiguous(), strides=rs,
+            n_tile=nt, in_width=widths[0] if r == 0 else None,
+            out_width=widths[1] if last else None, quant_out=q_acts,
+            scale_rows=sr)
+    return z
+
+
+@pytest.mark.parametrize("arch, rows, bwd", [
+    ("qwen3-moe-30b-a3b", 160, True), ("qwen3-moe-30b-a3b", 8, False),
+    ("qwen3-moe-30b-a3b", 5, True), ("qwen3-moe-30b-a3b", 1, True),
+    ("llama4-scout-17b-a16e", 160, True), ("llama4-scout-17b-a16e", 5, True),
+    ("llama4-scout-17b-a16e", 1, False)])
+def test_expert_int8_matches_plain(cuda, arch, rows, bwd):
+    """K1's and K2's int8 modes over the expert axis at the expert
+    linears' shapes (rows a expert: a training step's, a decode's, and 1
+    and 5), bf16, int8 tables with (E, L) stage scales and, where one
+    expert's plan allows (``quant_acts_eligible``: qwen3-moe, not
+    llama4), int8 activations whose scale grid restarts at each expert's
+    row 0 (rows padded per expert).  One launch a run for all experts;
+    K1's codes and scales bit for bit the per-expert plain versions', K2's
+    g_x bit for bit, its grads within gamma_rows of one expert's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.eligibility import (quant_acts_eligible,
+                                              tiny_row_call)
+    from repro_torch.kernels import quant as Q
+    E = get_config(arch).n_experts
+    gen = torch.Generator(device="cuda").manual_seed(rows + E)
+    for name in ("gate", "down"):
+        lin, scfg = _expert_lin(arch, name)
+        n = scfg.n
+        runs = ops.plan_runs_for_rows(n, scfg.pairing.strides(), rows)
+        L = sum(len(rs) for rs, _ in runs)
+        kcf, scf = Q.quantize_coeffs(_rnd(gen, E, L, n // 2, 4, scale=0.5))
+        d_in, d_out = 1 + 0.1 * _rnd(gen, E, n), 1 + 0.1 * _rnd(gen, E, n)
+        widths = (None if lin.d_in == n else lin.d_in,
+                  None if lin.d_out == n else lin.d_out)
+        x = _rnd(gen, E, rows, lin.d_in).bfloat16()
+        q_acts = quant_acts_eligible(runs)
+        if not tiny_row_call(rows):     # tiny rows widen the tile cap
+            assert q_acts == (arch == "qwen3-moe-30b-a3b")
+        sr = Q.scale_block_rows(runs, rows, 2) if q_acts else None
+        z = (Q.quantize_blocks(ops._pad_rows(x, sr), sr, runs[0][1])
+             if q_acts else x)
+        K.reset_launch_counts()
+        y, saved = ops.forward_runs(z, kcf, runs, d_in, d_out, None,
+                                    *widths, coeff_scale=scf, scale_rows=sr)
+        fn = K.spm_stack_kernel_call
+        assert fn.expert_launches == fn.int8_launches == len(runs) \
+            == fn.launches
+        assert fn.int8_io_launches == (len(runs) if q_acts else 0)
+        want = _q8_plain_chain(z, kcf, scf, runs, d_in, d_out, widths,
+                               q_acts, sr)
+        torch.cuda.synchronize()
+        if q_acts:
+            assert y[1].shape == (E, -(-rows // sr),
+                                  -(-lin.d_out // runs[-1][1]))
+            assert torch.equal(y[0], want[0]) and torch.equal(y[1], want[1])
+        else:
+            assert torch.equal(y, want), (arch, name)
+        if not bwd:
+            continue
+        rows_p = z[0].shape[1] if q_acts else rows
+        gy = _rnd(gen, E, rows_p, lin.d_out).bfloat16()
+        args = (saved, kcf, gy, runs, d_in, d_out, False, *widths)
+        kw = dict(coeff_scale=scf, scale_rows=sr)
+        got = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args, **kw)
+        again = ops.backward_runs(K.spm_stack_bwd_kernel_call, *args, **kw)
+        bfn = K.spm_stack_bwd_kernel_call
+        assert bfn.expert_launches == bfn.int8_launches == 2 * len(runs)
+        assert bfn.int8_io_launches == (2 * len(runs) if q_acts else 0)
+        want = ops.backward_runs(K.spm_stack_bwd_plain, *args, **kw)
+        mags = ops.backward_runs(functools.partial(
+            K.spm_stack_bwd_plain, col_sum=_abs_sum), *args, **kw)
+        torch.cuda.synchronize()
+        for a, b, p, m in zip(got, again, want, mags):
+            assert torch.equal(a[0], p[0]), (arch, name)
+            _grads_within(a[1:], p[1:], m[1:], rows_p)
+            assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("arch, rows", [
+    ("qwen3-moe-30b-a3b", 160), ("qwen3-moe-30b-a3b", 5),
+    ("qwen3-moe-30b-a3b", 1), ("llama4-scout-17b-a16e", 160),
+    ("llama4-scout-17b-a16e", 5)])
+@pytest.mark.parametrize("q8", [False, True])
+def test_expert_window_matches_plain(cuda, arch, rows, q8):
+    """K1's and K2's windowed (``col_base``) mode over the expert axis at
+    the sharded executor's first local run of a rectangular expert input
+    (qwen3-moe's down, 768 of n_local = 512 lanes a shard; llama4's gate,
+    5120 of 2048), every shard, bf16, with and without an int8 table:
+    each expert's window read from its own rows, K1 and K2's g_x bit for
+    bit, K2's grads within gamma_rows, window and expert launches counted
+    apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.eligibility import plan_steps
+    from repro_torch.kernels import quant as Q
+    E = get_config(arch).n_experts
+    lin, scfg = _expert_lin(arch, "down" if arch.startswith("qwen")
+                            else "gate", shards=4)
+    n, in_w = scfg.n, lin.d_in
+    nl = n // 4
+    steps = plan_steps(n, scfg.pairing.strides(), 4)
+    assert steps[0][0] == "local" and in_w < n
+    (rs, nt), *_ = ops.plan_runs_for_rows(nl, steps[0][2], rows)
+    gen = torch.Generator(device="cuda").manual_seed(rows + nl)
+    x = _rnd(gen, E, rows, in_w).bfloat16()
+    for shard in range(4):
+        cf = _rnd(gen, E, len(rs), nl // 2, 4, scale=0.5)
+        scf = None
+        if q8:
+            cf, scf = Q.quantize_coeffs(cf)
+        d_in = 1 + 0.1 * _rnd(gen, E, nl)
+        kw = dict(strides=rs, n_tile=nt, in_width=in_w,
+                  col_base=shard * nl // nt)
+        K.reset_launch_counts()
+        y = K.spm_stack_kernel_call(x, cf, d_in, coeff_scale=scf, **kw)
+        gy = _rnd(gen, E, rows, nl).bfloat16()
+        got = K.spm_stack_bwd_kernel_call(x, cf, gy, d_in, coeff_scale=scf,
+                                          **kw)
+        for fn in (K.spm_stack_kernel_call, K.spm_stack_bwd_kernel_call):
+            assert (fn.launches, fn.window_launches, fn.expert_launches,
+                    fn.int8_launches) == (1, 1, 1, int(q8))
+        want = K.spm_stack_plain(x, cf, d_in, coeff_scale=scf, **kw)
+        ref = K.spm_stack_bwd_plain(x, cf, gy, d_in, coeff_scale=scf, **kw)
+        mags = K.spm_stack_bwd_plain(x, cf, gy, d_in, coeff_scale=scf,
+                                     col_sum=_abs_sum, **kw)
+        torch.cuda.synchronize()
+        assert y.shape == (E, rows, nl) and torch.equal(y, want)
+        assert got[0].shape == (E, rows, nl) and torch.equal(got[0], ref[0])
+        _grads_within(got[1:], ref[1:], mags[1:], rows)
+        live = max(0, min(nl, in_w - shard * nl))
+        assert not got[2][:, live:].any()           # g_din past in_width
+
+
+@pytest.mark.parametrize("arch, rows, rect, fold", [
+    ("qwen3-moe-30b-a3b", 160, False, False),
+    ("qwen3-moe-30b-a3b", 160, True, False),
+    ("qwen3-moe-30b-a3b", 5, True, True),
+    ("qwen3-moe-30b-a3b", 1, False, True),
+    ("llama4-scout-17b-a16e", 160, True, False),
+    ("llama4-scout-17b-a16e", 5, False, True)])
+@pytest.mark.parametrize("q8", [False, True])
+def test_k5_k6_expert_match_plain(cuda, arch, rows, rect, fold, q8):
+    """K5 and K6 over the expert axis at the sharded expert linears' first
+    pair (4 shards; qwen3-moe n_local 512, llama4 2048), bf16, with a
+    rectangular input (``rect``: the linear's in_width) or not, the
+    schedule's end folded in (``fold``) or not, an int8 table ((S, E, L)
+    scales) or not: one launch each for every shard and expert; K5 bit
+    for bit the per-expert plain version, K6's g_x bit for bit, its table
+    grads and sums within gamma_rows of one expert's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.eligibility import plan_steps
+    from repro_torch.kernels import quant as Q
+    E = get_config(arch).n_experts
+    lin, scfg = _expert_lin(arch, "down" if arch.startswith("qwen")
+                            else "gate", shards=4)
+    S, n = 4, scfg.n
+    nl = n // S
+    steps = plan_steps(n, scfg.pairing.strides(), S)
+    assert steps[0][0] == "local" and steps[1][0] == "cross"
+    (rs, nt), = ops.plan_runs(nl, steps[0][2])
+    k = steps[1][2]
+    in_w = lin.d_in if rect else None
+    gen = torch.Generator(device="cuda").manual_seed(rows + nl + rect)
+    th = (torch.rand(S, E, len(rs), nl // 2, generator=gen, device="cuda")
+          * 2 - 1) * math.pi
+    c, s = torch.cos(th), torch.sin(th)
+    cf = torch.stack([c, -s, s, c], dim=-1).contiguous()
+    scale = None
+    if q8:
+        cf, scale = Q.quantize_coeffs(cf)
+    ma, mb, u, v, d_in = (1 + 0.1 * _rnd(gen, E, n) for _ in range(5))
+    d_out = 1 + 0.1 * _rnd(gen, E, n) if fold else None
+    bias = 0.1 * _rnd(gen, E, n) if fold else None
+    x = _rnd(gen, E, rows, in_w or n).bfloat16()
+    gy = _rnd(gen, E, rows, n).bfloat16()
+    kw = dict(strides=rs, n_tile=nt, k=k, in_width=in_w)
+    K.reset_launch_counts()
+    y = K.spm_overlap_kernel_call(x, cf, ma, mb, d_in, d_out, bias, scale,
+                                  **kw)
+    got = K.spm_overlap_bwd_kernel_call(x, cf, gy, u, v, d_in, d_out, scale,
+                                        **kw)
+    for fn in (K.spm_overlap_kernel_call, K.spm_overlap_bwd_kernel_call):
+        assert (fn.launches, fn.expert_launches, fn.window_launches,
+                fn.int8_launches) == (1, 1, int(rect), int(q8))
+    want = K.spm_overlap_plain(x, cf, ma, mb, d_in, d_out, bias, scale, **kw)
+    ref = K.spm_overlap_bwd_plain(x, cf, gy, u, v, d_in, d_out, scale, **kw)
+    mags = K.spm_overlap_bwd_plain(x, cf, gy, u, v, d_in, d_out, scale,
+                                   col_sum=_abs_sum, **kw)
+    torch.cuda.synchronize()
+    assert y.shape == (E, rows, n) and torch.equal(y, want)
+    assert len(got) == len(ref) == 5 + (2 if fold else 0)
+    assert got[1].shape == (S, E, len(rs), nl // 2, 4)
+    assert torch.equal(got[0], ref[0])
+    _grads_within(got[1:], ref[1:], mags[1:], rows)

@@ -262,8 +262,11 @@ def test_expert_linear_is_per_expert_linear_bit_for_bit():
 
 def test_expert_mode_plans_once_per_run_and_refuses_int8(monkeypatch):
     """A multi-run expert plan: one wrapper call a run for all experts
-    (the run chain of ``spm_stack_fused``); int8 and windowed operands are
-    refused, naming the roadmap."""
+    (the run chain of ``spm_stack_fused``), with and without an int8
+    table ((E, L) scales, each run's stages of them); the int8 and
+    windowed operands it used to refuse are taken: a window from column 0
+    of each expert's own rows is the unwindowed run, and int8 activations
+    on a single-run plan chain one call for all experts."""
     E, n, rows = 3, 64, 6
     strides = tuple(1 << i for i in range(6))
     gen = torch.Generator().manual_seed(1)
@@ -273,7 +276,8 @@ def test_expert_mode_plans_once_per_run_and_refuses_int8(monkeypatch):
     real = K.spm_stack_kernel_call
 
     def spy(*a, **kw):
-        calls.append(kw["n_tile"])
+        calls.append((kw["n_tile"], None if a[6] is None
+                      else tuple(a[6].shape), a[0].dtype))
         return real(*a, **kw)
     runs = ops.plan_runs(n, strides, 16)
     assert len(runs) > 1
@@ -281,14 +285,23 @@ def test_expert_mode_plans_once_per_run_and_refuses_int8(monkeypatch):
                         lambda n_, s_, r_: ops.plan_runs(n_, s_, 16))
     monkeypatch.setattr(K, "spm_stack_kernel_call", spy)
     y = ops.spm_stack_fused(x, cf, strides, in_width=40, out_width=50)
-    monkeypatch.undo()
     assert len(calls) == len(runs) and y.shape == (E, rows, 50)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.spm_stack_fused(x, cf, strides, in_width=40, quant_coeffs=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.spm_stack_kernel_call(torch.zeros(E, rows, n), cf,
-                                strides=strides, n_tile=n, col_base=0,
-                                in_width=n)
+    calls.clear()
+    yq = ops.spm_stack_fused(x, cf, strides, in_width=40, out_width=50,
+                             quant_acts=True, quant_coeffs=True)
+    assert [c[1] for c in calls] == [(E, len(rs)) for rs, _ in runs]
+    assert all(c[2] == torch.float32 for c in calls)  # multi-run: f32 I/O
+    assert yq.shape == (E, rows, 50)
+    monkeypatch.undo()
+    xs = torch.randn(E, rows, n, generator=gen)
+    win = K.spm_stack_kernel_call(xs, cf, strides=strides, n_tile=n,
+                                  col_base=0, in_width=n)
+    assert torch.equal(win, K.spm_stack_kernel_call(xs, cf, strides=strides,
+                                                    n_tile=n))
+    calls.clear()
+    monkeypatch.setattr(K, "spm_stack_kernel_call", spy)
+    ops.spm_stack_fused(xs, cf, strides, quant_acts=True)
+    assert len(calls) == 1 and calls[0][2] == torch.int8
 
 
 # ---------------------------------------------------------------------------
@@ -440,16 +453,13 @@ def test_params_and_state_from_jax_carry_the_trees(arch):
 
 
 def test_launch_train_refuses_quantize_for_moe(capsys):
-    """``--quantize`` with an MoE arch is refused when the arguments are
-    parsed, naming the roadmap; the SSM archs keep it."""
-    for arch in MOE:
-        with pytest.raises(SystemExit):
-            launch_train.build_parser().parse_args(
-                ["--arch", arch, "--smoke", "--quantize"])
-        assert "ROADMAP" in capsys.readouterr().err
-    for arch in ("mamba2-370m", "zamba2-1.2b"):
+    """``--quantize`` is taken for every arch of this slice when the
+    arguments are parsed, the MoE archs included (their experts train
+    through the int8 expert mode of K1 and K2)."""
+    for arch in SLICE:
         assert launch_train.build_parser().parse_args(
             ["--arch", arch, "--smoke", "--quantize"]).quantize
+    assert capsys.readouterr().err == ""
 
 
 def test_smoke_moe_trains_through_launch_train():
