@@ -90,9 +90,10 @@ Phases, each of which fails the run when it fails:
    bound; each chain's CPU output from the card's entry bit for bit the
    card's; the CPU's own entry codes within one of the card's and flipped
    no more often than ``flip_budget``.
-11. **int8 serve**: ``ServeEngine.generate`` of the quantized model (batch
-   8, prompt 512, 64 tokens): launches equal to the plan, prefill ms and
-   decode tokens/s; then teacher-forced logits of its first 8 layers
+11. **int8 serve**: ``ServeEngine.generate`` of the quantized model cut
+   to ``Q8_SERVE_LAYERS`` (8) of its 28 layers (batch 8, prompt 512, 64
+   tokens): launches equal to the plan, prefill ms and decode tokens/s;
+   then teacher-forced logits of its first 8 layers
    against the CPU at batch 4, prompt 16, 32 steps, the codes replayed as
    in phase 10, within phase
    4's bf16 bound, with at least ``MIN_DECIDED`` tokens decided.
@@ -105,8 +106,9 @@ Phases, each of which fails the run when it fails:
    and ``torch.matmul`` with the window's dense (2048, 1536) map.
 13. **Sharded train and serve**: full-width ``with_feature_sharding(
    qwen3-1.7b, 4)`` on a 4-shard mesh on one card under
-   ``activation_sharding(mesh, shard_feature=True)``: 6 steps of batch 8
-   x seq 512 with the third poisoned, then one ``generate`` of 8 x 512 +
+   ``activation_sharding(mesh, shard_feature=True)``: ``SHARDED_STEPS``
+   (4) steps of batch 8 x seq 512 with the third poisoned, then one
+   ``generate`` of 8 x 512 +
    16 tokens; K1/K2 launches (windowed counted apart) equal to the plan
    from ``plan_steps`` and ``plan_runs_for_rows``, K3 = K4 = 0.  Step ms,
    tokens/s and peak memory beside phase 6's.
@@ -152,8 +154,9 @@ Phases, each of which fails the run when it fails:
    at batch 256; the char-LM d=4096, B=32, T=128; the GRU-LM SPM only, 3
    steps): ms a step, rows or tokens a second, dense/SPM, peak memory,
    K1/K2 launches equal to ``plan_runs_for_rows``'s runs a step.
-20. **Continuous serve**: ``ContinuousBatchingEngine`` on full-width,
-   full-depth ``qwen3-1.7b`` (8 slots, ``max_len`` 576, bf16 KV cache): 24
+20. **Continuous serve**: ``ContinuousBatchingEngine`` on full-width
+   ``qwen3-1.7b`` cut to ``CB_LAYERS`` (8) of its 28 layers (8 slots,
+   ``max_len`` 576, bf16 KV cache): 24
    requests (prompts 9-512, so buckets 16-512; 16, 32 or 64 tokens;
    greedy, top-k, top-p, both) at Poisson arrivals of 0.25 and 2.0
    requests a tick after a warm-up request.  Every request its tokens, in
@@ -278,6 +281,24 @@ Phases, each of which fails the run when it fails:
    for bit, grads within gamma_rows), timed at the training rows beside
    ``torch.bmm`` and, at the headline shapes, the plain version (called
    once).  The phase has 150 s (``MODES_BUDGET_S``).
+
+25. **A data-parallel pod** (``run_pod_phase``): ``launch.train.train``
+   with ``--pod-dp 2`` over two ranks on the one card (gloo: NCCL takes
+   one rank a card; this process is rank 0, ``launch.mesh.run_ranks``
+   spawns rank 1), full-width ``qwen3-1.7b`` from seed 0, global batch 8 x
+   512 (4 rows a rank), one spawn for two runs: the plain mean (3
+   steps) and ``--compress-pod-grads`` (4 steps, ``nan@2``, a step-3
+   checkpoint with ``opt.ef`` (2, ...) on disk, preempted after the last
+   step, which the restart replays from the checkpoint).  Held: both ranks' params, moments and
+   count bit for bit equal after every step; at step 0 of each mode the
+   collective's grads bit for bit a one-process recomputation on the card
+   from both members' local grads (``(g0 + g1) * 0.5``;
+   ``member_sum_compressed_ef``), the new residual rows too; the poisoned
+   step skipped on both ranks, state and residual unchanged; the replayed
+   last step ending bit for bit where the uninterrupted run ended; K1-K4
+   launches a rank a step
+   equal to the plan at 4 rows.  Step ms, the reduction's wall ms and
+   bytes, each rank's peak.  The phase has 120 s (``POD_BUDGET_S``).
 
 Depths: phases 4 (its teacher-forced part), 7, 10, 11 (its
 teacher-forced part), 14 and 18 hold the card to the CPU on the first
@@ -741,9 +762,11 @@ def run_serve_phase(torch, K, ops, T, ServeEngine, cfg, batch=8,
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    t = time.perf_counter()
     tokens, flags = eng.generate(prompts, max_new_tokens=new,
                                  return_flags=True)
     torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t
     got = (K.spm_stack_kernel_call.launches, K.spm_block_kernel_call.launches)
     peak = torch.cuda.max_memory_allocated()
     pre = planned_launches(cfg, ops, batch * prompt_len)
@@ -758,7 +781,7 @@ def run_serve_phase(torch, K, ops, T, ServeEngine, cfg, batch=8,
         return time.perf_counter() - t
 
     t1 = min(wall(1) for _ in range(2))
-    tn = min(wall(new) for _ in range(2))
+    tn = min(counted_s, wall(new))      # the counted run is the first rep
     res = dict(batch=batch, prompt_len=prompt_len, new_tokens=new,
                init_s=init_s, prefill_ms=t1 * 1e3,
                decode_tok_per_s=batch * (new - 1) / (tn - t1),
@@ -2228,9 +2251,11 @@ def run_q8_serve_phase(torch, K, ops, T, LM, ServeEngine, cfg, batch=8,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    t = time.perf_counter()
     tokens, flags = eng.generate(prompts, max_new_tokens=new,
                                  return_flags=True)
     torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t
     got = q8_counts(K)
     pre = planned_q8_launches(cfg, ops, batch * prompt_len)
     dec = planned_q8_launches(cfg, ops, batch)
@@ -2246,7 +2271,7 @@ def run_q8_serve_phase(torch, K, ops, T, LM, ServeEngine, cfg, batch=8,
         return time.perf_counter() - t
 
     t1 = min(wall(1) for _ in range(2))
-    tn = min(wall(new) for _ in range(2))
+    tn = min(counted_s, wall(new))      # the counted run is the first rep
     launch_ok = got_fwd == want and got["K2"] == 0 and got["K4"] == 0
     ok_tokens = (tuple(tokens.shape) == (batch, new) and not bool(flags.any())
                  and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()))
@@ -2324,6 +2349,8 @@ def run_q8_serve_phase(torch, K, ops, T, LM, ServeEngine, cfg, batch=8,
 # ---------------------------------------------------------------------------
 
 SHARDS = 4
+SHARDED_STEPS = 4       # phases 13 and 16 (6 before: the seconds went to
+                        # phase 25)
 
 
 def shard_run(spm_cfg, rows: int):
@@ -2667,7 +2694,7 @@ def sharded_counts(K) -> dict:
 
 def run_sharded_phase(torch, K, T, LM, train_mod, adamw, ServeEngine,
                       launch_train, cfg, baseline, batch=8, seq=512,
-                      steps=6, poisoned=2, new=16, overlap=False,
+                      steps=SHARDED_STEPS, poisoned=2, new=16, overlap=False,
                       quant=False, serve=True, trace=True,
                       label="sharded"):
     """Full-width ``with_feature_sharding(cfg, 4)`` on a 4-shard mesh on
@@ -3753,6 +3780,12 @@ CB_REQUESTS = 24
 CB_LOADS = (0.25, 2.0)                        # Poisson requests a tick
 CB_SIDE_REQUESTS = 8                          # the int8 and overlap runs
 CB_SIDE_LAYERS = 8                            # their depth, of 28
+Q8_SERVE_LAYERS = 8                           # phase 11's served depth, of
+                                              # 28 (full before; the
+                                              # seconds went to phase 25)
+CB_LAYERS = 8                                 # the main serve's depth, of
+                                              # 28 (full before; the
+                                              # seconds went to phase 25)
 
 
 def cb_requests(torch, Request, vocab, n=CB_REQUESTS):
@@ -3918,7 +3951,8 @@ def cb_side_run(torch, K, T, ContinuousBatchingEngine, Request, cfg,
 
 
 def run_continuous_phase(torch, K, ops, T, LM, cfg, timer):
-    """``ContinuousBatchingEngine`` on full-width, full-depth ``cfg``
+    """``ContinuousBatchingEngine`` on full-width ``cfg`` (cut in depth by
+    the caller)
     (seed-0 weights, bf16 KV cache, ``CB_SLOTS`` slots, ``CB_MAX_LEN``):
     after a warm-up request, ``CB_REQUESTS`` requests at each load of
     ``CB_LOADS`` (Poisson arrivals from seed 0), each serve checked by
@@ -6467,6 +6501,281 @@ def run_modes_phase(torch, K, ops, Q, T, LM, ServeEngine, train_mod, adamw,
     return out, rows, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 25: a data-parallel pod of two ranks on the card
+# ---------------------------------------------------------------------------
+
+POD_BUDGET_S = 120      # phase 25's seconds, at most
+POD_RANKS = 2
+POD_BATCH, POD_SEQ = 8, 512            # global: 4 rows a rank
+POD_MEAN_STEPS = 3
+POD_STEPS = 4                          # compressed: nan@2, a checkpoint
+POD_POISONED = 2                       # after step 2 (step_3), preempted
+POD_CKPT_EVERY = 3                     # after step 3, which the restart
+POD_PREEMPT = POD_STEPS - 1            # replays from step_3
+
+
+def _flat_cat(torch, tree: dict):
+    return torch.cat([t.detach().float().reshape(-1) for t in tree.values()])
+
+
+def pod_on_reduce(mode, step, local, residual, reduced, new_ef, seconds):
+    """Phase 25's reduction hook, on each rank: the reduction's seconds
+    and bytes every step; at step 0 of a mode, rank 0 gathers both
+    members' local grads (on the host) and recomputes the reduction on
+    the card in one process (``(g0 + g1) * 0.5``, or
+    ``member_sum_compressed_ef`` over the stacked members), held bit for
+    bit to the collective's grads and, compressed, to each rank's new
+    residual (by digest)."""
+    import torch
+    from repro_torch.parallel.ctx import bound_axis
+    from repro_torch.models.transformer import stack_key
+    from repro_torch.optim import compression as C
+    from repro_torch.train import state_digest
+    from repro_torch.configs import get_config
+    mesh = bound_axis("pod")
+    key = stack_key(get_config("qwen3-1.7b"))
+    n = sum(t.numel() for t in local.values())
+    scales = len({key(k) for k in local}) if new_ef is not None else 0
+    rec = dict(kind="reduce", mode=mode, step=step, ms=seconds * 1e3,
+               bytes=4 * n + 4 * scales)       # int32 or f32, f32 scales
+    if step != 0:
+        return rec
+    rows = mesh.gather_to_root(_flat_cat(torch, local).cpu())
+    own = state_digest(new_ef) if new_ef is not None else None
+    ef_digests = mesh.all_gather_object(own)
+    if mesh.rank != 0:
+        return rec
+    dev = next(iter(reduced.values())).device
+    stacked = torch.stack(rows).to(dev)
+    del rows
+    got = _flat_cat(torch, reduced)
+    if new_ef is None:
+        plain = (stacked[0] + stacked[1]) * torch.tensor(0.5, device=dev)
+        rec["bitwise"] = bool(torch.equal(plain, got))
+    else:
+        shapes = {k: t.shape for k, t in local.items()}
+        g, lo = {}, 0
+        for k, shp in shapes.items():
+            m = shp.numel()
+            g[k] = stacked[:, lo: lo + m].view(len(stacked), *shp)
+            lo += m
+        r = {k: torch.zeros_like(v) for k, v in g.items()}
+        plain, news = C.member_sum_compressed_ef(
+            g, r, groups=[key(k) for k in g])
+        rec["bitwise"] = bool(torch.equal(_flat_cat(torch, plain), got))
+        rec["ef_bitwise"] = [state_digest({k: v[i] for k, v in news.items()})
+                             == ef_digests[i] for i in range(len(stacked))]
+    return rec
+
+
+def pod_on_step(mode, s, state, metrics, dt):
+    """Phase 25's step hook, on each rank: the step's seconds, skip flag
+    and loss, the digest of what the pod replicates (params, moments,
+    count) and of this rank's residual row, K1-K4's launches since the
+    last step (then set to 0) and this rank's peak memory."""
+    import torch
+    from repro_torch.kernels import spm_stack as K
+    from repro_torch.train import state_digest
+    opt = state["opt"]
+    launches = {k: v for k, v in q8_counts(K).items() if " " not in k}
+    K.reset_launch_counts()
+    return dict(kind="step", mode=mode, s=s, dt=dt,
+                skipped=metrics["skipped"], loss=metrics["loss"],
+                digest=state_digest({"params": state["params"],
+                                     "mu": opt["mu"], "nu": opt["nu"],
+                                     "count": opt["count"]}),
+                ef=state_digest(opt["ef"]) if "ef" in opt else None,
+                launches=launches,
+                peak=torch.cuda.max_memory_allocated(
+                    next(state["params"].parameters()).device))
+
+
+def pod_rank(mesh, root: str):
+    """One rank of phase 25: two ``launch.train.train`` runs that join the
+    pod (``--pod-dp 2``): the plain mean, and the compressed reduction
+    with ``nan@2``, a checkpoint at step 3 and a preemption after the
+    last step, so that the restart replays it from the checkpoint.
+    Returns each run's records and rank 0's event kinds."""
+    import functools as ft
+
+    import torch
+    from repro_torch.kernels import spm_stack as K
+    from repro_torch.launch import train as LT
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    base = ["--arch", "qwen3-1.7b", "--batch", str(POD_BATCH), "--seq",
+            str(POD_SEQ), "--pod-dp", str(POD_RANKS), "--log-every", "1",
+            "--backoff-base", "0"]
+    ckpt = os.path.join(root, "ckpt")
+    runs = {"mean": ["--steps", str(POD_MEAN_STEPS)],
+            "compressed": ["--steps", str(POD_STEPS), "--compress-pod-grads",
+                           "--chaos-spec",
+                           f"nan@{POD_POISONED};preempt@{POD_PREEMPT}",
+                           "--ckpt-dir", ckpt, "--ckpt-every",
+                           str(POD_CKPT_EVERY)]}
+    out = {}
+    for mode, extra in runs.items():
+        recs, timings = [], []
+        t0 = time.perf_counter()
+        LT.train(LT.build_parser().parse_args(base + extra),
+                 on_step=ft.partial(pod_on_step, mode),
+                 on_reduce=ft.partial(pod_on_reduce, mode), records=recs,
+                 timings=timings)
+        out[mode] = dict(records=recs[0], wall_s=time.perf_counter() - t0,
+                         timings=timings)
+    if mesh.rank == 0:
+        with open(os.path.join(ckpt, "events.jsonl")) as f:
+            out["events"] = [json.loads(line)["kind"] for line in f]
+        out["ef_shape"] = pod_ckpt_ef_shape(ckpt)
+    return out
+
+
+def pod_ckpt_ef_shape(ckpt: str):
+    """The shape on disk of the newest checkpoint's first ``opt.ef``
+    array: a1 in the flatten order (opt's keys sorted: count, ef, mu, nu;
+    then params, step)."""
+    from repro_torch.train import checkpoint as CK
+    step = CK.latest_step(ckpt)
+    with open(os.path.join(ckpt, f"step_{step}", "meta.json")) as f:
+        return json.load(f)["manifest"]["a1"]["shape"]
+
+
+def run_pod_phase(torch, K, ops, cfg, smi):
+    """``launch.train.train`` over a pod of ``POD_RANKS`` ranks on the one
+    card (gloo, both ranks on ``cuda:0``; ``launch.mesh.run_ranks``:
+    this process is rank 0), full-width ``cfg`` from seed 0, global batch
+    8 x 512 (4 rows a rank), one spawn for two runs: the plain mean
+    (``POD_MEAN_STEPS`` steps) and the int8 error-feedback reduction
+    (``--compress-pod-grads``, ``POD_STEPS`` steps, ``nan@2``, a
+    checkpoint at step 3 with ``opt.ef`` of shape (2, ...) on disk, then
+    preempted after the last step: the restart restores step_3 and runs
+    the last step again).  Held: (a) after every step both ranks' params,
+    moments and count bit for bit equal (digests); (b) at step 0 of each
+    mode the collective's grads bit for bit a recomputation on the card
+    in one process from both members' local grads, and the new residual
+    rows too; (c) the poisoned step skipped on both ranks with params,
+    moments and residual unchanged; (d) the last step run again after the
+    restore ending bit for bit where the uninterrupted run ended; (e)
+    K1-K4's launches a rank a step equal to ``planned_train_launches`` at
+    4 rows.  Logged
+    beside the card's name and power limit: each mode's step ms, the
+    reduction's wall ms (gloo's staging through the host included),
+    bytes reduced a step, each rank's peak GiB, the backend.  The
+    checkpoints live in a temporary directory, removed after."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import pod_backend, run_ranks
+    failures = []
+    root = tempfile.mkdtemp(prefix="spm_pod_")
+    try:
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        ranks = run_ranks(POD_RANKS, pod_rank, (root,), device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    backend = pod_backend(POD_RANKS, "cuda")
+    per_step = planned_train_launches(cfg, ops, POD_BATCH // POD_RANKS
+                                      * POD_SEQ)
+    res = dict(ranks=POD_RANKS, batch=POD_BATCH, seq=POD_SEQ,
+               backend=backend[0], backend_rule=backend[1], wall_s=wall,
+               planned_per_step=per_step, gpu=smi, modes={})
+
+    def steps(r, mode):
+        return [x for x in ranks[r][mode]["records"] if x["kind"] == "step"]
+
+    def reduces(r, mode):
+        return [x for x in ranks[r][mode]["records"]
+                if x["kind"] == "reduce"]
+
+    # (a) replication and (e) launches, every run and step
+    repl = all(a["digest"] == b["digest"] for mode in ("mean", "compressed")
+               for a, b in zip(steps(0, mode), steps(1, mode)))
+    launches_ok = all(x["launches"] == per_step for r in range(POD_RANKS)
+                      for mode in ("mean", "compressed")
+                      for x in steps(r, mode))
+    # (b) the reductions at step 0
+    b_mean = reduces(0, "mean")[0].get("bitwise")
+    b_comp = reduces(0, "compressed")[0].get("bitwise")
+    b_ef = reduces(0, "compressed")[0].get("ef_bitwise")
+    # (c) the poisoned step
+    poison_ok = True
+    for r in range(POD_RANKS):
+        st = steps(r, "compressed")
+        poison_ok &= [x["skipped"] for x in st] == [
+            float(i == POD_POISONED) for i in range(POD_STEPS + 1)]
+        poison_ok &= (st[POD_POISONED]["digest"]
+                      == st[POD_POISONED - 1]["digest"]
+                      and st[POD_POISONED]["ef"]
+                      == st[POD_POISONED - 1]["ef"])
+    # (d) resume: the last step, before the preemption and replayed
+    resume_ok = True
+    for r in range(POD_RANKS):
+        last = [x for x in steps(r, "compressed") if x["s"] == POD_STEPS - 1]
+        resume_ok &= (len(last) == 2 and last[0]["digest"] == last[1]["digest"]
+                      and last[0]["ef"] == last[1]["ef"])
+    events = ranks[0].get("events", [])
+    ef_shape = ranks[0].get("ef_shape")
+    resume_ok &= ("chaos_preempt" in events and "restart" in events
+                  and ef_shape is not None and ef_shape[0] == POD_RANKS)
+    finite = all(math.isfinite(x["loss"]) for r in range(POD_RANKS)
+                 for mode in ("mean", "compressed") for x in steps(r, mode))
+
+    def med(v):
+        v = sorted(v)
+        return (v[len(v) // 2] if len(v) % 2
+                else 0.5 * (v[len(v) // 2 - 1] + v[len(v) // 2]))
+
+    for mode in ("mean", "compressed"):
+        st = [x for x in steps(0, mode)[1:] if not x["skipped"]]
+        red = reduces(0, mode)[1:]
+        if mode == "compressed":      # the restart's first step aside
+            st, red = st[:-1], red[:-1]
+        res["modes"][mode] = dict(
+            step_ms_median=med([x["dt"] * 1e3 for x in st]),
+            step_ms=[x["dt"] * 1e3 for x in steps(0, mode)],
+            reduce_ms_median=med([x["ms"] for x in red]),
+            reduce_ms=[x["ms"] for x in reduces(0, mode)],
+            bytes_reduced=reduces(0, mode)[0]["bytes"],
+            peak_gib=[steps(r, mode)[-1]["peak"] / 2**30
+                      for r in range(POD_RANKS)],
+            losses=[x["loss"] for x in steps(0, mode)],
+            wall_s=ranks[0][mode]["wall_s"])
+    res["checkpoint"] = dict(events=events, ef_shape=ef_shape,
+                             timings=ranks[0]["compressed"]["timings"])
+    res.update(replicated=repl, launches_ok=launches_ok,
+               reduce_bitwise={"mean": b_mean, "compressed": b_comp,
+                               "ef": b_ef},
+               poisoned_ok=poison_ok, resume_ok=resume_ok, finite=finite)
+    for mode, m in res["modes"].items():
+        log(f"pod {mode} on {smi}, {POD_RANKS} ranks on one card over "
+            f"{backend[0]} ({backend[1]}): step {m['step_ms_median']:.1f} ms "
+            f"(median of the healthy steps after the first), reduction "
+            f"{m['reduce_ms_median']:.1f} ms wall (host staging included), "
+            f"{m['bytes_reduced'] / 1e9:.3f} GB reduced a step, peak "
+            + ", ".join(f"rank {r} {g:.2f} GiB"
+                        for r, g in enumerate(m["peak_gib"]))
+            + f", losses {[round(v, 4) for v in m['losses']]}")
+    ck = {t["op"]: t["s"] for t in res["checkpoint"]["timings"]}
+    ok = (repl and launches_ok and b_mean and b_comp and b_ef
+          and all(b_ef) and poison_ok and resume_ok and finite)
+    log(f"pod checkpoint on {smi}: save {ck.get('save', 0):.1f} s, verify "
+        f"{ck.get('verify', 0):.1f} s, restore {ck.get('restore', 0):.1f} s "
+        f"(rank 0 writes both residual rows)")
+    log(f"pod checks: (a) replicated {repl}; (b) reductions bit for bit "
+        f"mean {b_mean}, compressed {b_comp}, residual rows {b_ef}; (c) "
+        f"poisoned step {poison_ok}; (d) resume {resume_ok} (events "
+        f"{events}, opt.ef on disk {ef_shape}); (e) launches {launches_ok} "
+        f"(planned {per_step} a rank a step); wall {wall:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("pod")
+    return res, failures
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6555,7 +6864,8 @@ def main() -> int:
         "10", run_q8_train_parity_phase, torch, T, LM, train_mod, adamw,
         cut_depth(qcfg))
     q8_serve, q8_serve_ok = phase("11", run_q8_serve_phase, torch, K, ops,
-                                  T, LM, ServeEngine, qcfg)
+                                  T, LM, ServeEngine,
+                                  cut_depth(qcfg, n=Q8_SERVE_LAYERS))
     win_rows, win_failures = phase("12", run_window_kernel_phase, torch, K,
                                    timer, with_feature_sharding(cfg, SHARDS))
     kernel_rows += win_rows
@@ -6594,7 +6904,7 @@ def main() -> int:
         failures.append(f"phase 19 took {phase_s['19 paper']:.1f} s of "
                         f"its {PAPER_BUDGET_S} s")
     cont, cont_failures = phase("20", run_continuous_phase, torch, K, ops,
-                                T, LM, cfg, timer)
+                                T, LM, cut_depth(cfg, n=CB_LAYERS), timer)
     kernel_rows += cont["kernels"]
     failures += cont_failures
     chaos, chaos_failures = phase("21", run_chaos_phase, torch, K, ops,
@@ -6624,6 +6934,11 @@ def main() -> int:
     if phase_s["24"] > MODES_BUDGET_S:
         failures.append(f"phase 24 took {phase_s['24']:.1f} s of its "
                         f"{MODES_BUDGET_S} s")
+    pod, pod_failures = phase("25", run_pod_phase, torch, K, ops, cfg, smi)
+    failures += pod_failures
+    if phase_s["25"] > POD_BUDGET_S:
+        failures.append(f"phase 25 took {phase_s['25']:.1f} s of its "
+                        f"{POD_BUDGET_S} s")
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -6806,7 +7121,7 @@ def main() -> int:
                   overlap=overlap, int8_overlap=q8_overlap,
                   overlap_train_parity=oparity,
                   paper=paper, continuous=cont, chaos=chaos, archs=archs,
-                  moe_ssm=slice_out, moe_modes=modes,
+                  moe_ssm=slice_out, moe_modes=modes, pod=pod,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",

@@ -4,6 +4,7 @@ the registry."""
 from repro_torch.configs.base import (dense_layers,  # noqa: F401
                                       hybrid_layers, local_global_layers,
                                       mamba_layers, moe_layers,
+                                      with_compressed_pod_grads,
                                       with_feature_sharding,
                                       with_overlap_executor,
                                       with_fused_linears, with_overrides,

@@ -1,5 +1,4 @@
-"""Config construction helpers (port of ``repro/configs/base.py``; its
-``with_compressed_pod_grads`` belongs to the multi-device slice)."""
+"""Config construction helpers (port of ``repro/configs/base.py``)."""
 
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ from repro_torch.models.transformer import LayerSpec, ModelConfig
 
 __all__ = ["dense_layers", "local_global_layers", "moe_layers",
            "mamba_layers", "hybrid_layers", "with_overrides",
+           "with_compressed_pod_grads",
            "with_fused_linears", "with_feature_sharding",
            "with_overlap_executor", "with_quantized_io"]
 
@@ -93,3 +93,14 @@ def with_quantized_io(cfg: ModelConfig) -> ModelConfig:
     never block-fused."""
     return dataclasses.replace(cfg, spm_quant_acts=True,
                                spm_quant_coeffs=True)
+
+
+def with_compressed_pod_grads(cfg: ModelConfig, on: bool = True
+                              ) -> ModelConfig:
+    """Set ``compress_pod_grads``: a pod's gradient reduction runs through
+    the int8 error-feedback all-reduce (``optim.compression.
+    psum_compressed_ef``) with each member's residual in
+    ``state["opt"]["ef"]``.  Read by ``launch.train`` under ``--pod-dp``,
+    which builds ``train/step.make_pod_train_step`` with it; alone it
+    changes nothing, as in the reference."""
+    return dataclasses.replace(cfg, compress_pod_grads=on)

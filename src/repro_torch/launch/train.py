@@ -33,11 +33,30 @@ loop counter and the cursor together (the LR schedule follows the restored
 ``docs/fault.md``; ``--chaos-spec`` arms ``train/chaos.py``.  A step's
 clock starts before the chaos plan's ``pre_step``, so a ``slow@`` event is
 flagged by the straggler watchdog as ``docs/fault.md`` says (the
-reference's clock starts after the sleep).  Data-parallel pods are a later
-slice: their flags raise ``NotImplementedError``.
+reference's clock starts after the sleep).
+
+``--pod-dp N`` (N > 1) trains data-parallel over N ranks, one
+``torch.distributed`` rank a pod member (``launch/mesh.py``): this process
+is rank 0 and starts the others (or, under ``torchrun``, each process is
+its own rank); ``--compress-pod-grads`` reduces the grads through the int8
+error-feedback all-reduce (``optim/compression.py``), alone it changes
+nothing, as in the reference.  Every rank makes the params from
+``--seed`` (their digests are compared before the first step), builds
+each step's global batch from (seed, step) and takes its own rows
+(``parallel/sharding.member_rows``), and follows the same chaos plan:
+``nan@`` poisons every rank after the reduction, ``slow@`` sleeps every
+rank, ``preempt@`` raises on every rank and each rank's recovery loop
+restores; ``corrupt@`` touches the files on rank 0 only.  Any other
+exception on a rank ends the pod (``launch/mesh.py``): its peers may be
+waiting in a collective, so no rank restarts alone.  Rank 0 alone writes
+the checkpoints (with every rank's residual row) and the event log.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --steps 4 --batch 4 --seq 16 --pod-dp 2 --compress-pod-grads
 
 Tests and ``chip_smoke.py`` call ``train(args)``, which returns the final
-state.
+state (rank 0's under a pod, where the others' are bitwise equal but for
+the residual rows).
 """
 
 from __future__ import annotations
@@ -50,31 +69,29 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import (ARCH_IDS, get_config, get_smoke,
-                                 with_overrides, with_quantized_io)
+                                 with_compressed_pod_grads, with_overrides,
+                                 with_quantized_io)
 from repro_torch.data.char_corpus import build_corpus
 from repro_torch.data.loader import DeterministicLoader
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_pod_mesh, run_ranks
 from repro_torch.models import causal_lm as LM
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import OptimizerConfig
+from repro_torch.parallel.sharding import member_rows
 from repro_torch.train import (RESUME_LATEST, FaultEventLog, FaultPolicy,
                                StragglerDetector, latest_valid_step,
-                               make_train_state, make_train_step,
+                               make_pod_train_step, make_train_state,
+                               make_train_step, pod_residual,
                                restore_checkpoint, run_with_recovery,
-                               save_checkpoint)
-from repro_torch.train.chaos import ChaosSchedule
+                               save_checkpoint, state_digest)
+from repro_torch.train.chaos import ChaosPreemption, ChaosSchedule
 
 __all__ = ["make_batch_fn", "patch_grid_positions", "build_parser", "train",
            "main"]
-
-_LATER = {
-    "pod_dp": "data-parallel pods are the multi-device slice (ROADMAP.md "
-              "§1, item 6)",
-    "compress_pod_grads": "compressed pod grads are the multi-device slice "
-                          "(ROADMAP.md §1, item 6)",
-}
 
 
 @functools.lru_cache(maxsize=4)
@@ -152,8 +169,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8 SPM modes: activation I/O where a linear's "
                          "runs share one tile, per-stage coefficient tables "
                          "(configs.with_quantized_io)")
-    ap.add_argument("--pod-dp", type=int, default=0)
-    ap.add_argument("--compress-pod-grads", action="store_true")
+    ap.add_argument("--pod-dp", type=int, default=0,
+                    help="data-parallel pod size: >1 trains over that many "
+                         "torch.distributed ranks (batch must divide by "
+                         "it)")
+    ap.add_argument("--compress-pod-grads", action="store_true",
+                    help="with --pod-dp: reduce the grads through the int8 "
+                         "error-feedback all-reduce instead of a plain mean "
+                         "(optim/compression.py)")
     ap.add_argument("--chaos-spec", default="",
                     help="deterministic fault-injection plan, e.g. "
                          "'nan@13+5;corrupt@18:bitflip;preempt@19' "
@@ -180,7 +203,9 @@ def train(args: argparse.Namespace,
           chaos: Optional[ChaosSchedule] = None,
           on_step: Optional[Callable] = None,
           timings: Optional[list] = None,
-          cfg: Optional[T.ModelConfig] = None) -> dict:
+          cfg: Optional[T.ModelConfig] = None,
+          on_reduce: Optional[Callable] = None,
+          records: Optional[list] = None) -> dict:
     """Train as ``args`` says and return the final state.  The inner
     ``loop(resume)`` holds the steps, saves and rollbacks;
     ``run_with_recovery`` restarts it on failure.
@@ -195,32 +220,93 @@ def train(args: argparse.Namespace,
     save, verify and restore's wall times (``train/checkpoint.py``).
     ``cfg``, when given, is trained in place of ``args.arch``'s registered
     config (a registered arch cut in depth); ``--linear-impl`` and
-    ``--quantize`` still apply to it."""
-    for flag, why in _LATER.items():
-        value = getattr(args, flag)
-        if value > 1 if flag == "pod_dp" else bool(value):
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: {why}")
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+    ``--quantize`` still apply to it.
+
+    Under ``--pod-dp``, ``on_step`` and ``on_reduce`` (``train/step.py``)
+    run on every rank, in the rank's process, so they must pickle; what
+    they return (when not None) is appended to ``records[rank]``, the one
+    thing besides rank 0's state that crosses back.  ``event_log`` and
+    ``timings`` are rank 0's; the other ranks log in memory."""
+    n_pod = max(args.pod_dp, 0)
     if cfg is None:
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.linear_impl:
         cfg = with_overrides(cfg, linear_impl=args.linear_impl)
     if args.quantize:
         cfg = with_quantized_io(cfg)
+    if args.compress_pod_grads:
+        cfg = with_compressed_pod_grads(cfg)
+    if n_pod > 1 and args.batch % n_pod:
+        raise ValueError(f"--batch {args.batch} must divide by --pod-dp "
+                         f"{n_pod}")
+    device = resolve_device(args.device)
     print(f"arch={cfg.name} impl={cfg.linear_impl} quantize={args.quantize} "
-          f"steps={args.steps} "
-          f"B={args.batch} T={args.seq} device={device}")
-
+          f"steps={args.steps} B={args.batch} T={args.seq} device={device}"
+          + (f" pod={n_pod}"
+             f"{' (compressed grads)' if cfg.compress_pod_grads else ''}"
+             if n_pod > 1 else ""))
     if event_log is None:
         path = args.event_log or (os.path.join(args.ckpt_dir,
                                                "events.jsonl")
                                   if args.ckpt_dir else None)
+        rank = (dist.get_rank() if dist.is_initialized()
+                else int(os.environ.get("RANK", "0")))
+        if n_pod > 1 and rank != 0:
+            path = None                  # rank 0 writes the file
         event_log = FaultEventLog(path)
     if chaos is None and args.chaos_spec:
         chaos = ChaosSchedule.parse(args.chaos_spec, seed=args.chaos_seed)
+    hooks = (args, cfg, chaos, on_step, on_reduce)
+    if n_pod <= 1:
+        state, recs = _member(None, *hooks, event_log=event_log,
+                              timings=timings)
+        out = [(state, recs)]
+    elif dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        mesh = make_pod_mesh(n_pod, args.device)
+        try:
+            out = [_member(mesh, *hooks, event_log=event_log,
+                           timings=timings)]
+        finally:
+            mesh.close()
+    else:
+        if device.type == "cuda":
+            # built here, once, before any rank starts
+            from repro_torch.kernels import build
+            build.load_all()
+        out = run_ranks(n_pod, _spawned_member, hooks, device=device.type,
+                        local=dict(event_log=event_log, timings=timings),
+                        threads=(max(1, torch.get_num_threads() // n_pod)
+                                 if device.type == "cpu" else None))
+    if records is not None:
+        records.extend(recs for _, recs in out)
+    return out[0][0]
 
+
+def _spawned_member(mesh, *hooks, **local):
+    """``_member`` on a rank that ``run_ranks`` started: only rank 0's
+    state stays (in the caller's process); the others send their records
+    alone."""
+    state, recs = _member(mesh, *hooks, **local)
+    return (state if mesh.rank == 0 else None), recs
+
+
+def _member(mesh, args: argparse.Namespace, cfg: T.ModelConfig,
+            chaos: Optional[ChaosSchedule], on_step: Optional[Callable],
+            on_reduce: Optional[Callable],
+            event_log: Optional[FaultEventLog] = None,
+            timings: Optional[list] = None):
+    """One process's training run: the whole job, or one pod rank's
+    (``mesh``).  Returns ``(state, records)``."""
+    rank = mesh.rank if mesh is not None else 0
+    root = rank == 0
+    device = mesh.device if mesh is not None else resolve_device(
+        args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if event_log is None:
+        event_log = FaultEventLog()
+    say = print if root else (lambda *a, **k: None)
+    recs: list = []
     corpus = _corpus(args.seed)
 
     def fresh_loader() -> DeterministicLoader:
@@ -230,13 +316,36 @@ def train(args: argparse.Namespace,
 
     opt_cfg = OptimizerConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 1))
-    step_fn = make_train_step(lambda p, b: LM.lm_loss(p, b, cfg), opt_cfg,
-                              accum_steps=args.accum, chaos_guard=True)
+    loss_fn = lambda p, b: LM.lm_loss(p, b, cfg)     # noqa: E731
+    compress = mesh is not None and cfg.compress_pod_grads
+
+    def reduce_hook(*seen):
+        rec = on_reduce(*seen)
+        if rec is not None:
+            recs.append(rec)
+
+    if mesh is not None:
+        step_fn = make_pod_train_step(
+            loss_fn, opt_cfg, mesh, compress=compress,
+            accum_steps=args.accum, chaos_guard=True,
+            on_reduce=reduce_hook if on_reduce is not None else None,
+            scale_key=T.stack_key(cfg))
+    else:
+        step_fn = make_train_step(loss_fn, opt_cfg, accum_steps=args.accum,
+                                  chaos_guard=True)
 
     def init_state() -> dict:
         params = T.init_model(cfg, seed=args.seed, device=device)
-        print(f"params: {sum(p.numel() for p in params.parameters()):,}")
-        return make_train_state(params)
+        say(f"params: {sum(p.numel() for p in params.parameters()):,}")
+        state = make_train_state(params)
+        if mesh is not None:
+            digests = mesh.all_gather_object(state_digest(params))
+            if len(set(digests)) > 1:
+                raise RuntimeError(f"--seed {args.seed} made other params "
+                                   f"on other ranks: digests {digests}")
+            if compress:
+                state["opt"]["ef"] = pod_residual(params, 1)
+        return state
 
     def try_restore(state: dict, loader: DeterministicLoader,
                     required: bool):
@@ -244,24 +353,26 @@ def train(args: argparse.Namespace,
         one), or start fresh.  Returns (state, start step, loader).
         ``required`` marks a rollback or restart, where finding nothing is
         an event."""
+        verified: dict = {}
         step = (latest_valid_step(args.ckpt_dir, event_log=event_log,
-                                  timings=timings)
+                                  timings=timings, mesh=mesh, keep=verified)
                 if args.ckpt_dir else None)
         if step is None:
             if required:
-                print("!! no valid checkpoint to resume from; "
-                      "restarting from scratch")
+                say("!! no valid checkpoint to resume from; "
+                    "restarting from scratch")
                 event_log.emit("resume_fallback_fresh")
             return state, 0, loader
+        # the arrays that verified are the ones copied (read once)
         state, extra = restore_checkpoint(
-            args.ckpt_dir, state, step=step, event_log=event_log,
-            timings=timings)
+            args.ckpt_dir, state, step=step, verified=verified,
+            event_log=event_log, timings=timings, mesh=mesh)
         # the LR schedule follows the restored opt["count"]; the loop
         # counter and the data cursor rewind here
         if not loader.resume(extra.get("cursor")):
             event_log.emit("cursor_missing", step=step)
         start = int(extra.get("cursor", {}).get("step", step))
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
         return state, start, loader
 
     def loop(resume: Optional[int]) -> dict:
@@ -274,7 +385,10 @@ def train(args: argparse.Namespace,
         straggler = StragglerDetector(event_log=event_log)
         t0 = time.perf_counter()
         while s < args.steps:
-            batch = {k: v.to(device) for k, v in loader.batch_at(s).items()}
+            batch = loader.batch_at(s)
+            if mesh is not None:
+                batch = member_rows(batch, mesh)
+            batch = {k: v.to(device) for k, v in batch.items()}
             t_step = time.perf_counter()
             if chaos is not None:
                 chaos.pre_step(s)
@@ -284,11 +398,13 @@ def train(args: argparse.Namespace,
             dt = time.perf_counter() - t_step
             straggler.observe(s, dt)
             if on_step is not None:
-                on_step(s, state, metrics, dt)
+                rec = on_step(s, state, metrics, dt)
+                if rec is not None:
+                    recs.append(rec)
             if metrics["skipped"]:
                 event_log.emit("skip", step=s, cause="non-finite grads")
             if policy.on_metrics(metrics):
-                print("!! rollback: too many consecutive skipped steps")
+                say("!! rollback: too many consecutive skipped steps")
                 event_log.emit("rollback", step=s,
                                cause=f"{policy.consecutive_skips} "
                                      "consecutive skips")
@@ -298,25 +414,31 @@ def train(args: argparse.Namespace,
                 continue
             s += 1
             if s % args.log_every == 0:
-                print(f"step {s:5d} loss={metrics['loss']:.4f} "
-                      f"aux={metrics['aux']:.4f} "
-                      f"gnorm={metrics['grad_norm']:.3f} "
-                      f"lr={metrics['lr']:.2e} {dt * 1e3:.0f} ms/step")
+                say(f"step {s:5d} loss={metrics['loss']:.4f} "
+                    f"aux={metrics['aux']:.4f} "
+                    f"gnorm={metrics['grad_norm']:.3f} "
+                    f"lr={metrics['lr']:.2e} {dt * 1e3:.0f} ms/step")
             if args.ckpt_dir and s % args.ckpt_every == 0:
                 save_checkpoint(args.ckpt_dir, s, state,
                                 extra={"cursor": {"seed": args.seed,
                                                   "step": s}},
-                                timings=timings)
+                                timings=timings, mesh=mesh)
             if chaos is not None:
                 chaos.post_step(s - 1, args.ckpt_dir or None,
-                                event_log=event_log)
-        print(f"done in {time.perf_counter() - t0:.1f}s from step {start} "
-              f"(skips={policy.total_skips})")
+                                event_log=event_log, files=root)
+        say(f"done in {time.perf_counter() - t0:.1f}s from step {start} "
+            f"(skips={policy.total_skips})")
         return state
 
-    return run_with_recovery(loop, max_restarts=args.max_restarts,
-                             backoff_base=args.backoff_base,
-                             event_log=event_log)
+    # a pod restarts only on what every rank raises at the same point (the
+    # chaos plan's preemption, after the step's collectives); any other
+    # fault ends the pod, since its peers may wait in a collective
+    state = run_with_recovery(loop, max_restarts=args.max_restarts,
+                              backoff_base=args.backoff_base,
+                              event_log=event_log,
+                              restart_on=((ChaosPreemption,) if mesh
+                                          else (Exception,)))
+    return state, recs
 
 
 def main() -> None:

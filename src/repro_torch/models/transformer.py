@@ -7,7 +7,7 @@ mixers with their conv and SSM caches, dense, MoE or no MLP, zamba2's
 shared attention + FFN block applied before flagged layers, default, local
 and M-RoPE tables, token or embedding inputs, ``embed_scale``.  Layers run
 in a Python loop over an ``nn.ModuleList`` (the reference's ``scan`` over
-stacked params, whose ``scan_group`` no ported module reads;
+stacked params, whose ``scan_group`` only ``stack_key`` reads;
 ``convert.params_from_jax`` unstacks groups of any length); the shared
 block's params sit once at the top level.  With ``remat`` (the default, as
 in the reference) and no cache, each layer runs under
@@ -41,7 +41,7 @@ from repro_torch.parallel import ctx as par_ctx
 from repro_torch.params import Params
 
 __all__ = ["LayerSpec", "ModelConfig", "init_model", "init_cache",
-           "forward", "dtype_of"]
+           "forward", "dtype_of", "stack_key"]
 
 
 def dtype_of(d: Any) -> torch.dtype:
@@ -74,6 +74,9 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     layers: Tuple[LayerSpec, ...]
+    scan_group: int = 1              # the reference's scan period (0:
+                                     # unrolled); only its parameter
+                                     # layout reads it here (stack_key)
     qk_norm: bool = False
     rope_theta: float = 1e4
     rope_local_theta: float = 1e4
@@ -103,6 +106,10 @@ class ModelConfig:
     spm_block_fuse: Optional[bool] = None  # None/True: block kernel; False
     spm_quant_acts: bool = False           # int8 activation I/O (K1/K2)
     spm_quant_coeffs: bool = False         # int8 per-stage coefficient tables
+    compress_pod_grads: bool = False       # --compress-pod-grads, read by
+                                           # launch.train; kept as a field
+                                           # for field-for-field parity
+                                           # with the reference's config
     input_kind: str = "tokens"       # "tokens" | "embeddings"
     tie_embeddings: bool = True
     embed_scale: float = 1.0
@@ -173,6 +180,30 @@ class ModelConfig:
             vocab_size=self.vocab_size, d_model=self.d_model,
             tie_output=self.tie_embeddings,
             param_dtype=dtype_of(self.param_dtype))
+
+
+def stack_key(cfg: ModelConfig):
+    """``key(name)``: the reference's array that the port's parameter
+    ``name`` is part of.  The reference stacks the layers of a scanned
+    pattern (``scan_group`` g, layer i in group ``l{i % g}``) or of a
+    uniform stack (one group) into one array a leaf; unstacked layers, and
+    everything outside ``layers``, are arrays of their own.  Whatever acts
+    on whole arrays (a per-tensor int8 scale) acts on the group."""
+    g = cfg.scan_group
+    if not (g > 0 and cfg.n_layers % g == 0 and all(
+            cfg.layers[i] == cfg.layers[i % g]
+            for i in range(cfg.n_layers))):
+        base = dataclasses.replace(cfg.layers[0], shared_block=False)
+        g = 1 if all(dataclasses.replace(s, shared_block=False) == base
+                     for s in cfg.layers) else 0
+
+    def key(name: str) -> str:
+        if not (g and name.startswith("layers.")):
+            return name
+        _, i, rest = name.split(".", 2)
+        return f"layers.l{int(i) % g}.{rest}"
+
+    return key
 
 
 def _init_layer(spec: LayerSpec, cfg: ModelConfig, gen: torch.Generator,

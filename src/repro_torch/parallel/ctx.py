@@ -1,5 +1,5 @@
-"""The feature-sharding context (port of ``repro/parallel/ctx.py``, the
-``"feature"`` kind only).
+"""The mesh contexts: feature sharding (port of ``repro/parallel/ctx.py``,
+the ``"feature"`` kind only) and a data-parallel pod's axis binding.
 
 A ``FeatureMesh`` is the port's counterpart of a JAX mesh with one
 ``"model"`` axis (``repro/launch/mesh.make_host_mesh``): S shards of the
@@ -27,14 +27,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = ["FeatureMesh", "make_feature_mesh", "activation_sharding",
-           "feature_mesh", "current_context", "use_context"]
+           "feature_mesh", "current_context", "use_context", "PodMesh",
+           "bind_axis", "bound_axis"]
 
 _STATE = threading.local()
 
@@ -103,3 +105,109 @@ def feature_mesh(n_shards: Optional[int] = None) -> Optional[FeatureMesh]:
     if n_shards is not None and mesh.shape["model"] != n_shards:
         return None
     return mesh
+
+
+POD_AXIS = "pod"
+
+
+@dataclasses.dataclass
+class PodMesh:
+    """One rank's view of a data-parallel pod of ``size`` members:
+    ``axis_names == ("pod",)``, the rank, its device, the backend and the
+    process group (None: the default group)."""
+
+    rank: int
+    size: int
+    device: torch.device
+    backend: Optional[str] = None     # None for a one-member pod
+    group: Any = None
+    owned: bool = False               # launch.mesh initialised the group
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return (POD_AXIS,)
+
+    @property
+    def shape(self) -> dict:
+        return {POD_AXIS: self.size}
+
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
+        """In place over the pod; nothing for one member."""
+        if self.size > 1:
+            dist.all_reduce(t, op=op, group=self.group)
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            dist.barrier(group=self.group)
+
+    def broadcast_object(self, obj: Any) -> Any:
+        """Rank 0's ``obj`` on every rank."""
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self._global(0),
+                                   group=self.group)
+        return box[0]
+
+    def all_gather_object(self, obj: Any) -> List[Any]:
+        """Every rank's ``obj``, in rank order."""
+        if self.size == 1:
+            return [obj]
+        out: List[Any] = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def gather_to_root(self, t: torch.Tensor) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``t`` on rank 0, in rank order, as CPU tensors (None
+        elsewhere).  NCCL gathers on the rank's card, gloo on the host."""
+        if self.size == 1:
+            return [t.cpu()]
+        t = t.to(self.device) if self.backend == "nccl" else t.cpu()
+        out = ([torch.empty_like(t) for _ in range(self.size)]
+               if self.rank == 0 else None)
+        dist.gather(t, out, dst=self._global(0), group=self.group)
+        return None if out is None else [x.cpu() for x in out]
+
+    def _global(self, rank: int) -> int:
+        return (rank if self.group is None
+                else dist.get_global_rank(self.group, rank))
+
+    def close(self) -> None:
+        """Tear down the group when ``launch.mesh`` made it."""
+        if self.owned and dist.is_initialized():
+            dist.destroy_process_group()
+            self.owned = False
+
+
+def _axes() -> dict:
+    axes = getattr(_STATE, "axes", None)
+    if axes is None:
+        axes = _STATE.axes = {}
+    return axes
+
+
+@contextlib.contextmanager
+def bind_axis(mesh: PodMesh, name: str = POD_AXIS):
+    """Bind axis ``name`` to ``mesh`` for this thread's collectives inside
+    the block."""
+    axes = _axes()
+    saved = axes.get(name)
+    axes[name] = mesh
+    try:
+        yield mesh
+    finally:
+        if saved is None:
+            axes.pop(name, None)
+        else:
+            axes[name] = saved
+
+
+def bound_axis(name: str) -> PodMesh:
+    """The pod bound to axis ``name``; ``ValueError`` when none is."""
+    try:
+        return _axes()[name]
+    except KeyError:
+        raise ValueError(
+            f"unbound axis name {name!r}: a step that reduces over it "
+            f"runs inside make_pod_train_step (parallel.ctx.bind_axis)"
+        ) from None

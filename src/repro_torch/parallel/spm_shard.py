@@ -933,8 +933,9 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
         raise ValueError(
             f"mesh shards on {[str(d) for d in mesh.devices]}, input on "
             f"{x.device}: every shard must be on the input's device")
-    # rows shard over no mesh axis: a FeatureMesh has no data axis
-    # (``parallel/sharding.data_axes``; ROADMAP.md §1: DP axes)
+    # rows shard over no mesh axis here: a FeatureMesh has no data axis,
+    # and a pod member gets its rows before the model (every rank builds
+    # the global batch and takes its own, ``parallel/sharding.member_rows``)
     in_width = None if in_width == n else in_width
     out_width = None if out_width == n else out_width
     steps = plan_steps(n, cfg.pairing.strides(), cfg.n_shards)

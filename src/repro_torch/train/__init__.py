@@ -1,13 +1,12 @@
 """Training substrate: state, step factories, verified-integrity
-checkpoints, the fault policy and recovery orchestration, chaos injection.
-The pod step and its error-feedback residual are the multi-device slice
-(ROADMAP.md §1, item 6): ``make_pod_train_step`` raises."""
+checkpoints, the fault policy and recovery orchestration, chaos injection,
+and the data-parallel pod step with its error-feedback residual."""
 
 from repro_torch.train.state import (  # noqa: F401
-    make_train_state, param_count, tree_signature,
+    make_train_state, param_count, state_digest, tree_signature,
 )
 from repro_torch.train.step import (  # noqa: F401
-    make_eval_step, make_pod_train_step, make_train_step,
+    make_eval_step, make_pod_train_step, make_train_step, pod_residual,
 )
 from repro_torch.train.checkpoint import (  # noqa: F401
     CheckpointCorruptError, latest_step, latest_valid_step,

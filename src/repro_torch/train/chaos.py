@@ -210,11 +210,15 @@ class ChaosSchedule:
         return delay
 
     def post_step(self, step: int, ckpt_dir: Optional[str],
-                  event_log: Any = None) -> None:
+                  event_log: Any = None, files: bool = True) -> None:
         """Fire the pending ``corrupt`` events of ``step``, then a pending
-        ``preempt``."""
+        ``preempt``.  ``files=False`` (a pod rank other than 0, which owns
+        the checkpoint files) consumes the ``corrupt`` events without
+        touching anything."""
         for e in self._pending("corrupt", step):
             e.fired = True
+            if not files:
+                continue
             if not ckpt_dir:
                 log.warning("chaos: corrupt event at step %d has no "
                             "ckpt dir; skipped", step)

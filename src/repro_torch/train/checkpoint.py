@@ -38,6 +38,14 @@ restores into the port's state bit for bit.
   state is float32 and int32); ``save_checkpoint`` raises on a bf16 leaf,
   naming it, rather than invent an encoding.
 
+* **Pods**: given a ``parallel.ctx.PodMesh`` of n > 1 ranks, rank 0 alone
+  writes, in the reference's layout: ``opt.ef`` as ``(n, ...)`` arrays,
+  the ranks' ``(1, ...)`` rows gathered; every rank meets at a barrier
+  after the save.  ``latest_valid_step`` is decided on rank 0 (which
+  alone verifies, quarantines and republishes) and broadcast; a restore
+  copies each rank its own row of ``opt.ef``.  A restore into a pod of
+  another size fails the signature check, as in the reference.
+
 A save, verify or restore given a ``timings`` list appends its wall
 times to it (save: device-to-host, write, the hashing left after the
 write, publish; the per-array digests run beside the write).  Reads map
@@ -185,11 +193,51 @@ def _host_arrays(state: Any) -> List[np.ndarray]:
     return out
 
 
+def _is_member(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def _ef_indices(tree: Any) -> List[int]:
+    """Flatten-order indices of the leaves under ``opt.ef``."""
+    return [i for i, (path, _) in enumerate(tree_leaves_with_path(tree))
+            if path[:2] == ("opt", "ef")]
+
+
+def _gathered_ef(state: Any, mesh) -> Optional[dict]:
+    """The pod's ``opt.ef`` on rank 0, each leaf ``(n, ...)`` on the host
+    from the ranks' ``(1, ...)`` rows, in one gather (None on the other
+    ranks)."""
+    ef = state["opt"]["ef"]
+    rows = mesh.gather_to_root(torch.cat([t.detach().reshape(-1).cpu()
+                                          for t in ef.values()]))
+    if mesh.rank != 0:
+        return None
+    full, lo = {}, 0
+    for k, t in ef.items():
+        n = t.numel()
+        full[k] = torch.cat([r[lo: lo + n].view(t.shape) for r in rows], 0)
+        lo += n
+    return full
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state: Any,
                     extra: Optional[dict] = None, keep: int = 3,
-                    timings: Optional[list] = None) -> str:
+                    timings: Optional[list] = None, mesh: Any = None) -> str:
     """Save the tensors of ``state`` and the JSON ``extra`` as ``step``;
-    returns the published path.  Keeps the newest ``keep`` steps."""
+    returns the published path.  Keeps the newest ``keep`` steps.  With a
+    pod ``mesh`` every rank calls it and rank 0 writes (module
+    docstring)."""
+    if _is_member(mesh):
+        final = os.path.join(ckpt_dir, f"step_{step}")
+        full = (_gathered_ef(state, mesh) if "ef" in state["opt"]
+                else None)
+        if mesh.rank == 0:
+            view = state if full is None else {
+                **state, "opt": {**state["opt"], "ef": full}}
+            save_checkpoint(ckpt_dir, step, view, extra=extra, keep=keep,
+                            timings=timings)
+        mesh.barrier()
+        return final
     t0 = time.perf_counter()
     os.makedirs(ckpt_dir, exist_ok=True)
     _recover_staging(ckpt_dir)
@@ -384,10 +432,20 @@ def quarantine_checkpoint(ckpt_dir: str, step: int, reason: str,
 
 
 def latest_valid_step(ckpt_dir: str, event_log: Any = None,
-                      timings: Optional[list] = None) -> Optional[int]:
+                      timings: Optional[list] = None,
+                      mesh: Any = None,
+                      keep: Optional[dict] = None) -> Optional[int]:
     """The newest step that verifies, quarantining every newer one that
     does not, step dirs with a payload file missing included.  None when
-    nothing verifies."""
+    nothing verifies.  ``keep``, when given, receives the arrays of the
+    step returned as its verification read them, for
+    ``restore_checkpoint(verified=keep)`` to copy.  With a pod ``mesh``,
+    rank 0 decides (it alone verifies, keeps and quarantines) and every
+    rank gets its answer."""
+    if _is_member(mesh):
+        found = (latest_valid_step(ckpt_dir, event_log, timings, keep=keep)
+                 if mesh.rank == 0 else None)
+        return mesh.broadcast_object(found)
     if not os.path.isdir(ckpt_dir):
         return None
     _recover_staging(ckpt_dir)
@@ -395,13 +453,17 @@ def latest_valid_step(ckpt_dir: str, event_log: Any = None,
     all_steps = sorted(int(m.group(1)) for name in os.listdir(ckpt_dir)
                        if (m := _STEP_RE.match(name)))
     for step in reversed(all_steps):
+        if keep is not None:
+            keep.clear()
         problems = ([f"step_{step}: incomplete payload"]
                     if step not in listed
-                    else verify_checkpoint(ckpt_dir, step, timings))
+                    else _timed_verify(ckpt_dir, step, timings, keep=keep))
         if not problems:
             return step
         quarantine_checkpoint(ckpt_dir, step, "; ".join(problems),
                               event_log=event_log)
+    if keep is not None:
+        keep.clear()
     return None
 
 
@@ -409,7 +471,9 @@ def restore_checkpoint(ckpt_dir: str, like: Any,
                        step: Optional[int] = None,
                        verify: bool = True,
                        event_log: Any = None,
-                       timings: Optional[list] = None) -> Tuple[Any, dict]:
+                       timings: Optional[list] = None,
+                       mesh: Any = None,
+                       verified: Optional[dict] = None) -> Tuple[Any, dict]:
     """Copy a checkpoint into the tensors of ``like`` and return ``(like,
     extra)``.
 
@@ -422,23 +486,44 @@ def restore_checkpoint(ckpt_dir: str, like: Any,
     raised before any tensor is touched.  The copy is in place, under
     ``no_grad``, on each tensor's own device; the restored tree keeps
     ``like``'s non-tensor values (the decay mask).  An explicit step is
-    read once: the arrays its verification read are the ones copied."""
+    read once: the arrays its verification read are the ones copied, and
+    ``verified``, the arrays of ``step`` that ``latest_valid_step(keep=)``
+    has just verified, is copied as it is, without a second read.
+
+    With a pod ``mesh`` every rank calls it with its own ``like`` (its
+    ``opt.ef`` rows ``(1, ...)``): rank 0 picks and verifies the step and
+    copies what it verified; the other ranks read the step after rank 0's
+    verdict.  Each rank copies its row of the saved ``(n, ...)``
+    residual."""
     t0 = time.perf_counter()
-    if os.path.isdir(ckpt_dir):
+    member = _is_member(mesh)
+    root = not member or mesh.rank == 0
+    if root and os.path.isdir(ckpt_dir):
         _recover_staging(ckpt_dir)
-    arrays: Optional[dict] = None
+    arrays: Optional[dict] = verified or None     # a pod's other ranks: {}
     if step is None:
-        step = (latest_valid_step(ckpt_dir, event_log=event_log,
-                                  timings=timings) if verify
-                else latest_step(ckpt_dir))
+        if verify:
+            kept: dict = {}
+            step = latest_valid_step(ckpt_dir, event_log=event_log,
+                                     timings=timings, mesh=mesh, keep=kept)
+            arrays = kept or None
+        else:
+            step = latest_step(ckpt_dir) if root else None
+            if member:
+                step = mesh.broadcast_object(step)
         if step is None:
             raise FileNotFoundError(f"no valid checkpoints in {ckpt_dir}")
-    elif verify:
-        arrays = {}
-        problems = _timed_verify(ckpt_dir, step, timings, keep=arrays)
+    elif verify and verified is None:
+        problems = None
+        if root:
+            arrays = {}
+            problems = _timed_verify(ckpt_dir, step, timings, keep=arrays)
+            if problems:
+                quarantine_checkpoint(ckpt_dir, step, "; ".join(problems),
+                                      event_log=event_log)
+        if member:
+            problems = mesh.broadcast_object(problems)
         if problems:
-            quarantine_checkpoint(ckpt_dir, step, "; ".join(problems),
-                                  event_log=event_log)
             raise CheckpointCorruptError(
                 f"checkpoint step {step} failed verification: "
                 + "; ".join(problems))
@@ -448,6 +533,9 @@ def restore_checkpoint(ckpt_dir: str, like: Any,
         meta = json.load(f)
     flat = [t for _, t in tree_leaves_with_path(like)]
     sig = tree_signature(like)
+    rows = set(_ef_indices(like)) if member else set()
+    for i in rows:       # the file holds every member's row
+        sig["leaves"][i]["shape"][0] = mesh.size
     if meta["n_arrays"] != len(flat):
         raise ValueError(
             f"structure mismatch: checkpoint step {step} holds "
@@ -469,7 +557,10 @@ def restore_checkpoint(ckpt_dir: str, like: Any,
         arrays = _mapped_members(os.path.join(d, "arrays.npz"))
     with torch.no_grad():
         for i, t in enumerate(flat):
-            t.copy_(torch.from_numpy(arrays[f"a{i}"]).reshape(t.shape))
+            src = arrays[f"a{i}"]
+            if i in rows:
+                src = src[mesh.rank: mesh.rank + 1]
+            t.copy_(torch.from_numpy(src).reshape(t.shape))
     if any(t.is_cuda for t in flat):
         torch.cuda.synchronize()
     t2 = time.perf_counter()

@@ -159,14 +159,18 @@ def run_with_recovery(train_loop: Callable[[Optional[int]], Any],
                       backoff_max: float = 30.0,
                       restart_window: float = 600.0,
                       event_log: Optional[FaultEventLog] = None,
-                      sleep: Callable[[float], None] = time.sleep) -> Any:
+                      sleep: Callable[[float], None] = time.sleep,
+                      restart_on: tuple = (Exception,)) -> Any:
     """Run ``train_loop(resume)`` to completion, restarting on failure.
 
     The first call passes ``resume=None``; every restart passes
     ``RESUME_LATEST``.  Between restarts it sleeps ``backoff_base *
     2**(attempt-1)`` seconds, at most ``backoff_max``, through ``sleep``.
     More than ``max_restarts`` failures within ``restart_window`` seconds
-    re-raise the last exception; ``KeyboardInterrupt`` always propagates.
+    re-raise the last exception.  Only the exception types in
+    ``restart_on`` restart; any other, and ``KeyboardInterrupt``, propagates
+    (a pod's rank restarts only on what every rank raises at the same
+    point: ``launch/train.py``).
     Emits ``restart`` and ``restart_budget_exhausted`` events.  The failed
     attempt's frames, and the tensors they held, are released before the
     next attempt starts: the exception is dropped when its handler ends."""
@@ -179,6 +183,8 @@ def run_with_recovery(train_loop: Callable[[Optional[int]], Any],
         except KeyboardInterrupt:
             raise
         except Exception as e:          # noqa: BLE001 — any device fault
+            if not isinstance(e, restart_on):
+                raise
             now = time.monotonic()
             recent.append(now)
             while recent and now - recent[0] > restart_window:

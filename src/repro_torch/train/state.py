@@ -9,8 +9,8 @@ every level and list items by index.  The port's state is another tree:
 
 * ``Params`` modules, whose ``ModuleList`` children are keyed ``"0"``,
   ``"1"``, ...;
-* ``opt["mu"]`` and ``opt["nu"]``, flat dicts keyed by dotted names
-  (``layers.10.mixer.q.mix``);
+* ``opt["mu"]`` and ``opt["nu"]`` (and a compressed pod's ``opt["ef"]``),
+  flat dicts keyed by dotted names (``layers.10.mixer.q.mix``);
 * ``opt["decay"]``, a dict of Python bools.
 
 So each leaf's path is split at the dots, a part made of digits is a list
@@ -28,6 +28,8 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Tuple
 
+import hashlib
+
 import torch
 from torch import nn
 
@@ -35,7 +37,7 @@ from repro_torch.optim.adamw import init_opt_state
 from repro_torch.params import Params
 
 __all__ = ["make_train_state", "param_count", "tree_leaves_with_path",
-           "tree_signature", "numpy_dtype_name"]
+           "tree_signature", "numpy_dtype_name", "state_digest"]
 
 Path = Tuple[Any, ...]
 
@@ -46,15 +48,22 @@ _NUMPY_NAMES = {torch.float64: "float64", torch.float32: "float32",
                 torch.bool: "bool"}
 
 
-def make_train_state(params: Params) -> dict:
+def make_train_state(params: Params, ef_pod: int = 0) -> dict:
     """A fresh state for ``params``, which become trainable: zero moments,
     count 0, step 0, and the weight-decay mask of the reference's layout
-    (``optim/adamw.decay_mask``)."""
+    (``optim/adamw.decay_mask``).  ``ef_pod > 1`` adds the compressed
+    pod's error-feedback residual ``opt["ef"]`` with a leading member axis
+    of that size (``train/step.pod_residual``), checkpointed, restored and
+    rolled back with the rest of the optimizer state."""
     params.trainable()
     named = dict(params.named_parameters())
     dev = next(iter(named.values())).device
+    opt = init_opt_state(named)
+    if ef_pod > 1:
+        from repro_torch.train.step import pod_residual
+        opt["ef"] = pod_residual(named, ef_pod)
     return {"params": params,
-            "opt": init_opt_state(named),
+            "opt": opt,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -140,3 +149,36 @@ def tree_signature(tree: Any) -> dict:
                         "dtype": (numpy_dtype_name(t.dtype)
                                   or str(t.dtype).replace("torch.", ""))}
                        for _, t in flat]}
+
+
+_DIGEST_CHUNK = 1 << 24
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _leaf_sums(t: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums of ``t``'s bit patterns on its device, plain and
+    weighted by position (wrapping): a changed bit or a moved element
+    changes them."""
+    bits = t.detach().contiguous().view(-1).view(_BITS[t.element_size()])
+    out = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for lo in range(0, bits.numel(), _DIGEST_CHUNK):
+        c = bits[lo: lo + _DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(lo + 1, lo + 1 + c.numel(), dtype=torch.int64,
+                         device=t.device)
+        out += torch.stack([c.sum(), (c * w).sum()])
+    return out
+
+
+def state_digest(tree: Any) -> str:
+    """A digest of every tensor of ``tree`` (paths, shapes, dtypes and bit
+    patterns), computed on the tensors' device with one copy to the host:
+    two ranks whose states are bitwise equal give the same string."""
+    flat = tree_leaves_with_path(tree)
+    h = hashlib.sha256()
+    for path, t in flat:
+        h.update(f"{path}{tuple(t.shape)}{t.dtype}".encode())
+    if flat:
+        dev = flat[0][1].device
+        sums = torch.stack([_leaf_sums(t).to(dev) for _, t in flat]).cpu()
+        h.update(sums.numpy().tobytes())
+    return h.hexdigest()

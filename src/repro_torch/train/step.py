@@ -16,21 +16,39 @@ poison]) -> (state, metrics)``:
   grads by NaN; zero multiplies by an exact 1.0.
 
 Params are updated in place (the reference returns a new tree): the step
-owns ``state`` and returns it.  Data-parallel reduction (``grad_axis``,
-``compress_grads``, ``make_pod_train_step``) is the multi-device slice.
+owns ``state`` and returns it.
+
+Data parallelism (``grad_axis``): the step reduces grads, loss and metrics
+over the pod bound to that axis name (``parallel.ctx.bind_axis``; one rank
+a member), after the member's own accumulation; ``compress_grads`` swaps
+the mean for the int8 error-feedback all-reduce
+(``optim.compression.psum_compressed_ef``) with the member's residual in
+``state["opt"]["ef"]``, which the non-finite guard rolls back with the
+moments.  The chaos poison comes after the reduction, so a NaN never
+enters the quantizer.  ``make_pod_train_step`` is the per-rank body of the
+reference's ``shard_map``: params, moments and count replicated (bitwise
+equal on every rank), the batch the rank's rows, the residual the rank's
+own ``(1, *shape)`` row of the reference's ``P("pod")`` array.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
+from repro_torch.optim.compression import pmean, psum_compressed_ef
+from repro_torch.parallel.ctx import bind_axis, bound_axis
 
-__all__ = ["make_train_step", "make_pod_train_step", "make_eval_step"]
+__all__ = ["make_train_step", "make_pod_train_step", "pod_residual",
+           "make_eval_step"]
 
-_MULTI = "ROADMAP.md §1, item 6 (multi-device)"
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
 
 
 def _split(batch: dict, accum_steps: int) -> list:
@@ -61,17 +79,31 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, *,
                     accum_steps: int = 1, nan_guard: bool = True,
                     chaos_guard: bool = False,
                     grad_axis: Optional[str] = None,
-                    compress_grads: bool = False) -> Callable:
+                    compress_grads: bool = False,
+                    on_reduce: Optional[Callable] = None,
+                    scale_key: Optional[Callable] = None) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)`` with tensor metrics.
-    With ``chaos_guard`` the step is ``step(state, batch, poison)``."""
+    With ``chaos_guard`` the step is ``step(state, batch, poison)``.
+
+    With ``grad_axis`` the step must run where that axis is bound
+    (``make_pod_train_step``), else it raises ``ValueError``.
+    ``on_reduce(step, local_grads, residual, grads, new_residual,
+    seconds)``, when given, sees each reduction on each rank (``residual``
+    and ``new_residual`` None unless compressed) and its wall seconds
+    (the device synchronized before and after), before the poison.
+    ``scale_key(name)``, when given, groups the compressed leaves that
+    share a scale (``models.transformer.stack_key``: the reference's
+    stacked arrays)."""
     if chaos_guard and not nan_guard:
         raise ValueError("chaos_guard requires nan_guard (a poisoned "
                          "update must be skipped, not applied)")
-    if grad_axis is not None or compress_grads:
-        raise NotImplementedError(
-            f"data-parallel gradient reduction is not ported yet ({_MULTI})")
+    if compress_grads and grad_axis is None:
+        raise ValueError("compress_grads requires grad_axis (the int8 "
+                         "compressor reduces over a named pod axis)")
 
     def step(state: dict, batch: dict, poison: Any = None):
+        if grad_axis is not None:
+            bound_axis(grad_axis)
         params = state["params"]
         named = dict(params.named_parameters())
         for p in named.values():
@@ -90,6 +122,27 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, *,
                      if p.grad is None else p.grad.float() * scale
                      if accum_steps > 1 else p.grad)
                  for k, p in named.items()}
+        opt = state["opt"]
+        new_ef = None
+        if grad_axis is not None:
+            residual = ({k: opt["ef"][k] for k in grads} if compress_grads
+                        else None)
+            if on_reduce is not None:
+                _sync(loss)
+                t0 = time.perf_counter()
+            if compress_grads:
+                reduced, new_ef = psum_compressed_ef(
+                    grads, residual, grad_axis,
+                    groups=(None if scale_key is None
+                            else [scale_key(k) for k in grads]))
+            else:
+                reduced = pmean(grads, grad_axis)
+            loss, metrics = pmean((loss, dict(metrics)), grad_axis)
+            if on_reduce is not None:
+                _sync(loss)
+                on_reduce(int(state["step"]), grads, residual, reduced,
+                          new_ef, time.perf_counter() - t0)
+            grads = reduced
         if chaos_guard:
             if poison is None:
                 raise TypeError("chaos_guard step requires the poison "
@@ -101,8 +154,11 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, *,
             grads = {k: g * factor.to(g.dtype) for k, g in grads.items()}
         with torch.no_grad():
             values = {k: p.detach() for k, p in named.items()}
-            new_p, new_opt, info = adamw_update(values, grads, state["opt"],
-                                                opt_cfg)
+            new_p, new_opt, info = adamw_update(values, grads, opt, opt_cfg)
+            if new_ef is not None:
+                # installed before the guard's select, so that a skipped
+                # step rolls the residual back too
+                new_opt = {**new_opt, "ef": new_ef}
             metrics = dict(metrics)
             metrics.update(info)
             ok = None
@@ -112,8 +168,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, *,
             for k, p in named.items():
                 p.copy_(new_p[k] if ok is None
                         else torch.where(ok, new_p[k], p))
-            opt = state["opt"]
-            for name in ("mu", "nu"):
+            for name in ("mu", "nu", "ef"):
+                if name == "ef" and new_ef is None:
+                    continue
                 for k, t in opt[name].items():
                     t.copy_(new_opt[name][k] if ok is None
                             else torch.where(ok, new_opt[name][k], t))
@@ -127,10 +184,44 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, *,
     return step
 
 
-def make_pod_train_step(*args, **kwargs) -> Callable:
-    """The data-parallel pod step: not ported yet."""
-    raise NotImplementedError(f"the pod train step is not ported yet "
-                              f"({_MULTI})")
+def pod_residual(params: Any, n_pod: int) -> dict:
+    """A compressed pod's zero error-feedback residual: shaped like each
+    parameter with a leading ``(n_pod,)`` member axis, f32, keyed by the
+    parameters' dotted names (``state["opt"]["ef"]``).  A rank holds its
+    own row: ``pod_residual(params, 1)``."""
+    named = (dict(params.named_parameters()) if hasattr(
+        params, "named_parameters") else params)
+    return {k: torch.zeros((n_pod,) + tuple(p.shape), dtype=torch.float32,
+                           device=p.device) for k, p in named.items()}
+
+
+def make_pod_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
+                        mesh, *, axis: str = "pod", compress: bool = True,
+                        **step_kwargs) -> Callable:
+    """The data-parallel step over ``mesh`` (a ``parallel.ctx.PodMesh``),
+    one rank's body: ``make_train_step(..., grad_axis=axis,
+    compress_grads=compress)`` run with ``axis`` bound to ``mesh``.  The
+    caller passes the rank's rows of the batch; with ``compress`` the
+    state's ``opt["ef"]`` holds the rank's ``(1, *shape)`` rows
+    (``pod_residual(params, 1)``), updated in place.  ``step_kwargs``
+    (``accum_steps``, ``nan_guard``, ``chaos_guard``, ``on_reduce``,
+    ``scale_key``) pass through."""
+    step = make_train_step(loss_fn, opt_cfg, grad_axis=axis,
+                           compress_grads=compress, **step_kwargs)
+
+    def pod_step(state: dict, batch: dict, poison: Any = None):
+        opt = state["opt"]
+        rows = opt.get("ef")
+        if compress:
+            opt["ef"] = {k: r[0] for k, r in rows.items()}
+        try:
+            with bind_axis(mesh, axis):
+                return step(state, batch, poison)
+        finally:
+            if compress:
+                opt["ef"] = rows
+
+    return pod_step
 
 
 def make_eval_step(loss_fn: Callable) -> Callable:

@@ -520,6 +520,33 @@ def test_explicit_corrupt_step_raises_and_is_quarantined(tmp_path,
     assert T.latest_step(d) == 10 and log.kinds() == ["quarantine"]
 
 
+def test_a_verified_step_is_copied_without_a_second_read(
+        tmp_path, mlp_states, monkeypatch):
+    """``latest_valid_step(keep=)`` hands over the arrays that its
+    verification read (a corrupt newer step is quarantined and keeps
+    nothing), and ``restore_checkpoint(verified=)`` copies exactly those:
+    one hash of the step, no second read of its payload."""
+    from repro_torch.train import checkpoint as T_ckpt
+    d, state = str(tmp_path), mlp_states[2]
+    for s in (5, 10):
+        T.save_checkpoint(d, s, state)
+    T_chaos.corrupt_checkpoint(d, "bitflip", step=10)
+    kept, timings = {}, []
+    assert T.latest_valid_step(d, timings=timings, keep=kept) == 5
+    assert sorted(kept) == sorted(_meta(d, 5)["manifest"])
+
+    def read_again(path):
+        raise AssertionError(f"{path} read a second time")
+
+    monkeypatch.setattr(T_ckpt, "_mapped_members", read_again)
+    got, extra = T.restore_checkpoint(d, _fresh_like(mlp_states[1]),
+                                      step=5, verified=kept,
+                                      timings=timings)
+    _assert_bitwise(got, state)
+    assert [t["op"] for t in timings] == ["verify", "verify", "restore"]
+    assert [t["ok"] for t in timings[:2]] == [False, True]
+
+
 def test_a_bf16_leaf_is_refused_by_name(tmp_path):
     state = {"params": Params({"w": torch.ones(2, dtype=torch.bfloat16)}),
              "step": torch.zeros((), dtype=torch.int32)}

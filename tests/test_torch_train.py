@@ -313,12 +313,17 @@ def test_remat_runs_each_forward_kernel_call_twice(monkeypatch):
 
 
 def test_multi_device_pieces_raise():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    """The pod's errors, as the reference's: compression without an axis,
+    and a step that reduces over an axis no pod binds."""
+    with pytest.raises(ValueError, match="requires grad_axis"):
         make_train_step(lambda p, b: None, T_opt.OptimizerConfig(),
-                        grad_axis="pod")
-    from repro_torch.train import make_pod_train_step
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        make_pod_train_step()
+                        compress_grads=True)
+    cfg, state = _smoke_state()
+    step = make_train_step(lambda p, b: LM.lm_loss(p, b, cfg),
+                           T_opt.OptimizerConfig(), grad_axis="pod")
+    with pytest.raises(ValueError, match="unbound axis"):
+        step(state, _batch(cfg))
+    assert int(state["step"]) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -344,10 +349,18 @@ def test_launch_train_two_smoke_steps_on_cpu(capsys):
 @pytest.mark.parametrize("flag", [["--pod-dp", "2"],
                                   ["--compress-pod-grads"]])
 def test_launch_train_refuses_later_slices(flag):
+    """The pod flags are ported: a batch the pod does not divide is
+    refused, as in the reference; ``--compress-pod-grads`` without a pod
+    trains one process's step (the knob matters under a pod only)."""
     args = launch_train.build_parser().parse_args(
-        ["--smoke", "--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.train(args)
+        ["--smoke", "--device", "cpu", "--steps", "1", "--batch", "3",
+         "--seq", "8"] + flag)
+    if "--pod-dp" in flag:
+        with pytest.raises(ValueError, match="must divide by --pod-dp 2"):
+            launch_train.train(args)
+        return
+    state = launch_train.train(args)
+    assert int(state["step"]) == 1 and "ef" not in state["opt"]
 
 
 def test_launch_train_needs_cuda_unless_asked(monkeypatch):
