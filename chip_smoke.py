@@ -213,8 +213,8 @@ Phases, each of which fails the run when it fails:
    and K2's split-mode launches equal to the plan, losses and grad norms
    finite and non-zero.  Init s, prefill ms, decode tokens/s, step ms,
    peak memory.  Then gemma3-12b at one 6-layer pattern group against the
-   CPU (an 1100-token prompt, 16 tokens teacher-forced, phase 4's bound);
-   qwen2-vl-7b at 2 layers, one f32 step against the CPU with distinct
+   CPU (an 1100-token prompt, 6 tokens teacher-forced, phase 4's bound);
+   qwen2-vl-7b at 1 layer, one f32 step against the CPU with distinct
    M-RoPE ids (phase 7's bound); gemma3-12b's 6 layers through the
    continuous engine (4 slots, 8 requests of 9-1100 tokens): churn parity
    bit for bit against each request alone, and unchanged tokens with NaN
@@ -266,7 +266,7 @@ Phases, each of which fails the run when it fails:
    (expert, int8, int8-I/O, windowed and pair launches apart) equal to the
    plan (``modes_train_plan``, ``modes_serve_plan``); a sharded run whose
    peak passes ``MODES_PEAK_GIB`` reruns at ``MODES_CUT_LAYERS`` layers.
-   Then the card against the CPU at ``MOE_PARITY_LAYERS`` layers, f32,
+   Then the card against the CPU at ``MODES_PARITY_LAYERS`` layer, f32,
    routing compared first (``run_modes_parity``: one forward, backward
    and first AdamW update a side, each on its own device; the int8 model
    with the CPU replaying the card's codes, phase 10's criterion; the
@@ -299,6 +299,26 @@ Phases, each of which fails the run when it fails:
    launches a rank a step
    equal to the plan at 4 rows.  Step ms, the reduction's wall ms and
    bytes, each rank's peak.  The phase has 120 s (``POD_BUDGET_S``).
+26. **The feature-sharded executor with one shard a rank**
+   (``run_ranks_phase``): four ranks on the one card over gloo, shard j on
+   rank j (``launch.mesh.make_feature_rank_mesh``).  (a) K5's and K6's
+   rank mode (the send kernel stores the rank's block into the partner
+   rank's receive slot through CUDA IPC, the stream waits on the
+   partner's signal, then the mix or K6's consume kernel) at q/k/v/o's
+   pair (k = 1; k = 2 with d_out and bias folded; an int8 table) and
+   gate/up's windowed first read, 4096 rows in 4 row blocks: y and g_x
+   bit for bit their plain versions (the per-block exchange over the
+   group) and the one-card K5/K6's columns, the grads within gamma_rows,
+   the transport drained; timed (send, wait and mix apart).  (b)
+   Full-width qwen3-1.7b at ``RANKS_LAYERS`` layers, 4 x 512 rows every
+   rank: ``RANKS_STEPS`` step-serial steps bit for bit the one-card
+   sharded steps, then as many on the overlap schedule (K5/K6 rank mode;
+   its first step's loss and g_x-made grads bit for bit the one-card
+   overlap step's, the rest within phase 18's bound); the ranks bitwise
+   equal after every step; launches equal to ``rank_train_plan``; the
+   ranks' peaks under ``RANKS_PEAK_GIB`` together.  Step ms, the
+   exchange's wall ms and bytes.  The phase has 110 s
+   (``RANKS_BUDGET_S``); the spawn is killed past ``RANKS_LIMIT_S``.
 
 Depths: phases 4 (its teacher-forced part), 7, 10, 11 (its
 teacher-forced part), 14 and 18 hold the card to the CPU on the first
@@ -4542,6 +4562,9 @@ ARCH_LAYERS = {"gemma3-12b": 12, "qwen2-vl-7b": 7, "musicgen-medium": 12,
                "minitron-4b": 8, "qwen3-32b": 16}   # a quarter of each
 # depth (gemma3-12b's two 5:1 local:global groups), full width
 GEMMA_GROUP = 6         # one 5:1 local:global pattern group
+GEMMA_PARITY_NEW = 6    # its teacher-forced tokens (16 before: the CPU's
+#                         decode took the seconds phase 26 needed)
+QWEN2VL_PARITY_LAYERS = 1   # qwen2-vl-7b's card-vs-CPU step (2 before)
 GEMMA_PROMPT = 1100     # the card-vs-CPU and continuous runs' longest
 CONT_SLOTS = 4
 CONT_PROMPTS = (9, 1100, 300, 37, 1024, 700, 120, 1030)
@@ -4694,7 +4717,8 @@ def run_arch_train(torch, K, ops, launch_train, arch, cfg):
 def run_gemma_parity(torch, T, LM, cfg):
     """gemma3-12b at one ``GEMMA_GROUP``-layer pattern group, full width:
     one row with a ``GEMMA_PROMPT``-token prompt (every ring wraps) and
-    ``ARCH_NEW`` greedy tokens on the card, replayed teacher-forced on the
+    ``GEMMA_PARITY_NEW`` greedy tokens on the card, replayed teacher-forced
+    on the
     CPU from the same weights: the logits of each step within phase 4's
     bf16 bound, the card's token the CPU's argmax wherever the CPU's top-2
     gap exceeds it."""
@@ -4709,40 +4733,41 @@ def run_gemma_parity(torch, T, LM, cfg):
     tol = (2 * 2.0 ** -8 * cfg.d_model ** 0.5
            * cpu["final_norm"]["scale"].abs().max().item()
            * w.float().norm(dim=-1).max().item())
-    max_len = GEMMA_PROMPT + ARCH_NEW
+    max_len = GEMMA_PROMPT + GEMMA_PARITY_NEW
     t0 = time.perf_counter()
     with torch.inference_mode():
         lg, cg = LM.prefill(params, cut, max_len=max_len,
                             tokens=prompt.to(DEVICE))
         card, toks = [], []
-        for step in range(ARCH_NEW):
+        for step in range(GEMMA_PARITY_NEW):
             card.append(lg.float().cpu())
             tok = lg.argmax(-1)
             toks.append(tok.cpu())
-            if step + 1 < ARCH_NEW:
+            if step + 1 < GEMMA_PARITY_NEW:
                 lg, cg = LM.decode_step(params, cut, tok, cg,
                                         GEMMA_PROMPT + step)
         del cg
         worst, decided, mism = 0.0, 0, 0
         lc, cc = LM.prefill(cpu, cut, max_len=max_len, tokens=prompt)
-        for step in range(ARCH_NEW):
+        for step in range(GEMMA_PARITY_NEW):
             b = lc.float()
             worst = max(worst, (card[step] - b).abs().max().item())
             top2 = b.topk(2, dim=-1).values
             if (top2[0, 0] - top2[0, 1]).item() > tol:
                 decided += 1
                 mism += int(b.argmax(-1).item() != toks[step].item())
-            if step + 1 < ARCH_NEW:
+            if step + 1 < GEMMA_PARITY_NEW:
                 lc, cc = LM.decode_step(cpu, cut, toks[step], cc,
                                         GEMMA_PROMPT + step)
     secs = time.perf_counter() - t0
-    ok = worst <= tol and mism == 0 and decided >= ARCH_NEW // 2
+    ok = worst <= tol and mism == 0 and decided >= GEMMA_PARITY_NEW // 2
     ring = cut.attn_cfg(cut.layers[0]).window
-    res = dict(layers=GEMMA_GROUP, prompt_len=GEMMA_PROMPT, steps=ARCH_NEW,
+    res = dict(layers=GEMMA_GROUP, prompt_len=GEMMA_PROMPT,
+               steps=GEMMA_PARITY_NEW,
                ring_slots=ring, max_abs_err=worst, tol=tol,
                decided_tokens=decided, token_mismatches=mism, seconds=secs)
     log(f"gemma3-12b card vs CPU ({GEMMA_GROUP} layers, full width, prompt "
-        f"{GEMMA_PROMPT} over {ring}-slot rings, {ARCH_NEW} tokens "
+        f"{GEMMA_PROMPT} over {ring}-slot rings, {GEMMA_PARITY_NEW} tokens "
         f"teacher-forced): logits max err {worst:.3e} (tol {tol:.3e}), "
         f"{decided} tokens decided, {mism} differ ({secs:.1f} s) "
         f"{'ok' if ok else 'FAIL'}")
@@ -4933,8 +4958,8 @@ def run_archs_phase(torch, K, ops, T, LM, ServeEngine, launch_train,
     ``ARCH_NEW`` tokens,
     gemma3-12b's prompt past its rings) and trained (``run_arch_train``);
     gemma3-12b against the CPU and through the continuous engine at one
-    pattern group; qwen2-vl-7b's training step against the CPU at 2 layers
-    with distinct M-RoPE ids (phase 7's bound); K2's split mode at every
+    pattern group; qwen2-vl-7b's training step against the CPU at
+    ``QWEN2VL_PARITY_LAYERS`` layer with distinct M-RoPE ids (phase 7's bound); K2's split mode at every
     lone wide tile (``run_lone_k2_phase``); K1-K4 at every shape of the
     main path (``run_arch_kernel_cases``).  Returns (results, kernel rows,
     failures)."""
@@ -4974,7 +4999,7 @@ def run_archs_phase(torch, K, ops, T, LM, ServeEngine, launch_train,
         failures.append("gemma3-12b card vs CPU")
     out["qwen2_vl_train_parity"], ok, _ = run_train_parity_phase(
         torch, T, LM, train_mod, adamw,
-        cut_depth(get_config("qwen2-vl-7b"), n=2))
+        cut_depth(get_config("qwen2-vl-7b"), n=QWEN2VL_PARITY_LAYERS))
     if not ok:
         failures.append("qwen2-vl-7b train parity")
     times["parity"] = time.perf_counter() - t
@@ -5643,6 +5668,8 @@ MODES_TRAIN = (4, 512, 2)      # batch, seq, steps of each training run
 MODES_BUDGET_S = 150
 MODES_PEAK_GIB = 75            # a sharded run whose peak passes this
 MODES_CUT_LAYERS = 24          # reruns at this depth (of 48)
+MODES_PARITY_LAYERS = 1        # the card-vs-CPU depth (2 before: phase 26
+#                                took the seconds)
 
 
 def modes_counts(K) -> dict:
@@ -5998,7 +6025,7 @@ def modes_step(torch, LM, adamw, cfg, p, b, dev, shards=0, replay=None):
 
 
 def run_modes_parity(torch, T, LM, adamw, cfg):
-    """Card against CPU at ``MOE_PARITY_LAYERS`` layers of ``cfg``, full
+    """Card against CPU at ``MODES_PARITY_LAYERS`` layer of ``cfg``, full
     width, f32, no remat, from the same seed-0 weights on both sides: one
     ``modes_step`` a side of three models.  ``int8``
     (``with_quantized_io``): the CPU replays the card's codes, phase 10's
@@ -6018,9 +6045,9 @@ def run_modes_parity(torch, T, LM, adamw, cfg):
     from repro_torch.configs import (with_feature_sharding,
                                      with_overlap_executor,
                                      with_quantized_io)
-    # no remat: at 2 layers it saves nothing on the card and only doubles
-    # the CPU's forward (the same function either way)
-    cut = dataclasses.replace(cut_depth(cfg, n=MOE_PARITY_LAYERS),
+    # no remat: at this depth it saves nothing on the card and only
+    # doubles the CPU's forward (the same function either way)
+    cut = dataclasses.replace(cut_depth(cfg, n=MODES_PARITY_LAYERS),
                               remat=False, dtype="float32")
     sharded = with_feature_sharding(cut, SHARDS)
     batch, seq = 2, 16
@@ -6461,7 +6488,7 @@ def run_modes_phase(torch, K, ops, Q, T, LM, ServeEngine, train_mod, adamw,
     4)`` on a 4-shard mesh on the card, and two of
     ``with_overlap_executor(with_quantized_io(with_feature_sharding(cfg,
     4)))`` (K5/K6 over the expert axis, int8 tables); then the card
-    against the CPU at ``MOE_PARITY_LAYERS`` layers
+    against the CPU at ``MODES_PARITY_LAYERS`` layer
     (``run_modes_parity``), and every new mode against its plain version
     (``run_modes_kernel_cases``).  Returns (results, kernel rows,
     failures)."""
@@ -6776,6 +6803,603 @@ def run_pod_phase(torch, K, ops, cfg, smi):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the feature-sharded executor with one shard a rank
+# ---------------------------------------------------------------------------
+
+RANKS_BUDGET_S = 110    # phase 26's seconds, at most
+RANKS_LIMIT_S = 300     # past this the spawn's ranks are killed: no hang
+RANKS = 4
+RANKS_LAYERS = 4        # the trained depth, of 28 (each rank holds it all;
+#                         8 took 81.4 s of the phase's 110 on a busy host,
+#                         the exchange through the host growing with depth)
+RANKS_STEPS = 3         # a mode's steps: step-serial, then overlap
+RANKS_BATCH, RANKS_SEQ = 4, 512
+RANK_ROWS = 4096        # the kernel cases' rows
+RANKS_PEAK_GIB = 64     # the four ranks' peaks together, at most
+
+
+def rank_pair_cases(cfg):
+    """(label, n_local, strides, n_tile, k, in_width, fold, int8) of the
+    rank-mode cases over ``RANKS`` ranks: q/k/v/o's pair (n_local 512, 9
+    stages) with k = 1, then k = 2 with d_out and bias folded (its
+    schedule ends on cross k = 2), with an int8 table, and gate/up's
+    windowed first run (n_local 1536 of in_width 2048)."""
+    from repro_torch.configs import with_feature_sharding
+    from repro_torch.core.eligibility import plan_steps
+    from repro_torch.kernels.ops import plan_runs
+    scfg = with_feature_sharding(cfg, RANKS)
+    out = []
+    for lin, cases in ((scfg.attn_cfg(cfg.layers[0]).o_proj,
+                        (("qkvo k=1", 1, False, False),
+                         ("qkvo k=2 end", 2, True, False),
+                         ("int8 table", 1, False, True))),
+                       (scfg.ffn_cfg().up, (("gate/up window", 1, False,
+                                             False),))):
+        spm = lin.spm_config()
+        nl = spm.n // RANKS
+        steps = plan_steps(spm.n, spm.pairing.strides(), RANKS)
+        (rs, nt), = plan_runs(nl, steps[0][2])
+        in_w = lin.d_in if lin.d_in < spm.n else None
+        for label, k, fold, q8 in cases:
+            out.append((label, nl, tuple(rs), nt, k, in_w, fold, q8))
+    return out
+
+
+def _sum_events(torch, events) -> dict:
+    """Device ms by kind of a rank-mode call's ``events``: the send
+    kernels, the stream waits (data and credits) and the consume kernels
+    (the mix, or K6's rest)."""
+    torch.cuda.synchronize()
+    out = {"send": 0.0, "wait": 0.0, "consume": 0.0}
+    for kind, a, b in events:
+        key = "wait" if kind.endswith("wait") else kind
+        if key in out:
+            out[key] += a.elapsed_time(b)
+    return out
+
+
+def rank_pair_job(pod, cases, rows: int, timed: bool):
+    """One rank of phase 26 (a): for each case (``rank_pair_cases``) the
+    same seeded operands on every rank; K5's and K6's rank mode on this
+    rank's shard, held to their plain versions (the per-block exchange
+    over the group) and to the one-card K5/K6 over every shard (this
+    rank's columns): y and g_x bit for bit, the table and vector grads
+    within gamma_rows of the sum of their terms' magnitudes; a second call
+    bit for bit.  Timed (``timed``) with the L2 flushed, every rank in
+    step: the rank-mode calls, their send, wait and consume parts apart,
+    the plain versions; on rank 0 alone the one-card K5/K6 and the library
+    products of the same rows.  Returns the rows of the report."""
+    import torch
+    from repro_torch.kernels import quant as Q
+    from repro_torch.kernels import spm_stack as K
+    from repro_torch.launch.mesh import make_feature_rank_mesh
+    from repro_torch.parallel import spm_shard as SH
+    mesh = make_feature_rank_mesh(pod.size, "cuda")
+    S, j = pod.size, pod.rank
+    timer = Timer(torch) if timed else None
+    abs_sum = (lambda t: t.abs().sum(0))
+    out = []
+    for ci, (label, nl, strides, nt, k, in_w, fold, q8) in enumerate(cases):
+        g = torch.Generator(device=DEVICE).manual_seed(2600 + ci)
+        n, L = S * nl, len(strides)
+
+        def rnd(*shape, scale=1.0):
+            return scale * torch.randn(*shape, generator=g, device=DEVICE)
+        th = (torch.rand(S, L, nl // 2, generator=g, device=DEVICE) * 2
+              - 1) * math.pi
+        cf = (torch.stack([th.cos(), -th.sin(), th.sin(), th.cos()], -1)
+              + rnd(S, L, nl // 2, 4, scale=0.05)).contiguous()
+        scale, cf_bytes = None, L * nl // 2 * 16
+        if q8:
+            qc, sc = Q.quantize_coeffs(cf.reshape(S * L, nl // 2, 4))
+            cf, scale = qc.reshape(S, L, nl // 2, 4), sc.reshape(S, L)
+            cf_bytes = L * (nl // 2 * 4 + 4)
+        ma, mb, u, v, d_in = (1 + 0.1 * rnd(n) for _ in range(5))
+        d_out = 1 + 0.1 * rnd(n) if fold else None
+        bias = 0.1 * rnd(n) if fold else None
+        dt = torch.bfloat16
+        x = rnd(rows, in_w or n).to(dt)
+        gy = rnd(rows, n).to(dt)
+        sl = slice(j * nl, (j + 1) * nl)
+
+        def mine(t):
+            return None if t is None else t[sl].contiguous()
+        xr = x if in_w else x[:, sl].contiguous()
+        blocks = SH._overlap_row_blocks((("local", 0, strides),), nl, rows,
+                                        2, True)
+        rkw = dict(strides=strides, n_tile=nt, k=k, mesh=mesh, blocks=blocks,
+                   col_base=j * nl if in_w else 0, in_width=in_w)
+        fwd = (xr, cf[j], mine(ma), mine(mb), mine(d_in), mine(d_out),
+               mine(bias), None if scale is None else scale[j])
+        bwd = (xr, cf[j], gy[:, sl].contiguous(), mine(u), mine(v),
+               mine(d_in), mine(d_out), None if scale is None else scale[j])
+        K.reset_launch_counts()
+        y = K.spm_overlap_rank_call(*fwd, **rkw)
+        gr = K.spm_overlap_bwd_rank_call(*bwd, **rkw)
+        launches = {"K5 rank": K.spm_overlap_rank_call.launches,
+                    "K5 rank mix": K.spm_overlap_rank_call.mix_launches,
+                    "K6 rank": K.spm_overlap_bwd_rank_call.launches,
+                    "K6 rank send":
+                        K.spm_overlap_bwd_rank_call.send_launches}
+        y2 = K.spm_overlap_rank_call(*fwd, **rkw)
+        gr2 = K.spm_overlap_bwd_rank_call(*bwd, **rkw)
+        yp = K.spm_overlap_rank_plain(*fwd, **rkw)
+        gp = K.spm_overlap_bwd_rank_plain(*bwd, **rkw)
+        gm = K.spm_overlap_bwd_rank_plain(*bwd, col_sum=abs_sum, **rkw)
+        okw = dict(strides=strides, n_tile=nt, k=k, in_width=in_w)
+        y1 = K.spm_overlap_kernel_call(x, cf, ma, mb, d_in, d_out, bias,
+                                       scale, **okw)
+        g1 = K.spm_overlap_bwd_kernel_call(x, cf, gy, u, v, d_in, d_out,
+                                           scale, **okw)
+        torch.cuda.synchronize()
+        # the drain: every channel's data and credit words at its last
+        # number, every block consumed when the calls end
+        # (read with every rank here: a partner that went on to its next
+        # call would already have signalled this rank's data word again)
+        pod.barrier()
+        words = [(ch.seq, ch.words()) for ch in mesh.channels.values()]
+        pod.barrier()
+        drained = all(w[:2] == w[2:] and max(w) == seq for seq, w in words)
+        one = (g1[1][j],) + tuple(t[sl] for t in g1[2:])
+        res = dict(
+            case=label, rank=j, rows=rows, blocks=list(blocks), n_local=nl,
+            stages=L, k=k, in_width=in_w, folds_d_out=fold, int8_table=q8,
+            launches=launches, drained=drained,
+            k5_err=(y.float() - yp.float()).abs().max().item(),
+            k5_one_card=torch.equal(y, y1[:, sl]),
+            gx_err=(gr[0].float() - gp[0].float()).abs().max().item(),
+            gx_one_card=torch.equal(gr[0], g1[0][:, sl]),
+            grad_err_over_limit=grads_within(gr[1:], gp[1:], gm[1:], rows),
+            one_card_grad_err_over_limit=grads_within(gr[1:], one, gm[1:],
+                                                      rows),
+            deterministic=torch.equal(y, y2) and all(
+                torch.equal(a, b) for a, b in zip(gr, gr2)),
+            finite=bool(torch.isfinite(y.float()).all()) and all(
+                bool(torch.isfinite(t.float()).all()) for t in gr))
+        res["ok"] = (res["k5_err"] == 0 and res["k5_one_card"]
+                     and res["gx_err"] == 0 and res["gx_one_card"]
+                     and res["grad_err_over_limit"] <= 1
+                     and res["one_card_grad_err_over_limit"] <= 1
+                     and res["deterministic"] and res["finite"]
+                     and res["drained"]
+                     and launches["K5 rank"] == len(blocks)
+                     and launches["K6 rank"] == len(blocks))
+        if timed:
+            res["k5_ms"] = timer(lambda: K.spm_overlap_rank_call(*fwd,
+                                                                 **rkw))
+            res["k6_ms"] = timer(lambda: K.spm_overlap_bwd_rank_call(
+                *bwd, **rkw))
+            ev5, ev6 = [], []
+            K.spm_overlap_rank_call(*fwd, events=ev5, **rkw)
+            K.spm_overlap_bwd_rank_call(*bwd, events=ev6, **rkw)
+            res["k5_parts_ms"] = _sum_events(torch, ev5)
+            res["k6_parts_ms"] = _sum_events(torch, ev6)
+            res["k5_plain_ms"] = timer(
+                lambda: K.spm_overlap_rank_plain(*fwd, **rkw), reps=3,
+                warm=1)
+            res["k6_plain_ms"] = timer(
+                lambda: K.spm_overlap_bwd_rank_plain(*bwd, **rkw), reps=3,
+                warm=1)
+            if j == 0:
+                # one rank's dense pair step: (rows, 2 n_local) @ (2 n_local,
+                # n_local), and its two backward products
+                xb = rnd(rows, 2 * nl).to(dt)
+                w = rnd(2 * nl, nl).to(dt)
+                gb = rnd(rows, nl).to(dt)
+                res["k5_one_card_ms"] = timer(
+                    lambda: K.spm_overlap_kernel_call(
+                        x, cf, ma, mb, d_in, d_out, bias, scale, **okw))
+                res["k6_one_card_ms"] = timer(
+                    lambda: K.spm_overlap_bwd_kernel_call(
+                        x, cf, gy, u, v, d_in, d_out, scale, **okw))
+                res["k5_library_ms"] = timer(lambda: torch.matmul(xb, w))
+                res["k6_library_ms"] = timer(lambda: (
+                    torch.matmul(gb, w.T), torch.matmul(xb.T, gb)))
+            pod.barrier()
+        # the bound of one rank's pair: x's live columns, the partner's
+        # slab (K6: its package) and the operands read once, y (K6: g_x,
+        # the table's grads and the sums) written once
+        live = min(nl, max(0, (in_w or n) - j * nl))
+        vec = 4 * nl
+        res["k5_bound_ms"], res["k5_bound_by"] = bound(
+            rows * (live + 2 * nl) * 2 + cf_bytes + (3 + 2 * fold) * vec,
+            rows * nl * (3 * L + 4 + 2 * fold))
+        res["k6_bound_ms"], res["k6_bound_by"] = bound(
+            rows * (live + 4 * nl) * 2 + cf_bytes + L * nl // 2 * 16
+            + (3 + fold) * vec + (3 + 2 * fold) * vec,
+            rows * nl * (10 * L + 14))
+        out.append(res)
+    return out
+
+
+def _rank_cfg(cfg, overlap: bool):
+    from repro_torch.configs import with_feature_sharding
+    from repro_torch.configs.base import with_overlap_executor
+    scfg = cut_depth(with_feature_sharding(cfg, RANKS), n=RANKS_LAYERS)
+    return with_overlap_executor(scfg) if overlap else scfg
+
+
+def rank_train_plan(scfg, rows: int, overlap: bool) -> dict:
+    """One rank's K1/K2 and K5/K6 rank-mode launches a training step of
+    ``scfg`` over ``rows`` rows: a linear's local steps run for the
+    rank's shard alone, per planned run (``plan_runs_for_rows``), K2 once
+    per forward run and the backward's own remats; on the overlap schedule
+    every step runs per row block (``_overlap_row_blocks``) and each fused
+    pair is one send and one consume kernel a block forward (K5) and
+    backward (K6); the forward runs twice (remat)."""
+    from repro_torch.core.eligibility import (overlap_segments, plan_steps,
+                                              resolve_overlap)
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import spm_shard as SH
+    spec = scfg.layers[0]
+    acfg, fcfg = scfg.attn_cfg(spec), scfg.ffn_cfg()
+    f = dict.fromkeys(("K1", "K1 col_base", "K1 bwd remat", "K5 rank"), 0)
+    for lin in (acfg.q_proj, acfg.kv_proj, acfg.kv_proj, acfg.o_proj,
+                fcfg.gate, fcfg.up, fcfg.down):
+        spm = lin.spm_config()
+        nl = spm.n // RANKS
+        steps = plan_steps(spm.n, spm.pairing.strides(), RANKS)
+        win = lin.d_in < spm.n and steps[0][0] == "local"
+        ov = overlap and resolve_overlap(spm, steps)   # needs a cross step
+        blocks = (SH._overlap_row_blocks(steps, nl, rows, 2, True)
+                  if ov else (rows,))
+        fused = SH._rdma_cross_indices(steps, nl) if ov else ()
+        i = 0
+        for seg in (overlap_segments(steps) if ov
+                    else tuple(("one", st) for st in steps)):
+            if seg[0] == "pair" and i + 1 in fused:
+                f["K5 rank"] += len(blocks)
+                i += 2
+                continue
+            for st in seg[1:]:
+                if st[0] == "local":
+                    for b in blocks:
+                        runs = ops.plan_runs_for_rows(nl, st[2], b)
+                        f["K1"] += len(runs)
+                        f["K1 bwd remat"] += len(runs) - 1
+                        f["K1 col_base"] += int(i == 0 and win)
+                i += 1
+    m = 2 if scfg.remat else 1
+    L = scfg.n_layers
+    return {"K1": L * (m * f["K1"] + f["K1 bwd remat"]),
+            "K1 col_base": L * m * f["K1 col_base"], "K2": L * f["K1"],
+            "K2 col_base": L * f["K1 col_base"],
+            "K5 rank": L * m * f["K5 rank"], "K6 rank": L * f["K5 rank"],
+            "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+
+
+def rank_counts(K) -> dict:
+    return {"K1": K.spm_stack_kernel_call.launches,
+            "K1 col_base": K.spm_stack_kernel_call.window_launches,
+            "K2": K.spm_stack_bwd_kernel_call.launches,
+            "K2 col_base": K.spm_stack_bwd_kernel_call.window_launches,
+            "K5 rank": K.spm_overlap_rank_call.launches,
+            "K6 rank": K.spm_overlap_bwd_rank_call.launches,
+            "K3": K.spm_block_kernel_call.launches,
+            "K4": K.spm_block_bwd_kernel_call.launches,
+            "K5": K.spm_overlap_kernel_call.launches,
+            "K6": K.spm_overlap_bwd_kernel_call.launches}
+
+
+def _spm_leaf(name: str) -> bool:
+    """A leaf of an SPM operator (its grads sum rows in per-block groups
+    on the overlap schedule across ranks), by its state-dict name."""
+    return name.rsplit(".", 1)[-1] in ("mix", "d_in", "d_out", "bias",
+                                       "theta")
+
+
+def rank_train_steps(mesh, cfg, on_step=None, steps=None):
+    """``steps["serial"]`` steps of ``_rank_cfg(cfg, False)`` then
+    ``steps["overlap"]`` of ``_rank_cfg(cfg, True)`` (``RANKS_STEPS``
+    each by default) under ``mesh``, each mode from the seed-0 weights,
+    through ``make_train_step`` on the batches of seed 5
+    (``parity_batch``).  Per step: loss, skip flag, seconds, the digest of
+    params, moments and count, the exchange's wall seconds and bytes, the
+    launches (``rank_counts``, set to 0 before each step); before the
+    overlap mode's step 0, one forward and backward for its loss, the
+    digest of its non-SPM grads (which g_x alone makes) and its SPM grads
+    (on the host).  ``on_step(mode, s, state)`` sees each step's state."""
+    import torch
+    from repro_torch import train as train_mod
+    from repro_torch.models import causal_lm as LM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.kernels import spm_stack as K
+    from repro_torch.parallel import activation_sharding
+    out = {}
+    steps = steps or {"serial": RANKS_STEPS, "overlap": RANKS_STEPS}
+    for mode, overlap in (("serial", False), ("overlap", True)):
+        scfg = _rank_cfg(cfg, overlap)
+        params = T.init_model(scfg, seed=0, device=DEVICE)
+        state = train_mod.make_train_state(params)
+        step = train_mod.make_train_step(
+            lambda p, b, c=scfg: LM.lm_loss(p, b, c),
+            adamw.OptimizerConfig(lr=3e-4, total_steps=RANKS_STEPS,
+                                  warmup_steps=1))
+        recs = []
+        for s in range(steps[mode]):
+            b = {k_: t.to(DEVICE) for k_, t in parity_batch(
+                torch, scfg, RANKS_BATCH, RANKS_SEQ).items()}
+            if mesh.ranked:
+                st0 = dict(mesh.stats)
+            first = {}
+            with activation_sharding(mesh, shard_feature=True):
+                if s == 0 and overlap:
+                    loss, _ = LM.lm_loss(state["params"], b, scfg)
+                    loss.backward()
+                    named = [(k_, p) for k_, p in
+                             state["params"].named_parameters()
+                             if p.grad is not None]
+                    first = dict(
+                        loss0=float(loss.detach()),
+                        grads_digest=train_mod.state_digest(
+                            {k_: p.grad for k_, p in named
+                             if not _spm_leaf(k_)}),
+                        spm_grads={k_: p.grad.detach().float().cpu()
+                                   for k_, p in named if _spm_leaf(k_)})
+                    del loss, named
+                    for p in state["params"].parameters():
+                        p.grad = None
+                K.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, b, 0.0)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            opt = state["opt"]
+            rec = dict(s=s, loss=float(m["loss"]), skipped=float(
+                m["skipped"]), dt=dt, launches=rank_counts(K),
+                digest=train_mod.state_digest(
+                    {"params": state["params"], "mu": opt["mu"],
+                     "nu": opt["nu"], "count": opt["count"]}))
+            if mesh.ranked:
+                rec["exchange_s"] = mesh.stats["seconds"] - st0["seconds"]
+                rec["exchange_bytes"] = mesh.stats["bytes"] - st0["bytes"]
+                rec["exchange_calls"] = mesh.stats["calls"] - st0["calls"]
+            rec.update(first)
+            recs.append(rec)
+            if on_step is not None:
+                on_step(mode, s, state)
+        out[mode] = recs
+        del state, params, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_train_job(pod, cfg, one=None):
+    """One rank of phase 26 (b): ``rank_train_steps`` on its rank mesh;
+    rank 0 also holds each overlap step's params to the one-card run's
+    (``one``, kept on the host), and every rank reports its peak."""
+    import torch
+    from repro_torch.launch.mesh import make_feature_rank_mesh
+    mesh = make_feature_rank_mesh(pod.size, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what earlier work left here
+    diffs = []
+
+    def on_step(mode, s, state):
+        if one is None or mode != "overlap" or s >= len(
+                one["overlap_params"]):
+            return
+        ref, init = one["overlap_params"][s], one["init_params"]
+        d2 = u2 = 0.0
+        for k_, p in state["params"].state_dict().items():
+            got = p.detach().float().cpu()
+            d2 += float(((got - ref[k_]) ** 2).sum())
+            u2 += float(((ref[k_] - init[k_]) ** 2).sum())
+        diffs.append((d2 ** .5, u2 ** .5))
+
+    recs = rank_train_steps(mesh, cfg, on_step)
+    if pod.rank != 0:
+        recs["overlap"][0].pop("spm_grads", None)
+    return dict(records=recs, param_diffs=diffs, backend=mesh.backend,
+                peak=torch.cuda.max_memory_allocated(), base=base)
+
+
+def rank_phase_job(pod, cfg, cases, one=None):
+    """A rank of phase 26: the kernel cases, then the training steps."""
+    return dict(kernels=rank_pair_job(pod, cases, RANK_ROWS, True),
+                train=rank_train_job(pod, cfg, one))
+
+
+@contextlib.contextmanager
+def _spawn_limit(seconds: float, what: str):
+    """Past ``seconds`` inside the block, kill every process this one has
+    started and end the script with code 1: a rank that waits on a dead
+    partner (a stream wait never satisfied) would hold it for good."""
+    import multiprocessing
+    import threading
+
+    def fire():
+        log(f"{what}: over its {seconds:.0f} s limit, killing every rank")
+        for p in multiprocessing.active_children():
+            p.kill()
+        sys.stdout.flush()
+        os._exit(1)
+    t = threading.Timer(seconds, fire)
+    t.daemon = True
+    t.start()
+    try:
+        yield
+    finally:
+        t.cancel()
+
+
+def run_ranks_phase(torch, K, cfg, smi):
+    """Phase 26: ``RANKS`` ranks on the one card over gloo
+    (``launch.mesh.run_ranks``, this process rank 0), each holding shard
+    j = its rank of the feature mesh.  (a) ``rank_pair_cases`` through K5
+    and K6 rank mode, against their plain versions and the one-card
+    kernels (``rank_pair_job``), timed.  (b) Full-width qwen3-1.7b at
+    ``RANKS_LAYERS`` layers, seed 0, 4 x 512 rows on every rank:
+    ``RANKS_STEPS`` step-serial steps, then as many on the overlap
+    schedule (K5/K6 rank mode), held: the ranks' params, moments and count
+    bit for bit equal after every step; the step-serial steps' loss and
+    state bit for bit the one-card sharded steps at the same depth (run
+    here first); on the overlap schedule step 0's loss and its non-SPM
+    grads (from g_x alone) bit for bit the one-card overlap step's, its
+    SPM grads (relative norm) and the params after it (against the
+    update) within phase 18's bound (the rows' sums group by block; the
+    later steps start from params that differ there, and bf16 activations
+    carry that on, so they are held to each other, not to the card's
+    one-process run);
+    K1/K2 and K5/K6 rank-mode launches a rank a step equal to
+    ``rank_train_plan``; the ranks' peaks together under
+    ``RANKS_PEAK_GIB``.  The spawn has ``RANKS_LIMIT_S`` of its own."""
+    from repro_torch.launch.mesh import pod_backend, run_ranks
+    from repro_torch.parallel import make_feature_mesh
+    failures = []
+    t_one = time.perf_counter()
+    one_mesh = make_feature_mesh(RANKS)
+    init = {}
+
+    def keep(mode, s, state):
+        if mode == "overlap":
+            one["overlap_params"].append(
+                {k_: p.detach().float().cpu()
+                 for k_, p in state["params"].state_dict().items()})
+
+    one = {"overlap_params": []}
+    from repro_torch.models import transformer as T
+    init_cfg = _rank_cfg(cfg, True)
+    p0 = T.init_model(init_cfg, seed=0, device=DEVICE)
+    init = {k_: p.detach().float().cpu() for k_, p in p0.state_dict().items()}
+    del p0
+    one["init_params"] = init
+    one_recs = rank_train_steps(one_mesh, cfg, keep,
+                                {"serial": RANKS_STEPS, "overlap": 1})
+    one_s = time.perf_counter() - t_one
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases = rank_pair_cases(cfg)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _spawn_limit(RANKS_LIMIT_S, "phase 26"):
+        ranks = run_ranks(RANKS, rank_phase_job, (cfg, cases),
+                          device="cuda", local=dict(one=one))
+    wall = time.perf_counter() - t0
+    backend = pod_backend(RANKS, "cuda")
+    rows = RANKS_BATCH * RANKS_SEQ
+    plan = {m: rank_train_plan(_rank_cfg(cfg, m == "overlap"), rows,
+                               m == "overlap") for m in ("serial",
+                                                         "overlap")}
+    # (a) the kernel cases
+    kern = [r for rk in ranks for r in rk["kernels"]]
+    kern_ok = all(r["ok"] for r in kern)
+    for r in ranks[0]["kernels"]:
+        p5, p6 = r["k5_parts_ms"], r["k6_parts_ms"]
+        case_ok = all(x["ok"] for x in kern if x["case"] == r["case"])
+        log(f"rank pair {r['case']:14s} rank 0 of {RANKS} rows={r['rows']} "
+            f"blocks={r['blocks']} | K5 rank err={r['k5_err']:.1e} "
+            f"one-card={r['k5_one_card']} ms={fmt_ms(r['k5_ms'])} (send "
+            f"{p5['send']:.4f}, wait {p5['wait']:.4f}, mix "
+            f"{p5['consume']:.4f}) plain_ms={fmt_ms(r['k5_plain_ms'])} "
+            f"one-card K5 {fmt_ms(r['k5_one_card_ms'])} bound_ms="
+            f"{r['k5_bound_ms']:.4f} ({r['k5_bound_by']}) library_ms="
+            f"{fmt_ms(r['k5_library_ms'])} | K6 rank gx_err="
+            f"{r['gx_err']:.1e} one-card={r['gx_one_card']} grad err/limit "
+            f"{r['grad_err_over_limit']:.3f} (one-card "
+            f"{r['one_card_grad_err_over_limit']:.3f}) ms="
+            f"{fmt_ms(r['k6_ms'])} (send {p6['send']:.4f}, wait "
+            f"{p6['wait']:.4f}, consume {p6['consume']:.4f}) plain_ms="
+            f"{fmt_ms(r['k6_plain_ms'])} one-card K6 "
+            f"{fmt_ms(r['k6_one_card_ms'])} bound_ms={r['k6_bound_ms']:.4f} "
+            f"({r['k6_bound_by']}) library_ms={fmt_ms(r['k6_library_ms'])} "
+            f"det={r['deterministic']} launches {r['launches']} "
+            f"{'ok' if case_ok else 'FAIL'}")
+    if not kern_ok:
+        failures.append("rank pair kernels")
+    # (b) training
+    recs = [rk["train"]["records"] for rk in ranks]
+    repl = all(a["digest"] == b["digest"] for rr in recs[1:]
+               for mode in ("serial", "overlap")
+               for a, b in zip(recs[0][mode], rr[mode]))
+    serial_one = all(a["digest"] == b["digest"] and a["loss"] == b["loss"]
+                     for a, b in zip(recs[0]["serial"], one_recs["serial"]))
+    o_r, o_1 = recs[0]["overlap"][0], one_recs["overlap"][0]
+    overlap_loss = o_r["loss0"] == o_1["loss0"] and o_r["loss"] == o_1["loss"]
+    overlap_gx = o_r["grads_digest"] == o_1["grads_digest"]
+    # the SPM grads (relative norm) and the params: phase 18's bound, the
+    # rows' sums grouped by block in place of one group
+    rel = 8 * math.sqrt(train_depth(_rank_cfg(cfg, True), RANKS_SEQ)) \
+        * EPS["float32"]
+    worst = 0.0
+    for k_, g1 in o_1["spm_grads"].items():
+        d = (o_r["spm_grads"][k_] - g1).norm().item()
+        worst = max(worst, d / max(g1.norm().item(), 1e-30))
+    diffs = ranks[0]["train"]["param_diffs"]
+    params_ok = len(diffs) == 1 and all(d <= rel * u for d, u in diffs)
+    launches_ok = all(x["launches"] == plan[mode] for rr in recs
+                      for mode in ("serial", "overlap") for x in rr[mode])
+    finite = all(math.isfinite(x["loss"]) and x["skipped"] == 0
+                 for rr in recs for mode in rr.values() for x in mode)
+    # each rank's training peak above what it held when it began (rank 0,
+    # this process, still holds what earlier phases left)
+    peaks = [(rk["train"]["peak"] - rk["train"]["base"]) / 2 ** 30
+             for rk in ranks]
+    held = [rk["train"]["base"] / 2 ** 30 for rk in ranks]
+    peak_ok = sum(peaks) < RANKS_PEAK_GIB
+
+    def med(v):
+        v = sorted(v)
+        return v[len(v) // 2]
+
+    res = dict(ranks=RANKS, layers=RANKS_LAYERS, batch=RANKS_BATCH,
+               seq=RANKS_SEQ, backend=backend[0], backend_rule=backend[1],
+               gpu=smi, wall_s=wall, one_card_s=one_s, planned=plan,
+               kernels=kern, modes={})
+    for mode in ("serial", "overlap"):
+        st = recs[0][mode]
+        res["modes"][mode] = dict(
+            step_ms=[x["dt"] * 1e3 for x in st],
+            step_ms_median=med([x["dt"] * 1e3 for x in st[1:]]),
+            one_card_step_ms=[x["dt"] * 1e3 for x in one_recs[mode]],
+            exchange_ms=[x["exchange_s"] * 1e3 for x in st],
+            exchange_bytes=st[-1]["exchange_bytes"],
+            exchange_calls=st[-1]["exchange_calls"],
+            losses=[x["loss"] for x in st],
+            launches=st[-1]["launches"],
+            launches_total={k_: sum(x["launches"][k_] for x in st)
+                            for k_ in st[-1]["launches"]})
+        m = res["modes"][mode]
+        log(f"ranks {mode} on {smi}, {RANKS} ranks on one card over "
+            f"{backend[0]} ({backend[1]}; the pairs through CUDA IPC slots)"
+            f": qwen3-1.7b {RANKS_LAYERS} layers, {RANKS_BATCH} x "
+            f"{RANKS_SEQ} rows every rank: step {m['step_ms_median']:.1f} ms"
+            f" (median after the first; one card, one process: "
+            f"{[round(v, 1) for v in m['one_card_step_ms']]}), exchange "
+            f"{[round(v, 1) for v in m['exchange_ms']]} ms wall a step, "
+            f"{m['exchange_bytes'] / 1e6:.1f} MB sent a rank a step in "
+            f"{m['exchange_calls']} collectives, losses "
+            f"{[round(v, 4) for v in m['losses']]}, launches a rank "
+            f"{m['launches']} (planned {plan[mode]})")
+    res.update(replicated=repl, serial_one_card=serial_one,
+               overlap_loss=overlap_loss, overlap_gx=overlap_gx,
+               overlap_spm_grad_rel_err=worst, rel_tol=rel,
+               param_diffs=diffs,
+               params_ok=params_ok, launches_ok=launches_ok, finite=finite,
+               peak_gib=peaks, held_before_gib=held, peak_ok=peak_ok)
+    ok = (kern_ok and repl and serial_one and overlap_loss and overlap_gx
+          and worst <= rel and params_ok and launches_ok and finite
+          and peak_ok)
+    log(f"ranks checks: (a) kernels {kern_ok}; (b) replicated {repl}, "
+        f"step-serial bit for bit the one-card steps {serial_one}, overlap "
+        f"loss {overlap_loss} and g_x grads {overlap_gx} bit for bit, SPM "
+        f"grads rel err {worst:.2e}, params diff/update "
+        f"{[f'{d / u:.2e}' for d, u in diffs]} (tol {rel:.2e}), launches "
+        f"{launches_ok}, "
+        f"finite {finite}; peaks "
+        + ", ".join(f"rank {r} {g:.2f} GiB" for r, g in enumerate(peaks))
+        + f", sum {sum(peaks):.2f} GiB (< {RANKS_PEAK_GIB}; held before "
+        f"{[round(v, 2) for v in held]} GiB); one-card side "
+        f"{one_s:.1f} s, spawn {wall:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("ranks")
+    return res, failures
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6939,6 +7563,12 @@ def main() -> int:
     if phase_s["25"] > POD_BUDGET_S:
         failures.append(f"phase 25 took {phase_s['25']:.1f} s of its "
                         f"{POD_BUDGET_S} s")
+    ranks_out, ranks_failures = phase("26", run_ranks_phase, torch, K, cfg,
+                                      smi)
+    failures += ranks_failures
+    if phase_s["26"] > RANKS_BUDGET_S:
+        failures.append(f"phase 26 took {phase_s['26']:.1f} s of its "
+                        f"{RANKS_BUDGET_S} s")
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -7101,6 +7731,27 @@ def main() -> int:
                             if x["kernel"] == key),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    # K5's and K6's rank mode: launches from phase 26's overlap steps (rank
+    # 0's, each rank's are the same), times at q/k/v/o's pair (k = 1) on
+    # rank 0 of 4, the four ranks sharing the card
+    r26 = next(r for r in ranks_out["kernels"]
+               if r["case"] == "qkvo k=1" and r["rank"] == 0)
+    for name, key, src, rep_ in (
+            ("K5 rank spm_overlap_fwd", "k5",
+             "src/repro_torch/kernels/csrc/spm_overlap.cu", "1319"),
+            ("K6 rank spm_overlap_bwd", "k6",
+             "src/repro_torch/kernels/csrc/spm_overlap_bwd.cu", "1479")):
+        err = "k5_err" if key == "k5" else "gx_err"
+        entries.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=f"src/repro/kernels/spm_stack.py:{rep_}",
+            launches=ranks_out["modes"]["overlap"]["launches_total"][
+                "K5 rank" if key == "k5" else "K6 rank"],
+            max_abs_err=max(r[err] for r in ranks_out["kernels"]),
+            ms=r26[f"{key}_ms"], plain_ms=r26[f"{key}_plain_ms"],
+            bound_ms=r26[f"{key}_bound_ms"],
+            bound_by=r26[f"{key}_bound_by"],
+            library_ms=r26[f"{key}_library_ms"]))
     # the continuous engine's launches (phase 20, the serve at the busiest
     # load; the int8 and overlap runs at their cut depth)
     busiest = cont["loads"][max(CB_LOADS)]["launches"]
@@ -7122,6 +7773,7 @@ def main() -> int:
                   overlap_train_parity=oparity,
                   paper=paper, continuous=cont, chaos=chaos, archs=archs,
                   moe_ssm=slice_out, moe_modes=modes, pod=pod,
+                  ranks=ranks_out,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",
@@ -7172,7 +7824,13 @@ def main() -> int:
                                                 " 9 stages, k=1), int8 "
                                                 "tables, bf16, 160 rows a "
                                                 "expert",
-                                   "K6 expert": "the same"})
+                                   "K6 expert": "the same",
+                                   "K5 rank": "q/k/v/o's pair on rank 0 "
+                                              "of 4 ranks sharing the card "
+                                              "(n_local 512, 9 stages, "
+                                              "k=1), bf16, 4096 rows in 4 "
+                                              "row blocks",
+                                   "K6 rank": "the same"})
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -38,7 +38,8 @@ from typing import Optional, Tuple
 from repro_torch.core.pairings import Schedule
 
 __all__ = ["plan_steps", "sharded_eligible", "resolve_shard_kernel",
-           "resolve_overlap", "resolve_rdma", "overlap_segments",
+           "resolve_overlap", "resolve_rdma", "split_rows",
+           "overlap_segments",
            "OVERLAP_ROW_BLOCKS", "kernel_eligible", "use_fused_kernel", "TINY_ROW_THRESHOLD",
            "tiny_row_call", "BLOCK_MAX_TILE", "BLOCK_ACTIVATIONS",
            "block_fusion_eligible", "resolve_block_fuse",
@@ -171,11 +172,22 @@ def resolve_overlap(cfg, steps) -> bool:
 
 def resolve_rdma(use_kernel: bool, on_cuda: bool) -> bool:
     """Whether the overlap schedule's ``{local run -> cross}`` pairs run as
-    one fused kernel each (K5 forward, K6 backward): the kernel path on and
-    the input on the card.  Elsewhere (a CPU input, the composition) the
-    pairs take the per-block exchange, as the reference's interpret mode
-    does."""
+    fused kernels (K5 forward, K6 backward): the kernel path on and the
+    input on the card.  On a one-process mesh a pair is one launch over
+    every shard; on a mesh of ranks it is K5's and K6's rank mode, the
+    partner's slab over IPC slots between the ranks.  Elsewhere
+    (a CPU input, a CPU rank mesh, the composition) the pairs take the
+    per-block exchange, as the reference's interpret mode does."""
     return bool(use_kernel and on_cuda)
+
+
+def split_rows(rdma: bool, ranked: bool) -> bool:
+    """Whether the overlap schedule splits the rows into the reference's
+    row blocks (``OVERLAP_ROW_BLOCKS``): across ranks, where there is
+    exchange latency to hide, and wherever the pairs take the per-block
+    exchange; not for the one-process fused pairs on the card, whose
+    partners exchange on chip (one block)."""
+    return ranked or not rdma
 
 
 def kernel_eligible(cfg, sched: Optional[Schedule] = None) -> bool:

@@ -31,14 +31,18 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {"spm_stack": "spm_stack.cu", "spm_stack_bwd": "spm_stack_bwd.cu",
            "spm_block": "spm_block.cu", "spm_block_bwd": "spm_block_bwd.cu",
            "spm_overlap": "spm_overlap.cu",
-           "spm_overlap_bwd": "spm_overlap_bwd.cu"}
+           "spm_overlap_bwd": "spm_overlap_bwd.cu",
+           # the rank-mode transport's host code (IPC slots, stream waits)
+           "spm_peer": "spm_peer.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Sources whose kernels nvcc optimizes on every core (-split-compile 0): K3's
 # many instantiations took 210.5 s alone and 87.3 s split on the H100
-# machine, K1's 93.6 s and 56.7 s, their kernels as fast.  Not K2's: split,
-# its bf16 o run took 0.6463 ms against 0.5315.
-SPLIT_COMPILE = {"spm_stack", "spm_block"}
+# machine, K1's 93.6 s and 56.7 s, their kernels as fast; K5's, on the
+# same forward engine, took 125.3 s unsplit once its rank mode doubled
+# its instantiations.  Not K2's: split, its bf16 o run took 0.6463 ms
+# against 0.5315.
+SPLIT_COMPILE = {"spm_stack", "spm_block", "spm_overlap"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

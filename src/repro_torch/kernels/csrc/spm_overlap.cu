@@ -58,6 +58,28 @@
 // grid.y with the row groups because grid.z is the tiles; the plan is one
 // expert's rows, and a cluster (two partners) never spans two experts.
 
+// Rank mode (K5's and K6's send kernel between ranks).  The partner is
+// another rank, each rank's own launch covers only its shard, and the
+// exchange goes through device memory: the TPU kernel's remote copy of a
+// row block into the partner's receive slot (:1284) becomes this kernel's
+// store, through the partner's IPC-mapped pointer (kernels/peer.py), of
+// the block it walked, rounded once to T, beside the same store into its
+// own send slot; K6's send also stores the package's cotangent, io(gy
+// [* d_out]).  The stream signals the partner after the launch, and the
+// mix (spm_pair_mix below) or K6's consume kernel runs once the partner's
+// block is in.  x is the rank's (B, in_w) input, its lane 0 at column
+// x_col0 (the windowed read of a rectangular first run), the slots and gy
+// (B, n_local), the vectors the rank's (n_local,) slices.
+template <typename T>
+struct RankSend {
+  T* own;           // own send slot (B, n_local)
+  T* peer;          // the partner's receive slot (B, n_local)
+  const T* gy;      // K6: the cotangent (B, n_local), or null
+  T* own_d;         // K6: the package's cotangent, own send slot
+  T* peer_d;        // K6: and the partner's receive slot
+  long x_col0;
+};
+
 #include <cooperative_groups.h>
 
 #include "spm_fwd_engine.cuh"
@@ -65,17 +87,41 @@
 namespace cg = cooperative_groups;
 namespace eng = spm_fwd;
 
-template <typename T, typename CF, bool kRes>
+// Copy rows x nt values of T from the block's slot (pitch nt) to dst (pitch
+// ld, from column c0): 16 bytes a thread where the rows align.
+template <typename T>
+__device__ __forceinline__ void slot_out(const T* slot, T* dst, long ld,
+                                         long c0, int rows, int nt) {
+  constexpr int V = 16 / sizeof(T);
+  if (nt % V == 0 && (ld * sizeof(T)) % 16 == 0 &&
+      (c0 * sizeof(T)) % 16 == 0 && (uintptr_t)dst % 16 == 0) {
+    const int vecs = nt / V;
+    for (int e = threadIdx.x; e < rows * vecs; e += blockDim.x) {
+      const int r = e / vecs, i = (e - r * vecs) * V;
+      *reinterpret_cast<uint4*>(dst + r * ld + c0 + i) =
+          *reinterpret_cast<const uint4*>(slot + (long)r * nt + i);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * nt; e += blockDim.x) {
+      const int r = e / nt, i = e - r * nt;
+      dst[r * ld + c0 + i] = slot[(long)r * nt + i];
+    }
+  }
+}
+
+template <typename T, typename CF, bool kRes, bool kRank>
 __global__ void __launch_bounds__(256, 1) spm_overlap_fwd_kernel(
     const T* __restrict__ x, T* __restrict__ y, CF cf,
     const float* __restrict__ mix_a, const float* __restrict__ mix_b,
     const float* __restrict__ d_in, const float* __restrict__ d_out,
     const float* __restrict__ bias, int B, int n_local, int nt, int in_w,
-    int n, int kbit, eng::Shape sh, const __grid_constant__ eng::Plan pl) {
+    int n, int kbit, eng::Shape sh, const __grid_constant__ eng::Plan pl,
+    const RankSend<T> rs) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
-  const int shard = spm_pair_shard(blockIdx.x >> 1, (int)rank, kbit);
+  const int shard =
+      kRank ? 0 : spm_pair_shard(blockIdx.x >> 1, (int)rank, kbit);
   const int E = gridDim.y / sh.G;
   const int ex = blockIdx.y / sh.G;
   const int g = blockIdx.y - ex * sh.G;
@@ -90,6 +136,7 @@ __global__ void __launch_bounds__(256, 1) spm_overlap_fwd_kernel(
     if (bias) bias += e * n;
   }
   const long c0 = (long)shard * n_local + blockIdx.z * nt;  // lane 0's column
+  const long xc0 = kRank ? rs.x_col0 + c0 : c0;             // its x column
   const long half = n_local >> 1;
   const int np = pl.np;
   const eng::Layout lay =
@@ -129,7 +176,29 @@ __global__ void __launch_bounds__(256, 1) spm_overlap_fwd_kernel(
                    al16(y) && al16(mix_a) && al16(mix_b) &&
                    (!d_out || al16(d_out)) && (!bias || al16(bias));
   const unsigned magn = eng::magic((unsigned)nt);
+  auto send = [&](int k, int r0, int rows) {
+    __syncthreads();  // the chunk's slot written
+    const long o = (long)r0 * n_local;
+    slot_out(slot(k), rs.own + o, n_local, c0, rows, nt);
+    slot_out(slot(k), rs.peer + o, n_local, c0, rows, nt);
+    if (rs.gy) {  // K6: the package's cotangent, io(gy [* d_out])
+      for (int e = threadIdx.x; e < rows * nt; e += blockDim.x) {
+        const int r = spm_bwd::divm(e, nt, magn);
+        const long g = o + (long)r * n_local + c0 + (e - r * nt);
+        float v = spm_ld(rs.gy + g);
+        if (d_out) v = __fmul_rn(v, __ldg(d_out + c0 + (e - r * nt)));
+        spm_st(rs.own_d + g, v);
+        spm_st(rs.peer_d + g, v);
+      }
+    }
+    __syncthreads();  // the slot is free for the chunk after next
+    parity ^= 1;
+  };
   auto finish = [&](int k, int r0, int rows) {
+    if constexpr (kRank) {
+      send(k, r0, rows);
+      return;
+    }
     cluster.sync();  // both slots of this chunk written
     const T* own = slot(k);
     const T* peer = cluster.map_shared_rank(own, rank ^ 1u);
@@ -185,11 +254,11 @@ __global__ void __launch_bounds__(256, 1) spm_overlap_fwd_kernel(
   if (kRes)
     eng::walk(stg, ps, np, eng::TablePairs<CF>{tbl, nt >> 1, 0, cft},
               eng::TableGlobal<CF>{cft, half}, xs, z, nt, 0, 0, false, x, in_w,
-              c0, in_w, d_in, c0, chunk, sink, finish);
+              xc0, in_w, d_in, c0, chunk, sink, finish);
   else
     eng::walk(stg, ps, np, eng::TableGlobal<CF>{cft, half},
               eng::TableGlobal<CF>{cft, half}, xs, z, nt, 0, 0, false, x, in_w,
-              c0, in_w, d_in, c0, chunk, sink, finish);
+              xc0, in_w, d_in, c0, chunk, sink, finish);
   cluster.sync();  // the partner has read this block's last slot
 }
 
@@ -207,28 +276,31 @@ static bool plan(const SpmStrides& st, int nt, int io_bytes, int cf_bytes,
   return *smem <= 232448;
 }
 
-template <typename T, typename CF, bool kRes>
+template <typename T, typename CF, bool kRes, bool kRank = false>
 static cudaError_t launch_overlap(const void* x, void* y, CF cf,
                                   const void* mix_a, const void* mix_b,
                                   const void* d_in, const void* d_out,
                                   const void* bias, int B, int S,
                                   int n_local, int nt, int in_w, int kbit,
                                   int E, const eng::Shape& sh,
-                                  const SpmStrides& st, cudaStream_t stream) {
+                                  const SpmStrides& st, cudaStream_t stream,
+                                  const RankSend<T>& rs = RankSend<T>{}) {
   eng::Plan pl;
   size_t smem;
   if (!plan(st, nt, sizeof(T), sizeof(typename eng::Raw<CF>::T), sh, &pl,
             &smem))
     return cudaErrorInvalidValue;
   static size_t smem_set = 0;
-  auto kernel = spm_overlap_fwd_kernel<T, CF, kRes>;
+  auto kernel = spm_overlap_fwd_kernel<T, CF, kRes, kRank>;
   cudaError_t e = spm_allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
-  return eng::launch(kernel, dim3(S, sh.G * E, n_local / nt), sh.T, smem, 2,
-                     stream, (const T*)x, (T*)y, cf, (const float*)mix_a,
-                     (const float*)mix_b, (const float*)d_in,
-                     (const float*)d_out, (const float*)bias, B, n_local, nt,
-                     in_w, S * n_local, kbit, sh, pl);
+  // one-card: a cluster holds the two partners; rank mode: one shard
+  return eng::launch(kernel, dim3(S, sh.G * E, n_local / nt), sh.T, smem,
+                     kRank ? 1 : 2, stream, (const T*)x, (T*)y, cf,
+                     (const float*)mix_a, (const float*)mix_b,
+                     (const float*)d_in, (const float*)d_out,
+                     (const float*)bias, B, n_local, nt, in_w, S * n_local,
+                     kbit, sh, pl, rs);
 }
 
 template <typename CF, bool kRes>
@@ -316,12 +388,130 @@ extern "C" int spm_overlap_fwd_clusters(int io_type, const int* strides,
       !plan(st, nt, io, 16, sh, &pl, &smem))
     return 0;
   auto count = [&](auto kernel) { return eng::clusters(kernel, T, smem, 2); };
+  using F4 = const float4*;
   if (io_type == SPM_IO_F32)
-    return resident
-               ? count(spm_overlap_fwd_kernel<float, const float4*, true>)
-               : count(spm_overlap_fwd_kernel<float, const float4*, false>);
-  return resident
-             ? count(spm_overlap_fwd_kernel<__nv_bfloat16, const float4*, true>)
-             : count(
-                   spm_overlap_fwd_kernel<__nv_bfloat16, const float4*, false>);
+    return resident ? count(spm_overlap_fwd_kernel<float, F4, true, false>)
+                    : count(spm_overlap_fwd_kernel<float, F4, false, false>);
+  return resident ? count(spm_overlap_fwd_kernel<__nv_bfloat16, const float4*,
+                                                 true, false>)
+                  : count(spm_overlap_fwd_kernel<__nv_bfloat16, const float4*,
+                                                 false, false>);
+}
+
+// ---------------------------------------------------------------------------
+// rank mode
+// ---------------------------------------------------------------------------
+
+template <typename T, typename CF>
+static cudaError_t send_io(const void* x, CF cf, const void* d_in,
+                           const void* d_out, int B, int n_local, int nt,
+                           int in_w, const eng::Shape& sh,
+                           const SpmStrides& st, cudaStream_t s,
+                           const RankSend<T>& rs) {
+  if (sh.resident)
+    return launch_overlap<T, CF, true, true>(x, nullptr, cf, nullptr, nullptr,
+                                             d_in, d_out, nullptr, B, 1,
+                                             n_local, nt, in_w, 0, 1, sh, st,
+                                             s, rs);
+  return launch_overlap<T, CF, false, true>(x, nullptr, cf, nullptr, nullptr,
+                                            d_in, d_out, nullptr, B, 1,
+                                            n_local, nt, in_w, 0, 1, sh, st, s,
+                                            rs);
+}
+
+template <typename T>
+static cudaError_t send_cf(const void* x, const void* cf, const void* cf_scale,
+                           const void* d_in, const void* d_out, int B,
+                           int n_local, int nt, int in_w, const eng::Shape& sh,
+                           const SpmStrides& st, cudaStream_t s,
+                           const RankSend<T>& rs) {
+  if (cf_scale)
+    return send_io<T>(x, SpmQCoeffs{(const char4*)cf, (const float*)cf_scale},
+                      d_in, d_out, B, n_local, nt, in_w, sh, st, s, rs);
+  return send_io<T>(x, (const float4*)cf, d_in, d_out, B, n_local, nt, in_w,
+                    sh, st, s, rs);
+}
+
+// C interface of the send kernel (K5's and K6's rank mode).  x (B, in_w) of
+// io_type with the rank's lane 0 at column x_col0, zero from in_w on; cf
+// the rank's table (L, n_local/2, 4) f32, or int8 with (L,) scales; d_in
+// (n_local,) f32 or null.  Stores io((B_l ... B_1) [D_in] x) into own and
+// peer ((B, n_local) each, the rank's send slot and the partner's receive
+// slot); with gy (B, n_local), also io(gy [* d_out]) into own_d and
+// peer_d.  The launch shape is the planner's (`fwd_plan`, one shard).
+extern "C" int spm_overlap_send(int io_type, const void* x, const void* cf,
+                                const void* cf_scale, const void* d_in,
+                                const void* d_out, void* own, void* peer,
+                                const void* gy, void* own_d, void* peer_d,
+                                long x_col0, int B, int n_local, int nt,
+                                int in_w, int T, int R, int G, int resident,
+                                const int* strides, int L, void* stream) {
+  SpmStrides st;
+  if (!spm_copy_strides(&st, strides, L) || B <= 0 || L < 1 || nt <= 0 ||
+      n_local % nt || in_w <= 0 || x_col0 < 0 || !own || !peer || G < 1 ||
+      G > 65535 || (gy && (!own_d || !peer_d)))
+    return (int)cudaErrorInvalidValue;
+  const eng::Shape sh{1, 1, T, R, G, resident};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (io_type == SPM_IO_F32)
+    return (int)send_cf<float>(
+        x, cf, cf_scale, d_in, d_out, B, n_local, nt, in_w, sh, st, s,
+        RankSend<float>{(float*)own, (float*)peer, (const float*)gy,
+                        (float*)own_d, (float*)peer_d, x_col0});
+  if (io_type == SPM_IO_BF16)
+    return (int)send_cf<__nv_bfloat16>(
+        x, cf, cf_scale, d_in, d_out, B, n_local, nt, in_w, sh, st, s,
+        RankSend<__nv_bfloat16>{(__nv_bfloat16*)own, (__nv_bfloat16*)peer,
+                                (const __nv_bfloat16*)gy,
+                                (__nv_bfloat16*)own_d, (__nv_bfloat16*)peer_d,
+                                x_col0});
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5's rank-mode mix, once the partner's block is in the receive slot:
+// y = mix_a * own + mix_b * recv in f32, * d_out after the add, + bias,
+// one rounding on the store: the one-card K5's epilogue, op for op.
+template <typename T>
+__global__ void __launch_bounds__(256) spm_pair_mix_kernel(
+    const T* __restrict__ own, const T* __restrict__ recv, T* __restrict__ y,
+    const float* __restrict__ mix_a, const float* __restrict__ mix_b,
+    const float* __restrict__ d_out, const float* __restrict__ bias,
+    long count, int n_local) {
+  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < count;
+       e += (long)gridDim.x * blockDim.x) {
+    const int c = (int)(e % n_local);
+    float v = __fadd_rn(__fmul_rn(__ldg(mix_a + c), spm_ld(own + e)),
+                        __fmul_rn(__ldg(mix_b + c), spm_ld(recv + e)));
+    if (d_out) v = __fmul_rn(v, __ldg(d_out + c));
+    if (bias) v = __fadd_rn(v, __ldg(bias + c));
+    spm_st(y + e, v);
+  }
+}
+
+// C interface of the mix: own and recv the rank's send and receive slots,
+// y its (B, n_local) output block, all of io_type; the vectors (n_local,)
+// f32 (d_out, bias may be null).
+extern "C" int spm_overlap_mix(int io_type, const void* own, const void* recv,
+                               void* y, const void* mix_a, const void* mix_b,
+                               const void* d_out, const void* bias, int B,
+                               int n_local, void* stream) {
+  if (B <= 0 || n_local <= 0 || !mix_a || !mix_b)
+    return (int)cudaErrorInvalidValue;
+  const long count = (long)B * n_local;
+  const long blocks = (count + 255) / 256;
+  const int grid = (int)(blocks < 132L * 16 ? blocks : 132L * 16);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (io_type == SPM_IO_F32)
+    spm_pair_mix_kernel<float><<<grid, 256, 0, s>>>(
+        (const float*)own, (const float*)recv, (float*)y,
+        (const float*)mix_a, (const float*)mix_b, (const float*)d_out,
+        (const float*)bias, count, n_local);
+  else if (io_type == SPM_IO_BF16)
+    spm_pair_mix_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        (const __nv_bfloat16*)own, (const __nv_bfloat16*)recv,
+        (__nv_bfloat16*)y, (const float*)mix_a, (const float*)mix_b,
+        (const float*)d_out, (const float*)bias, count, n_local);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

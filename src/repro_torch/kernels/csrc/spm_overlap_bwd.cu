@@ -50,26 +50,47 @@
 // the package exchange and its two cluster barriers; PERF.md has its time
 // against the bound.
 
+// Rank mode (the consume kernel of K6 between ranks).  The partner is
+// another rank and each rank's launch covers only its shard (S = 1 here:
+// its table, its (B, n_local) gy and g_x, its (n_local,) vectors).  The
+// package was stored by the send kernel (spm_overlap.cu, rank mode): the
+// rank's own (delta, z) in its send slot, the partner's in its receive
+// slot, read here from device memory in place of the cluster partner's
+// shared memory once the stream has waited for the partner's signal; the
+// rest (the sums, the transpose mix, the reverse walk over the remat,
+// g_din, g_x) is the one-card kernel's, op for op.  x is the rank's
+// (B, in_w) input with its lane 0 at column x_col0 (the windowed read).
+template <typename T>
+struct RankPkg {
+  const T* own_d;   // the own package (B, n_local) each
+  const T* own_z;
+  const T* peer_d;  // the partner's, in the receive slot
+  const T* peer_z;
+  long x_col0;
+};
+
 #include "spm_bwd_engine.cuh"
 
 namespace eng = spm_bwd;
 
 constexpr int kVecs = 5;  // s_own, s_swp, t_own, t_swp, g_din
 
-template <typename T, typename CF>
+template <typename T, typename CF, bool kRank>
 __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ gy, T* __restrict__ gx,
     CF cf, const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ d_in, const float* __restrict__ d_out,
     float4* __restrict__ part_cf, float* __restrict__ part_vec, int B, int S,
-    int n_local, int nt, int in_w, int kbit, eng::Shape sh, SpmStrides st) {
+    int n_local, int nt, int in_w, int kbit, eng::Shape sh, SpmStrides st,
+    const RankPkg<T> rp) {
   extern __shared__ __align__(16) unsigned char smem[];
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int side = rank / sh.C;
+  const int side = kRank ? 0 : rank / sh.C;
   const int c = rank - side * sh.C;
-  const int shard = spm_pair_shard(blockIdx.x / (2 * sh.C), side, kbit);
+  const int shard =
+      kRank ? 0 : spm_pair_shard(blockIdx.x / (2 * sh.C), side, kbit);
   const int E = gridDim.y / sh.G;
   const int ex = blockIdx.y / sh.G;
   const int g = blockIdx.y - ex * sh.G;
@@ -90,6 +111,7 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
   const int w = sh.w;
   const long half = n_local >> 1;
   const int lane0 = shard * n_local + t * nt + c * w;  // first column
+  const long lanex = kRank ? rp.x_col0 + lane0 : lane0;  // its x column
   const long step = (long)sh.G * sh.R;
 
   const eng::Geo geo{L,    w, sh.pb, sh.rs,           sh.R,
@@ -110,8 +132,12 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
   T* gst = reinterpret_cast<T*>(smem + lay.gst);
   T* pkg_d = reinterpret_cast<T*>(smem + lay.pkg);
   T* pkg_z = reinterpret_cast<T*>(smem + lay.pkg + lay.pkg_stride);
-  const T* peer_d = cluster.map_shared_rank(pkg_d, (1 - side) * sh.C + c);
-  const T* peer_z = cluster.map_shared_rank(pkg_z, (1 - side) * sh.C + c);
+  const T* peer_d =
+      kRank ? nullptr : cluster.map_shared_rank(pkg_d, (1 - side) * sh.C + c);
+  const T* peer_z =
+      kRank ? nullptr : cluster.map_shared_rank(pkg_z, (1 - side) * sh.C + c);
+  // the package's pitch: the block's own columns on chip, a slot row here
+  const long pp = kRank ? n : w;
 
   // z_out in layout A: the package is the block's own columns
   eng::setup(st, w, sh.C, c, eng::kLayA, stg, ps);
@@ -126,7 +152,7 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
   if (r0 < B) {
     const int rows = (int)min((long)sh.R, B - r0);
     eng::stage_rows(reinterpret_cast<T*>(smem + lay.xst), x, in_w, r0, rows,
-                    w, lane0, in_w);
+                    w, lanex, in_w);
     eng::stage_rows(gst, gy, n, r0, rows, w, lane0, n);
   }
   for (int k = 0; r0 < B; r0 += step, ++k) {
@@ -140,7 +166,7 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
       T* xnext = reinterpret_cast<T*>(smem + lay.xst +
                                       ((k + 1) & 1) * lay.xst_stride);
       eng::stage_rows(xnext, x, in_w, r1, (int)min((long)sh.R, B - r1), w,
-                      lane0, in_w);
+                      lanex, in_w);
     }
 
     // remat: z_0 = [D_in] x_j, masked to in_w.  The per-lane passes give a
@@ -148,7 +174,7 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
     if (threadIdx.x < sh.pb) {
       const int i = 2 * threadIdx.x;
       const int gc = lane0 + i;
-      const bool l0 = gc < in_w, l1 = gc + 1 < in_w;
+      const bool l0 = lanex + i < in_w, l1 = lanex + i + 1 < in_w;
       const float2 din = eng::vec2(d_in, gc);
       for (int r = 0; r < rows; r += 4) {
         const int nr = min(4, rows - r);
@@ -175,8 +201,9 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
     eng::sync(L > 0 && (head_b || ps[0].remf));
     eng::remat(geo, stg, ps, np, rows, tbl, tiles, false);
 
-    // the package: the cotangent [* d_out] and z_out, in the I/O type
-    if (threadIdx.x < sh.pb) {
+    // the package: the cotangent [* d_out] and z_out, in the I/O type (in
+    // rank mode the send kernel stored it)
+    if (!kRank && threadIdx.x < sh.pb) {
       const int i = 2 * threadIdx.x;
       const float2 dout = eng::vec2(d_out, lane0 + i);
       for (int r = 0; r < rows; r += 4) {
@@ -198,6 +225,11 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
       }
     }
     cluster.sync();  // both packages written
+    const long po = kRank ? r0 * n + lane0 : 0;  // the chunk's package
+    const T* od = kRank ? rp.own_d + po : pkg_d;
+    const T* oz = kRank ? rp.own_z + po : pkg_z;
+    const T* qd = kRank ? rp.peer_d + po : peer_d;
+    const T* qz = kRank ? rp.peer_z + po : peer_z;
     if (threadIdx.x < sh.pb) {
       const int i = 2 * threadIdx.x;
       const float2 uc = eng::vec2(u, lane0 + i), vc = eng::vec2(v, lane0 + i);
@@ -208,12 +240,12 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
 #pragma unroll
         for (int k = 0; k < 2; ++k)
           if (k < nr) {
-            const long e = (long)(r + k) * w + i;
-            dl[k] = eng::ld2(pkg_d + e);
-            zo[k] = eng::ld2(pkg_z + e);
-            dp[k] = eng::ld2(peer_d + e);
-            zp[k] = eng::ld2(peer_z + e);
-            if (d_out) gr[k] = eng::ld2(gst + e);
+            const long e = (long)(r + k) * pp + i;
+            dl[k] = eng::ld2(od + e);
+            zo[k] = eng::ld2(oz + e);
+            dp[k] = eng::ld2(qd + e);
+            zp[k] = eng::ld2(qz + e);
+            if (d_out) gr[k] = eng::ld2(gst + (long)(r + k) * w + i);
           }
 #pragma unroll
         for (int k = 0; k < 2; ++k)
@@ -254,7 +286,7 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
     if (d_in && threadIdx.x < sh.pb) {
       const int i = 2 * threadIdx.x;
       const int gc = lane0 + i;
-      const bool l0 = gc < in_w, l1 = gc + 1 < in_w;
+      const bool l0 = lanex + i < in_w, l1 = lanex + i + 1 < in_w;
       const float2 din = eng::vec2(d_in, gc);
       float2 si = make_float2(0.f, 0.f);
       for (int r = 0; r < rows; r += 4) {
@@ -293,26 +325,29 @@ __global__ void __launch_bounds__(512, 1) spm_overlap_bwd_kernel(
   cluster.sync();
 }
 
-template <typename T, typename CF>
+template <typename T, typename CF, bool kRank = false>
 static cudaError_t launch_overlap_bwd(
     const void* x, const void* gy, void* gx, CF cf, const void* u,
     const void* v, const void* d_in, const void* d_out, void* g_cf,
     void* g_vec, void* part_cf, void* part_vec, int B, int S, int n_local,
     int nt, int in_w, int kbit, int E, const eng::Shape& sh,
-    const SpmStrides& st, cudaStream_t stream) {
+    const SpmStrides& st, cudaStream_t stream,
+    const RankPkg<T>& rp = RankPkg<T>{}) {
   static size_t smem_set = 0;
   const size_t smem =
       eng::layout_of(st.n, sh, kVecs, sizeof(T), sizeof(T), true).total;
   if (smem > 232448) return cudaErrorInvalidValue;
-  auto kernel = spm_overlap_bwd_kernel<T, CF>;
+  auto kernel = spm_overlap_bwd_kernel<T, CF, kRank>;
   cudaError_t e = spm_allow_smem(kernel, smem, &smem_set);
   if (e != cudaSuccess) return e;
+  // one-card: a cluster holds the partners' lane blocks; rank mode: one
+  // shard's
   e = eng::launch(kernel, dim3(S * sh.C, sh.G * E, n_local / nt),
-                  sh.pb * sh.rs,
-                  smem, 2 * sh.C, stream, (const T*)x, (const T*)gy, (T*)gx,
-                  cf, (const float*)u, (const float*)v, (const float*)d_in,
-                  (const float*)d_out, (float4*)part_cf, (float*)part_vec, B,
-                  S, n_local, nt, in_w, kbit, sh, st);
+                  sh.pb * sh.rs, smem, (kRank ? 1 : 2) * sh.C, stream,
+                  (const T*)x, (const T*)gy, (T*)gx, cf, (const float*)u,
+                  (const float*)v, (const float*)d_in, (const float*)d_out,
+                  (float4*)part_cf, (float*)part_vec, B, S, n_local, nt, in_w,
+                  kbit, sh, st, rp);
   if (e != cudaSuccess) return e;
   const long cf_len = (long)S * E * st.n * (n_local / 2) * 4;
   e = spm_launch_sum((const float*)part_cf, (float*)g_cf, sh.G, 1, cf_len,
@@ -399,12 +434,93 @@ extern "C" int spm_overlap_bwd_clusters(int io_type, const int* strides,
   const size_t smem = eng::layout_of(L, sh, kVecs, esz, esz, true).total;
   if (io_type == SPM_IO_F32) {
     static size_t set = 0;
-    auto kernel = spm_overlap_bwd_kernel<float, const float4*>;
+    auto kernel = spm_overlap_bwd_kernel<float, const float4*, false>;
     if (spm_allow_smem(kernel, smem, &set) != cudaSuccess) return 0;
     return eng::max_clusters(kernel, pb * rs, smem, 2 * C);
   }
   static size_t set = 0;
-  auto kernel = spm_overlap_bwd_kernel<__nv_bfloat16, const float4*>;
+  auto kernel = spm_overlap_bwd_kernel<__nv_bfloat16, const float4*, false>;
   if (spm_allow_smem(kernel, smem, &set) != cudaSuccess) return 0;
   return eng::max_clusters(kernel, pb * rs, smem, 2 * C);
+}
+
+// ---------------------------------------------------------------------------
+// rank mode
+// ---------------------------------------------------------------------------
+
+template <typename T, typename CF>
+static cudaError_t consume(const void* x, const void* gy, void* gx, CF cf,
+                           const void* u, const void* v, const void* d_in,
+                           const void* d_out, void* g_cf, void* g_vec,
+                           void* part_cf, void* part_vec, int B, int n_local,
+                           int nt, int in_w, const eng::Shape& sh,
+                           const SpmStrides& st, cudaStream_t s,
+                           const RankPkg<T>& rp) {
+  return launch_overlap_bwd<T, CF, true>(x, gy, gx, cf, u, v, d_in, d_out,
+                                         g_cf, g_vec, part_cf, part_vec, B, 1,
+                                         n_local, nt, in_w, 0, 1, sh, st, s,
+                                         rp);
+}
+
+template <typename T>
+static cudaError_t consume_cf(const void* x, const void* gy, void* gx,
+                              const void* cf, const void* cf_scale,
+                              const void* u, const void* v, const void* d_in,
+                              const void* d_out, void* g_cf, void* g_vec,
+                              void* part_cf, void* part_vec, int B,
+                              int n_local, int nt, int in_w,
+                              const eng::Shape& sh, const SpmStrides& st,
+                              cudaStream_t s, const RankPkg<T>& rp) {
+  if (cf_scale)
+    return consume<T>(x, gy, gx,
+                      SpmQCoeffs{(const char4*)cf, (const float*)cf_scale}, u,
+                      v, d_in, d_out, g_cf, g_vec, part_cf, part_vec, B,
+                      n_local, nt, in_w, sh, st, s, rp);
+  return consume<T>(x, gy, gx, (const float4*)cf, u, v, d_in, d_out, g_cf,
+                    g_vec, part_cf, part_vec, B, n_local, nt, in_w, sh, st, s,
+                    rp);
+}
+
+// C interface of K6's rank-mode consume kernel: one row block of the rank's
+// shard.  x (B, in_w) of io_type with the rank's lane 0 at column x_col0,
+// zero from in_w on; gy and gx (B, n_local); cf the rank's table (L,
+// n_local/2, 4) f32, or int8 with (L,) scales; u, v, d_in, d_out
+// (n_local,) f32 (d_in, d_out may be null); own_d / own_z the rank's send
+// slot and peer_d / peer_z its receive slot ((B, n_local) each: the
+// package); g_cf (L, n_local/2, 4) and g_vec (5, n_local) f32, part_cf
+// (G, L, n_local/2, 4) and part_vec (G, 5, n_local) the partials.  The
+// launch shape (C lane blocks, w, pb, rs, R, G) is the planner's
+// (`bwd_plan`, one side).
+extern "C" int spm_overlap_bwd_rank(
+    int io_type, const void* x, const void* gy, void* gx, const void* cf,
+    const void* cf_scale, const void* u, const void* v, const void* d_in,
+    const void* d_out, const void* own_d, const void* own_z,
+    const void* peer_d, const void* peer_z, void* g_cf, void* g_vec,
+    void* part_cf, void* part_vec, long x_col0, int B, int n_local, int nt,
+    int in_w, int C, int w, int pb, int rs, int R, int G, const int* strides,
+    int L, void* stream) {
+  SpmStrides st;
+  eng::Shape sh{C, w, pb, rs, R, G, 0, 0, 0};
+  if (!spm_copy_strides(&st, strides, L) || B <= 0 || nt <= 0 ||
+      n_local % nt || in_w <= 0 || x_col0 < 0 || !u || !v || !own_d ||
+      !own_z || !peer_d || !peer_z || !eng::valid_shape(sh, nt) || C > 8 ||
+      G > 65535)
+    return (int)cudaErrorInvalidValue;
+  eng::set_passes(st, eng::kLayA, &sh);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (io_type == SPM_IO_F32)
+    return (int)consume_cf<float>(
+        x, gy, gx, cf, cf_scale, u, v, d_in, d_out, g_cf, g_vec, part_cf,
+        part_vec, B, n_local, nt, in_w, sh, st, s,
+        RankPkg<float>{(const float*)own_d, (const float*)own_z,
+                       (const float*)peer_d, (const float*)peer_z, x_col0});
+  if (io_type == SPM_IO_BF16)
+    return (int)consume_cf<__nv_bfloat16>(
+        x, gy, gx, cf, cf_scale, u, v, d_in, d_out, g_cf, g_vec, part_cf,
+        part_vec, B, n_local, nt, in_w, sh, st, s,
+        RankPkg<__nv_bfloat16>{
+            (const __nv_bfloat16*)own_d, (const __nv_bfloat16*)own_z,
+            (const __nv_bfloat16*)peer_d, (const __nv_bfloat16*)peer_z,
+            x_col0});
+  return (int)cudaErrorInvalidValue;
 }

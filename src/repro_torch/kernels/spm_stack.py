@@ -2356,13 +2356,434 @@ spm_overlap_bwd_kernel_call.window_launches = 0
 spm_overlap_bwd_kernel_call.expert_launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K5 / K6 rank mode: a pair whose partner is another rank
+# ---------------------------------------------------------------------------
+#
+# One rank's shard of a feature mesh of ranks (parallel/ctx.FeatureMesh's
+# rank form).  Its operands are its own: x (B, in_w) with its lane c at
+# column col_base + c (zero from in_w on: the windowed read of a
+# rectangular first run is col_base = rank * n_local into the whole input;
+# otherwise x is the rank's (B, n_local) slab), its table (L, n_local/2, 4)
+# f32 (int8 with (L,) scales), (n_local,) vectors, y / gy / g_x (B,
+# n_local).  The rows run in the row blocks ``blocks`` through the
+# transport of kernels/peer.py, in the order ``peer.pair_schedule`` gives:
+# block i's send before block i - 1's consume, credits before a slot is
+# rewritten, a drain at the end.  The partner (rank ^ k) makes the same
+# call with its own operands.
+
+
+def _check_rank_pair(x, coeffs, coeff_scale, vecs, strides, n_tile, k,
+                     mesh, blocks, col_base, in_width):
+    """Shapes of a rank-mode call: returns ``(n_local, in_w)``."""
+    if coeffs.dim() != 3 or coeffs.shape[-1] != 4:
+        raise ValueError(f"coeffs: need the rank's (L, n_local/2, 4), got "
+                         f"{tuple(coeffs.shape)}")
+    if mesh is None or not mesh.ranked:
+        raise ValueError("rank mode needs a rank mesh (FeatureMesh.rank)")
+    S = mesh.shape["model"]
+    L, nl = coeffs.shape[0], 2 * coeffs.shape[1]
+    in_w = x.shape[-1] if in_width is None else int(in_width)
+    if k <= 0 or k & (k - 1) or S % (2 * k):
+        raise ValueError(f"{S} ranks cannot pair over k={k}")
+    if L != len(strides) or nl % n_tile or x.dim() != 2 \
+            or x.shape[-1] != in_w or col_base < 0:
+        raise ValueError(f"bad rank pair: n_local={nl} n_tile={n_tile} "
+                         f"L={L} strides={strides} x={tuple(x.shape)} "
+                         f"in={in_w} col_base={col_base}")
+    for st in strides:
+        if n_tile % (2 * st):
+            raise ValueError(f"stride {st} crosses an {n_tile}-wide tile")
+    if sum(blocks) != x.shape[0] or any(b <= 0 for b in blocks):
+        raise ValueError(f"row blocks {blocks} do not cover {x.shape[0]} "
+                         f"rows")
+    if (coeff_scale is not None) != (coeffs.dtype == torch.int8):
+        raise TypeError("int8 coeffs and coeff_scale go together")
+    if coeff_scale is not None and tuple(coeff_scale.shape) != (L,):
+        raise ValueError(f"coeff_scale: need ({L},), got "
+                         f"{tuple(coeff_scale.shape)}")
+    for v, name in vecs:
+        if v is not None and tuple(v.shape) != (nl,):
+            raise ValueError(f"{name}: need ({nl},), got {tuple(v.shape)}")
+    return nl, in_w
+
+
+def _rank_lanes(x, col_base: int, nl: int, in_w: int) -> torch.Tensor:
+    """The rank's (B, n_local) lanes of x in f32, zero from in_w on."""
+    xf = x.float()
+    if col_base + nl > in_w:
+        xf = F.pad(xf, (0, col_base + nl - in_w))
+    return xf[:, col_base: col_base + nl]
+
+
+def _rank_table(coeffs, coeff_scale) -> torch.Tensor:
+    return _pair_tables(coeffs[None], None if coeff_scale is None
+                        else coeff_scale[None])[0]
+
+
+def _block_offsets(blocks) -> List[int]:
+    out, off = [], 0
+    for b in blocks:
+        out.append(off)
+        off += b
+    return out
+
+
+def spm_overlap_rank_plain(x: torch.Tensor, coeffs: torch.Tensor,
+                           mix_a: torch.Tensor, mix_b: torch.Tensor,
+                           d_in: Optional[torch.Tensor] = None,
+                           d_out: Optional[torch.Tensor] = None,
+                           bias: Optional[torch.Tensor] = None,
+                           coeff_scale: Optional[torch.Tensor] = None, *,
+                           strides: Tuple[int, ...], n_tile: int, k: int,
+                           mesh, blocks: Tuple[int, ...], col_base: int = 0,
+                           in_width: Optional[int] = None) -> torch.Tensor:
+    """K5 rank mode's plain version, rounding where the kernels round (K5's
+    plain version, one shard): the rank's local run in f32 [times d_in],
+    rounded to x's dtype, handed over block by block over the group
+    (``FeatureMesh.exchange``, in ``peer.pair_schedule``'s order), then
+    ``mix_a * z + mix_b * z_partner`` in f32, ``* d_out``, ``+ bias``, one
+    rounding."""
+    from repro_torch.kernels import peer
+    strides = tuple(int(st) for st in strides)
+    nl, in_w = _check_rank_pair(
+        x, coeffs, coeff_scale, [(mix_a, "mix_a"), (mix_b, "mix_b"),
+                                 (d_in, "d_in"), (d_out, "d_out"),
+                                 (bias, "bias")], strides, n_tile, k, mesh,
+        blocks, col_base, in_width)
+    cf = _rank_table(coeffs, coeff_scale)
+    z0 = _rank_lanes(x, col_base, nl, in_w)
+    if d_in is not None:
+        z0 = z0 * d_in.float()
+    offs = _block_offsets(blocks)
+    sent, recv, ys = {}, {}, {}
+    for op in peer.pair_schedule(len(blocks), 0)[0]:
+        i = op.block
+        rows = slice(offs[i], offs[i] + blocks[i])
+        if op.kind == "send":
+            sent[i] = spm_stack_ref(z0[rows], cf, strides).to(x.dtype)
+            recv[i] = mesh.exchange(sent[i], k)
+        elif op.kind == "consume":
+            y = (mix_a.float() * sent.pop(i).float()
+                 + mix_b.float() * recv.pop(i).float())
+            if d_out is not None:
+                y = y * d_out.float()
+            if bias is not None:
+                y = y + bias.float()
+            ys[i] = y.to(x.dtype)
+    return torch.cat([ys[i] for i in range(len(blocks))], dim=0)
+
+
+def _check_rank_cuda(x, coeffs, coeff_scale, vecs) -> None:
+    if x.dtype not in _IO or not x.is_contiguous():
+        raise TypeError(f"kernel I/O must be contiguous f32 or bf16, got "
+                        f"{x.dtype}")
+    _check_pair_cuda(x, coeffs[None], None if coeff_scale is None
+                     else coeff_scale[None], vecs)
+
+
+def _enqueue(ch, sched, stream: int, events, launch) -> None:
+    """Enqueue a rank-mode call's schedule on ``stream``: the kernels
+    through ``launch(op)``, the transport's signals and waits through the
+    channel; with ``events`` (a list) each op's start and end CUDA events
+    are appended as ``(kind, start, end)``."""
+    for op in sched:
+        if events is not None:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+        if op.kind in ("send", "consume"):
+            launch(op)
+        else:
+            ch.enqueue(op, stream)
+        if events is not None:
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            events.append((op.kind, t0, t1))
+
+
+def spm_overlap_rank_call(x: torch.Tensor, coeffs: torch.Tensor,
+                          mix_a: torch.Tensor, mix_b: torch.Tensor,
+                          d_in: Optional[torch.Tensor] = None,
+                          d_out: Optional[torch.Tensor] = None,
+                          bias: Optional[torch.Tensor] = None,
+                          coeff_scale: Optional[torch.Tensor] = None, *,
+                          strides: Tuple[int, ...], n_tile: int, k: int,
+                          mesh, blocks: Tuple[int, ...], col_base: int = 0,
+                          in_width: Optional[int] = None,
+                          events: Optional[list] = None) -> torch.Tensor:
+    """K5's rank mode: this rank's ``{local run -> cross}`` pair with the
+    partner rank ``rank ^ k``, y (B, n_local) in x's dtype (operands as
+    the section above says).  Per row block the send kernel walks the
+    rank's local run on the forward engine and stores the block, rounded
+    once, into its send slot and the partner's receive slot; once the
+    partner's signal is in, the mix kernel stores ``mix_a * z + mix_b *
+    z_partner`` [``* d_out``] [``+ bias``].  On a CPU input the plain
+    version (the exchange over the group)."""
+    from repro_torch.kernels import peer
+    strides = tuple(int(st) for st in strides)
+    blocks = tuple(int(b) for b in blocks)
+    vecs = [(mix_a, "mix_a"), (mix_b, "mix_b"), (d_in, "d_in"),
+            (d_out, "d_out"), (bias, "bias")]
+    nl, in_w = _check_rank_pair(x, coeffs, coeff_scale, vecs, strides,
+                                n_tile, k, mesh, blocks, col_base, in_width)
+    if x.device.type == "cpu":
+        return spm_overlap_rank_plain(
+            x, coeffs, mix_a, mix_b, d_in, d_out, bias, coeff_scale,
+            strides=strides, n_tile=n_tile, k=k, mesh=mesh, blocks=blocks,
+            col_base=col_base, in_width=in_width)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_rank_cuda(x, coeffs, coeff_scale, vecs)
+    ch = peer.channel(mesh, k, max(blocks), nl, x.dtype, 1, x.device)
+    y = torch.empty((x.shape[0], nl), dtype=x.dtype, device=x.device)
+    esz, stream = x.element_size(), _stream(x)
+    offs = _block_offsets(blocks)
+    send = _fn("spm_overlap", "spm_overlap_send",
+               (_I,) + (_P,) * 10 + (ctypes.c_long,) + (_I,) * 8
+               + (ctypes.POINTER(ctypes.c_int), _I, _P))
+    mix = _fn("spm_overlap", "spm_overlap_mix",
+              (_I,) + (_P,) * 7 + (_I, _I, _P))
+    tiles = nl // n_tile
+    cf_bytes = 16 if coeff_scale is None else 4
+
+    def launch(op):
+        i, s = op.block, op.slot
+        B = blocks[i]
+        if op.kind == "send":
+            plan = fwd_plan(B, n_tile, strides, tiles, esz,
+                            cf_bytes=cf_bytes)
+            rc = send(_IO[x.dtype], x.data_ptr() + offs[i] * in_w * esz,
+                      _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in), None,
+                      ch.send_slot(s), ch.peer_recv_slot(s), None, None,
+                      None, col_base, B, nl, n_tile, in_w, plan.threads,
+                      plan.chunk_rows, plan.groups, int(plan.resident),
+                      _strides_arg(strides), len(strides), stream)
+            what = "spm_overlap_send"
+            _count(spm_overlap_rank_call, None, coeff_scale,
+                   in_width is not None)
+        else:
+            rc = mix(_IO[x.dtype], ch.send_slot(s), ch.recv_slot(s),
+                     y.data_ptr() + offs[i] * nl * esz, _ptr(mix_a),
+                     _ptr(mix_b), _ptr(d_out), _ptr(bias), B, nl, stream)
+            what = "spm_overlap_mix"
+            spm_overlap_rank_call.mix_launches += 1
+        if rc != 0:
+            raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+    sched, ch.seq = peer.pair_schedule(len(blocks), ch.seq)
+    _enqueue(ch, sched, stream, events, launch)
+    return y
+
+
+spm_overlap_rank_call.launches = 0
+spm_overlap_rank_call.int8_launches = 0
+spm_overlap_rank_call.window_launches = 0
+spm_overlap_rank_call.mix_launches = 0
+
+
+def spm_overlap_bwd_rank_plain(x: torch.Tensor, coeffs: torch.Tensor,
+                               gy: torch.Tensor, u: torch.Tensor,
+                               v: torch.Tensor,
+                               d_in: Optional[torch.Tensor] = None,
+                               d_out: Optional[torch.Tensor] = None,
+                               coeff_scale: Optional[torch.Tensor] = None, *,
+                               strides: Tuple[int, ...], n_tile: int, k: int,
+                               mesh, blocks: Tuple[int, ...],
+                               col_base: int = 0,
+                               in_width: Optional[int] = None,
+                               col_sum=_col_sum) -> tuple:
+    """K6 rank mode's plain version, rounding where the kernels round (K6's
+    plain version, one shard): per row block the package ``(io(gy [*
+    d_out]), io(z_out))`` is handed over the group in
+    ``peer.pair_schedule``'s order, then the sums (``col_sum`` over a
+    block's rows), the transpose mix, the reverse walk, g_din and g_x;
+    each grad summed over the blocks in order."""
+    from repro_torch.kernels import peer
+    strides = tuple(int(st) for st in strides)
+    nl, in_w = _check_rank_pair(
+        x, coeffs, coeff_scale, [(u, "u"), (v, "v"), (d_in, "d_in"),
+                                 (d_out, "d_out")], strides, n_tile, k, mesh,
+        blocks, col_base, in_width)
+    if gy.shape != (x.shape[0], nl):
+        raise ValueError(f"expected gy {(x.shape[0], nl)}, got "
+                         f"{tuple(gy.shape)}")
+    io = gy.dtype
+    cf = _rank_table(coeffs, coeff_scale)
+    xr = _rank_lanes(x, col_base, nl, in_w)
+    gyf = gy.float()
+    offs = _block_offsets(blocks)
+    pkg, got, gx = {}, {}, {}
+    sums = {key: [] for key in ("g_cf", "s_own", "s_swp", "g_din", "t_own",
+                                "t_swp")}
+    for op in peer.pair_schedule(len(blocks), 0)[0]:
+        i = op.block
+        rows = slice(offs[i], offs[i] + blocks[i])
+        if op.kind == "send":
+            z0 = xr[rows] * d_in.float() if d_in is not None else xr[rows]
+            z, zs = stages_collect(z0, cf, strides)
+            d = gyf[rows] * d_out.float() if d_out is not None \
+                else gyf[rows]
+            pkg[i] = (torch.stack([d.to(io), z.to(io)]), zs)
+            got[i] = mesh.exchange(pkg[i][0], k)
+        elif op.kind == "consume":
+            (own, zs), peer_pk = pkg.pop(i), got.pop(i).float()
+            dl, zo = own.float()
+            dp, zp = peer_pk
+            sums["s_own"].append(col_sum(dl * zo))
+            sums["s_swp"].append(col_sum(dl * zp))
+            if d_out is not None:
+                sums["t_own"].append(col_sum(gyf[rows] * zo))
+                sums["t_swp"].append(col_sum(gyf[rows] * zp))
+            dmid = u.float() * dl + v.float() * dp
+            d0, gc = walk_back(zs, dmid, cf, strides, col_sum)
+            sums["g_cf"].append(gc)
+            if d_in is not None:
+                sums["g_din"].append(col_sum(d0 * xr[rows]))
+                d0 = d0 * d_in.float()
+            gx[i] = d0.to(io)
+
+    def total(key):
+        return functools.reduce(torch.add, sums[key])
+    res = (torch.cat([gx[i] for i in range(len(blocks))], dim=0),
+           total("g_cf"), total("s_own"), total("s_swp"))
+    if d_in is not None:
+        res += (total("g_din"),)
+    if d_out is not None:
+        res += (total("t_own"), total("t_swp"))
+    return res
+
+
+def spm_overlap_bwd_rank_call(x: torch.Tensor, coeffs: torch.Tensor,
+                              gy: torch.Tensor, u: torch.Tensor,
+                              v: torch.Tensor,
+                              d_in: Optional[torch.Tensor] = None,
+                              d_out: Optional[torch.Tensor] = None,
+                              coeff_scale: Optional[torch.Tensor] = None, *,
+                              strides: Tuple[int, ...], n_tile: int, k: int,
+                              mesh, blocks: Tuple[int, ...],
+                              col_base: int = 0,
+                              in_width: Optional[int] = None,
+                              events: Optional[list] = None) -> tuple:
+    """K6's rank mode: the backward of ``spm_overlap_rank_call`` from its
+    input x (as K5's rank mode read it) and the cotangent gy (B, n_local)
+    of its output.  Per row block the send kernel remats z_out on the
+    forward engine and stores the package ``(io(gy [* d_out]),
+    io(z_out))`` into the rank's send slot and the partner's receive slot;
+    once the partner's is in, the consume kernel (K6's body on the
+    backward engine) does the sums, the transpose mix, the reverse walk,
+    g_din and g_x.  Returns ``(g_x (B, n_local), g_coeffs (L, n_local/2,
+    4), s_own, s_swp[, g_din][, t_own, t_swp])``, the grads f32 summed
+    over the blocks in order, as K6's.  On a CPU input the plain
+    version."""
+    from repro_torch.kernels import peer
+    strides = tuple(int(st) for st in strides)
+    blocks = tuple(int(b) for b in blocks)
+    vecs = [(u, "u"), (v, "v"), (d_in, "d_in"), (d_out, "d_out")]
+    nl, in_w = _check_rank_pair(x, coeffs, coeff_scale, vecs, strides,
+                                n_tile, k, mesh, blocks, col_base, in_width)
+    if gy.shape != (x.shape[0], nl):
+        raise ValueError(f"expected gy {(x.shape[0], nl)}, got "
+                         f"{tuple(gy.shape)}")
+    if x.device.type == "cpu":
+        return spm_overlap_bwd_rank_plain(
+            x, coeffs, gy, u, v, d_in, d_out, coeff_scale, strides=strides,
+            n_tile=n_tile, k=k, mesh=mesh, blocks=blocks, col_base=col_base,
+            in_width=in_width)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_rank_cuda(x, coeffs, coeff_scale, vecs)
+    if gy.dtype != x.dtype or gy.device != x.device \
+            or not gy.is_contiguous():
+        raise ValueError("gy must be contiguous, on x's device, in x's "
+                         "dtype")
+    dev, esz, L = x.device, x.element_size(), len(strides)
+    ch = peer.channel(mesh, k, max(blocks), nl, x.dtype, 2, dev)
+    part = max(blocks) * nl * esz          # the package's second tensor
+    gx = torch.empty((x.shape[0], nl), dtype=x.dtype, device=dev)
+    nb = len(blocks)
+    g_cf = torch.empty((nb, L, nl // 2, 4), dtype=torch.float32, device=dev)
+    g_vec = torch.empty((nb, 5, nl), dtype=torch.float32, device=dev)
+    tiles = nl // n_tile
+    stream = _stream(x)
+    offs = _block_offsets(blocks)
+    send = _fn("spm_overlap", "spm_overlap_send",
+               (_I,) + (_P,) * 10 + (ctypes.c_long,) + (_I,) * 8
+               + (ctypes.POINTER(ctypes.c_int), _I, _P))
+    consume = _fn("spm_overlap_bwd", "spm_overlap_bwd_rank",
+                  (_I,) + (_P,) * 17 + (ctypes.c_long,) + (_I,) * 10
+                  + (ctypes.POINTER(ctypes.c_int), _I, _P))
+    cf_bytes = 16 if coeff_scale is None else 4
+    parts = {}
+
+    def launch(op):
+        i, s = op.block, op.slot
+        B = blocks[i]
+        if op.kind == "send":
+            plan = fwd_plan(B, n_tile, strides, tiles, esz,
+                            cf_bytes=cf_bytes)
+            rc = send(_IO[x.dtype], x.data_ptr() + offs[i] * in_w * esz,
+                      _ptr(coeffs), _ptr(coeff_scale), _ptr(d_in),
+                      _ptr(d_out), ch.send_slot(s) + part,
+                      ch.peer_recv_slot(s) + part,
+                      gy.data_ptr() + offs[i] * nl * esz, ch.send_slot(s),
+                      ch.peer_recv_slot(s), col_base, B, nl, n_tile, in_w,
+                      plan.threads, plan.chunk_rows, plan.groups,
+                      int(plan.resident), _strides_arg(strides), L, stream)
+            what = "spm_overlap_send"
+            spm_overlap_bwd_rank_call.send_launches += 1
+        else:
+            plan = bwd_plan(B, n_tile, strides, tiles, esz, nvec=5,
+                            package=True, sides=1)
+            G = plan.groups
+            parts[i] = (torch.empty((G, L, nl // 2, 4), dtype=torch.float32,
+                                    device=dev),
+                        torch.empty((G, 5, nl), dtype=torch.float32,
+                                    device=dev))
+            rc = consume(_IO[x.dtype], x.data_ptr() + offs[i] * in_w * esz,
+                         gy.data_ptr() + offs[i] * nl * esz,
+                         gx.data_ptr() + offs[i] * nl * esz, _ptr(coeffs),
+                         _ptr(coeff_scale), _ptr(u), _ptr(v), _ptr(d_in),
+                         _ptr(d_out), ch.send_slot(s),
+                         ch.send_slot(s) + part, ch.recv_slot(s),
+                         ch.recv_slot(s) + part, _ptr(g_cf[i]),
+                         _ptr(g_vec[i]), _ptr(parts[i][0]),
+                         _ptr(parts[i][1]), col_base, B, nl, n_tile, in_w,
+                         *_shape_args(plan), _strides_arg(strides), L,
+                         stream)
+            what = "spm_overlap_bwd_rank"
+            _count(spm_overlap_bwd_rank_call, None, coeff_scale,
+                   in_width is not None)
+        if rc != 0:
+            raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+    sched, ch.seq = peer.pair_schedule(nb, ch.seq)
+    _enqueue(ch, sched, stream, events, launch)
+    # the per-block grads, summed in block order
+    gcf = functools.reduce(torch.add, list(g_cf))
+    gv = functools.reduce(torch.add, list(g_vec))
+    res = (gx, gcf, gv[0], gv[1])
+    if d_in is not None:
+        res += (gv[4],)
+    if d_out is not None:
+        res += (gv[2], gv[3])
+    return res
+
+
+spm_overlap_bwd_rank_call.launches = 0
+spm_overlap_bwd_rank_call.int8_launches = 0
+spm_overlap_bwd_rank_call.window_launches = 0
+spm_overlap_bwd_rank_call.send_launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
     for fn in (spm_stack_kernel_call, spm_stack_bwd_kernel_call,
                spm_block_kernel_call, spm_block_bwd_kernel_call,
-               spm_overlap_kernel_call, spm_overlap_bwd_kernel_call):
+               spm_overlap_kernel_call, spm_overlap_bwd_kernel_call,
+               spm_overlap_rank_call, spm_overlap_bwd_rank_call):
         for name in ("launches", "int8_launches", "int8_io_launches",
                      "window_launches", "split_launches", "expert_launches",
-                     "expert_int8_launches", "expert_window_launches"):
+                     "expert_int8_launches", "expert_window_launches",
+                     "mix_launches", "send_launches"):
             if hasattr(fn, name):
                 setattr(fn, name, 0)

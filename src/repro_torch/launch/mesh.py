@@ -40,6 +40,16 @@ collective with it fails too rather than resuming out of step (gloo when
 the connection closes; NCCL at its timeout, ``TIMEOUT_S``, unless
 ``torchrun``'s agent stops the other workers first).
 
+**Feature ranks.**  ``make_feature_rank_mesh(n_shards, device)`` makes the
+rank form of ``parallel.ctx.FeatureMesh`` (shard j on rank j) on the same
+start-up and backend rule: ``run_ranks`` starts the ranks, and each one's
+``fn`` builds its rank mesh, which joins the group its pod member is in.
+The executor's cross stages go over the group (with gloo, CUDA slabs are
+staged through the host), and the overlap schedule's fused pairs on the
+card through CUDA IPC slots between the partner ranks
+(``kernels/peer.py``), which work between processes on one card and
+across cards alike.
+
 ``make_host_mesh`` is a one-member pod on the caller's device.
 ``make_production_mesh`` (256/512 chips) belongs with the dry-run.
 """
@@ -58,10 +68,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.ctx import PodMesh
+from repro_torch.parallel.ctx import FeatureMesh, PodMesh
 
 __all__ = ["make_pod_mesh", "make_host_mesh", "make_production_mesh",
-           "pod_device", "pod_backend", "run_ranks"]
+           "make_feature_rank_mesh", "pod_device", "pod_backend",
+           "run_ranks"]
 TIMEOUT_S = 600.0          # a collective's limit before it raises
 
 def pod_device(local_rank: int, device: Any = None) -> torch.device:
@@ -163,6 +174,34 @@ def make_pod_mesh(n_pod: int, device: Any = None, *,
              f"{dev}")
     return PodMesh(rank=rank, size=n_pod, device=dev, backend=backend,
                    owned=True)
+
+
+def make_feature_rank_mesh(n_shards: int, device: Any = None, *,
+                           rank: Optional[int] = None,
+                           init_method: Optional[str] = None,
+                           timeout_s: float = TIMEOUT_S) -> FeatureMesh:
+    """This process's rank of a feature mesh of ``n_shards`` ranks, shard j
+    on rank j: the group is ``make_pod_mesh``'s (joined when it is up, as
+    in a ``run_ranks`` job), so is the backend rule.  The caller keeps the
+    group: a pod member that ``run_ranks`` made closes it."""
+    pod = make_pod_mesh(n_shards, device, rank=rank, init_method=init_method,
+                        timeout_s=timeout_s)
+    if pod.size < 2:
+        raise ValueError(f"a feature mesh of ranks needs at least 2, got "
+                         f"{n_shards}")
+    backend = pod.backend or dist.get_backend()
+    if pod.rank == 0:
+        _, why = pod_backend(_local(pod.rank, n_shards)[1], device)
+        staged = ("CUDA slabs staged through the host"
+                  if backend == "gloo" and pod.device.type == "cuda"
+                  else "on the rank's device" if backend == "nccl"
+                  else "on the host")
+        _log(f"feature mesh: {n_shards} ranks, one shard a rank, backend "
+             f"{backend} ({why}); cross-stage exchanges over the group "
+             f"({staged}); the overlap pairs on the card through CUDA IPC "
+             f"slots between partner ranks")
+    return FeatureMesh((pod.device,) * n_shards, rank=pod.rank,
+                       group=pod.group, backend=backend)
 
 
 def _free_port() -> int:

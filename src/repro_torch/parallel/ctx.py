@@ -3,10 +3,21 @@ the ``"feature"`` kind only) and a data-parallel pod's axis binding.
 
 A ``FeatureMesh`` is the port's counterpart of a JAX mesh with one
 ``"model"`` axis (``repro/launch/mesh.make_host_mesh``): S shards of the
-feature axis, each bound to a device.  The executor
-(``parallel/spm_shard.py``) keeps one slab per shard and hands a partner's
-slab over at a cross stage; in this slice every shard must be on the
-input's device, so the hand-over needs no collective.
+feature axis, each bound to a device.  It has two forms, told apart by its
+``rank`` field (never by comparing devices: ranks that share a card all
+name ``cuda:0``):
+
+* **one process** (``rank`` None, ``make_feature_mesh``): every shard is
+  on the input's device and the executor (``parallel/spm_shard.py``)
+  keeps one slab per shard; a cross stage's hand-over is the partner's
+  slab itself;
+* **one shard a rank** (``launch/mesh.make_feature_rank_mesh``): shard j
+  lives on rank j of the process group, which runs only its own shard's
+  steps; a cross stage's hand-over is ``exchange`` (one
+  ``batch_isend_irecv`` with the partner rank), the operator's output and
+  grads are assembled by ``all_gather`` (the reference's ``shard_map``
+  with ``ppermute`` over the ``"model"`` axis).  With gloo a CUDA slab is
+  staged through the host: the rule for ranks that share a card.
 
 ``activation_sharding(mesh, shard_feature=True)`` makes the mesh active for
 the block; ``feature_mesh(n_shards)`` is what ``core/spm.spm_apply`` asks
@@ -27,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Any, List, Optional, Tuple
 
 import torch
@@ -44,9 +56,84 @@ _STATE = threading.local()
 @dataclasses.dataclass(frozen=True)
 class FeatureMesh:
     """S shards of the feature axis over the ``"model"`` axis; shard j
-    lives on ``devices[j]``."""
+    lives on ``devices[j]``, and, in the rank form, on rank j of ``group``
+    (None: the default group): this process is rank ``rank`` and holds
+    only shard ``rank``."""
 
     devices: Tuple[torch.device, ...]
+    rank: Optional[int] = None
+    group: Any = dataclasses.field(default=None, compare=False)
+    backend: Optional[str] = None
+    # the rank form's transport channels (``kernels/peer.py``), by key
+    channels: dict = dataclasses.field(default_factory=dict, compare=False,
+                                       repr=False)
+    # the rank form's collectives so far: calls, bytes sent, wall seconds
+    stats: dict = dataclasses.field(
+        default_factory=lambda: {"calls": 0, "bytes": 0, "seconds": 0.0},
+        compare=False, repr=False)
+
+    @property
+    def ranked(self) -> bool:
+        """Whether this is the rank form (one shard a rank)."""
+        return self.rank is not None
+
+    @property
+    def shards(self) -> Tuple[int, ...]:
+        """The shards this process runs: all of them, or its rank's."""
+        return ((self.rank,) if self.ranked
+                else tuple(range(len(self.devices))))
+
+    @property
+    def device(self) -> torch.device:
+        """This process's device (the rank form's)."""
+        return self.devices[self.rank if self.ranked else 0]
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        # gloo moves host memory: a CUDA tensor is staged through it
+        return t.cpu() if self.backend != "nccl" else t.contiguous()
+
+    def exchange(self, t: torch.Tensor, k: int) -> torch.Tensor:
+        """The rank form's cross-stage hand-over: send ``t`` to the partner
+        rank ``rank ^ k`` and return the partner's tensor of the same shape
+        (one ``batch_isend_irecv``)."""
+        t0 = time.perf_counter()
+        src = self._host(t)
+        out = torch.empty_like(src)
+        peer = self._global(self.rank ^ k)
+        for w in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, src, peer, group=self.group),
+                 dist.P2POp(dist.irecv, out, peer, group=self.group)]):
+            w.wait()
+        out = out.to(t.device)
+        self._count(src, t0)
+        return out
+
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``t`` (the same shape on each), in rank order, on
+        ``t``'s device."""
+        t0 = time.perf_counter()
+        src = self._host(t)
+        out = [torch.empty_like(src) for _ in self.devices]
+        dist.all_gather(out, src, group=self.group)
+        out = [o.to(t.device) for o in out]
+        self._count(src, t0)
+        return out
+
+    def _count(self, sent: torch.Tensor, t0: float) -> None:
+        st = self.stats
+        st["calls"] += 1
+        st["bytes"] += sent.numel() * sent.element_size()
+        st["seconds"] += time.perf_counter() - t0
+
+    def all_gather_object(self, obj: Any) -> List[Any]:
+        """Every rank's ``obj``, in rank order."""
+        out: List[Any] = [None] * len(self.devices)
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def _global(self, rank: int) -> int:
+        return (rank if self.group is None
+                else dist.get_global_rank(self.group, rank))
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -61,8 +148,8 @@ class FeatureMesh:
 
 def make_feature_mesh(n_shards: int,
                       device: DeviceLike = None) -> FeatureMesh:
-    """A mesh of ``n_shards`` shards, all on ``device`` (``cuda`` unless
-    the caller asks for the CPU)."""
+    """A one-process mesh of ``n_shards`` shards, all on ``device``
+    (``cuda`` unless the caller asks for the CPU)."""
     return FeatureMesh((resolve_device(device),) * n_shards)
 
 

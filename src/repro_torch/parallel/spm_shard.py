@@ -82,14 +82,37 @@ and int8 tables have one scale a shard, expert and stage.  Without the
 kernel path the composition runs an expert at a time.
 
 The mesh (``parallel/ctx.FeatureMesh``) binds each shard to a device.
-Every shard must be on the input's own device, and a mesh that places one
-elsewhere raises: a hand-over is then the partner's slab itself (in K5/K6
-the partner block's shared memory), and no shard's work leaves the card
-(or the CPU) its input is on.  Shards on distinct cards with a real
-transport are a later slice (ROADMAP.md).  The mix of a cross step outside
-a pair kernel computes in the activation dtype, rounding after each
-operation as the reference's CPU run does (bf16 included); K5 mixes in f32
-after one rounding of each slab, as the reference's pair kernel does.
+On a one-process mesh every shard must be on the input's own device, and
+a mesh that places one elsewhere raises: a hand-over is then the partner's
+slab itself (in K5/K6 the partner block's shared memory), and no shard's
+work leaves the card (or the CPU) its input is on.  The mix of a cross
+step outside a pair kernel computes in the activation dtype, rounding
+after each operation as the reference's CPU run does (bf16 included); K5
+mixes in f32 after one rounding of each slab, as the reference's pair
+kernel does.
+
+**One shard a rank** (the mesh's rank form, the reference's ``shard_map``
+over a ``"model"`` axis of devices): rank j runs only shard j's steps, the
+same functions on the same operands, so the rounding points are the
+one-process walk's.  Between steps it keeps its own (rows, n_local) slab;
+the operator's input and output stay replicated (everything outside the
+SPM operators runs replicated on every rank): the input enters whole (a
+windowed first run reads the rank's window of it), the output is one
+``all_gather`` of the slabs.  A cross stage's exchange is one
+``batch_isend_irecv`` with rank j XOR k (``FeatureMesh.exchange``), the
+backward makes the same exchanges, and the grads are assembled inside the
+backward by one ``all_gather``: g_x's slabs, each step's table grad (each
+element has one owning rank, so the assembly is the exact sum over the
+ranks, taken before autograd carries it through ``_step_tables`` and
+``stage_coeffs``) and the vector grads.  Every rank makes the same
+collectives in the same order, the recompute of a checkpointed layer
+included.  The overlap schedule splits the rows into the reference's row
+blocks (there is exchange latency to hide), and on the card each fused
+pair runs as K5's and K6's rank mode (``kernels/spm_stack.py``
+``spm_overlap_rank_call``, ``spm_overlap_bwd_rank_call``): the send kernel
+stores the rank's block straight into the partner rank's receive slot
+(``kernels/peer.py``).  An expert stack over a rank mesh is expert
+parallelism (ROADMAP.md §1 item 6b) and raises.
 """
 
 from __future__ import annotations
@@ -106,7 +129,7 @@ from repro_torch.core import spm as spm_mod
 from repro_torch.core.eligibility import (OVERLAP_ROW_BLOCKS,
                                           overlap_segments, plan_steps,
                                           resolve_overlap, resolve_rdma,
-                                          resolve_shard_kernel)
+                                          resolve_shard_kernel, split_rows)
 from repro_torch.core.pairings import Stage
 from repro_torch.kernels import quant as Q
 from repro_torch.kernels import spm_stack as K
@@ -149,7 +172,9 @@ class ShardPlan:
     step-serial schedule) are the overlap schedule's row blocks,
     ``rdma_crosses`` the cross steps fused with their local run into K5/K6,
     ``quant_cf`` whether the local runs read int8 tables, ``experts``
-    whether the operator carries a leading expert axis."""
+    whether the operator carries a leading expert axis; ``mesh`` the
+    feature mesh (None or a one-process mesh: this process runs every
+    shard; a rank mesh: only its rank's)."""
 
     n: int
     n_local: int
@@ -165,6 +190,20 @@ class ShardPlan:
     rdma_crosses: Tuple[int, ...] = ()
     quant_cf: bool = False
     experts: bool = False
+    mesh: Optional[FeatureMesh] = dataclasses.field(default=None,
+                                                    compare=False,
+                                                    repr=False)
+
+    @property
+    def ranked(self) -> bool:
+        """Whether the mesh is a rank mesh (one shard a rank)."""
+        return self.mesh is not None and self.mesh.ranked
+
+    @property
+    def shards(self) -> Tuple[int, ...]:
+        """The shards this process runs."""
+        return (self.mesh.shards if self.ranked
+                else tuple(range(self.n_shards)))
 
     @property
     def overlap(self) -> bool:
@@ -373,6 +412,14 @@ def _flat_shards(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(*t.shape[:-2], -1)
 
 
+def _slab_sums(plan: ShardPlan, t: torch.Tensor) -> torch.Tensor:
+    """The sum over rows of this process's lanes of ``t``, each shard's
+    (rows, n_local) slab summed on its own: the same sums whether one
+    process holds every shard or a rank holds one."""
+    return torch.cat([t[..., plan.shard_slice(p)].contiguous().sum(-2)
+                      for p in range(len(plan.shards))], dim=-1)
+
+
 def _sum_vec_lists(parts):
     """The sum over row blocks, in block order, of per-block grads (None
     where absent)."""
@@ -385,9 +432,14 @@ def _sum_vec_lists(parts):
 # cross stages
 # ---------------------------------------------------------------------------
 
-def _exchange(slabs: List[torch.Tensor], k: int) -> List[torch.Tensor]:
-    """The partner exchange of a cross stage: shard j receives the slab of
-    its partner in ``cross_partner_perm`` (all shards share one device)."""
+def _exchange(slabs: List[torch.Tensor], k: int,
+              mesh: Optional[FeatureMesh] = None) -> List[torch.Tensor]:
+    """The partner exchange of a cross stage: each of this process's shards
+    receives the slab of its partner in ``cross_partner_perm``: on a
+    one-process mesh (every shard here) the partner's slab itself, on a
+    rank mesh the partner rank's, over the group."""
+    if mesh is not None and mesh.ranked:
+        return [mesh.exchange(slabs[0], k)]
     return [slabs[p] for _, p in cross_partner_perm(len(slabs), k)]
 
 
@@ -408,9 +460,10 @@ def _cross_mix(z, zp, cf, low: bool, d_out=None, bias=None):
 
 def _cross_bwd(z_in, delta, cfs, k: int, plan: ShardPlan, d_out=None,
                has_bias: bool = False):
-    """The backward of a cross stage over all shards.  ``z_in`` and
-    ``delta`` are per-shard lists; returns ``(g_in, g_cf, g_dout,
-    g_bias)``, per-shard lists, the last two None unless folded here.
+    """The backward of a cross stage over this process's shards
+    (``plan.shards``).  ``z_in`` and ``delta`` are per-shard lists;
+    returns ``(g_in, g_cf, g_dout, g_bias)``, per-shard lists, the last two
+    None unless folded here.
 
     Each shard receives its partner's saved input and cotangent (the same
     exchange).  Its coefficient grads fill only the components its role
@@ -420,28 +473,28 @@ def _cross_bwd(z_in, delta, cfs, k: int, plan: ShardPlan, d_out=None,
     ``g_dout`` contracts it with the mix output rematted in f32 in the
     forward's operand order, and each shard scales it by its own d_out
     slice before the exchange."""
-    S = plan.n_shards
-    zp = _exchange(z_in, k)
+    shards = plan.shards
+    zp = _exchange(z_in, k, plan.mesh)
     g_dout = g_bias = None
     if d_out is not None or has_bias:
         if has_bias:
-            g_bias = [delta[j].float().sum(-2) for j in range(S)]
+            g_bias = [dl.float().sum(-2) for dl in delta]
         if d_out is not None:
             g_dout = []
-            for j in range(S):
+            for j, sh in enumerate(shards):
                 a, b, c, d = (cfs[j][..., i].unsqueeze(-2).float()
                               for i in range(4))
                 zf, zpf = z_in[j].float(), zp[j].float()
-                m = a * zf + b * zpf if j & k == 0 else c * zpf + d * zf
+                m = a * zf + b * zpf if sh & k == 0 else c * zpf + d * zf
                 g_dout.append((delta[j].float() * m).sum(-2))
             delta = [delta[j] * d_out[j].unsqueeze(-2).to(delta[j].dtype)
-                     for j in range(S)]
-    dp = _exchange(delta, k)
+                     for j in range(len(shards))]
+    dp = _exchange(delta, k, plan.mesh)
     g_in, g_cf = [], []
-    for j in range(S):
+    for j, sh in enumerate(shards):
         a, b, c, d = (cfs[j][..., i].unsqueeze(-2).to(delta[j].dtype)
                       for i in range(4))
-        low = j & k == 0
+        low = sh & k == 0
         # g_x0 = a d0 + c d1 on the low shard; g_x1 = b d0 + d d1 on the high
         g_in.append(a * delta[j] + c * dp[j] if low
                     else b * dp[j] + d * delta[j])
@@ -587,93 +640,135 @@ def _pair_run(plan: ShardPlan, li: int):
     return run_strides, n_tile
 
 
-def _pair_fwd(plan: ShardPlan, glob: dict, li: int, ci: int,
-              x: torch.Tensor) -> torch.Tensor:
-    """One ``{local run -> cross}`` pair over every shard through K5 (its
-    plain version on a CPU input): x is the global (rows, n) input, or the
-    (rows, in_width) one under ``win_in``; returns the global (rows, n)
-    output.  When the pair's cross stage ends the schedule, d_out scales
-    the mixed sum after the add and bias follows, on the store."""
-    k = plan.steps[ci][2]
-    first, last = li == 0, ci == len(plan.steps) - 1
-    run_strides, n_tile = _pair_run(plan, li)
-    mix_a, mix_b = _cross_role_vecs(glob["tabs"][ci], k)
+def _mine(plan: ShardPlan, v):
+    """This process's lanes of a ([E,] n) vector: all of it on a
+    one-process mesh, the rank's shard slice on a rank mesh."""
+    if v is None or not plan.ranked:
+        return v
+    return v[..., plan.shard_slice(plan.mesh.rank)].contiguous()
+
+
+def _pair_operands(plan: ShardPlan, glob: dict, li: int, ci: int):
+    """A fused pair's local table (int8 and stage scales under
+    ``quant_cf``) and whether its run is the schedule's first (folding d_in
+    and, under ``win_in``, reading the windowed input) and its cross the
+    last (folding d_out and bias)."""
     q = glob["qtabs"][li]
     cf, scf = q if q is not None else (glob["tabs"][li], None)
+    if plan.ranked:
+        j = plan.mesh.rank
+        cf, scf = cf[j], (None if scf is None else scf[j])
+    return cf, scf, li == 0, ci == len(plan.steps) - 1
+
+
+def _pair_fwd(plan: ShardPlan, glob: dict, li: int, ci: int,
+              x: torch.Tensor) -> torch.Tensor:
+    """One ``{local run -> cross}`` pair through K5 (its plain version on a
+    CPU input): on a one-process mesh over every shard, x the global (rows,
+    n) input, or the (rows, in_width) one under ``win_in``, returning the
+    global (rows, n) output; on a rank mesh K5's rank mode over this rank's
+    shard, x its (rows, n_local) slab or the windowed whole input, the
+    partner's slab over the IPC slots, returning the rank's slab.  When the
+    pair's cross stage ends the schedule, d_out scales the mixed sum after
+    the add and bias follows, on the store."""
+    k = plan.steps[ci][2]
+    mesh = plan.mesh
+    cf, scf, first, last = _pair_operands(plan, glob, li, ci)
+    run_strides, n_tile = _pair_run(plan, li)
+    mix_a, mix_b = (_mine(plan, v)
+                    for v in _cross_role_vecs(glob["tabs"][ci], k))
+    win = first and plan.win_in
+    vecs = dict(d_in=glob["d_in"] if first and plan.fold_din else None,
+                d_out=glob["d_out"] if last and plan.fold_dout else None,
+                bias=glob["bias"] if last and plan.fold_bias else None)
+    if plan.ranked:
+        return K.spm_overlap_rank_call(
+            x.contiguous(), cf, mix_a, mix_b, **vecs, coeff_scale=scf,
+            strides=run_strides, n_tile=n_tile, k=k, mesh=mesh,
+            blocks=plan.row_blocks,
+            col_base=mesh.rank * plan.n_local if win else 0,
+            in_width=plan.in_width if win else None)
     return K.spm_overlap_kernel_call(
-        x, cf, mix_a, mix_b,
-        d_in=glob["d_in"] if first and plan.fold_din else None,
-        d_out=glob["d_out"] if last and plan.fold_dout else None,
-        bias=glob["bias"] if last and plan.fold_bias else None,
-        coeff_scale=scf, strides=run_strides, n_tile=n_tile, k=k,
-        in_width=plan.in_width if first and plan.win_in else None)
+        x, cf, mix_a, mix_b, **vecs, coeff_scale=scf, strides=run_strides,
+        n_tile=n_tile, k=k, in_width=plan.in_width if win else None)
 
 
 def _pair_bwd(plan: ShardPlan, glob: dict, li: int, ci: int,
               x: torch.Tensor, gy: torch.Tensor):
-    """The backward of a fused pair through K6 from the pair's input ``x``
-    (as ``_pair_fwd`` read it) and the global cotangent ``gy`` of its
-    output.  Returns ``(g_x (rows, n), g_local (S, Lr, n_local/2, 4),
-    g_cross (S, n_local, 4), g_din, g_dout, g_bias)``, the vectors (n,) or
-    None: s_own / s_swp placed in the role-owned (a, b) / (c, d) slots,
-    ``g_dout = mix_a * t_own + mix_b * t_swp`` from the raw-cotangent
-    sums, ``g_bias`` the raw cotangent summed."""
+    """The backward of a fused pair through K6 (its rank mode on a rank
+    mesh) from the pair's input ``x`` (as ``_pair_fwd`` read it) and the
+    cotangent ``gy`` of its output.  Returns ``(g_x, g_local (S', Lr,
+    n_local/2, 4), g_cross (S', n_local, 4), g_din, g_dout, g_bias)`` over
+    this process's S' shards, the vectors over its lanes or None: s_own /
+    s_swp placed in the role-owned (a, b) / (c, d) slots, ``g_dout = mix_a
+    * t_own + mix_b * t_swp`` from the raw-cotangent sums, ``g_bias`` the
+    raw cotangent summed."""
     S, nl = plan.n_shards, plan.n_local
     k = plan.steps[ci][2]
-    first, last = li == 0, ci == len(plan.steps) - 1
+    mesh = plan.mesh
+    cf, scf, first, last = _pair_operands(plan, glob, li, ci)
     fold_dout = last and plan.fold_dout
     run_strides, n_tile = _pair_run(plan, li)
     cfc = glob["tabs"][ci]
     low = _low_b(S, k, cfc.device, cfc.dim() - 1)
     # the transpose mix: g_mid = u * delta + v * delta_p with (u, v) =
     # (a, c) on the low partner and (d, b) on the high
-    u = _flat_shards(torch.where(low, cfc[..., 0], cfc[..., 3]))
-    v = _flat_shards(torch.where(low, cfc[..., 2], cfc[..., 1]))
-    q = glob["qtabs"][li]
-    cf, scf = q if q is not None else (glob["tabs"][li], None)
-    out = K.spm_overlap_bwd_kernel_call(
-        x, cf, gy, u, v,
-        d_in=glob["d_in"] if first and plan.fold_din else None,
-        d_out=glob["d_out"] if fold_dout else None, coeff_scale=scf,
-        strides=run_strides, n_tile=n_tile, k=k,
-        in_width=plan.in_width if first and plan.win_in else None)
+    u = _mine(plan, _flat_shards(torch.where(low, cfc[..., 0], cfc[..., 3])))
+    v = _mine(plan, _flat_shards(torch.where(low, cfc[..., 2], cfc[..., 1])))
+    win = first and plan.win_in
+    vecs = dict(d_in=glob["d_in"] if first and plan.fold_din else None,
+                d_out=glob["d_out"] if fold_dout else None)
+    if plan.ranked:
+        out = K.spm_overlap_bwd_rank_call(
+            x.contiguous(), cf, gy, u, v, **vecs, coeff_scale=scf,
+            strides=run_strides, n_tile=n_tile, k=k, mesh=mesh,
+            blocks=plan.row_blocks,
+            col_base=mesh.rank * nl if win else 0,
+            in_width=plan.in_width if win else None)
+        out = (out[0], out[1].unsqueeze(0), *out[2:])
+    else:
+        out = K.spm_overlap_bwd_kernel_call(
+            x, cf, gy, u, v, **vecs, coeff_scale=scf, strides=run_strides,
+            n_tile=n_tile, k=k, in_width=plan.in_width if win else None)
     gx, g_local, s_own, s_swp = out[:4]
-    vecs = list(out[4:])                  # [g_din?] + [t_own, t_swp]?
-    g_din = vecs.pop(0) if first and plan.fold_din else None
+    rest = list(out[4:])                  # [g_din?] + [t_own, t_swp]?
+    g_din = rest.pop(0) if first and plan.fold_din else None
     g_dout = g_bias = None
     if fold_dout:
-        mix_a, mix_b = _cross_role_vecs(cfc, k)
-        g_dout = mix_a.float() * vecs[0] + mix_b.float() * vecs[1]
+        mix_a, mix_b = (_mine(plan, w) for w in _cross_role_vecs(cfc, k))
+        g_dout = mix_a.float() * rest[0] + mix_b.float() * rest[1]
     if last and plan.fold_bias:
-        g_bias = gy.float().sum(-2)
+        g_bias = _slab_sums(plan, gy.float())
 
-    def per_shard(t):      # ([E,] n) -> (S, [E,] n_local)
-        return t.reshape(*t.shape[:-1], S, nl).movedim(-2, 0)
+    def per_shard(t):      # ([E,] S' * n_local) -> (S', [E,] n_local)
+        return t.reshape(*t.shape[:-1], -1, nl).movedim(-2, 0)
 
     so, sw = per_shard(s_own), per_shard(s_swp)
     zero = torch.zeros_like(so)
-    g_cross = torch.where(low[..., None],
+    mlow = low[list(plan.shards)]
+    g_cross = torch.where(mlow[..., None],
                           torch.stack([so, sw, zero, zero], dim=-1),
                           torch.stack([zero, zero, sw, so], dim=-1))
     return gx, g_local, g_cross.to(cfc.dtype), g_din, g_dout, g_bias
 
 
 # ---------------------------------------------------------------------------
-# the walk over all shards
+# the walk over this process's shards
 # ---------------------------------------------------------------------------
 
 def _shard_operands(plan: ShardPlan, tables, qtabs, d_in, d_out, bias):
-    """Shard j's operands: its table of every step (and its int8 table of
-    each local step under ``quant_cf``) and its slices of the (n,)
-    vectors (None where absent)."""
+    """The operands of each of this process's shards (``plan.shards``):
+    its table of every step (and its int8 table of each local step under
+    ``quant_cf``) and its slices of the (n,) vectors (None where
+    absent)."""
     ops = []
-    for j in range(plan.n_shards):
+    for j in plan.shards:
         sl = plan.shard_slice(j)
 
         def vec(v):
             return None if v is None else v[..., sl].contiguous()
 
-        ops.append(dict(tabs=[t[j] for t in tables],
+        ops.append(dict(shard=j, tabs=[t[j] for t in tables],
                         qtabs=[None if q is None else (q[0][j], q[1][j])
                                for q in qtabs],
                         d_in=vec(d_in), d_out=vec(d_out), bias=vec(bias)))
@@ -697,54 +792,52 @@ def _is_fused(plan: ShardPlan, seg, i0: int) -> bool:
 
 
 def _step_fwd(plan: ShardPlan, ops, i: int, z, blocks):
-    """Step i over all shards, row block by row block, from the global
-    ``(rows, n)`` input (the ``(rows, in_width)`` one of a windowed first
-    run, which every shard reads whole): returns the global output."""
-    S = plan.n_shards
+    """Step i over this process's shards, row block by row block, from
+    their ``(rows, S' * n_local)`` input (the whole ``(rows, in_width)``
+    one of a windowed first run, which every shard reads): returns their
+    output, shard p of them at columns ``p * n_local``."""
     step = plan.steps[i]
     first, last = i == 0, i == len(plan.steps) - 1
     win = first and plan.win_in
     outs = []
     for zb in _overlap_split(z, blocks):
-        blk = [zb if win else zb[..., plan.shard_slice(j)]
-               for j in range(S)]
+        blk = [zb if win else zb[..., plan.shard_slice(p)]
+               for p in range(len(ops))]
         if step[0] == "cross":
             k = step[2]
-            zp = _exchange(blk, k)
+            zp = _exchange(blk, k, plan.mesh)
             ys = [_cross_mix(
-                blk[j], zp[j], ops[j]["tabs"][i], j & k == 0,
-                d_out=ops[j]["d_out"] if last and plan.fold_dout else None,
-                bias=ops[j]["bias"] if last and plan.fold_bias else None)
-                for j in range(S)]
+                blk[p], zp[p], o["tabs"][i], o["shard"] & k == 0,
+                d_out=o["d_out"] if last and plan.fold_dout else None,
+                bias=o["bias"] if last and plan.fold_bias else None)
+                for p, o in enumerate(ops)]
         else:
             ys = [_segment_fwd(
-                blk[j], ops[j]["tabs"][i], step[2], plan,
-                qcf=ops[j]["qtabs"][i],
-                d_in=ops[j]["d_in"] if first and plan.fold_din else None,
-                d_out=ops[j]["d_out"] if last and plan.fold_dout else None,
-                bias=ops[j]["bias"] if last and plan.fold_bias else None,
-                col_base=j * plan.n_local if win else None)
-                for j in range(S)]
+                blk[p], o["tabs"][i], step[2], plan,
+                qcf=o["qtabs"][i],
+                d_in=o["d_in"] if first and plan.fold_din else None,
+                d_out=o["d_out"] if last and plan.fold_dout else None,
+                bias=o["bias"] if last and plan.fold_bias else None,
+                col_base=o["shard"] * plan.n_local if win else None)
+                for p, o in enumerate(ops)]
         outs.append(torch.cat(ys, dim=-1))
     return _join(outs)
 
 
 def _step_bwd(plan: ShardPlan, ops, i: int, z_in, delta, blocks):
-    """The backward of step i over all shards, row block by row block, from
-    its global input (as ``_step_fwd`` read it) and the global cotangent:
-    ``(delta (rows, n), g_table (S, ...), g_din, g_dout, g_bias)``, each
-    grad summed over the blocks in order, the (n,) vectors None unless
-    folded here."""
-    S = plan.n_shards
+    """The backward of step i over this process's shards, row block by row
+    block, from its input (as ``_step_fwd`` read it) and the cotangent:
+    ``(delta, g_table (S', ...), g_din, g_dout, g_bias)``, each grad summed
+    over the blocks in order, the vectors None unless folded here."""
     step = plan.steps[i]
     first, last = i == 0, i == len(plan.steps) - 1
     win = first and plan.win_in
     parts = []
     for zb, db in zip(_overlap_split(z_in, blocks),
                       _overlap_split(delta, blocks)):
-        zs = [zb if win else zb[..., plan.shard_slice(j)]
-              for j in range(S)]
-        ds = [db[..., plan.shard_slice(j)] for j in range(S)]
+        zs = [zb if win else zb[..., plan.shard_slice(p)]
+              for p in range(len(ops))]
+        ds = [db[..., plan.shard_slice(p)] for p in range(len(ops))]
         if step[0] == "cross":
             parts.append((*_cross_bwd(
                 zs, ds, [o["tabs"][i] for o in ops], step[2], plan,
@@ -753,12 +846,13 @@ def _step_bwd(plan: ShardPlan, ops, i: int, z_in, delta, blocks):
                 has_bias=last and plan.fold_bias), None))
             continue
         outs = [_segment_bwd(
-            zs[j], ds[j], ops[j]["tabs"][i], step[2], plan,
-            qcf=ops[j]["qtabs"][i],
-            d_in=ops[j]["d_in"] if first and plan.fold_din else None,
-            d_out=ops[j]["d_out"] if last and plan.fold_dout else None,
+            zs[p], ds[p], o["tabs"][i], step[2], plan,
+            qcf=o["qtabs"][i],
+            d_in=o["d_in"] if first and plan.fold_din else None,
+            d_out=o["d_out"] if last and plan.fold_dout else None,
             has_bias=last and plan.fold_bias,
-            col_base=j * plan.n_local if win else None) for j in range(S)]
+            col_base=o["shard"] * plan.n_local if win else None)
+            for p, o in enumerate(ops)]
         parts.append(tuple([o[m] for o in outs] for m in (0, 1, 3, 4, 2)))
 
     def summed(m, join):
@@ -775,17 +869,19 @@ def _step_bwd(plan: ShardPlan, ops, i: int, z_in, delta, blocks):
 
 
 def _walk_fwd(plan: ShardPlan, ops, glob, x2: torch.Tensor):
-    """The forward over all shards from the global input x2: returns the
-    global (rows, n) output and the residuals ``(x_res, step_ins,
-    z_last)``, each a global tensor or None: x_res is x2 itself under
-    ``win_in``, else the pre-D_in input; a step input is None where not
-    kept.  A rectangular input without the windowed read enters
-    zero-padded to n."""
+    """The forward over this process's shards from the whole input x2:
+    returns their (rows, S' * n_local) output and the residuals ``(x_res,
+    step_ins, z_last)``, each over the same lanes or None: x_res is x2
+    itself under ``win_in``, else the pre-D_in input; a step input is None
+    where not kept.  A rectangular input without the windowed read enters
+    zero-padded to n; on a rank mesh a step reads only the rank's lanes."""
     fdt = x2.dtype
     blocks = plan.row_blocks or (x2.shape[-2],)
     z = x2
     if plan.in_width is not None and not plan.win_in:
         z = F.pad(x2, (0, plan.n - plan.in_width))
+    if plan.ranked and not plan.win_in:
+        z = z[..., plan.shard_slice(plan.mesh.rank)]
     x_res = z if plan.saves_x_res else None
     if plan.has_din and not plan.fold_din:
         z = z * glob["d_in"].unsqueeze(-2).to(fdt)
@@ -810,17 +906,18 @@ def _walk_fwd(plan: ShardPlan, ops, glob, x2: torch.Tensor):
 
 
 def _walk_bwd(plan: ShardPlan, ops, glob, res, gy2: torch.Tensor):
-    """The backward over all shards from the global output cotangent:
-    returns ``(g_x (rows, n), g_tables (per step, (S, ...)), g_din, g_dout,
-    g_bias)``, the vectors (n,) or None where absent."""
+    """The backward over this process's shards from the cotangent of their
+    output: returns ``(g_x, g_tables (per step, (S', ...)), g_din, g_dout,
+    g_bias)``, g_x and the vectors over the same lanes, or None where
+    absent."""
     x_res, step_ins, z_last = res
     blocks = plan.row_blocks or (gy2.shape[-2],)
     g_din = g_dout = g_bias = None
     delta = gy2
     if plan.has_bias and not plan.fold_bias:
-        g_bias = gy2.float().sum(-2)
+        g_bias = _slab_sums(plan, gy2.float())
     if plan.has_dout and not plan.fold_dout:
-        g_dout = (gy2.float() * z_last.float()).sum(-2)
+        g_dout = _slab_sums(plan, gy2.float() * z_last.float())
         delta = gy2 * glob["d_out"].unsqueeze(-2).to(gy2.dtype)
     g_tabs: List = [None] * len(plan.steps)
     for seg, i0 in reversed(_spans(plan)):
@@ -842,23 +939,63 @@ def _walk_bwd(plan: ShardPlan, ops, glob, res, gy2: torch.Tensor):
             g_dout = go if go is not None else g_dout
             g_bias = gb if gb is not None else g_bias
     if plan.has_din and not plan.fold_din:
-        g_din = (delta.float() * x_res.float()).sum(-2)
+        g_din = _slab_sums(plan, delta.float() * x_res.float())
         delta = delta * glob["d_in"].unsqueeze(-2).to(delta.dtype)
     return delta, g_tabs, g_din, g_dout, g_bias
+
+
+def _gather_lanes(mesh: FeatureMesh, t: torch.Tensor) -> torch.Tensor:
+    """A rank's (..., n_local) lanes of a rank mesh assembled into (...,
+    n) in shard order (one ``all_gather``)."""
+    return torch.cat(mesh.all_gather(t.contiguous()), dim=-1)
+
+
+def _gather_grads(mesh: FeatureMesh, g_x, g_tabs, vecs):
+    """The rank's grads assembled over the ranks in one ``all_gather`` of
+    their bytes: g_x's (rows, n_local) slab into (rows, n), each step's
+    (1, ...) table grad into (S, ...) (each element has one owning rank,
+    so this is the sum over the ranks, exactly), each (n_local,) vector
+    into (n,) (None stays None)."""
+    parts = [g_x, *g_tabs, *(v for v in vecs if v is not None)]
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in parts])
+    per_rank = []
+    for buf in mesh.all_gather(flat):
+        out, off = [], 0
+        for t in parts:
+            nb = t.numel() * t.element_size()
+            out.append(buf[off: off + nb].view(t.dtype).view(t.shape))
+            off += nb
+        per_rank.append(out)
+
+    def joined(i, dim):
+        return torch.cat([r[i] for r in per_rank], dim=dim)
+
+    nt = len(g_tabs)
+    tabs = [joined(1 + i, 0) for i in range(nt)]
+    out_vecs, i = [], 1 + nt
+    for v in vecs:
+        out_vecs.append(None if v is None else joined(i, -1))
+        i += v is not None
+    return joined(0, -1), tabs, out_vecs
 
 
 class _ShardedCore(torch.autograd.Function):
     """The sharded operator: ``x2`` ([E,] rows, in_width or n) -> ([E,]
     rows, out_width or n), differentiable in x2, the step tables and the
-    vector operands."""
+    vector operands.  On a rank mesh x2, the output and their grads are
+    replicated over the ranks; each rank walks its own shard and the
+    output, g_x and the parameter grads are assembled over the group."""
 
     @staticmethod
     def forward(ctx, plan: ShardPlan, d_in, d_out, bias, x2, *tables):
         qtabs = _quant_tables(plan, tables)
         ops = _shard_operands(plan, tables, qtabs, d_in, d_out, bias)
-        glob = dict(tabs=tables, qtabs=qtabs, d_in=d_in, d_out=d_out,
-                    bias=bias)
+        glob = dict(tabs=tables, qtabs=qtabs, d_in=_mine(plan, d_in),
+                    d_out=_mine(plan, d_out), bias=_mine(plan, bias))
         y2, (x_res, step_ins, z_last) = _walk_fwd(plan, ops, glob, x2)
+        if plan.ranked:
+            y2 = _gather_lanes(plan.mesh, y2)
         if plan.out_width is not None:
             y2 = y2[..., :plan.out_width].contiguous()
         ctx.plan = plan
@@ -875,22 +1012,26 @@ class _ShardedCore(torch.autograd.Function):
         tables = tuple(rest[len(plan.steps):])
         qtabs = _quant_tables(plan, tables)
         ops = _shard_operands(plan, tables, qtabs, d_in, d_out, bias)
-        glob = dict(tabs=tables, qtabs=qtabs, d_in=d_in, d_out=d_out,
-                    bias=bias)
+        glob = dict(tabs=tables, qtabs=qtabs, d_in=_mine(plan, d_in),
+                    d_out=_mine(plan, d_out), bias=_mine(plan, bias))
         gy2 = gy2.to(ctx.x_dtype)
         if plan.out_width is not None:
             gy2 = F.pad(gy2, (0, plan.n - plan.out_width))
-        gy2 = gy2.contiguous()
+        gy2 = _mine(plan, gy2).contiguous()
         g_x2, g_tabs, g_din, g_dout, g_bias = _walk_bwd(
             plan, ops, glob, (x_res, step_ins, z_last), gy2)
+        if plan.ranked:
+            g_x2, g_tabs, (g_din, g_dout, g_bias) = _gather_grads(
+                plan.mesh, g_x2, g_tabs, (g_din, g_dout, g_bias))
         if plan.in_width is not None:
             g_x2 = g_x2[..., :plan.in_width]
 
         def vec(g, like):
             return None if like is None else g.to(like.dtype)
 
-        return (None, vec(g_din, d_in), vec(g_dout, d_out), vec(g_bias, bias),
-                g_x2, *(g.to(t.dtype) for g, t in zip(g_tabs, tables)))
+        return (None, vec(g_din, d_in), vec(g_dout, d_out),
+                vec(g_bias, bias), g_x2,
+                *(g.to(t.dtype) for g, t in zip(g_tabs, tables)))
 
 
 def _device_of(dev: torch.device) -> torch.device:
@@ -905,8 +1046,10 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
                       out_width: Optional[int] = None) -> torch.Tensor:
     """The feature-sharded SPM forward, differentiable in x and the
     parameters: semantically ``core.spm.spm_apply`` on the same params and
-    config.  The mesh's ``"model"`` axis must have ``cfg.n_shards`` shards,
-    all on ``x``'s device (shards on distinct devices are a later slice).
+    config.  The mesh's ``"model"`` axis must have ``cfg.n_shards`` shards:
+    on a one-process mesh all on ``x``'s device, on a rank mesh one a rank
+    (x, the params and the output replicated over the ranks; each rank
+    walks its own shard).
 
     ``x`` is (..., in_width or n).  A rectangular input enters whole and
     the first local run reads each shard's window of it (K1's and K2's
@@ -929,7 +1072,11 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
             f"mesh axis {AXIS!r} has size {mesh.shape[AXIS]}, operator has "
             f"n_shards={cfg.n_shards}")
     home = _device_of(x.device)
-    if any(_device_of(d) != home for d in mesh.devices):
+    if mesh.ranked:
+        if _device_of(mesh.device) != home:
+            raise ValueError(f"rank {mesh.rank}'s shard is on "
+                             f"{mesh.device}, input on {x.device}")
+    elif any(_device_of(d) != home for d in mesh.devices):
         raise ValueError(
             f"mesh shards on {[str(d) for d in mesh.devices]}, input on "
             f"{x.device}: every shard must be on the input's device")
@@ -945,6 +1092,10 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
         raise ValueError(f"expected (..., {in_w}), got {tuple(x.shape)}")
     coeffs = spm_mod.stage_coeffs(params, cfg)
     experts = coeffs.dim() == 4
+    if experts and mesh.ranked:
+        raise NotImplementedError(
+            "an expert stack over a mesh of ranks is expert parallelism "
+            "(ROADMAP.md §1 item 6b), not ported yet")
     if experts and x.shape[0] != coeffs.shape[0]:
         raise ValueError(f"expected x ({coeffs.shape[0]}, ..., {in_w}), "
                          f"got {tuple(x.shape)}")
@@ -958,11 +1109,13 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
         n=n, n_local=n_local, n_shards=cfg.n_shards, steps=steps,
         has_din=cfg.use_diag, has_dout=cfg.use_diag, has_bias=cfg.use_bias,
         use_kernel=use_kernel, in_width=in_width, out_width=out_width,
-        row_blocks=(() if not overlap else (x2.shape[-2],) if rdma
+        row_blocks=(() if not overlap
+                    else (x2.shape[-2],) if not split_rows(rdma, mesh.ranked)
                     else _overlap_row_blocks(steps, n_local, x2.shape[-2],
                                              x2.element_size(), use_kernel)),
         rdma_crosses=_rdma_cross_indices(steps, n_local) if rdma else (),
-        quant_cf=use_kernel and bool(cfg.quant_coeffs), experts=experts)
+        quant_cf=use_kernel and bool(cfg.quant_coeffs), experts=experts,
+        mesh=mesh)
     if plan.use_kernel:
         coeffs = coeffs.float()        # the kernels read f32 tables
     tables = _step_tables(coeffs, steps, cfg.n_shards, n_local)

@@ -1759,3 +1759,43 @@ def test_k5_k6_expert_match_plain(cuda, arch, rows, rect, fold, q8):
     assert got[1].shape == (S, E, len(rs), nl // 2, 4)
     assert torch.equal(got[0], ref[0])
     _grads_within(got[1:], ref[1:], mags[1:], rows)
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 rank mode: two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _rank_gpu_job(pod, cases, rows):
+    import chip_smoke
+    return chip_smoke.rank_pair_job(pod, cases, rows, False)
+
+
+def test_k5_k6_rank_mode_on_two_ranks_sharing_the_card(cuda):
+    """K5's and K6's rank mode on 2 ranks that share the card (gloo, CUDA
+    IPC slots between the ranks' processes): each rank's y and g_x bit
+    for bit its plain version (the per-block exchange over the group) and
+    the one-card K5/K6's columns, the table and vector grads within
+    gamma_rows, a second call bit for bit; and the transport's schedule
+    on the card: after every call each channel's data and credit words
+    stand at its last sequence number (every block consumed, every credit
+    drained).  Cases: q/k/v/o's local run (n_local 512, 9 stages) with
+    k = 1 over 4 row blocks and over 1, an int8 table, a windowed first
+    read, d_out and bias folded."""
+    import os
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from repro_torch.launch.mesh import run_ranks
+    strides = tuple(1 << i for i in range(9))
+    cases = [("k=1", 512, strides, 512, 1, None, False, False),
+             ("int8", 512, strides, 512, 1, None, False, True),
+             ("window", 512, strides, 512, 1, 768, False, False),
+             ("fold", 512, strides, 512, 1, None, True, False)]
+    for rows in (1000, 8):
+        ranks = run_ranks(2, _rank_gpu_job, (cases, rows), device="cuda")
+        for r, res in enumerate(ranks):
+            for c in res:
+                assert c["ok"], (r, rows, c)
+                assert c["drained"] and c["k5_one_card"] and \
+                    c["gx_one_card"], (r, rows, c["case"])
