@@ -319,6 +319,13 @@ Phases, each of which fails the run when it fails:
    ranks' peaks under ``RANKS_PEAK_GIB`` together.  Step ms, the
    exchange's wall ms and bytes.  The phase has 110 s
    (``RANKS_BUDGET_S``); the spawn is killed past ``RANKS_LIMIT_S``.
+27. **Abstract specs** (``run_specs_phase``): ``launch/specs``'s
+   ``abstract_params`` of qwen3-1.7b (on ``meta``) leaf for leaf (names,
+   shapes, dtypes) against the parameters phase 6 trained on the card,
+   ``model_param_count`` against the sum of their ``numel``, and
+   ``abstract_cache`` at phase 3's batch and length against the cache
+   its ``LM.prefill`` (the serve engine's) made on the card.  The phase
+   has 10 s (``SPECS_BUDGET_S``).
 
 Depths: phases 4 (its teacher-forced part), 7, 10, 11 (its
 teacher-forced part), 14 and 18 hold the card to the CPU on the first
@@ -802,13 +809,21 @@ def run_serve_phase(torch, K, ops, T, ServeEngine, cfg, batch=8,
 
     t1 = min(wall(1) for _ in range(2))
     tn = min(counted_s, wall(new))      # the counted run is the first rep
+    from repro_torch.models import causal_lm as LM
+    with torch.inference_mode():       # the cache the engine's prefill makes
+        _, cache = LM.prefill(params, cfg, max_len=eng.max_len,
+                              tokens=prompts[:, :16].to(DEVICE),
+                              cache_dtype=eng.cache_dtype)
+    cache_sig = tensor_signature(cache)
+    del cache
     res = dict(batch=batch, prompt_len=prompt_len, new_tokens=new,
                init_s=init_s, prefill_ms=t1 * 1e3,
                decode_tok_per_s=batch * (new - 1) / (tn - t1),
                generate_s=tn, peak_mem_bytes=peak,
                launches={"K1": got[0], "K3": got[1]},
                planned={"K1": want[0], "K3": want[1]},
-               planned_per_forward={"prefill": pre, "decode": dec})
+               planned_per_forward={"prefill": pre, "decode": dec},
+               max_len=eng.max_len, cache_signature=cache_sig)
     ok_shape = tuple(tokens.shape) == (batch, new)
     in_range = bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
     ok = got == want and ok_shape and in_range and not bool(flags.any())
@@ -1664,8 +1679,12 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
     losses, skipped, secs = [], [], []
     snap, unchanged = {}, None
 
+    signature = {}
+
     def on_step(s, state, metrics, dt):
         nonlocal unchanged
+        if not signature:
+            signature.update(param_signature(state["params"]))
         losses.append(metrics["loss"])
         skipped.append(metrics["skipped"])
         secs.append(dt)
@@ -1709,7 +1728,8 @@ def run_train_phase(torch, K, ops, launch_train, cfg, batch=8, seq=512,
                step_ms_median=med * 1e3, tokens_per_s=batch * seq / med,
                wall_s=wall, peak_mem_bytes=peak, launches=got,
                planned=want, planned_per_step=per_step,
-               poisoned_state_unchanged=unchanged)
+               poisoned_state_unchanged=unchanged,
+               param_signature=signature)
     finite = all(math.isfinite(v) for v in losses)
     only = skipped == [float(s == poisoned) for s in range(steps)]
     ok = finite and only and bool(unchanged) and got == want
@@ -4562,8 +4582,9 @@ ARCH_LAYERS = {"gemma3-12b": 12, "qwen2-vl-7b": 7, "musicgen-medium": 12,
                "minitron-4b": 8, "qwen3-32b": 16}   # a quarter of each
 # depth (gemma3-12b's two 5:1 local:global groups), full width
 GEMMA_GROUP = 6         # one 5:1 local:global pattern group
-GEMMA_PARITY_NEW = 6    # its teacher-forced tokens (16 before: the CPU's
-#                         decode took the seconds phase 26 needed)
+GEMMA_PARITY_NEW = 4    # its teacher-forced tokens (16, then 6 before:
+#                         the CPU's decode took the seconds phases 26 and
+#                         27 needed)
 QWEN2VL_PARITY_LAYERS = 1   # qwen2-vl-7b's card-vs-CPU step (2 before)
 GEMMA_PROMPT = 1100     # the card-vs-CPU and continuous runs' longest
 CONT_SLOTS = 4
@@ -7400,6 +7421,58 @@ def run_ranks_phase(torch, K, cfg, smi):
     return res, failures
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the abstract specs against what the card holds
+# ---------------------------------------------------------------------------
+
+SPECS_BUDGET_S = 10     # phase 27's seconds, at most
+
+
+def tensor_signature(tree) -> list:
+    """``[path, shape, dtype]`` of every tensor of ``tree`` in the
+    reference's flatten order (``train.state.tree_leaves_with_path``)."""
+    from repro_torch.train.state import tree_leaves_with_path
+    return [[".".join(str(p) for p in path), list(t.shape), str(t.dtype)]
+            for path, t in tree_leaves_with_path(tree)]
+
+
+def param_signature(params) -> dict:
+    """``{name: (shape, dtype, numel)}`` of a parameter tree."""
+    return {k: (list(p.shape), str(p.dtype), p.numel())
+            for k, p in params.named_parameters()}
+
+
+def run_specs_phase(cfg, train, serve):
+    """``launch/specs``'s stand-ins of ``cfg`` on ``meta`` against what the
+    card held: ``abstract_params`` leaf for leaf (names, shapes, dtypes)
+    against phase 6's trained params, ``model_param_count`` against the
+    sum of their ``numel``, ``abstract_cache`` at phase 3's batch and
+    length against the cache the engine's prefill made there."""
+    import torch
+    from repro_torch.launch.specs import abstract_cache, abstract_params
+    from repro_torch.models.transformer import model_param_count
+    params = abstract_params(cfg)
+    on_meta = all(p.device.type == "meta" for p in params.parameters())
+    held = train["param_signature"]
+    spec = {k: v[:2] for k, v in param_signature(params).items()}
+    params_ok = bool(held) and spec == {k: v[:2] for k, v in held.items()}
+    count = model_param_count(params)
+    count_ok = count == sum(v[2] for v in held.values())
+    cache = abstract_cache(cfg, serve["batch"], serve["max_len"],
+                           dtype=torch.bfloat16)
+    cache_ok = tensor_signature(cache) == serve["cache_signature"]
+    ok = on_meta and params_ok and count_ok and cache_ok
+    res = dict(leaves=len(spec), param_count=count, params_ok=params_ok,
+               count_ok=count_ok, cache_leaves=len(serve["cache_signature"]),
+               cache_ok=cache_ok, on_meta=on_meta)
+    log(f"specs: abstract_params {len(spec)} leaves on meta={on_meta} "
+        f"against the trained params {params_ok}, model_param_count "
+        f"{count} {count_ok}, abstract_cache ({serve['batch']} x "
+        f"{serve['max_len']}, {res['cache_leaves']} leaves) against the "
+        f"engine's {cache_ok} {'ok' if ok else 'FAIL'}")
+    return res, ok
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -7569,6 +7642,12 @@ def main() -> int:
     if phase_s["26"] > RANKS_BUDGET_S:
         failures.append(f"phase 26 took {phase_s['26']:.1f} s of its "
                         f"{RANKS_BUDGET_S} s")
+    specs, specs_ok = phase("27", run_specs_phase, cfg, train, serve)
+    if not specs_ok:
+        failures.append("abstract specs")
+    if phase_s["27"] > SPECS_BUDGET_S:
+        failures.append(f"phase 27 took {phase_s['27']:.1f} s of its "
+                        f"{SPECS_BUDGET_S} s")
 
     def head(kernel, case, dtype, rows, mode=None):
         return next(r for r in kernel_rows if (r["kernel"], r["case"],
@@ -7773,7 +7852,7 @@ def main() -> int:
                   overlap_train_parity=oparity,
                   paper=paper, continuous=cont, chaos=chaos, archs=archs,
                   moe_ssm=slice_out, moe_modes=modes, pod=pod,
-                  ranks=ranks_out,
+                  ranks=ranks_out, specs=specs,
                   seconds=time.perf_counter() - t_start,
                   phase_seconds=phase_s,
                   headline_shapes={"K1": "o projection, bf16, 4096 rows",

@@ -1,5 +1,5 @@
-"""Architecture configs: the reference's ten archs (full and smoke) and
-the registry."""
+"""Architecture configs: the reference's ten archs (full and smoke), the
+registry and the input shapes of its cells."""
 
 from repro_torch.configs.base import (dense_layers,  # noqa: F401
                                       hybrid_layers, local_global_layers,
@@ -9,5 +9,8 @@ from repro_torch.configs.base import (dense_layers,  # noqa: F401
                                       with_overlap_executor,
                                       with_fused_linears, with_overrides,
                                       with_quantized_io)
-from repro_torch.configs.registry import (ARCH_IDS, get_config,  # noqa: F401
-                                          get_smoke)
+from repro_torch.configs.registry import (ARCH_IDS, all_cells,  # noqa: F401
+                                          arch_shapes, get_config,
+                                          get_smoke, is_subquadratic)
+from repro_torch.configs.shapes import (LM_SHAPES, SHAPES,  # noqa: F401
+                                        ShapeSpec)

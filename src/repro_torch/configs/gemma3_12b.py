@@ -6,6 +6,8 @@
 from repro_torch.configs.base import local_global_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = True   # 5:1 local:global: a 500k decode is window-dominated
+
 CONFIG = ModelConfig(
     name="gemma3-12b", d_model=3840, n_layers=48, n_heads=16, n_kv_heads=8,
     head_dim=256, d_ff=15360, vocab_size=262144,

@@ -5,6 +5,8 @@ two configs as ``repro/configs/llama4_scout_17b_a16e.py``."""
 from repro_torch.configs.base import moe_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = False
+
 CONFIG = ModelConfig(
     name="llama4-scout-17b-a16e", d_model=5120, n_layers=48, n_heads=40,
     n_kv_heads=8, head_dim=128, d_ff=0, vocab_size=202048,

@@ -5,6 +5,8 @@ to the in and out projections; the SSD scan is left as it is."""
 from repro_torch.configs.base import mamba_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = True
+
 CONFIG = ModelConfig(
     name="mamba2-370m", d_model=1024, n_layers=48, n_heads=16,
     n_kv_heads=16, head_dim=64, d_ff=0, vocab_size=50280,

@@ -5,6 +5,8 @@ a pruned nemotron — the same two configs as
 from repro_torch.configs.base import dense_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = False
+
 CONFIG = ModelConfig(
     name="minitron-4b", d_model=3072, n_layers=32, n_heads=24, n_kv_heads=8,
     head_dim=128, d_ff=9216, vocab_size=256000,

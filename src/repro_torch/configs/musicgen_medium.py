@@ -7,6 +7,8 @@ model's own 2048-token codebook after a token prompt."""
 from repro_torch.configs.base import dense_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = False
+
 CONFIG = ModelConfig(
     name="musicgen-medium", d_model=1536, n_layers=48, n_heads=24,
     n_kv_heads=24, head_dim=64, d_ff=6144, vocab_size=2048,

@@ -7,6 +7,8 @@ text tokens after a token prompt."""
 from repro_torch.configs.base import dense_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = False
+
 CONFIG = ModelConfig(
     name="qwen2-vl-7b", d_model=3584, n_layers=28, n_heads=28, n_kv_heads=4,
     head_dim=128, d_ff=18944, vocab_size=152064,

@@ -4,6 +4,8 @@ qk_norm — the same two configs as ``repro/configs/qwen3_1_7b.py``."""
 from repro_torch.configs.base import dense_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = False
+
 CONFIG = ModelConfig(
     name="qwen3-1.7b", d_model=2048, n_layers=28, n_heads=16, n_kv_heads=8,
     head_dim=128, d_ff=6144, vocab_size=151936,

@@ -6,6 +6,8 @@ vocabulary table, so it trains on one 80 GB card at full depth."""
 from repro_torch.configs.base import dense_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = False   # pure full attention: long_500k is skipped
+
 CONFIG = ModelConfig(
     name="qwen3-32b", d_model=5120, n_layers=64, n_heads=64, n_kv_heads=8,
     head_dim=128, d_ff=25600, vocab_size=151936,

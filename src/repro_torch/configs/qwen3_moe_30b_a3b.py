@@ -5,6 +5,8 @@ vocab=151936, 128 experts top-8 — the same two configs as
 from repro_torch.configs.base import moe_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = False
+
 CONFIG = ModelConfig(
     name="qwen3-moe-30b-a3b", d_model=2048, n_layers=48, n_heads=32,
     n_kv_heads=4, head_dim=128, d_ff=0, vocab_size=151936,

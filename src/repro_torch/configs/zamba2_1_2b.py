@@ -6,6 +6,8 @@ ssm_state=64, a Mamba2 backbone with one shared attention + FFN block
 from repro_torch.configs.base import hybrid_layers
 from repro_torch.models.transformer import ModelConfig
 
+SUBQUADRATIC = True
+
 CONFIG = ModelConfig(
     name="zamba2-1.2b", d_model=2048, n_layers=38, n_heads=32,
     n_kv_heads=32, head_dim=64, d_ff=0, vocab_size=32000,

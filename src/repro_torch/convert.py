@@ -30,7 +30,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.params import Params
 
-__all__ = ["tree_from_jax", "params_from_jax", "state_from_jax"]
+__all__ = ["tree_from_jax", "params_from_jax", "state_from_jax",
+           "unstack_layers"]
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -65,17 +66,23 @@ def tree_from_jax(tree: Any, device=None) -> Params:
     return Params(_tree(tree, resolve_device(device)))
 
 
+def unstack_layers(layers: Any, n_layers: int, take=_index) -> list:
+    """One tree a layer from the reference's ``layers`` (or a stacked
+    cache): a stacked ``{"l0": leaf (n_groups, ...), ...}`` gives layer i
+    as ``take(layers[f"l{i % g}"], i // g)``; a list is returned as it
+    is."""
+    if isinstance(layers, dict):          # stacked: (n_groups, ...) leaves
+        g = len(layers)
+        return [take(layers[f"l{i % g}"], i // g) for i in range(n_layers)]
+    return list(layers)
+
+
 def params_from_jax(tree: dict, cfg, device=None) -> Params:
     """The port's parameters from the reference's numpy pytree for the
     model config ``cfg`` (``repro_torch.models.transformer.ModelConfig``),
     on ``device`` (``cuda`` unless the caller asks for the CPU)."""
-    layers = tree["layers"]
-    if isinstance(layers, dict):          # stacked: (n_groups, ...) leaves
-        g = len(layers)
-        layers = [_index(layers[f"l{i % g}"], i // g)
-                  for i in range(cfg.n_layers)]
     out = {k: v for k, v in tree.items() if k != "layers"}
-    out["layers"] = list(layers)
+    out["layers"] = unstack_layers(tree["layers"], cfg.n_layers)
     return tree_from_jax(out, device)
 
 

@@ -27,6 +27,7 @@ from repro_torch.core import spm as spm_mod
 from repro_torch.core.eligibility import block_fusion_eligible, kernel_eligible
 from repro_torch.core.pairings import default_n_stages
 from repro_torch.core.spm import SPMConfig
+from repro_torch.parallel import ctx as par_ctx
 from repro_torch.params import Params
 
 __all__ = ["LinearConfig", "init_linear", "linear_apply",
@@ -134,6 +135,13 @@ def linear_apply(params, x: torch.Tensor, cfg: LinearConfig) -> torch.Tensor:
         return y
     if x.shape[-1] != cfg.d_in:
         raise ValueError(f"expected (..., {cfg.d_in}), got {tuple(x.shape)}")
+    table = params["mix"] if "mix" in params else params["theta"]
+    if par_ctx.placements_of(table) is not None:
+        # DTensors (a dry-run's device mesh): whole features and tables,
+        # an expert axis kept split
+        x = par_ctx.whole_features(x)
+        params = par_ctx.whole_params(
+            params, int(table.dim() == (4 if "mix" in params else 3)))
     return spm_mod.spm_apply(params, x, cfg.spm_config(),
                              in_width=cfg.d_in, out_width=cfg.d_out)
 
@@ -160,6 +168,8 @@ def spm_block_operands(params, cfg: LinearConfig) -> Optional[dict]:
         return None
     scfg = cfg.spm_config()
     strides = scfg.pairing.strides()
+    if par_ctx.placements_of(params["d_in"]) is not None:
+        params = par_ctx.whole_params(params)   # DTensors: whole tables
     return {
         "coeffs": spm_mod.stage_coeffs(params, scfg),
         "d_in": params["d_in"],

@@ -53,6 +53,8 @@ from repro_torch.core.eligibility import (TINY_ROW_THRESHOLD,
                                           quant_acts_eligible, tiny_row_call)
 from repro_torch.kernels import quant as Q
 from repro_torch.kernels import spm_stack as K
+from repro_torch.parallel.ctx import (grad_placed_as, placed_as,
+                                      placements_of)
 
 __all__ = ["MAX_TILE", "TINY_ROW_MAX_TILE", "plan_runs", "tile_cap_for_rows",
            "plan_runs_for_rows", "spm_stack_fused", "spm_stack_fused_q8",
@@ -169,6 +171,7 @@ class _StackFn(torch.autograd.Function):
         ctx.runs, ctx.in_width, ctx.out_width = runs, in_width, out_width
         ctx.quant, ctx.rows, ctx.x_dtype = quant, rows, x2.dtype
         ctx.has = (d_in is not None, d_out is not None, bias is not None)
+        ctx.y_placements = placements_of(y)
         ctx.save_for_backward(coeffs, d_in, d_out, *saved)
         return y
 
@@ -178,7 +181,8 @@ class _StackFn(torch.autograd.Function):
         has_din, has_dout, has_bias = ctx.has
         scale_rows, q_acts, q_coeffs = ctx.quant or (None, False, False)
         kcf, scf = Q.quantize_coeffs(coeffs) if q_coeffs else (coeffs, None)
-        gy = gy.to(ctx.x_dtype).contiguous()
+        # gy itself unless a DTensor (a dry-run's mesh): then laid out as y
+        gy = placed_as(gy, ctx.y_placements).to(ctx.x_dtype).contiguous()
         if q_acts:
             gy = _pad_rows(gy, scale_rows)
             saved = list(zip(saved[0::2], saved[1::2]))
@@ -346,7 +350,8 @@ def spm_stack_fused(x: torch.Tensor, coeffs: torch.Tensor,
     f32 = (lambda t: None if t is None else t.float().contiguous())
     z = _StackFn.apply(z, f32(coeffs), f32(d_in), f32(d_out), f32(bias),
                        runs, in_width, out_width, quant)
-    return z.reshape(*lead, z.shape[-1])
+    # the grad laid out as the output before its reshape's grad (DTensors)
+    return grad_placed_as(z.reshape(*lead, z.shape[-1]))
 
 
 def spm_stack_fused_q8(qx: torch.Tensor, x_scale: torch.Tensor,
@@ -436,7 +441,7 @@ def spm_block_fused(x: torch.Tensor, *, coeffs1: torch.Tensor,
     y = _BlockFn.apply(x2, f32(gamma), f32(coeffs1), f32(d_in1),
                        f32(d_out1), f32(bias1), f32(coeffs2), f32(d_in2),
                        f32(d_out2), f32(bias2), statics, eps)
-    return y.reshape(*lead, out_width)
+    return grad_placed_as(y.reshape(*lead, out_width))
 
 
 class _BlockFn(torch.autograd.Function):
@@ -450,6 +455,7 @@ class _BlockFn(torch.autograd.Function):
             x2, cf1, din1, dout1, bias1, gamma, cf2, din2, dout2, bias2,
             eps=eps, **statics)
         ctx.statics = statics
+        ctx.y_placements = placements_of(y)
         ctx.save_for_backward(x2, rstd, gamma, cf1, din1, dout1, bias1, cf2,
                               din2, dout2, bias2)
         return y
@@ -458,6 +464,7 @@ class _BlockFn(torch.autograd.Function):
     def backward(ctx, gy):
         (x2, rstd, gamma, cf1, din1, dout1, bias1, cf2, din2, dout2,
          bias2) = ctx.saved_tensors
+        gy = placed_as(gy, ctx.y_placements)    # gy itself on a tensor
         out = list(K.spm_block_bwd_kernel_call(
             x2, gy.to(x2.dtype).contiguous(), cf1, din1, dout1, bias1,
             gamma, rstd, cf2, din2, dout2, bias2, **ctx.statics))

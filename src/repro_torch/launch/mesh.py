@@ -51,12 +51,17 @@ card through CUDA IPC slots between the partner ranks
 across cards alike.
 
 ``make_host_mesh`` is a one-member pod on the caller's device.
-``make_production_mesh`` (256/512 chips) belongs with the dry-run.
+``make_production_mesh`` is the reference's 256/512-chip mesh as a
+``DeviceMesh`` over the default group; ``fake_process_group`` gives one
+host that group on torch's fake backend, for the dry-run
+(``launch/dryrun.py``).  Importing this module touches no process group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import math
 import os
 import pickle
 import queue
@@ -71,8 +76,8 @@ import torch.distributed as dist
 from repro_torch.parallel.ctx import FeatureMesh, PodMesh
 
 __all__ = ["make_pod_mesh", "make_host_mesh", "make_production_mesh",
-           "make_feature_rank_mesh", "pod_device", "pod_backend",
-           "run_ranks"]
+           "fake_process_group", "make_feature_rank_mesh", "pod_device",
+           "pod_backend", "run_ranks"]
 TIMEOUT_S = 600.0          # a collective's limit before it raises
 
 def pod_device(local_rank: int, device: Any = None) -> torch.device:
@@ -114,11 +119,45 @@ def make_host_mesh(device: Any = None) -> PodMesh:
     return PodMesh(rank=0, size=1, device=pod_device(0, device))
 
 
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 256/512-chip mesh: not ported yet."""
-    raise NotImplementedError(
-        "make_production_mesh comes with the dry-run (ROADMAP.md §1, item "
-        "7)")
+    """The reference's production mesh as a ``DeviceMesh`` over the
+    default process group: (16, 16) ``("data", "model")``, 256 ranks, or
+    with ``multi_pod`` (2, 16, 16) ``("pod", "data", "model")``, 512.  The
+    group must have exactly that many ranks: on one host, the fake backend
+    (``fake_process_group``) gives them to the dry-run."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != n:
+        raise RuntimeError(
+            f"the production mesh needs a process group of {n} ranks, "
+            f"found {'none' if have is None else have}: on one host run "
+            f"under launch.mesh.fake_process_group({n}) (torch's fake "
+            f"backend, as launch/dryrun.py does) or start {n} ranks")
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int, rank: int = 0):
+    """A default process group of ``world_size`` ranks on torch's fake
+    backend, this process rank ``rank``, within the block: its collectives
+    return at once and move nothing, which is all a dry-run over fake
+    tensors needs.  The group is destroyed on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up already")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _log(msg: str) -> None:

@@ -30,6 +30,7 @@ from repro_torch.core.linear import (LinearConfig, init_linear, linear_apply,
                                      spm_block_eligible, spm_block_operands)
 from repro_torch.layers.norms import qk_norm, rms_norm
 from repro_torch.layers.rope import apply_rope
+from repro_torch.parallel.ctx import constrain, whole_features
 from repro_torch.params import Params
 
 __all__ = ["NEG_INF", "AttentionConfig", "init_attention", "init_kv_cache",
@@ -263,6 +264,8 @@ def attention_apply(params, x: torch.Tensor, cfg: AttentionConfig, *,
                                            ("k", cfg.kv_proj),
                                            ("v", cfg.kv_proj)))
 
+        x = whole_features(x)      # x itself unless a split DTensor
+
         def _norm_proj(b, lcfg):
             return kernel_ops.spm_block_fused(
                 x, coeffs1=b["coeffs"], d_in1=b["d_in"], d_out1=b["d_out"],
@@ -278,6 +281,10 @@ def attention_apply(params, x: torch.Tensor, cfg: AttentionConfig, *,
         q = linear_apply(params["q"], x, cfg.q_proj).reshape(B, T, H, dh)
         k = linear_apply(params["k"], x, cfg.kv_proj).reshape(B, T, Hkv, dh)
         v = linear_apply(params["v"], x, cfg.kv_proj).reshape(B, T, Hkv, dh)
+    # placement hints under a device mesh; the identity elsewhere
+    q = constrain(q, "heads")
+    k = constrain(k, "kv_heads")
+    v = constrain(v, "kv_heads")
 
     if cfg.use_qk_norm:
         q = qk_norm(params["q_norm"], q)
@@ -307,7 +314,9 @@ def attention_apply(params, x: torch.Tensor, cfg: AttentionConfig, *,
         out = _decode_attention(q, cache["k"], cache["v"], ci, H, Hkv, dh,
                                 cfg.window)
 
-    out = out.to(x.dtype).reshape(B, T, H * dh)
+    # heads whole before they merge into o's features (a placement under
+    # a device mesh; the identity elsewhere)
+    out = whole_features(out.to(x.dtype), 2, 3).reshape(B, T, H * dh)
     return linear_apply(params["o"], out, cfg.o_proj), cache
 
 

@@ -10,6 +10,11 @@ Indexing the table (``table[tokens]``) would take ``index_put_`` with
 accumulation, which on the CPU adds in parallel with atomics once the grad
 is large (a batch of 8 x 512 tokens), so two identical training runs
 would not agree bit for bit.
+
+Under a device mesh (the dry-run) a table whose vocabulary is split gives
+partial rows, reduced at once and placed as their tokens
+(``parallel/ctx.reduced``, ``placed_as``; on plain tensors the
+identity).
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.ctx import placed_as, placements_of, reduced
 
 __all__ = ["EmbeddingConfig", "init_embedding", "embed", "unembed"]
 
@@ -44,10 +51,25 @@ def init_embedding(cfg: EmbeddingConfig, generator: torch.Generator,
 
 
 def embed(params, tokens: torch.Tensor, cfg: EmbeddingConfig,
-          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+          dtype: torch.dtype = torch.float32,
+          onehot: bool = False) -> torch.Tensor:
     """Token lookup, cast to ``dtype`` (deterministic backward: module
-    docstring)."""
-    return F.embedding(tokens, params["table"]).to(dtype)
+    docstring).  ``onehot`` computes it as ``one_hot(tokens) @ table`` in
+    ``dtype``, the reference's matmul-lowered lookup: with the table's
+    vocabulary split over a mesh axis it is a sharded contraction and one
+    all-reduce of (tokens, d) partial sums, not a gathered table.  On a
+    finite table it equals the gather bit for bit."""
+    if onehot:
+        oh = F.one_hot(tokens.long(), cfg.vocab_size).to(dtype)
+        return _as_tokens(oh @ params["table"].to(dtype), tokens)
+    return _as_tokens(F.embedding(tokens, params["table"]), tokens).to(dtype)
+
+
+def _as_tokens(rows: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Looked-up rows with their partial sums reduced and placed as their
+    tokens are (a split vocabulary can make ``DTensor`` gather the batch;
+    on plain tensors the identity)."""
+    return placed_as(reduced(rows), placements_of(tokens))
 
 
 def unembed(params, h: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:

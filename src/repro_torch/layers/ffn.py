@@ -20,6 +20,7 @@ from repro_torch.core.eligibility import (block_fusion_eligible,
                                           resolve_block_fuse)
 from repro_torch.core.linear import (LinearConfig, init_linear, linear_apply,
                                      spm_block_operands)
+from repro_torch.parallel.ctx import whole_features
 from repro_torch.layers.norms import rms_norm
 from repro_torch.params import Params
 
@@ -123,6 +124,7 @@ def ffn_block_apply(params, norm_params, x: torch.Tensor,
     if resolve_block_fuse(cfg.spm_block_fuse, bundles is not None):
         from repro_torch.kernels import ops as kernel_ops
         up, down = bundles
+        x = whole_features(x)      # x itself unless a split DTensor
         return kernel_ops.spm_block_fused(
             x, coeffs1=up["coeffs"], d_in1=up["d_in"], d_out1=up["d_out"],
             bias1=up["bias"], strides1=up["strides"],

@@ -41,7 +41,8 @@ from repro_torch.parallel import ctx as par_ctx
 from repro_torch.params import Params
 
 __all__ = ["LayerSpec", "ModelConfig", "init_model", "init_cache",
-           "forward", "dtype_of", "stack_key"]
+           "forward", "dtype_of", "stack_groups", "stack_key",
+           "model_param_count"]
 
 
 def dtype_of(d: Any) -> torch.dtype:
@@ -113,6 +114,7 @@ class ModelConfig:
     input_kind: str = "tokens"       # "tokens" | "embeddings"
     tie_embeddings: bool = True
     embed_scale: float = 1.0
+    embed_onehot: bool = False       # the lookup as a one-hot product
     logits_dtype: Any = "float32"
     dtype: Any = "bfloat16"
     param_dtype: Any = "float32"
@@ -182,6 +184,19 @@ class ModelConfig:
             param_dtype=dtype_of(self.param_dtype))
 
 
+def stack_groups(cfg: ModelConfig) -> int:
+    """The layers in one group of the reference's stacked layout: the
+    ``scan_group`` of a scanned pattern, 1 for a uniform stack (the shared
+    block's flag aside), 0 when the layers are not stacked."""
+    g = cfg.scan_group
+    if g > 0 and cfg.n_layers % g == 0 and all(
+            cfg.layers[i] == cfg.layers[i % g] for i in range(cfg.n_layers)):
+        return g
+    base = dataclasses.replace(cfg.layers[0], shared_block=False)
+    return 1 if all(dataclasses.replace(s, shared_block=False) == base
+                    for s in cfg.layers) else 0
+
+
 def stack_key(cfg: ModelConfig):
     """``key(name)``: the reference's array that the port's parameter
     ``name`` is part of.  The reference stacks the layers of a scanned
@@ -189,13 +204,7 @@ def stack_key(cfg: ModelConfig):
     uniform stack (one group) into one array a leaf; unstacked layers, and
     everything outside ``layers``, are arrays of their own.  Whatever acts
     on whole arrays (a per-tensor int8 scale) acts on the group."""
-    g = cfg.scan_group
-    if not (g > 0 and cfg.n_layers % g == 0 and all(
-            cfg.layers[i] == cfg.layers[i % g]
-            for i in range(cfg.n_layers))):
-        base = dataclasses.replace(cfg.layers[0], shared_block=False)
-        g = 1 if all(dataclasses.replace(s, shared_block=False) == base
-                     for s in cfg.layers) else 0
+    g = stack_groups(cfg)
 
     def key(name: str) -> str:
         if not (g and name.startswith("layers.")):
@@ -235,7 +244,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     stacked (E, ...)), ``final_norm`` and, with a shared block,
     ``shared`` (``norm1``/``attn``/``norm2``/``ffn``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # the meta device has no generator of its own; its draws cost nothing
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
     pdt = dtype_of(cfg.param_dtype)
     layers = [_init_layer(spec, cfg, gen, dev) for spec in cfg.layers]
     p = {"embed": init_embedding(cfg.embed_cfg(), gen, dev),
@@ -379,7 +390,8 @@ def forward(params, cfg: ModelConfig, *,
     dt = dtype_of(cfg.dtype)
     if tokens is not None:
         B, T = tokens.shape
-        h = embed(params["embed"], tokens, cfg.embed_cfg(), dt)
+        h = embed(params["embed"], tokens, cfg.embed_cfg(), dt,
+                  onehot=cfg.embed_onehot)
         dev = tokens.device
     else:
         B, T = embeds.shape[:2]
@@ -387,6 +399,9 @@ def forward(params, cfg: ModelConfig, *,
         dev = embeds.device
     if cfg.embed_scale != 1.0:
         h = h * torch.tensor(cfg.embed_scale, dtype=dt, device=dev)
+    # placement hints under a device mesh; the identity elsewhere
+    h = par_ctx.constrain(h, "btd")
+    h = par_ctx.constrain(h, "batch_full")
     if positions is None:
         positions = _default_positions(cfg, B, T, cache_index, dev)
     rope = _rope_tables(cfg, positions)
@@ -414,3 +429,8 @@ def forward(params, cfg: ModelConfig, *,
     logits = unembed(params["embed"], h.to(dtype_of(cfg.logits_dtype)),
                      cfg.embed_cfg())
     return logits, cache, aux
+
+
+def model_param_count(params) -> int:
+    """The number of scalars in a parameter tree."""
+    return sum(p.numel() for p in params.parameters())

@@ -21,9 +21,17 @@ name ``cuda:0``):
 
 ``activation_sharding(mesh, shard_feature=True)`` makes the mesh active for
 the block; ``feature_mesh(n_shards)`` is what ``core/spm.spm_apply`` asks
-to decide whether a two_level operator runs sharded.  The reference's other
-kinds (heads, batch) are placement hints for XLA with no counterpart in a
-one-process port.
+to decide whether a two_level operator runs sharded.
+
+Under a ``DeviceMesh`` (the dry-run's production mesh,
+``launch/mesh.make_production_mesh``) the context also carries the
+reference's placement hints: ``constrain(x, kind)`` redistributes a
+``DTensor`` activation to the kind's placements (module docstring of the
+reference's ``ctx.py``: ``heads``/``kv_heads`` (B, T, H, dh) heads over
+``"model"`` and batch over the data axes, ``btd`` batch over the data
+axes, ``batch_full`` batch over the data axes and ``"model"``,
+``feature`` the last axis over ``"model"``).  With no context, under a
+``FeatureMesh`` or on a plain tensor it returns ``x`` itself.
 
 The reference decides once, when it traces.  The port decides at every
 call, and a checkpointed layer's forward runs again in the backward, on
@@ -47,8 +55,10 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = ["FeatureMesh", "make_feature_mesh", "activation_sharding",
-           "feature_mesh", "current_context", "use_context", "PodMesh",
-           "bind_axis", "bound_axis"]
+           "feature_mesh", "constrain", "whole_features", "whole_params",
+           "reduced", "placements_of", "placed_as", "grad_placed_as",
+           "current_context", "use_context", "PodMesh", "bind_axis",
+           "bound_axis"]
 
 _STATE = threading.local()
 
@@ -67,9 +77,11 @@ class FeatureMesh:
     # the rank form's transport channels (``kernels/peer.py``), by key
     channels: dict = dataclasses.field(default_factory=dict, compare=False,
                                        repr=False)
-    # the rank form's collectives so far: calls, bytes sent, wall seconds
+    # the rank form's collectives so far: calls, bytes sent, wall seconds,
+    # and the cross-stage exchanges' calls and bytes among them
     stats: dict = dataclasses.field(
-        default_factory=lambda: {"calls": 0, "bytes": 0, "seconds": 0.0},
+        default_factory=lambda: {"calls": 0, "bytes": 0, "seconds": 0.0,
+                                 "exchange_calls": 0, "exchange_bytes": 0},
         compare=False, repr=False)
 
     @property
@@ -106,6 +118,8 @@ class FeatureMesh:
             w.wait()
         out = out.to(t.device)
         self._count(src, t0)
+        self.stats["exchange_calls"] += 1
+        self.stats["exchange_bytes"] += src.numel() * src.element_size()
         return out
 
     def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
@@ -175,23 +189,169 @@ def use_context(ctx: Optional[dict]):
         _STATE.ctx = prev
 
 
-def activation_sharding(mesh: FeatureMesh, *, shard_feature: bool = False):
-    """Make ``mesh`` the active mesh within the block; with
+def _axis_names(mesh) -> Tuple[str, ...]:
+    """A mesh's axis names: a ``DeviceMesh``'s ``mesh_dim_names`` or a
+    ``FeatureMesh``'s/``PodMesh``'s ``axis_names``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.axis_names)
+
+
+def activation_sharding(mesh, *, shard_heads: bool = True,
+                        shard_feature: bool = False,
+                        full_batch: bool = False,
+                        features: Optional[FeatureMesh] = None):
+    """Make ``mesh`` the active mesh within the block.  With
     ``shard_feature`` two_level SPM operators whose ``n_shards`` matches
-    it run in the sharded executor."""
-    return use_context({"mesh": mesh, "shard_feature": shard_feature})
+    the feature mesh run in the sharded executor: ``mesh`` itself when it
+    is a ``FeatureMesh``, else ``features`` (the rank form over a
+    ``DeviceMesh``'s ``"model"`` group).  Over a ``DeviceMesh``,
+    ``shard_heads`` and ``full_batch`` switch ``constrain``'s
+    ``heads``/``kv_heads`` and ``batch_full`` kinds on, as in the
+    reference."""
+    if isinstance(mesh, FeatureMesh):
+        features = mesh
+    dp = tuple(a for a in ("pod", "data") if a in _axis_names(mesh))
+    return use_context({"mesh": mesh, "dp": dp, "shard_heads": shard_heads,
+                        "shard_feature": shard_feature,
+                        "full_batch": full_batch, "features": features})
 
 
 def feature_mesh(n_shards: Optional[int] = None) -> Optional[FeatureMesh]:
-    """The active mesh when feature sharding is on and (when ``n_shards``
-    is given) its ``"model"`` axis has that size, else None."""
+    """The active feature mesh when feature sharding is on and (when
+    ``n_shards`` is given) its ``"model"`` axis has that size, else
+    None."""
     ctx = _current()
     if ctx is None or not ctx["shard_feature"]:
         return None
-    mesh = ctx["mesh"]
+    mesh = ctx.get("features")
+    if mesh is None:
+        return None
     if n_shards is not None and mesh.shape["model"] != n_shards:
         return None
     return mesh
+
+
+def whole_features(x: torch.Tensor, *dims: int) -> torch.Tensor:
+    """``x`` with axes ``dims`` (the last, the feature axis, by default)
+    whole on every rank: a ``DTensor`` split there is gathered over those
+    mesh dims (an SPM stage pairs lanes across the whole feature axis, and
+    XLA gathers the same for the reference); anything else is returned as
+    it is."""
+    if placements_of(x) is None:
+        return x
+    from torch.distributed.tensor import Replicate
+    whole = {d % x.dim() for d in (dims or (-1,))}
+    # Shard and _StridedShard (a split of a merged dim) both carry ``dim``
+    pl = [Replicate() if getattr(p, "dim", None) is not None
+          and p.dim % x.dim() in whole else p for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def reduced(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its pending partial sums reduced: a ``DTensor`` that is
+    ``Partial`` on a mesh dim (a lookup in a vocabulary split over it)
+    all-reduced to ``Replicate`` there; anything else as it is."""
+    if placements_of(x) is None:
+        return x
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def placements_of(x: torch.Tensor):
+    """A ``DTensor``'s placements, None for any other tensor."""
+    if type(x) in (torch.Tensor, torch.nn.Parameter):
+        return None
+    return getattr(x, "placements", None)
+
+
+def placed_as(x: torch.Tensor, placements) -> torch.Tensor:
+    """``x`` redistributed to ``placements`` (``placements_of`` a tensor
+    it matches, e.g. a forward output for its grad; where that was a
+    partial sum, the grad is whole on every rank); ``x`` itself when
+    ``placements`` is None or already its own."""
+    if placements is None:
+        return x
+    from torch.distributed.tensor import Replicate
+    placements = tuple(Replicate() if p.is_partial() else p
+                       for p in placements)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity forward; the backward lays the grad out as the forward
+    value was."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return placed_as(g, ctx.placements)
+
+
+def grad_placed_as(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose grad will be laid out as ``x`` is before it flows on:
+    a ``DTensor`` grad split otherwise (the sequence over a mesh axis,
+    from the loss) would merge into a strided split when the grad of a
+    reshape flattens it.  ``x`` itself on a plain tensor."""
+    if placements_of(x) is None or not x.requires_grad:
+        return x
+    return _GradPlaced.apply(x)
+
+
+def whole_params(params, lead: int = 0):
+    """One linear's parameter leaves (a ``Params`` or a dict of tensors)
+    whole on every rank but for splits of their first ``lead`` dims (an
+    expert axis): a dict when a leaf is a split ``DTensor``, else
+    ``params`` itself.  The kernels' plain versions read whole tables; the
+    reference's executor replicates them too."""
+    leaves = {k: params[k] for k in params.keys()}
+    if all(type(v) in (torch.Tensor, torch.nn.Parameter)
+           for v in leaves.values()):
+        return params
+    return {k: whole_features(v, *range(lead, v.dim())) if v.dim() > lead
+            else v for k, v in leaves.items()}
+
+
+def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The activation placement of ``kind`` (module docstring) under the
+    active ``DeviceMesh`` context: a ``DTensor`` redistributed to it.
+    ``x`` itself with no context, under a ``FeatureMesh`` or when ``x`` is
+    not a ``DTensor``."""
+    if kind not in ("heads", "kv_heads", "btd", "batch_full", "feature"):
+        raise ValueError(kind)
+    ctx = _current()
+    if ctx is None or isinstance(ctx["mesh"], (FeatureMesh, PodMesh)):
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    dp = ctx["dp"]
+    if kind in ("heads", "kv_heads"):
+        if not ctx["shard_heads"]:
+            return x
+        spec = (dp, None, "model", None)
+    elif kind == "btd":
+        spec = (dp,) + (None,) * (x.dim() - 1)
+    elif kind == "batch_full":
+        if not ctx["full_batch"]:
+            return x
+        spec = (dp + ("model",),) + (None,) * (x.dim() - 1)
+    else:
+        if not ctx["shard_feature"]:
+            return x
+        spec = (None,) * (x.dim() - 1) + ("model",)
+    from repro_torch.parallel.sharding import placements
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
 
 POD_AXIS = "pod"

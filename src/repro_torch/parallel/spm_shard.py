@@ -135,6 +135,7 @@ from repro_torch.kernels import quant as Q
 from repro_torch.kernels import spm_stack as K
 from repro_torch.kernels.ops import (_stage_scales, _stages, plan_runs,
                                     plan_runs_for_rows)
+from repro_torch.parallel import ctx as par_ctx
 from repro_torch.parallel.ctx import FeatureMesh
 
 __all__ = ["spm_apply_sharded", "cross_partner_perm", "ShardPlan",
@@ -1041,6 +1042,25 @@ def _device_of(dev: torch.device) -> torch.device:
     return dev
 
 
+def _on_local_rows(params, x, cfg, mesh: FeatureMesh, in_width,
+                   out_width) -> torch.Tensor:
+    """A ``DTensor`` x (a dry-run's device mesh: rows split over the data
+    axes, the feature axis whole on every rank of the rank mesh's group)
+    runs the rank walk on this rank's own rows and whole params; the
+    output is placed as x, and the params' grads are partial over the mesh
+    dims that split the rows (the walk assembles them over its group)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    x = par_ctx.whole_features(x)
+    pl = tuple(x.placements)
+    grad_pl = [Partial() if p.is_shard() else Replicate() for p in pl]
+    local = {k: (v.to_local(grad_placements=grad_pl)
+                 if isinstance(v, DTensor) else v)
+             for k, v in ((k, params[k]) for k in params.keys())}
+    y = spm_apply_sharded(local, x.to_local(), cfg, mesh, in_width=in_width,
+                          out_width=out_width)
+    return DTensor.from_local(y, x.device_mesh, pl, run_check=False)
+
+
 def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
                       in_width: Optional[int] = None,
                       out_width: Optional[int] = None) -> torch.Tensor:
@@ -1066,6 +1086,8 @@ def spm_apply_sharded(params, x: torch.Tensor, cfg, mesh: FeatureMesh, *,
     experts at once, each over its own rows (the reference's ``jax.vmap``
     of this executor).
     """
+    if par_ctx.placements_of(x) is not None:
+        return _on_local_rows(params, x, cfg, mesh, in_width, out_width)
     n = cfg.n
     if mesh.shape[AXIS] != cfg.n_shards:
         raise ValueError(
